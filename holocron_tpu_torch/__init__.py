@@ -8,6 +8,6 @@ for Hopper (``csrc/``), built with ``nvcc`` on first use (:mod:`.kernels._build`
 Importing the package builds nothing and imports no JAX.
 """
 
-from . import convert, kernels, models, nn, quant
+from . import convert, kernels, models, nn, optim, quant, trainer
 
 __version__ = "0.1.0.dev0"

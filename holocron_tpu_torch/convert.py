@@ -14,7 +14,7 @@ from typing import Any, Dict, Mapping
 import numpy as np
 import torch
 
-__all__ = ["involution_state_dict", "repvgg_state_dict"]
+__all__ = ["add2d_state_dict", "involution_state_dict", "repvgg_state_dict"]
 
 
 def _t(a: Any) -> torch.Tensor:
@@ -74,3 +74,13 @@ def involution_state_dict(variables: Mapping) -> Dict[str, torch.Tensor]:
         for name in ("reduce", "span")
         for key in ("weight", "bias")
     }
+
+
+def add2d_state_dict(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """State dict of :class:`~holocron_tpu_torch.nn.Add2d` (``weight`` OIHW and, where
+    the layer has one, ``bias``) from the JAX ``Add2d``'s variables (HWIO ``kernel``)."""
+    params = variables["params"]
+    sd = {"weight": _conv(params["kernel"])}
+    if "bias" in params:
+        sd["bias"] = _t(params["bias"])
+    return sd

@@ -14,9 +14,11 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Iterable, List, Sequence
+from typing import Dict, Iterable, List, Sequence, Tuple
 
-__all__ = ["BUILD_DIR", "CSRC", "Kernel", "build", "library_path", "load"]
+import torch
+
+__all__ = ["BUILD_DIR", "CSRC", "FLOAT_DTYPES", "Kernel", "build", "cuda_operands", "library_path", "load"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
@@ -26,6 +28,8 @@ NVCC_FLAGS = [
 ]
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+# the dtype codes of the float kernels' C entry points
+FLOAT_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def _nvcc() -> str:
@@ -102,3 +106,14 @@ class Kernel:
             msg = self._lib.holocron_cuda_error_string(err).decode()
             raise RuntimeError(f"{self.symbol}: CUDA error {err} ({msg})")
         self.launches += 1
+
+
+def cuda_operands(*tensors: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """The tensors, contiguous, after checking that they lie on one CUDA device in one
+    of :data:`FLOAT_DTYPES`; raises otherwise."""
+    dev, dtype = tensors[0].device, tensors[0].dtype
+    if dev.type != "cuda" or any(t.device != dev for t in tensors):
+        raise ValueError(f"expected tensors on one CUDA device, got {[str(t.device) for t in tensors]}")
+    if dtype not in FLOAT_DTYPES or any(t.dtype != dtype for t in tensors):
+        raise TypeError(f"expected float32 or bfloat16 tensors of one dtype, got {[t.dtype for t in tensors]}")
+    return tuple(t.contiguous() for t in tensors)

@@ -9,7 +9,7 @@ original Holocron does. ``state_dict`` keys follow original Holocron:
 (a biased conv) in deploy form, and ``head.*``.
 """
 
-from typing import Any, Callable, Optional, Sequence
+from typing import Any, Callable, Optional, Sequence, Union
 
 import torch
 from torch import nn
@@ -95,7 +95,7 @@ class RepVGG(nn.Module):
 
     Weights are drawn from ``generator`` on the CPU (conv: fan-out He-normal; head:
     LeCun normal and zero bias, as the JAX package's ``nn.Dense``), then moved to
-    ``device``.
+    ``device``: the card unless the caller asks for the CPU (``device="cpu"``).
     """
 
     def __init__(
@@ -107,7 +107,7 @@ class RepVGG(nn.Module):
         num_classes: int = 10,
         in_channels: int = 3,
         act_layer: Optional[Callable] = None,
-        device: Optional[torch.device] = None,
+        device: Union[str, torch.device] = torch.device("cuda"),
         generator: Optional[torch.Generator] = None,
     ) -> None:
         if len(num_blocks) != len(planes):

@@ -1,4 +1,4 @@
-from . import init
-from .modules import Involution2d
+from . import functional, init
+from .modules import Add2d, Involution2d
 
-__all__ = ["Involution2d", "init"]
+__all__ = ["Add2d", "Involution2d", "functional", "init"]

@@ -1,3 +1,3 @@
-from .conv import Involution2d
+from .conv import Add2d, Involution2d
 
-__all__ = ["Involution2d"]
+__all__ = ["Add2d", "Involution2d"]

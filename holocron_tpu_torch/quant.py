@@ -12,13 +12,12 @@
 :func:`quantize_model` copies a model and swaps each selected ``nn.Conv2d`` for a
 :class:`QuantizedConv2d`; architecture code has no quantized variant. The same convs
 are selected as in the JAX package: by the per-arch ``min_in_channels`` and
-``quantize_strided`` fields of ``holocron_tpu/models/_data/quant_policy.json``, read
-as a file. The speed fields of that file were measured on a TPU and are not read.
+``quantize_strided`` fields of its ``models/_data/quant_policy.json``, of which
+:data:`QUANT_POLICY` is the port's own copy (with ``quality_veto``). The speed fields
+of that file were measured on a TPU and are not copied.
 """
 
 import copy
-import json
-from pathlib import Path
 from typing import Callable, Dict, Iterable, List, Optional, Sequence
 
 import torch
@@ -29,6 +28,7 @@ from .kernels.int8_conv import int8_conv
 
 __all__ = [
     "QINT_MAX",
+    "QUANT_POLICY",
     "QuantizedConv2d",
     "QuantizedModel",
     "calibrate",
@@ -44,17 +44,28 @@ QINT_MAX = 127.0
 # the constant 127 into this product, so the port's scales agree with it bit for bit.
 _INV_QINT_MAX = 1.0 / QINT_MAX
 
-_POLICY_PATH = Path(__file__).resolve().parent.parent / "holocron_tpu" / "models" / "_data" / "quant_policy.json"
+# The per-arch fields of the JAX package's quant_policy.json that the port reads, copied
+# field for field (tests/test_torch_quant.py holds the copy against the file). An arch
+# with none of these fields has no entry.
+QUANT_POLICY: Dict[str, Dict] = {
+    "repvgg_a0": {"min_in_channels": 48},
+    "yolov2": {
+        "quality_veto": (
+            "int8 box-F1 vs bf16 = 0.893 (recall 0.806, matched IoU 0.819) on trained weights "
+            "(2000 steps, loss 2.21) \u2014 int8 drops ~19% of bf16's detections; "
+            "docs/bench/quant_accuracy_segdet.jsonl row 2026-08-20. Speed 1.11x does not clear "
+            "the quality gate (yolov1 F1 1.0, yolov4 0.979-0.986 pass)."
+        )
+    },
+}
 _SELECTION_FIELDS = ("min_in_channels", "quantize_strided")
 
 
 def selection_policy(arch: str) -> Optional[Dict]:
-    """The fields of the JAX package's per-arch policy that select which convs are
-    int8, or None when ``arch`` has no entry. (Its ``s2d_strided`` field picks an
-    exact rewrite of the same convs, not a selection.)"""
-    if not _POLICY_PATH.exists():
-        return None
-    entry = json.loads(_POLICY_PATH.read_text()).get(arch)
+    """The fields of the per-arch policy that select which convs are int8, or None when
+    ``arch`` has no entry. (The JAX package's ``s2d_strided`` field picks an exact
+    rewrite of the same convs, not a selection.)"""
+    entry = QUANT_POLICY.get(arch)
     return None if entry is None else {k: entry[k] for k in _SELECTION_FIELDS if k in entry}
 
 

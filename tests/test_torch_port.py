@@ -11,7 +11,8 @@ import torch
 
 from holocron_tpu_torch import kernels, quant
 from holocron_tpu_torch.models import RepVGG
-from holocron_tpu_torch.nn import Involution2d
+from holocron_tpu_torch.nn import Add2d, Involution2d
+from holocron_tpu_torch.trainer import ClassificationTrainer
 
 torch.set_num_threads(2)
 
@@ -37,19 +38,50 @@ def test_port_imports_no_jax():
 
 
 def test_cpu_tensors_never_launch_a_kernel():
-    """On CPU tensors the wrappers take the plain versions: every launch count stays 0,
-    and importing and running built nothing."""
+    """On CPU tensors the wrappers take the plain versions, forward and backward: every
+    launch count stays 0, and importing and running built nothing."""
     for k in kernels.KERNELS.values():
         k.launches = 0
     g = torch.Generator().manual_seed(0)
-    inv = Involution2d(16, 3, padding=1, groups=4, reduction_ratio=2, generator=g)
+    inv = Involution2d(16, 3, padding=1, groups=4, reduction_ratio=2, generator=g, device="cpu")
+    x = torch.randn(2, 16, 12, 12, generator=g, requires_grad=True)
+    inv(x).sum().backward()
+    add = Add2d(16, 8, 3, padding=1, generator=g, device="cpu")
+    add(x).sum().backward()
     with torch.no_grad():
-        inv(torch.randn(2, 16, 12, 12, generator=g))
-        model = RepVGG([1, 1], [8, 16], 1.0, 1.0, generator=g).reparametrize().eval()
+        model = RepVGG([1, 1], [8, 16], 1.0, 1.0, generator=g, device="cpu").reparametrize().eval()
         qm = quant.quantize_model(model, min_in_channels=8)
         qm(torch.randn(2, 3, 32, 32, generator=g))
-    assert {name: k.launches for name, k in kernels.KERNELS.items()} == {"involution": 0, "int8_conv": 0}
+    assert set(kernels.KERNELS) == {"involution", "involution_bwd_dxp", "involution_bwd_dkern", "add2d_fwd",
+                                    "add2d_bwd_dp", "add2d_bwd_dw", "int8_conv"}
+    assert all(k.launches == 0 for k in kernels.KERNELS.values())
     assert all(k._fn is None for k in kernels.KERNELS.values())
+
+
+def test_port_reads_no_file_of_the_jax_package():
+    """No module of the port names the JAX package's directory (it once read
+    quant_policy.json from there); its policy copy is its own."""
+    for path in (ROOT / "holocron_tpu_torch").rglob("*.py"):
+        text = path.read_text()
+        assert '"holocron_tpu"' not in text and "'holocron_tpu'" not in text, path
+    assert quant.selection_policy("repvgg_a0") == {"min_in_channels": 48}
+    assert quant.selection_policy("resnet18") is None
+
+
+def test_entry_points_default_to_the_card():
+    """Without device="cpu" the port's entry points go to CUDA, and raise where there is
+    none, as torch itself does; there is no quiet CPU fallback."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the defaults succeed here")
+    model = RepVGG([1], [8], 1.0, 1.0, device="cpu")
+    for build in (
+        lambda: RepVGG([1], [8], 1.0, 1.0),
+        lambda: Involution2d(8, 3, padding=1, groups=2),
+        lambda: Add2d(8, 8, 3),
+        lambda: ClassificationTrainer(model),
+    ):
+        with pytest.raises((AssertionError, RuntimeError)):
+            build()
 
 
 def _run_smoke(cwd: Path) -> subprocess.CompletedProcess:

@@ -40,7 +40,7 @@ def deployed():
     jm = Model(JaxRepVGG(*CFG)).init(calib.shape, key=jax.random.key(0))
     jm(calib, train=True)
     jm.reparametrize()
-    pm = RepVGG(*CFG).reparametrize()
+    pm = RepVGG(*CFG, device="cpu").reparametrize()
     pm.load_state_dict(convert.repvgg_state_dict(jax.tree.map(np.asarray, jm.variables)))
     return jm, pm.eval(), calib, held_out
 
@@ -134,7 +134,8 @@ def test_selection_follows_policy_and_gate():
     argmaxes."""
     assert quant.selection_policy("repvgg_a0") == {"min_in_channels": 48}
     assert quant.selection_policy("no_such_arch") is None
-    m = RepVGG([1, 1], [48, 64], 1.0, 1.0, generator=torch.Generator().manual_seed(0)).reparametrize().eval()
+    m = RepVGG([1, 1], [48, 64], 1.0, 1.0, generator=torch.Generator().manual_seed(0),
+               device="cpu").reparametrize().eval()
     qm = quant.quantize_model(m, arch="repvgg_a0")
     int8 = sorted(p for p, mod in qm.named_modules() if isinstance(mod, quant.QuantizedConv2d))
     # the 3-channel stem stays float; every conv with >= 48 input channels is int8
@@ -146,3 +147,16 @@ def test_selection_follows_policy_and_gate():
     assert res == {"top1_agreement": 1.0, "max_prob_drift": 0.0}
     with pytest.raises(ValueError):
         quant.quantize_model(m, calibration_batches=iter(()))
+
+
+def test_policy_copy_equals_the_jax_policy_file():
+    """The port's copy of the per-arch fields it reads equals the JAX package's
+    quant_policy.json field for field; an arch with none of them has no entry."""
+    import json
+    from pathlib import Path
+
+    policy = json.loads((Path(__file__).resolve().parents[1] / "holocron_tpu" / "models" / "_data"
+                         / "quant_policy.json").read_text())
+    fields = ("min_in_channels", "quantize_strided", "quality_veto")
+    expected = {arch: {k: e[k] for k in fields if k in e} for arch, e in policy.items()}
+    assert quant.QUANT_POLICY == {arch: e for arch, e in expected.items() if e}

@@ -46,7 +46,7 @@ def pair():
     x = rng.normal(size=(2, 32, 32, 3)).astype(np.float32)
     jm = Model(JaxRepVGG(*CFG)).init(x.shape, key=jax.random.key(0))
     jm.load_variables(_randomize_bn(jm.variables, rng))
-    pm = RepVGG(*CFG)
+    pm = RepVGG(*CFG, device="cpu")
     pm.load_state_dict(convert.repvgg_state_dict(jm.variables))
     return jm, pm, x
 
@@ -69,7 +69,7 @@ def test_bn_train_step_and_deploy_match_jax(pair):
     train-form-eval to deploy drift stays within 1e-3 (docs/ARCHITECTURE.md:58)."""
     jm, pm, x = pair
     jm = Model(jm.module, jax.tree.map(np.asarray, jm.variables))
-    pm = RepVGG(*CFG)
+    pm = RepVGG(*CFG, device="cpu")
     pm.load_state_dict(convert.repvgg_state_dict(jm.variables))
 
     pm.train()
@@ -94,7 +94,7 @@ def test_bn_train_step_and_deploy_match_jax(pair):
     np.testing.assert_allclose(after, np.asarray(jm(x2)), atol=1e-5)
 
     # deploy-form weights carried across directly give the same model
-    deployed = RepVGG(*CFG).reparametrize()
+    deployed = RepVGG(*CFG, device="cpu").reparametrize()
     deployed.load_state_dict(convert.repvgg_state_dict(jm.variables))
     with torch.no_grad():
         np.testing.assert_allclose(deployed.eval()(_nchw(x2)).numpy(), np.asarray(jm(x2)), atol=1e-5)
@@ -104,7 +104,7 @@ def test_state_dict_round_trip_through_jax_converter(pair):
     """JAX variables -> port state_dict -> holocron_tpu's own torch converter -> the
     same JAX variables, exactly."""
     jm, _, _ = pair
-    pm = RepVGG(*CFG)
+    pm = RepVGG(*CFG, device="cpu")
     pm.load_state_dict(convert.repvgg_state_dict(jm.variables))
     back = convert_state_dict(jm, pm.state_dict())
     orig = jax.tree.map(np.asarray, jm.variables)
@@ -116,7 +116,7 @@ def test_state_dict_round_trip_through_jax_converter(pair):
 def test_repvgg_a0_layout_matches_jax_param_count():
     """The full-width factory builds the same number of parameters as the JAX one and
     the state_dict keys the original Holocron layout."""
-    pm = repvgg_a0(generator=torch.Generator().manual_seed(0))
+    pm = repvgg_a0(generator=torch.Generator().manual_seed(0), device="cpu")
     n_params = sum(p.numel() for p in pm.parameters())
     jm = Model(JaxRepVGG([1, 2, 4, 14, 1], [64, 64, 128, 256, 512], 0.75, 2.5))
     shapes = jax.eval_shape(lambda: jm.module.init(jax.random.key(0), jax.numpy.zeros((1, 32, 32, 3))))
@@ -128,8 +128,8 @@ def test_repvgg_a0_layout_matches_jax_param_count():
 
 
 def test_init_is_seeded():
-    a = RepVGG(*CFG, generator=torch.Generator().manual_seed(3)).state_dict()
-    b = RepVGG(*CFG, generator=torch.Generator().manual_seed(3)).state_dict()
+    a = RepVGG(*CFG, generator=torch.Generator().manual_seed(3), device="cpu").state_dict()
+    b = RepVGG(*CFG, generator=torch.Generator().manual_seed(3), device="cpu").state_dict()
     assert all(torch.equal(a[k], b[k]) for k in a)
     w = a["features.1.0.branches.0.0.weight"]  # fan-out He-normal: std = sqrt(2 / (16 * 9))
     assert abs(float(w.std()) - (2 / (16 * 9)) ** 0.5) < 0.02
