@@ -13,7 +13,10 @@ Phases, each printing one JSON line to stdout:
    float32), bf16 deploy requests (8 of batch 8, one of batch 256), the selective-int8
    form calibrated on one batch, the top-1 agreement gate (>= 0.99, ``bench.py:156``)
    on 2 held-out batches, and bf16 / int8 throughput. A gate miss drops int8 from
-   serving and is reported; it does not fail the run.
+   serving and is reported; it does not fail the run. Every int8 layer must take the
+   wgmma route: two launches a layer a forward (``int8_quantize``, ``int8_conv``), none
+   of the general route. (After the checks, a ``serving_profile`` line:
+   ``torch.profiler`` over the int8 and bf16 forwards at batch 256 and 8.)
 3. ``involution``: ``Involution2d`` at ``scripts/bench_ops.py:82-87``'s shape (N32,
    56x56, C128, G8, k7, reduction 2, bf16) through the module.
 4. ``training``: the repvgg_a0 classification trainer at full width (224 px, batch 128,
@@ -34,8 +37,12 @@ Phases, each printing one JSON line to stdout:
    the paths gave it, with its time, its plain version's time, the time of one PyTorch
    call computing the same function where there is one (``torch.cdist`` for add2d), and
    its bound: the larger of the bytes it must move over 3.35 TB/s and the operations it
-   must do over the card's rate for them. The int8 conv is also timed against cuDNN's
-   bf16 conv for one layer.
+   must do over the card's rate for them. The int8 route is checked (bit-exact
+   quantization, also on inputs on its ties and beyond its clip; exact accumulator;
+   outputs within one ulp) at each of repvgg_a0's int8 layer geometries, checked
+   again and timed at each at batch 256 (``check_int8_geometry`` lines, device time
+   from CUDA graphs): quantize + conv, each kernel, the general route, cuDNN's bf16
+   conv of the layer, the plain version, and the bounds of the route and of each kernel.
 
 Each kernel's launch counter is set to 0 just before the path that runs it and read
 just after; a kernel that its path never launched fails the run. Then come the
@@ -130,7 +137,7 @@ def phase_build() -> None:
     from holocron_tpu_torch.kernels import _build
 
     t0 = time.perf_counter()
-    paths = _build.build(["involution", "int8_conv", "add2d"])
+    paths = _build.build(["involution", "int8_conv", "int8_conv_general", "add2d"])
     seconds = time.perf_counter() - t0
     for p in paths:  # the compiler's register / spill report, for the record
         print(p.with_suffix(".log").read_text(), file=sys.stderr)
@@ -186,8 +193,11 @@ def phase_serving(device, batch: int = 256, size: int = 224, num_classes: int = 
                 check_logits(qm(r), r.shape[0], num_classes, "int8 deploy")
     torch.cuda.synchronize()
     launches = {name: k.launches for name, k in KERNELS.items()}
-    if launches["int8_conv"] == 0:
-        fail("the serving path never launched the int8 conv kernel")
+    # every int8 layer of repvgg_a0 takes the wgmma route: two launches a layer a forward
+    forwards = len(gate_batches) + (len(requests) if served else 0)
+    expected = {"int8_conv": n_int8 * forwards, "int8_quantize": n_int8 * forwards, "int8_conv_general": 0}
+    if any(launches[k] != v for k, v in expected.items()):
+        fail(f"the int8 path launched {[launches[k] for k in expected]} of {list(expected)}, expected {expected}")
 
     with torch.no_grad():
         ref32 = model(x.float())
@@ -223,7 +233,40 @@ def phase_serving(device, batch: int = 256, size: int = 224, num_classes: int = 
         "int8_batch8_ms": int8_b8_ms,
         "launches": launches,
     })
-    return qm, model_bf16, x, launches["int8_conv"]
+    return qm, model_bf16, x, r8, launches
+
+
+def phase_serving_profile(qm, model_bf16, x, r8) -> None:
+    """The int8 and bf16 forwards under ``torch.profiler`` at batch 256 and 8. Last of
+    the timed phases: once the profiler has run, the host launches more slowly."""
+    emit({"phase": "serving_profile", **{f"{form}_b{xb.shape[0]}": profile_forward(fn, xb)
+                                         for form, fn in (("int8", qm), ("bf16", model_bf16)) for xb in (x, r8)}})
+
+
+def profile_forward(fn, x, steps: int = 5, top: int = 10) -> dict:
+    """``torch.profiler`` over ``steps`` forwards after warm-up: host wall ms (inflated
+    by the profiler itself), summed kernel ms, idle share (1 - kernel / wall) and
+    launches per forward, and the kernels that take the most device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with torch.no_grad():
+        for _ in range(3):
+            fn(x)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                fn(x)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    kernels = sorted((e for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
+                     key=lambda e: -e.device_time_total)
+    kernel_ms = sum(e.device_time_total for e in kernels) / 1e3 / steps
+    return {"wall_ms": wall_ms, "kernel_ms": kernel_ms, "idle": 1 - kernel_ms / wall_ms,
+            "kernel_launches": sum(e.count for e in kernels) / steps,
+            "top": [[e.key[:90], e.device_time_total / 1e3 / steps, e.count / steps] for e in kernels[:top]]}
 
 
 def phase_involution(device, iters: int = 20):
@@ -293,88 +336,215 @@ def check_involution(device, iters: int = 20) -> dict:
     return record
 
 
-def check_int8(device, qm, model_bf16, x, iters: int = 10) -> dict:
-    """The int8 conv against its plain version at every distinct layer geometry of the
-    int8 path (inputs captured from the served model on 32 of its images) and at a
-    256 -> 256, 14x14 layer: the int32 accumulator exactly; float32 output within one
-    float32 ulp and bf16 output within one bf16 ulp of the plain value. Then the
-    stage-3 layer at the path's batch of 256: kernel, plain, and cuDNN's bf16 conv."""
+def graph_ms(fn, iters: int = 20, replays: int = 3) -> float:
+    """Mean device time of ``fn`` in ms: ``iters`` calls captured in one CUDA graph,
+    replayed ``replays`` times between CUDA events, so that host time spent in the
+    wrappers between launches does not count."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up (first-launch set-up) outside the capture
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / (iters * replays)
+
+
+def tie_and_clip_inputs(device):
+    """Activations on which quantization is hard to get right: exactly on the ties
+    ``(k + 0.5) * s_x`` (s_x a power of two, so the division is exact), one float32 ulp
+    either side of them, at and beyond +-127 * s_x, zeros and signed zeros; and near the
+    ties of a scale that is not a power of two."""
+    import torch
+
+    cases = []
+    s = torch.tensor(2.0**-5, device=device)
+    k = torch.arange(-140, 141, device=device, dtype=torch.float32)
+    ties = (k + 0.5) * s
+    x = torch.cat([ties, torch.nextafter(ties, ties + 1), torch.nextafter(ties, ties - 1), k * s,
+                   torch.tensor([127.0, -127.0, 127.49, -127.51, 1e6, -1e6, 0.0, -0.0], device=device) * s])
+    cases.append((x, s))
+    s = torch.tensor(0.0123, device=device)
+    cases.append((torch.cat([ties / 2.0**-5 * s, (k + 0.5001) * s, (k + 0.4999) * s]), s))
+    out = []
+    # shaped (1, 1, L, 1): L is not a multiple of 16, so the kernel's ragged tail runs too
+    return [(x.reshape(1, 1, -1, 1), s) for x, s in cases]
+
+
+def within_ulp(got, ref, ulp: float, what: str) -> float:
+    """Fails unless ``got`` is within ``ulp`` relative of the float32 ``ref`` everywhere;
+    returns the largest absolute difference."""
+    err = (got.float() - ref).abs()
+    if bool((err > ref.abs() * ulp).any()):
+        fail(f"{what}: output beyond the epilogue's rounding (max {float(err.max())})")
+    return float(err.max())
+
+
+def check_int8(device, qm, model_bf16, x, iters: int = 20) -> dict:
+    """The int8 route against its plain versions at each distinct int8 layer geometry
+    of the served model (inputs captured from it), at a 256 -> 256, 14x14 layer and at a
+    byte-wise shape of the general route: quantized activations equal to
+    ``quantize_activation_plain`` (also on inputs built on its ties and beyond its
+    clip), the int32 accumulator equal to the float64 plain conv, float32 output within
+    one float32 ulp and bf16 output within one bf16 ulp of the plain epilogue. Then each
+    geometry at the path's batch of 256: quantized activations and bf16 outputs (of the
+    conv and of the route) held against the plain versions again, and device time from
+    CUDA graphs of the route (quantize + conv), each of its two kernels, the general
+    route (the previous design), cuDNN's bf16 conv of the deploy layer and the plain
+    version, beside the bounds."""
     import torch
     from torch.nn import functional as F
 
-    from holocron_tpu_torch.kernels.int8_conv import int8_conv, int8_conv_acc, int8_conv_acc_plain, int8_conv_plain
-    from holocron_tpu_torch.quant import QuantizedConv2d, quantize_activation
+    from holocron_tpu_torch.kernels import int8_conv as K
+    from holocron_tpu_torch.quant import QuantizedConv2d
 
-    captured = {}
+    layers = [(name, m) for name, m in qm.named_modules() if isinstance(m, QuantizedConv2d)]
+    geometries = {}
 
     def capture(name):
         def hook(module, args):
-            key = (tuple(args[0].shape[1:]), module.kernel_q.shape, module.stride)
-            captured.setdefault(key, (name, module, args[0]))
+            key = (tuple(args[0].shape[1:]), tuple(module.kernel_q.shape), module.stride)
+            rec = geometries.setdefault(key, {"layer": name, "module": module, "count": 0, "x": {}})
+            rec["x"][args[0].shape[0]] = args[0]
+            if args[0].shape[0] == x.shape[0]:
+                rec["count"] += 1
 
         return hook
 
-    layers = [(name, m) for name, m in qm.named_modules() if isinstance(m, QuantizedConv2d)]
     handles = [m.register_forward_pre_hook(capture(name)) for name, m in layers]
     with torch.no_grad():
         qm(x[:32])
+        qm(x)
     for hd in handles:
         hd.remove()
+    if sum(g["count"] for g in geometries.values()) != len(layers):
+        fail("int8 check: the captured geometries do not cover the int8 layers")
 
+    # -- quantization on ties and clip, float32 and bf16 inputs
+    for xin, s in tie_and_clip_inputs(device):
+        for dtype in (torch.float32, torch.bfloat16):
+            xd = xin.to(dtype)
+            if not torch.equal(K.quantize_activation(xd, s), K.quantize_activation_plain(xd, s)):
+                fail(f"int8_quantize {dtype}: differs from quantize_activation_plain on the tie/clip inputs")
+
+    # -- correctness at every geometry, the synthetic 256 -> 256 layer and a byte-wise shape
     gen = torch.Generator(device=device).manual_seed(SEED + 3)
-    extra_w = torch.randint(-127, 128, (3, 3, 256, 256), generator=gen, device=device, dtype=torch.int8)
-    extra_x = torch.randn(32, 256, 14, 14, generator=gen, device=device).to(torch.bfloat16)
-    cases = [(name, m.kernel_q, m.w_scale, m.act_scale, m.bias, m.stride, m.padding, m.dilation, xin)
-             for name, m, xin in captured.values()]
-    cases.append(("synthetic 256->256 14x14", extra_w, torch.rand(256, generator=gen, device=device) / 127,
-                  extra_x.abs().amax().float() / 127, torch.randn(256, generator=gen, device=device),
-                  (1, 1), (1, 1), (1, 1), extra_x.contiguous(memory_format=torch.channels_last)))
-    max_err = 0.0
+    cases = [(str(key), g["module"].kernel_q, g["module"].kernel_packed, g["module"].w_scale, g["module"].act_scale,
+              g["module"].bias, g["module"].stride, g["module"].padding, g["module"].dilation, g["x"][32])
+             for key, g in geometries.items()]
+    for c, o, hw in ((256, 256, 14), (12, 20, 15)):
+        w_q = torch.randint(-127, 128, (3, 3, c, o), generator=gen, device=device, dtype=torch.int8)
+        xin = torch.randn(32, c, hw, hw, generator=gen, device=device).to(torch.bfloat16)
+        cases.append((f"synthetic {c}->{o} {hw}x{hw}", w_q, None, torch.rand(o, generator=gen, device=device) / 127,
+                      xin.abs().amax().float() / 127, torch.randn(o, generator=gen, device=device), (1, 1), (1, 1),
+                      (1, 1), xin.contiguous(memory_format=torch.channels_last)))
+    max_err = {"wgmma": 0.0, "general": 0.0}
     checked = []
-    for name, w_q, w_scale, s_x, bias, stride, padding, dilation, xin in cases:
-        x_q = quantize_activation(xin, s_x).permute(0, 2, 3, 1).contiguous()
-        acc = int8_conv_acc(x_q, w_q, stride, padding, dilation)
-        acc_ref = int8_conv_acc_plain(x_q, w_q, stride, padding, dilation)
-        if not torch.equal(acc, acc_ref):
-            fail(f"int8 conv {name}: int32 accumulator differs from the float64 plain conv")
+    for name, w_q, w_packed, w_scale, s_x, bias, stride, padding, dilation, xin in cases:
+        route = K.conv_route(w_q.shape[2], w_q.shape[3])
+        xn = xin.permute(0, 2, 3, 1)
+        x_q = K.quantize_activation(xn, s_x)
+        if not torch.equal(x_q, K.quantize_activation_plain(xn, s_x)):
+            fail(f"int8_quantize {name}: differs from quantize_activation_plain")
+        acc = K.int8_conv_acc(x_q, w_q, stride, padding, dilation, w_packed=w_packed)
+        if not torch.equal(acc, K.int8_conv_acc_plain(x_q, w_q, stride, padding, dilation)):
+            fail(f"int8 conv {name} ({route}): int32 accumulator differs from the float64 plain conv")
         for dtype, ulp in ((torch.float32, 2.0**-23), (torch.bfloat16, 2.0**-7)):
-            got = int8_conv(x_q, w_q, s_x, w_scale, bias, stride, padding, dilation, out_dtype=dtype).float()
-            ref = int8_conv_plain(x_q, w_q, s_x, w_scale, bias, stride, padding, dilation, out_dtype=dtype).float()
-            err = (got - ref).abs()
-            if bool((err > ref.abs() * ulp).any()):
-                fail(f"int8 conv {name} {dtype}: output beyond the epilogue's rounding (max {float(err.max())})")
-            if dtype == torch.bfloat16:
-                max_err = max(max_err, float(err.max()))
-        checked.append({"layer": name, "x": list(xin.shape), "w_hwio": list(w_q.shape), "stride": list(stride)})
+            ref = K.int8_conv_plain(x_q, w_q, s_x, w_scale, bias, stride, padding, dilation, out_dtype=dtype).float()
+            outs = [K.int8_conv(x_q, w_q, s_x, w_scale, bias, stride, padding, dilation, out_dtype=dtype,
+                                w_packed=w_packed),
+                    K.quantized_conv(xn, s_x, w_q, w_scale, bias, stride, padding, dilation, out_dtype=dtype,
+                                     w_packed=w_packed)]
+            for got in outs:
+                err = within_ulp(got, ref, ulp, f"int8 conv {name} ({route}) {dtype}")
+                if dtype == torch.bfloat16:
+                    max_err[route] = max(max_err[route], err)
+        checked.append({"layer": name, "route": route, "x": list(xin.shape), "w_hwio": list(w_q.shape)})
 
-    # timing: repvgg_a0's stage-3 conv (192 -> 192, 14x14) at batch 256
-    name, m, _ = next(v for v in captured.values() if v[1].kernel_q.shape[2:] == (192, 192) and v[1].stride == (1, 1))
-    with torch.no_grad():
-        xin = None
+    # -- checks again and timing at the path's batch
+    rows = []
+    totals, bound_by = {}, {}
+    for key, g in geometries.items():
+        m = g["module"]
+        xin = g["x"][x.shape[0]]
+        xn = xin.permute(0, 2, 3, 1)
+        s_x, w_q, w_packed = m.act_scale, m.kernel_q, m.kernel_packed
+        args = (s_x, m.w_scale, m.bias, m.stride, m.padding, m.dilation)
+        x_q = K.quantize_activation(xn, s_x)
+        if not torch.equal(x_q, K.quantize_activation_plain(xn, s_x)):
+            fail(f"int8_quantize {key} batch {x.shape[0]}: differs from quantize_activation_plain")
+        kh, kw, c, o = w_q.shape
+        y = K.int8_conv(x_q, w_q, *args, out_dtype=torch.bfloat16, w_packed=w_packed)
+        y_route = K.quantized_conv(xn, s_x, w_q, *args[1:], out_dtype=torch.bfloat16, w_packed=w_packed)
+        n, oh, ow, _ = y.shape
+        plain = {}
 
-        def grab(_module, args):
-            nonlocal xin
-            xin = args[0]
+        def run_plain():
+            plain["y"] = K.int8_conv_plain(x_q, w_q, *args, out_dtype=torch.bfloat16)
 
-        hd = m.register_forward_pre_hook(grab)
-        qm(x)
-        hd.remove()
-    x_q = quantize_activation(xin, m.act_scale).permute(0, 2, 3, 1).contiguous()
-    args = (x_q, m.kernel_q, m.act_scale, m.w_scale, m.bias, m.stride, m.padding, m.dilation)
-    ms = cuda_ms(lambda: int8_conv(*args, out_dtype=torch.bfloat16), iters)
-    plain_ms = cuda_ms(lambda: int8_conv_plain(*args, out_dtype=torch.bfloat16), iters, warmup=1)
-    deploy_conv = dict(model_bf16.named_modules())[name.removeprefix("model.")]
-    with torch.no_grad():
-        cudnn_ms = cuda_ms(lambda: F.conv2d(xin, deploy_conv.weight, deploy_conv.bias, m.stride, m.padding), iters)
+        out_g = torch.empty(n, oh, ow, o, dtype=torch.bfloat16, device=device)
+        (sh, sw), (ph, pw), (dh, dw) = m.stride, m.padding, m.dilation
+        bias_bf16 = int(m.bias is not None and m.bias.dtype == torch.bfloat16)
+        bias_ptr = None if m.bias is None else m.bias.data_ptr()
+
+        def general():  # the previous design, the general route's kernel, at this shape
+            K.KERNEL_GENERAL(x_q.data_ptr(), w_q.data_ptr(), s_x.data_ptr(), m.w_scale.data_ptr(), bias_ptr,
+                             bias_bf16, out_g.data_ptr(), 1, n, xn.shape[1], xn.shape[2], c, o, kh, kw, sh, sw, ph, pw,
+                             dh, dw, oh, ow, 1, torch.cuda.current_stream().cuda_stream)
+
+        deploy = dict(model_bf16.named_modules())[g["layer"].removeprefix("model.")]
+        with torch.no_grad():
+            row = {
+                "x": list(xin.shape), "w_hwio": list(w_q.shape), "stride": list(m.stride), "count": g["count"],
+                "route_ms": graph_ms(lambda: K.quantized_conv(xn, *args[:1], w_q, *args[1:], out_dtype=torch.bfloat16,
+                                                              w_packed=w_packed), iters),
+                "conv_ms": graph_ms(lambda: K.int8_conv(x_q, w_q, *args, out_dtype=torch.bfloat16, w_packed=w_packed),
+                                    iters),
+                "quantize_ms": graph_ms(lambda: K.quantize_activation(xn, s_x), iters),
+                "general_ms": graph_ms(general, iters),
+                "cudnn_bf16_ms": graph_ms(lambda: F.conv2d(xin, deploy.weight, deploy.bias, deploy.stride,
+                                                           deploy.padding), iters),
+                "plain_ms": cuda_ms(run_plain, 2, 1),
+                "quantize_plain_ms": cuda_ms(lambda: K.quantize_activation_plain(xn, s_x), 2, 1),
+            }
+        ref = plain["y"].float()
+        for what, got in (("int8_conv", y), ("quantized_conv", y_route)):
+            within_ulp(got, ref, 2.0**-7, f"{what} {key} batch {n} bf16")
+        del y, y_route, plain, ref
+        # The conv (either route) reads int8 x once, the int8 weights once and writes
+        # bf16 y once; 2 operations per multiply-accumulate. The route (quantize + conv)
+        # reads bf16 x instead; the prologue alone moves 3 bytes an element.
+        macs = n * oh * ow * o * kh * kw * c
+        y_bytes = 2 * n * oh * ow * o
+        row.update(bound(xin.numel() + w_q.numel() + y_bytes, 2 * macs, INT8_OPS_PER_S))
+        row["route_bound_ms"] = bound(2 * xin.numel() + w_q.numel() + y_bytes, 2 * macs, INT8_OPS_PER_S)["bound_ms"]
+        row["quantize_bound_ms"] = 3 * xin.numel() / HBM_BYTES_PER_S * 1e3
+        row["tops"] = 2 * macs / (row["conv_ms"] * 1e-3) / 1e12
+        for k_, v in row.items():
+            if k_.endswith("_ms"):
+                totals[k_] = totals.get(k_, 0.0) + g["count"] * v
+        bound_by[row["bound_by"]] = bound_by.get(row["bound_by"], 0.0) + g["count"] * row["bound_ms"]
+        rows.append(row)
+        emit({"phase": "check_int8_geometry", **row})
+        del out_g
     torch.cuda.synchronize()
-    # int8 x read once, int8 weights, bf16 output; 2 operations per multiply-accumulate
-    kh, kw, cin, cout = m.kernel_q.shape
-    out_shape = int8_conv(*args, out_dtype=torch.bfloat16).shape
-    macs = out_shape[0] * out_shape[1] * out_shape[2] * cout * kh * kw * cin
-    nbytes = x_q.numel() + m.kernel_q.numel() + 2 * out_shape.numel()
-    record = {"kernel": "int8_conv", "checked": checked, "max_abs_err_bf16": max_err, "timed_layer": name,
-              "timed_x": list(xin.shape), "ms": ms, "plain_ms": plain_ms, "cudnn_bf16_ms": cudnn_ms,
-              **bound(nbytes, 2 * macs, INT8_OPS_PER_S)}
+    record = {"kernel": "int8_conv", "checked": checked, "max_abs_err_bf16": max_err["wgmma"],
+              "max_abs_err_bf16_general": max_err["general"], "per_forward": totals, "geometries": len(rows),
+              # the larger share of the summed bound
+              "bound_by": max(bound_by, key=bound_by.get)}
     emit({"phase": "check", **record})
     return record
 
@@ -705,6 +875,30 @@ def check_add2d(device, l: int = 12544, d: int = 576, o: int = 128, iters: int =
     return records
 
 
+def int8_entries(launches: dict, record: dict) -> list:
+    """The ``kernels`` line's entries of the int8 route's kernels and of the general
+    route: times and bounds summed over one batch-256 forward (each geometry times its
+    count of layers; each conv's bound counts the int8 x it reads); launches from the
+    serving path."""
+    t = record["per_forward"]
+    src = "holocron_tpu_torch/csrc/"
+
+    def entry(name, source, replaces, ms, plain_ms, bound_ms, max_abs_err):
+        return {"name": name, "route": "cuda", "source": src + source, "replaces": replaces,
+                "launches": launches[name], "max_abs_err": max_abs_err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bound_ms, "bound_by": "bytes" if name == "int8_quantize" else record["bound_by"],
+                "library_ms": None}
+
+    return [
+        entry("int8_conv", "int8_conv.cu", "holocron_tpu/quant.py:259", t["conv_ms"], t["plain_ms"], t["bound_ms"],
+              record["max_abs_err_bf16"]),
+        entry("int8_quantize", "int8_conv.cu", "holocron_tpu/quant.py:244", t["quantize_ms"],
+              t["quantize_plain_ms"], t["quantize_bound_ms"], 0.0),
+        entry("int8_conv_general", "int8_conv_general.cu", "holocron_tpu/quant.py:259", t["general_ms"],
+              t["plain_ms"], t["bound_ms"], record["max_abs_err_bf16_general"]),
+    ]
+
+
 def main() -> int:
     import torch
 
@@ -725,7 +919,7 @@ def main() -> int:
     torch.cuda.set_device(device)
 
     phase_build()
-    qm, model_bf16, x, int8_launches = phase_serving(device)
+    qm, model_bf16, x, r8, serving_launches = phase_serving(device)
     inv_launches = phase_involution(device)
     phase_training(device)
     inv_train = phase_involution_train(device)
@@ -734,6 +928,7 @@ def main() -> int:
     inv_bwd = check_involution_bwd(device)
     add = check_add2d(device)
     i8 = check_int8(device, qm, model_bf16, x)
+    phase_serving_profile(qm, model_bf16, x, r8)
 
     def entry(name, source, replaces, launches, record, max_abs_err):
         keys = ("ms", "plain_ms", "bound_ms", "bound_by")
@@ -750,8 +945,7 @@ def main() -> int:
               add["add2d_fwd"]["max_abs_err"]),
         *(entry(name, add_src, "holocron_tpu/kernels/add2d.py:82", add2d_launches[name], add[name],
                 add[name]["max_abs_err"]) for name in ("add2d_bwd_dp", "add2d_bwd_dw")),
-        entry("int8_conv", "holocron_tpu_torch/csrc/int8_conv.cu", "holocron_tpu/quant.py:259", int8_launches, i8,
-              i8["max_abs_err_bf16"]),
+        *int8_entries(serving_launches, i8),
     ]})
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

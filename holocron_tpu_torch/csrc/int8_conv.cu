@@ -1,304 +1,571 @@
-// int8 x int8 -> int32 2D convolution with the float requantize epilogue, for Hopper
-// (sm_90a).
+// int8 x int8 -> int32 2D convolution with the float requantize epilogue, and the
+// activation quantization that feeds it: the Hopper route (sm_90a, wgmma).
 //
-// Replaces the int8 convolution of holocron_tpu/quant.py:_quantized_conv
-// (quant.py:259-274), which the JAX package leaves to XLA
-// (lax.conv_general_dilated with preferred_element_type=int32). PyTorch has no int8
-// convolution on CUDA, so the port needs its own.
+// Replaces holocron_tpu/quant.py:_quantized_conv (quant.py:228-274): its activation
+// quantization (quant.py:237-244) and its int8 convolution (quant.py:259-274), which
+// the JAX package leaves to XLA (lax.conv_general_dilated with
+// preferred_element_type=int32). PyTorch has no int8 convolution on CUDA.
 //
-//   acc[n,oy,ox,o] = sum_{r,s,c} x[n, oy*sh - ph + r*dh, ox*sw - pw + s*dw, c] * w[r,s,c,o]
-//   y = float(acc) * (s_x * w_scale[o]) + bias[o]        (quant.py:270-273's order)
+//   x_q = clip(round_half_even(float(x) / s_x), -127, 127)             (int8_quantize)
+//   acc[m, o] = sum_{r,s,c} x_q[n, oy*sh - ph + r*dh, ox*sw - pw + s*dw, c] * w[r,s,c,o]
+//   y = float(acc) * (s_x * w_scale[o]) + bias[o]         (quant.py:270-273's order)
 //
-// x is int8 NHWC, w is int8 HWIO, acc is int32 (exact), y is stored as float32 or
-// bfloat16; out_dtype 2 stores the raw int32 accumulator instead. groups must be 1.
+// x is NHWC, w is packed once per layer (kernels/int8_conv.py:pack_weights) from HWIO
+// into an (O_pad, K_pad) K-major int8 matrix, zero beyond O and K. y is float32 or
+// bfloat16; out_dtype 2 stores the raw int32 accumulator. Takes C % 16 == 0 and
+// O % 8 == 0; other shapes go to int8_conv_general.cu.
 //
-// Form: implicit GEMM on the tensor cores. Rows are output pixels (M = N*OH*OW),
-// columns output channels (O), and the reduction runs over K = KH*KW*C in the
-// (r, s, c) order in which HWIO weights already lie as a row-major (K, O) matrix. A
-// block of 8 warps computes a 128x64 tile of the output, 64 reduction elements a
-// step; each warp owns a 32x32 sub-tile and issues 2 x 4 x 2
-// mma.sync.m16n8k32.s32.s8.s8.s32 a step. Shared memory holds A and B as packed
-// 4-byte words of 4 consecutive reduction elements (low byte first), which is the
-// register fragment layout of that mma, so fragments load with plain 32-bit reads.
-// Two shared-memory stages: the global loads of step i+1 are in flight while the
-// tensor cores work on step i, with one barrier a step.
+// What bounds it on an H100: at repvgg_a0's 192- and 1280-channel layers the int8
+// tensor-core rate (1,979 TOP/s, reachable only through wgmma); at the 48- and
+// 96-channel layers the bytes (the activation read, the output written). The design:
 //
-// Staging is what bounds a simple form of this kernel (a first version that loaded
-// A word by word and B byte by byte ran no faster on the tensor cores than with
-// dp4a). So, on the fast path (C % 16 == 0, O % 4 == 0, aligned operands, which all
-// of repvgg_a0's int8 layers meet): A is gathered as one 16-byte load of 16
-// channels of one pixel per thread and row, the filter tap is tracked incrementally
-// instead of divided out, and B is read as 4-byte runs of 4 output channels from 4
-// reduction rows, transposed in registers with byte permutes. Other shapes take
-// byte-wise loads into the same layout.
-//
-// Next: a deeper cp.async (or TMA) ring feeding wgmma, and the activation
-// quantization fused into the A-tile load.
+// - Implicit GEMM: rows are output pixels (M = N*OH*OW), columns output channels, the
+//   reduction K = KH*KW*C runs in (r, s, c) order. A block holds two consumer
+//   warpgroups of 64 rows (BM = 128) and one column tile of BN = the layer's whole O
+//   rounded up to a wgmma width (48, 64, 96, 128, 192, 256; O > 256 in tiles of 256),
+//   so each A element is gathered once per filter tap, not once per 64 columns.
+// - Each step is 128 reduction bytes, one 128-byte row of the canonical
+//   128-byte-swizzled K-major layout that int8 wgmma reads from shared memory, and
+//   four wgmma.m64nBNk32.s32.s8.s8 per warpgroup.
+// - Warp specialisation: a third warpgroup only copies, into a ring of up to 4 stages
+//   guarded by `full` and `empty` mbarriers; its cp.async.cg 16-byte copies arrive on
+//   `full` when they land (cp.async.mbarrier.arrive.noinc). The consumers keep one
+//   step's products in flight and release a slot as soon as its products are done.
+//   Copies therefore run ahead through the consumers' waits and epilogues. A copy is
+//   16 channels of one pixel at one filter tap; the tap is tracked incrementally, so
+//   C = 48 (K = 432, not a whole number of steps) needs no padding of the activation;
+//   outside the image and past K the copy zero-fills (src-size 0). B is 16-byte
+//   copies of the packed weights: no transpose in registers.
+// - A persistent grid: each block walks over tiles with stride gridDim.x, as many
+//   blocks as are resident at once (two an SM for BN <= 96). The 9 geometries of
+//   repvgg_a0 at batch 256 span 98 x 5 to 25,088 x 1 tiles; one resident wave over
+//   them keeps the ring flowing across tiles instead of refilling it at each block's
+//   start. Index arithmetic is 32-bit: 64-bit division in the per-tile set-up took
+//   13% of the kernel's time at the 48-channel 112x112 layer.
+// - The epilogue is where the tensor cores idle (one block an SM for BN >= 128), so
+//   nothing in it waits on device memory: s_x * w_scale and the bias of the tile's
+//   columns go into a shared-memory table before the tile's products, and each
+//   warpgroup stages 32 columns at a time in shared memory and writes whole rows with
+//   16-byte stores.
+// - Quantization is a prologue kernel (int8_quantize: 16 elements a thread, IEEE
+//   division, round half to even, clamp), 3 bytes an element. Quantizing inside the A
+//   copy instead moves fewer bytes but divides each element once per filter tap and
+//   makes the producer's loads synchronous; it measured 8-14x slower (PERF.md).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include <type_traits>
-
 namespace {
 
-constexpr int BM = 128;       // output pixels per block
-constexpr int BN = 64;        // output channels per block
-constexpr int BK = 64;        // reduction elements per step (two m16n8k32 steps)
-constexpr int BKW = BK / 4;   // packed 4-byte words per step
-constexpr int THREADS = 256;  // 8 warps: 4 along M x 2 along N, 32 x 32 outputs each
-// Row pitches in words. A: 20, so that the 32 lanes of a fragment read (8 rows x 4
-// words) fall in 32 different banks and a row start stays 16-byte aligned. B: 72, for
-// the same reason (4 rows x 8 columns).
-constexpr int A_LD = BKW + 4;
-constexpr int B_LD = BN + 8;
+constexpr int BM = 128;          // output pixels per tile: two consumer warpgroups of 64 rows
+constexpr int BK = 128;          // reduction bytes per step: one 128-byte swizzle row
+constexpr int CONSUMERS = 256;   // warpgroups 0 and 1: wgmma and the epilogue
+constexpr int PRODUCERS = 128;   // warpgroup 2: the copies
+constexpr int THREADS = CONSUMERS + PRODUCERS;
+constexpr int A_BYTES = BM * BK;
+constexpr int SM_SMEM = 233472;  // shared memory of an SM; each block reserves 1 KB of it
+constexpr int MAX_STAGES = 4;    // deeper rings measured no faster (PERF.md)
+// Epilogue staging, per consumer warpgroup: 64 rows of 32 columns of up to 4 bytes, each
+// row padded by 16 bytes against bank conflicts.
+constexpr int EPI_PITCH = 32 * 4 + 16;
+constexpr int EPI_WG_BYTES = 64 * EPI_PITCH;
+
+// The copy ring of a BN-wide tile: as many stages as fit, at most MAX_STAGES. Narrow
+// tiles run two blocks an SM, so that one block's epilogue overlaps the other's
+// products; wider tiles run one, whose consumers take the registers the producer gives
+// up (setmaxnreg).
+template <int BN>
+struct Ring {
+  static constexpr int BLOCKS = BN <= 96 ? 2 : 1;
+  static constexpr int STAGE_BYTES = A_BYTES + BN * BK;
+  // alignment slack, epilogue staging, the tile's scales and biases, barriers
+  static constexpr int EXTRA = 1024 + 2 * EPI_WG_BYTES + 2 * 256 * 4 + 256;
+  static constexpr int FIT = (SM_SMEM / BLOCKS - 1024 - EXTRA) / STAGE_BYTES;
+  static constexpr int STAGES = FIT < MAX_STAGES ? FIT : MAX_STAGES;
+  static constexpr int SMEM = STAGES * STAGE_BYTES + EXTRA;
+};
 
 struct ConvShape {
   int h, w, c, o;
   int kh, kw, sh, sw, ph, pw, dh, dw;
   int oh, ow;
-  long long m;  // N * OH * OW
-  int k;        // KH * KW * C
+  int m;      // N * OH * OW (below 2^31: index arithmetic in 32 bits, as 64-bit division is slow)
+  int k;      // KH * KW * C
+  int k_pad;    // K rounded up to whole steps: the row pitch of the packed weights
 };
 
-// The byte-wise path: 4 reduction elements kk..kk+3 of one output pixel, packed
-// little-endian; zero outside the image and past K.
-__device__ __forceinline__ int gather_a_word(const int8_t* __restrict__ x, const ConvShape& s, long long img,
-                                             int iy0, int ix0, int kk) {
-  int packed = 0;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int e = kk + i;
-    if (e >= s.k) break;
-    const int tap = e / s.c;
-    const int ch = e - tap * s.c;
-    const int r = tap / s.kw;
-    const int iy = iy0 + r * s.dh;
-    const int ix = ix0 + (tap - r * s.kw) * s.dw;
-    if (static_cast<unsigned>(iy) < static_cast<unsigned>(s.h) &&
-        static_cast<unsigned>(ix) < static_cast<unsigned>(s.w)) {
-      const int8_t v = x[((img * s.h + iy) * s.w + ix) * s.c + ch];
-      packed |= static_cast<int>(static_cast<uint8_t>(v)) << (8 * i);
+// wgmma.mma_async m64nNk32, s8 x s8 -> s32, both operands K-major in shared memory;
+// accumulates into d (scale-d = 1).
+template <int N>
+struct Wgmma;
+
+template <>
+struct Wgmma<48> {
+  static __device__ __forceinline__ void mma(int (&d)[24], uint64_t desc_a, uint64_t desc_b) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %26, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n48k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23}, "
+      "%24, %25, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23])
+      : "l"(desc_a), "l"(desc_b), "r"(1));
+  }
+};
+
+template <>
+struct Wgmma<64> {
+  static __device__ __forceinline__ void mma(int (&d)[32], uint64_t desc_a, uint64_t desc_b) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(1));
+  }
+};
+
+template <>
+struct Wgmma<96> {
+  static __device__ __forceinline__ void mma(int (&d)[48], uint64_t desc_a, uint64_t desc_b) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %50, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47}, "
+      "%48, %49, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47])
+      : "l"(desc_a), "l"(desc_b), "r"(1));
+  }
+};
+
+template <>
+struct Wgmma<128> {
+  static __device__ __forceinline__ void mma(int (&d)[64], uint64_t desc_a, uint64_t desc_b) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(1));
+  }
+};
+
+template <>
+struct Wgmma<192> {
+  static __device__ __forceinline__ void mma(int (&d)[96], uint64_t desc_a, uint64_t desc_b) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %98, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63,"
+      " %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79,"
+      " %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95}, "
+      "%96, %97, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63]),
+        "+r"(d[64]), "+r"(d[65]), "+r"(d[66]), "+r"(d[67]), "+r"(d[68]), "+r"(d[69]), "+r"(d[70]), "+r"(d[71]),
+        "+r"(d[72]), "+r"(d[73]), "+r"(d[74]), "+r"(d[75]), "+r"(d[76]), "+r"(d[77]), "+r"(d[78]), "+r"(d[79]),
+        "+r"(d[80]), "+r"(d[81]), "+r"(d[82]), "+r"(d[83]), "+r"(d[84]), "+r"(d[85]), "+r"(d[86]), "+r"(d[87]),
+        "+r"(d[88]), "+r"(d[89]), "+r"(d[90]), "+r"(d[91]), "+r"(d[92]), "+r"(d[93]), "+r"(d[94]), "+r"(d[95])
+      : "l"(desc_a), "l"(desc_b), "r"(1));
+  }
+};
+
+template <>
+struct Wgmma<256> {
+  static __device__ __forceinline__ void mma(int (&d)[128], uint64_t desc_a, uint64_t desc_b) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63,"
+      " %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79,"
+      " %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95,"
+      " %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111,"
+      " %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
+      "%128, %129, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63]),
+        "+r"(d[64]), "+r"(d[65]), "+r"(d[66]), "+r"(d[67]), "+r"(d[68]), "+r"(d[69]), "+r"(d[70]), "+r"(d[71]),
+        "+r"(d[72]), "+r"(d[73]), "+r"(d[74]), "+r"(d[75]), "+r"(d[76]), "+r"(d[77]), "+r"(d[78]), "+r"(d[79]),
+        "+r"(d[80]), "+r"(d[81]), "+r"(d[82]), "+r"(d[83]), "+r"(d[84]), "+r"(d[85]), "+r"(d[86]), "+r"(d[87]),
+        "+r"(d[88]), "+r"(d[89]), "+r"(d[90]), "+r"(d[91]), "+r"(d[92]), "+r"(d[93]), "+r"(d[94]), "+r"(d[95]),
+        "+r"(d[96]), "+r"(d[97]), "+r"(d[98]), "+r"(d[99]), "+r"(d[100]), "+r"(d[101]), "+r"(d[102]), "+r"(d[103]),
+        "+r"(d[104]), "+r"(d[105]), "+r"(d[106]), "+r"(d[107]), "+r"(d[108]), "+r"(d[109]), "+r"(d[110]), "+r"(d[111]),
+        "+r"(d[112]), "+r"(d[113]), "+r"(d[114]), "+r"(d[115]), "+r"(d[116]), "+r"(d[117]), "+r"(d[118]), "+r"(d[119]),
+        "+r"(d[120]), "+r"(d[121]), "+r"(d[122]), "+r"(d[123]), "+r"(d[124]), "+r"(d[125]), "+r"(d[126]), "+r"(d[127])
+      : "l"(desc_a), "l"(desc_b), "r"(1));
+  }
+};
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src), "r"(src_bytes) : "memory");
+}
+
+__device__ __forceinline__ void st_shared4(uint32_t dst, uint32_t v) {
+  asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(dst), "r"(v) : "memory");
+}
+
+__device__ __forceinline__ void st_shared8(uint32_t dst, uint32_t a, uint32_t b) {
+  asm volatile("st.shared.v2.b32 [%0], {%1, %2};\n" ::"r"(dst), "r"(a), "r"(b) : "memory");
+}
+
+__device__ __forceinline__ uint4 ld_shared16(uint32_t src) {
+  uint4 v;
+  asm volatile("ld.shared.v4.b32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "r"(src)
+               : "memory");
+  return v;
+}
+
+// synchronizes `threads` threads (whole warps) on barrier `id` (0 is __syncthreads)
+__device__ __forceinline__ void named_barrier(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// Descriptor of a K-major operand in the 128-byte swizzle: rows of 128 bytes, 8-row
+// atoms of 1024 bytes stacked along M (or N); the atom base must be 1024-aligned.
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(1) << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) | (static_cast<uint64_t>(1) << 62);
+}
+
+// Byte offset of 16-byte chunk `chunk` of row `row` in that layout.
+__device__ __forceinline__ uint32_t swizzled(int row, int chunk) {
+  return static_cast<uint32_t>(row * BK + ((chunk ^ (row & 7)) << 4));
+}
+
+// quant.py:244: clip(round(x / s_x), -127, 127) with IEEE division and round half to
+// even. A zero (half of a ReLU's output) is answered without dividing: div.rn.f32 sends
+// a zero dividend down its slow path.
+__device__ __forceinline__ uint32_t quantize_one(float v, float s) {
+  if (v == 0.f) return 0u;
+  const int q = min(max(__float2int_rn(__fdiv_rn(v, s)), -127), 127);
+  return static_cast<uint32_t>(q) & 0xFFu;
+}
+
+__device__ __forceinline__ uint32_t quantize4(float a, float b, float c, float d, float s) {
+  return quantize_one(a, s) | (quantize_one(b, s) << 8) | (quantize_one(c, s) << 16) | (quantize_one(d, s) << 24);
+}
+
+// 8 bfloat16 in a 16-byte word, little-endian: element 2i is the low half of word i
+__device__ __forceinline__ float bf16_lo(uint32_t w) { return __uint_as_float(w << 16); }
+__device__ __forceinline__ float bf16_hi(uint32_t w) { return __uint_as_float(w & 0xFFFF0000u); }
+
+__device__ __forceinline__ uint32_t quantize4_bf16(uint32_t w0, uint32_t w1, float s) {
+  return quantize4(bf16_lo(w0), bf16_hi(w0), bf16_lo(w1), bf16_hi(w1), s);
+}
+
+// 16 consecutive elements quantized into one 16-byte word
+__device__ __forceinline__ uint4 quantize16(const __nv_bfloat16* p, float s) {
+  const uint4 lo = *reinterpret_cast<const uint4*>(p);
+  const uint4 hi = *reinterpret_cast<const uint4*>(p + 8);
+  return make_uint4(quantize4_bf16(lo.x, lo.y, s), quantize4_bf16(lo.z, lo.w, s), quantize4_bf16(hi.x, hi.y, s),
+                    quantize4_bf16(hi.z, hi.w, s));
+}
+
+__device__ __forceinline__ uint4 quantize16(const float* p, float s) {
+  const float4* v = reinterpret_cast<const float4*>(p);
+  const float4 a = v[0], b = v[1], c = v[2], d = v[3];
+  return make_uint4(quantize4(a.x, a.y, a.z, a.w, s), quantize4(b.x, b.y, b.z, b.w, s),
+                    quantize4(c.x, c.y, c.z, c.w, s), quantize4(d.x, d.y, d.z, d.w, s));
+}
+
+__device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float to_float(float v) { return v; }
+
+// The quantization prologue over a flat NHWC buffer of n elements; x 16-byte aligned.
+template <typename T>
+__global__ void __launch_bounds__(256) int8_quantize_kernel(const T* __restrict__ x, const float* __restrict__ s_x,
+                                                            int8_t* __restrict__ q, long long n) {
+  const float s = *s_x;
+  const long long groups = n / 16;
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  for (long long g = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x; g < groups; g += stride) {
+    *reinterpret_cast<uint4*>(q + 16 * g) = quantize16(x + 16 * g, s);
+  }
+  if (blockIdx.x == 0) {
+    for (long long e = 16 * groups + threadIdx.x; e < n; e += blockDim.x) {
+      q[e] = static_cast<int8_t>(quantize_one(to_float(x[e]), s));
     }
   }
-  return packed;
 }
 
-__device__ __forceinline__ void mma_s8(int (&d)[4], const int (&a)[4], const int (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, "
-      "{%0,%1,%2,%3};\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
 }
 
-__device__ __forceinline__ void store_out(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store_out(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
 
-template <bool kFast, typename OutT>
-__global__ void __launch_bounds__(THREADS) int8_conv_kernel(
-    const int8_t* __restrict__ x, const int8_t* __restrict__ w, const float* __restrict__ s_x,
-    const float* __restrict__ w_scale, const void* __restrict__ bias, int bias_bf16,
-    OutT* __restrict__ out, ConvShape s) {
-  __shared__ __align__(16) int a_tile[2][BM][A_LD];
-  __shared__ __align__(16) int b_tile[2][BKW][B_LD];
+// arrives on `bar` once this thread's earlier cp.async copies have landed
+__device__ __forceinline__ void mbar_arrive_on_copies(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(bar) : "memory");
+}
+
+// waits until the barrier's phase with the given parity has completed; traps (a launch
+// error, not a hang) if that takes seconds
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
+  for (int tries = 0;; ++tries) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\nselp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (tries > (1 << 24)) __trap();
+  }
+}
+
+// One block walks over output tiles (m tile, column tile) t = blockIdx.x, + gridDim.x,
+// ... as one stream of steps. Warpgroup 2 copies each step into the ring and signals
+// its slot's `full` barrier; warpgroups 0 and 1 wait on it, run the step's products
+// and release the slot through its `empty` barrier. The producer runs up to STAGES
+// steps ahead, across tile boundaries and through the consumers' epilogues.
+template <int BN>
+__global__ void __launch_bounds__(THREADS, Ring<BN>::BLOCKS) int8_conv_wgmma_kernel(
+    const int8_t* __restrict__ x, const int8_t* __restrict__ wp, const float* __restrict__ s_x,
+    const float* __restrict__ w_scale, const void* __restrict__ bias, int bias_bf16, void* __restrict__ out,
+    int out_dtype, ConvShape s) {
+  constexpr int STAGE_BYTES = Ring<BN>::STAGE_BYTES;
+  constexpr int STAGES = Ring<BN>::STAGES;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t smem = (smem_addr(smem_raw) + 1023u) & ~1023u;
+  const uint32_t out_stage = smem + STAGES * STAGE_BYTES;    // the consumers' epilogue staging
+  // s_x * w_scale and the bias of the tile's columns, for the epilogue
+  float* const col_scale = reinterpret_cast<float*>(smem_raw + (out_stage + 2 * EPI_WG_BYTES - smem_addr(smem_raw)));
+  float* const col_bias = col_scale + 256;
+  const uint32_t full_bar = out_stage + 2 * EPI_WG_BYTES + 2 * 256 * 4;  // STAGES barriers of 8 bytes, then `empty`
+  const uint32_t empty_bar = full_bar + 8 * STAGES;
 
   const int tid = threadIdx.x;
-  const long long m0 = static_cast<long long>(blockIdx.x) * BM;
-  const int o0 = blockIdx.y * BN;
-
-  // A stager: 16 reduction elements (4 words, the a_q-th quarter of the step) of rows
-  // tid / 4 and tid / 4 + 64
-  const int a_q = tid % 4;
-  long long a_img[2];
-  int a_iy0[2], a_ix0[2];
-  bool a_ok[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const long long m = m0 + tid / 4 + r * (BM / 2);
-    a_ok[r] = m < s.m;
-    const long long mm = a_ok[r] ? m : 0;
-    const int ox = static_cast<int>(mm % s.ow);
-    const long long t = mm / s.ow;
-    const int oy = static_cast<int>(t % s.oh);
-    a_img[r] = t / s.oh;
-    a_iy0[r] = oy * s.sh - s.ph;
-    a_ix0[r] = ox * s.sw - s.pw;
-  }
-  // fast path: filter tap (fr, fs) and channel of this thread's first element,
-  // advanced by BK every step
-  int fr = 0, fs = 0, fch = 16 * a_q;
-  if (kFast) {
-    while (fch >= s.c) {
-      fch -= s.c;
-      if (++fs == s.kw) {
-        fs = 0;
-        ++fr;
-      }
+  const int n_tiles = (s.o + BN - 1) / BN;
+  const int tiles = (s.m + BM - 1) / BM * n_tiles;
+  const int ktiles = s.k_pad / BK;
+  if (tid == 0) {
+    for (int i = 0; i < STAGES; ++i) {
+      mbar_init(full_bar + 8 * i, PRODUCERS);
+      mbar_init(empty_bar + 8 * i, CONSUMERS);
     }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  // B stager: reduction rows 4 * b_kq .. +3, output channels 4 * b_oq .. +3
-  const int b_kq = tid / 16;
-  const int b_oq = tid % 16;
-  const int b_o = o0 + 4 * b_oq;
+  __syncthreads();
 
-  int4 a_reg[2];
-  int4 b_reg;
-
-  auto load_stage = [&](int k0) {
-    if constexpr (kFast) {
+  if (tid >= CONSUMERS) {
+    // ---- producer: warpgroup 2 ----
+    if constexpr (Ring<BN>::BLOCKS == 1) asm volatile("setmaxnreg.dec.sync.aligned.u32 72;\n");
+    const int ptid = tid - CONSUMERS;
+    // chunk `j` (reduction bytes 16j..16j+15 of each step) of rows ptid / 8 + 16i;
+    // (fr, fs, fch) is the filter tap and channel of that chunk in the step to copy
+    const int j = ptid & 7;
+    int row_base[8], row_iy0[8], row_ix0[8];
+    int fr = 0, fs = 0, fch = 0;
+    int slot = 0, phase = 0;
+    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+      const int mt = tile / n_tiles;
+      const int8_t* b_src = wp + static_cast<long long>(tile - mt * n_tiles) * BN * s.k_pad;
 #pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        a_reg[r] = make_int4(0, 0, 0, 0);
-        const int iy = a_iy0[r] + fr * s.dh;
-        const int ix = a_ix0[r] + fs * s.dw;
-        if (a_ok[r] && fr < s.kh && static_cast<unsigned>(iy) < static_cast<unsigned>(s.h) &&
-            static_cast<unsigned>(ix) < static_cast<unsigned>(s.w)) {
-          a_reg[r] = *reinterpret_cast<const int4*>(x + ((a_img[r] * s.h + iy) * s.w + ix) * s.c + fch);
-        }
+      for (int i = 0; i < 8; ++i) {
+        const int m = mt * BM + ptid / 8 + 16 * i;
+        const int t = m / s.ow;
+        const int img = t / s.oh;
+        const int iy0 = (t - img * s.oh) * s.sh - s.ph;
+        const int ix0 = (m - t * s.ow) * s.sw - s.pw;
+        row_iy0[i] = m < s.m ? iy0 : -(1 << 28);  // a row past M is never inside the image
+        row_ix0[i] = ix0;
+        row_base[i] = ((img * s.h + iy0) * s.w + ix0) * s.c;
       }
-      fch += BK;
-      while (fch >= s.c) {
-        fch -= s.c;
-        if (++fs == s.kw) {
-          fs = 0;
-          ++fr;
-        }
-      }
-      int rows[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int kk = k0 + 4 * b_kq + i;
-        rows[i] = (kk < s.k && b_o < s.o)
-                      ? *reinterpret_cast<const int*>(w + static_cast<long long>(kk) * s.o + b_o)
-                      : 0;
-      }
-      // 4x4 byte transpose: word j takes byte j of rows 0..3, i.e. the 4 reduction
-      // elements of output channel b_o + j
-      const int lo01 = __byte_perm(rows[0], rows[1], 0x5140);
-      const int hi01 = __byte_perm(rows[0], rows[1], 0x7362);
-      const int lo23 = __byte_perm(rows[2], rows[3], 0x5140);
-      const int hi23 = __byte_perm(rows[2], rows[3], 0x7362);
-      b_reg = make_int4(__byte_perm(lo01, lo23, 0x5410), __byte_perm(lo01, lo23, 0x7632),
-                        __byte_perm(hi01, hi23, 0x5410), __byte_perm(hi01, hi23, 0x7632));
-    } else {
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        int v[4];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          v[j] = a_ok[r] ? gather_a_word(x, s, a_img[r], a_iy0[r], a_ix0[r], k0 + 16 * a_q + 4 * j) : 0;
-        }
-        a_reg[r] = make_int4(v[0], v[1], v[2], v[3]);
-      }
-      int v[4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        int packed = 0;
-        const int o = b_o + j;
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int kk = k0 + 4 * b_kq + i;
-          if (kk < s.k && o < s.o) {
-            packed |= static_cast<int>(static_cast<uint8_t>(w[static_cast<long long>(kk) * s.o + o])) << (8 * i);
+      fr = 0;
+      fs = 0;
+      fch = 16 * j;
+      for (int kt = 0; kt < ktiles; ++kt) {
+        while (fch >= s.c) {
+          fch -= s.c;
+          if (++fs == s.kw) {
+            fs = 0;
+            ++fr;
           }
         }
-        v[j] = packed;
+        mbar_wait(empty_bar + 8 * slot, phase ^ 1);
+        const uint32_t a_dst = smem + slot * STAGE_BYTES;
+        const int dy = fr * s.dh, dx = fs * s.dw;
+        const int tap = (dy * s.w + dx) * s.c + fch;
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const int row = ptid / 8 + 16 * i;
+          const bool valid = fr < s.kh && static_cast<unsigned>(row_iy0[i] + dy) < static_cast<unsigned>(s.h) &&
+                             static_cast<unsigned>(row_ix0[i] + dx) < static_cast<unsigned>(s.w);
+          cp_async16(a_dst + swizzled(row, j), x + (valid ? row_base[i] + tap : 0), valid ? 16 : 0);
+        }
+        const uint32_t b_dst = a_dst + A_BYTES;
+        const int8_t* b_step = b_src + kt * BK;
+#pragma unroll
+        for (int c = ptid; c < BN * 8; c += PRODUCERS) {
+          cp_async16(b_dst + swizzled(c >> 3, c & 7), b_step + (c >> 3) * s.k_pad + 16 * (c & 7), 16);
+        }
+        mbar_arrive_on_copies(full_bar + 8 * slot);
+        fch += BK;
+        if (++slot == STAGES) {
+          slot = 0;
+          phase ^= 1;
+        }
       }
-      b_reg = make_int4(v[0], v[1], v[2], v[3]);
     }
-  };
-  auto store_stage = [&](int buf) {
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      *reinterpret_cast<int4*>(&a_tile[buf][tid / 4 + r * (BM / 2)][4 * a_q]) = a_reg[r];
-    }
-    // b_tile[kw][o] holds reduction elements 4kw..4kw+3 of output channel o
-    const int o = 4 * b_oq;
-    b_tile[buf][b_kq][o + 0] = b_reg.x;
-    b_tile[buf][b_kq][o + 1] = b_reg.y;
-    b_tile[buf][b_kq][o + 2] = b_reg.z;
-    b_tile[buf][b_kq][o + 3] = b_reg.w;
-  };
-
-  const int lane = tid % 32;
-  const int warp = tid / 32;
-  const int g = lane / 4;  // fragment row (A, C) or column (B) within its group of 8
-  const int t = lane % 4;  // fragment word within each half of a 32-element k step
-  const int wm = (warp % 4) * 32;
-  const int wn = (warp / 4) * 32;
-
-  int acc[2][4][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) acc[i][j][q] = 0;
-
-  const int steps = (s.k + BK - 1) / BK;
-  load_stage(0);
-  store_stage(0);
-  __syncthreads();
-  for (int step = 0; step < steps; ++step) {
-    const int buf = step & 1;
-    if (step + 1 < steps) load_stage((step + 1) * BK);
-#pragma unroll
-    for (int ks = 0; ks < BKW; ks += 8) {
-      int a[2][4], b[4][2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const int row = wm + 16 * i + g;
-        a[i][0] = a_tile[buf][row][ks + t];
-        a[i][1] = a_tile[buf][row + 8][ks + t];
-        a[i][2] = a_tile[buf][row][ks + t + 4];
-        a[i][3] = a_tile[buf][row + 8][ks + t + 4];
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = wn + 8 * j + g;
-        b[j][0] = b_tile[buf][ks + t][col];
-        b[j][1] = b_tile[buf][ks + t + 4][col];
-      }
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) mma_s8(acc[i][j], a[i], b[j]);
-    }
-    if (step + 1 < steps) store_stage(buf ^ 1);
-    __syncthreads();
-  }
-
-  // accumulator fragment: acc[i][j][q] is row wm + 16i + g + 8(q / 2), column
-  // wn + 8j + 2t + (q % 2)
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-#pragma unroll
-    for (int q2 = 0; q2 < 2; ++q2) {
-      const int o = o0 + wn + 8 * j + 2 * t + q2;
-      if (o >= s.o) continue;
-      float scale = 0.f, bv = 0.f;
-      if constexpr (!std::is_same<OutT, int>::value) {
-        scale = __fmul_rn(*s_x, w_scale[o]);
-        if (bias != nullptr) {
-          bv = bias_bf16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(bias)[o])
-                         : static_cast<const float*>(bias)[o];
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+  } else {
+    // ---- consumers: warpgroups 0 and 1 ----
+    if constexpr (Ring<BN>::BLOCKS == 1) asm volatile("setmaxnreg.inc.sync.aligned.u32 216;\n");
+    const float sx = out_dtype != 2 ? *s_x : 0.f;
+    const int wg = tid / 128;
+    const int warp = (tid % 128) / 32;
+    const int lane = tid % 32;
+    int acc[BN / 2];
+    int slot = 0, phase = 0;
+    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+      const int mt = tile / n_tiles;
+      const int n0 = (tile - mt * n_tiles) * BN;
+      const int col_end = min(s.o, n0 + BN);
+      if (out_dtype != 2) {
+        // the table of the previous tile has been read; its loads are hidden by the
+        // products below
+        named_barrier(3, CONSUMERS);
+        for (int c = tid; c < col_end - n0; c += CONSUMERS) {
+          col_scale[c] = __fmul_rn(sx, w_scale[n0 + c]);
+          if (bias != nullptr) {
+            col_bias[c] = bias_bf16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(bias)[n0 + c])
+                                    : static_cast<const float*>(bias)[n0 + c];
+          }
         }
       }
 #pragma unroll
-      for (int i = 0; i < 2; ++i) {
+      for (int i = 0; i < BN / 2; ++i) acc[i] = 0;
+      int prev = -1;
+      for (int kt = 0; kt < ktiles; ++kt) {
+        mbar_wait(full_bar + 8 * slot, phase);
+        // the producer's copies, visible to this thread, made visible to the tensor
+        // cores' async proxy
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        const uint32_t stage = smem + slot * STAGE_BYTES;
+        const uint32_t a_addr = stage + wg * 64 * BK;
+        const uint32_t b_addr = stage + A_BYTES;
+        asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 #pragma unroll
-        for (int q1 = 0; q1 < 2; ++q1) {
-          const long long m = m0 + wm + 16 * i + g + 8 * q1;
-          if (m >= s.m) continue;
-          const int v = acc[i][j][2 * q1 + q2];
-          if constexpr (std::is_same<OutT, int>::value) {
-            out[m * s.o + o] = v;
-          } else {
-            float y = __fmul_rn(__int2float_rn(v), scale);
-            if (bias != nullptr) y = __fadd_rn(y, bv);
-            store_out(out + m * s.o + o, y);
+        for (int kk = 0; kk < BK / 32; ++kk) {
+          Wgmma<BN>::mma(acc, smem_desc(a_addr + 32 * kk), smem_desc(b_addr + 32 * kk));
+        }
+        asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+        // the products of the previous step are done: release its slot
+        asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+        if (prev >= 0) mbar_arrive(empty_bar + 8 * prev);
+        prev = slot;
+        if (++slot == STAGES) {
+          slot = 0;
+          phase ^= 1;
+        }
+      }
+      asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+      mbar_arrive(empty_bar + 8 * prev);
+#pragma unroll
+      for (int k = 0; k < BN / 2; ++k) asm volatile("" : "+r"(acc[k])::"memory");
+
+      // epilogue, 32 columns at a time through this warpgroup's staging area in shared
+      // memory: acc[4jj + 2h + e] is row 16 * warp + lane / 4 + 8h of the warpgroup's 64,
+      // column 8jj + 2 * (lane % 4) + e. Column pairs go in; rows leave as 16-byte stores.
+      if (out_dtype != 2) named_barrier(3, CONSUMERS);  // the table is written
+      const int out_bytes = out_dtype == 1 ? 2 : 4;
+      const uint32_t staging = out_stage + wg * EPI_WG_BYTES;
+#pragma unroll
+      for (int chunk = 0; chunk < (BN / 8 + 3) / 4; ++chunk) {
+        named_barrier(1 + wg, 128);  // the previous chunk's rows have left
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int jj = 4 * chunk + q;
+          if (jj >= BN / 8) break;
+          const int col = n0 + 8 * jj + 2 * (lane % 4);
+          if (col >= col_end) continue;  // O is even, so col + 1 < O too
+          const int c = col - n0;
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int v0 = acc[4 * jj + 2 * h], v1 = acc[4 * jj + 2 * h + 1];
+            const uint32_t dst =
+                staging + (warp * 16 + lane / 4 + 8 * h) * EPI_PITCH + (8 * q + 2 * (lane % 4)) * out_bytes;
+            if (out_dtype == 2) {
+              st_shared8(dst, static_cast<uint32_t>(v0), static_cast<uint32_t>(v1));
+              continue;
+            }
+            float y0 = __fmul_rn(__int2float_rn(v0), col_scale[c]);
+            float y1 = __fmul_rn(__int2float_rn(v1), col_scale[c + 1]);
+            if (bias != nullptr) {
+              y0 = __fadd_rn(y0, col_bias[c]);
+              y1 = __fadd_rn(y1, col_bias[c + 1]);
+            }
+            if (out_dtype == 0) {
+              st_shared8(dst, __float_as_uint(y0), __float_as_uint(y1));
+            } else {
+              __nv_bfloat162 pair = __floats2bfloat162_rn(y0, y1);
+              st_shared4(dst, *reinterpret_cast<uint32_t*>(&pair));
+            }
+          }
+        }
+        named_barrier(1 + wg, 128);
+        const int per_row = 2 * out_bytes;  // 16-byte pieces in a row of 32 columns
+        for (int piece = tid % 128; piece < 64 * per_row; piece += 128) {
+          const int r = piece / per_row, part = piece - r * per_row;
+          const int m = mt * BM + wg * 64 + r;
+          const int col = n0 + 32 * chunk + part * (16 / out_bytes);
+          if (m < s.m && col < col_end) {
+            const uint4 v = ld_shared16(staging + r * EPI_PITCH + 16 * part);
+            *reinterpret_cast<uint4*>(static_cast<char*>(out) + (static_cast<long long>(m) * s.o + col) * out_bytes) =
+                v;
           }
         }
       }
@@ -306,23 +573,48 @@ __global__ void __launch_bounds__(THREADS) int8_conv_kernel(
   }
 }
 
-template <bool kFast>
-void launch(const void* x, const void* w, const void* s_x, const void* w_scale, const void* bias,
-            int bias_bf16, void* out, int out_dtype, const ConvShape& s, cudaStream_t stream) {
-  const dim3 grid(static_cast<unsigned int>((s.m + BM - 1) / BM), static_cast<unsigned int>((s.o + BN - 1) / BN));
-  const auto* xq = static_cast<const int8_t*>(x);
-  const auto* wq = static_cast<const int8_t*>(w);
-  const auto* sx = static_cast<const float*>(s_x);
-  const auto* ws = static_cast<const float*>(w_scale);
-  if (out_dtype == 0) {
-    int8_conv_kernel<kFast, float><<<grid, THREADS, 0, stream>>>(xq, wq, sx, ws, bias, bias_bf16,
-                                                                 static_cast<float*>(out), s);
-  } else if (out_dtype == 1) {
-    int8_conv_kernel<kFast, __nv_bfloat16><<<grid, THREADS, 0, stream>>>(
-        xq, wq, sx, ws, bias, bias_bf16, static_cast<__nv_bfloat16*>(out), s);
-  } else {
-    int8_conv_kernel<kFast, int><<<grid, THREADS, 0, stream>>>(xq, wq, sx, ws, bias, bias_bf16,
-                                                               static_cast<int*>(out), s);
+constexpr int MAX_DEVICES = 64;
+
+template <int BN>
+int launch_wgmma(const void* x, const void* wp, const void* s_x, const void* w_scale, const void* bias, int bias_bf16,
+                 void* out, int out_dtype, const ConvShape& s, cudaStream_t stream) {
+  constexpr int smem_bytes = Ring<BN>::SMEM;
+  auto* kernel = int8_conv_wgmma_kernel<BN>;
+  // per device: blocks of this kernel an SM holds at once (0 until the device's shared
+  // memory limit for the kernel is raised), and its SMs
+  static int resident[MAX_DEVICES];
+  static int sms[MAX_DEVICES];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (dev >= MAX_DEVICES) return static_cast<int>(cudaErrorInvalidDevice);
+  if (resident[dev] == 0) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&resident[dev], kernel, THREADS, smem_bytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (resident[dev] == 0) return static_cast<int>(cudaErrorInvalidConfiguration);
+  }
+  const long long tiles = (static_cast<long long>(s.m) + BM - 1) / BM * ((s.o + BN - 1) / BN);
+  const long long slots = static_cast<long long>(resident[dev]) * sms[dev];
+  const long long grid = tiles < slots ? tiles : slots;
+  kernel<<<static_cast<unsigned int>(grid), THREADS, smem_bytes, stream>>>(
+      static_cast<const int8_t*>(x), static_cast<const int8_t*>(wp), static_cast<const float*>(s_x),
+      static_cast<const float*>(w_scale), bias, bias_bf16, out, out_dtype, s);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int dispatch(int bn, const void* x, const void* wp, const void* s_x, const void* w_scale, const void* bias,
+             int bias_bf16, void* out, int out_dtype, const ConvShape& s, cudaStream_t stream) {
+  switch (bn) {
+    case 48: return launch_wgmma<48>(x, wp, s_x, w_scale, bias, bias_bf16, out, out_dtype, s, stream);
+    case 64: return launch_wgmma<64>(x, wp, s_x, w_scale, bias, bias_bf16, out, out_dtype, s, stream);
+    case 96: return launch_wgmma<96>(x, wp, s_x, w_scale, bias, bias_bf16, out, out_dtype, s, stream);
+    case 128: return launch_wgmma<128>(x, wp, s_x, w_scale, bias, bias_bf16, out, out_dtype, s, stream);
+    case 192: return launch_wgmma<192>(x, wp, s_x, w_scale, bias, bias_bf16, out, out_dtype, s, stream);
+    case 256: return launch_wgmma<256>(x, wp, s_x, w_scale, bias, bias_bf16, out, out_dtype, s, stream);
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
@@ -332,25 +624,43 @@ extern "C" const char* holocron_cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// out_dtype: 0 = float32, 1 = bfloat16 (both with the epilogue), 2 = raw int32
-// accumulator. fast requires C % 16 == 0, O % 4 == 0, x 16-byte aligned and w
-// 4-byte aligned. Returns cudaGetLastError() after the launch.
-extern "C" int int8_conv_forward(const void* x, const void* w, const void* s_x, const void* w_scale,
-                                 const void* bias, int bias_bf16, void* out, int out_dtype, int n, int h,
-                                 int w_in, int c, int o, int kh, int kw, int sh, int sw, int ph, int pw,
-                                 int dh, int dw, int oh, int ow, int fast, void* stream) {
-  if (out_dtype < 0 || out_dtype > 2) return static_cast<int>(cudaErrorInvalidValue);
-  const ConvShape s{h, w_in, c, o, kh, kw, sh, sw, ph, pw, dh, dw, oh, ow,
-                    static_cast<long long>(n) * oh * ow, kh * kw * c};
-  if (s.m == 0 || s.o == 0) return 0;
-  if (fast && (c % 16 != 0 || o % 4 != 0 || reinterpret_cast<uintptr_t>(x) % 16 != 0 ||
-               reinterpret_cast<uintptr_t>(w) % 4 != 0))
+// x: int8 NHWC; wp: the packed (ceil(O / bn) * bn, k_pad) weights; bn: the column tile, one of 48, 64, 96,
+// 128, 192, 256. out_dtype: 0 = float32, 1 = bfloat16 (both with the epilogue),
+// 2 = raw int32 accumulator. Requires C % 16 == 0, O % 8 == 0, k_pad = KH*KW*C rounded
+// up to a multiple of 128, and x and wp 16-byte aligned. Returns cudaGetLastError()
+// after the launch.
+extern "C" int int8_conv_wgmma_forward(const void* x, const void* wp, const void* s_x, const void* w_scale,
+                                       const void* bias, int bias_bf16, void* out, int out_dtype, int n, int h,
+                                       int w_in, int c, int o, int kh, int kw, int sh, int sw, int ph, int pw, int dh,
+                                       int dw, int oh, int ow, int bn, int k_pad, void* stream) {
+  const long long m = static_cast<long long>(n) * oh * ow;
+  // index arithmetic in 32 bits (64-bit division is slow): M and x's elements (with one
+  // image of margin, for rows past M) below 2^31
+  if (m + BM > 0x7FFFFFFFLL || static_cast<long long>(n + 1) * h * w_in * c > 0x7FFFFFFFLL)
     return static_cast<int>(cudaErrorInvalidValue);
+  const ConvShape s{h, w_in, c, o, kh, kw, sh, sw, ph, pw, dh, dw, oh, ow, static_cast<int>(m), kh * kw * c, k_pad};
+  if (out_dtype < 0 || out_dtype > 2 || c % 16 != 0 || o % 8 != 0 || k_pad != (s.k + BK - 1) / BK * BK ||
+      reinterpret_cast<uintptr_t>(x) % 16 != 0 || reinterpret_cast<uintptr_t>(wp) % 16 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (s.m == 0) return 0;
+  return dispatch(bn, x, wp, s_x, w_scale, bias, bias_bf16, out, out_dtype, s, static_cast<cudaStream_t>(stream));
+}
+
+// q = clip(round_half_even(float(x) / *s_x), -127, 127) over n elements; x float32
+// (x_bf16 = 0) or bfloat16, 16-byte aligned. Returns cudaGetLastError() after the launch.
+extern "C" int int8_quantize_forward(const void* x, const void* s_x, void* q, int x_bf16, long long n, void* stream) {
+  if (reinterpret_cast<uintptr_t>(x) % 16 != 0 || reinterpret_cast<uintptr_t>(q) % 16 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (n == 0) return 0;
+  const long long blocks = (n / 16 + 255) / 256;
+  const unsigned int grid = static_cast<unsigned int>(blocks < 1 ? 1 : (blocks > 8 * 132 * 16 ? 8 * 132 * 16 : blocks));
   cudaStream_t cu_stream = static_cast<cudaStream_t>(stream);
-  if (fast) {
-    launch<true>(x, w, s_x, w_scale, bias, bias_bf16, out, out_dtype, s, cu_stream);
+  const auto* sx = static_cast<const float*>(s_x);
+  auto* out = static_cast<int8_t*>(q);
+  if (x_bf16) {
+    int8_quantize_kernel<__nv_bfloat16><<<grid, 256, 0, cu_stream>>>(static_cast<const __nv_bfloat16*>(x), sx, out, n);
   } else {
-    launch<false>(x, w, s_x, w_scale, bias, bias_bf16, out, out_dtype, s, cu_stream);
+    int8_quantize_kernel<float><<<grid, 256, 0, cu_stream>>>(static_cast<const float*>(x), sx, out, n);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -14,6 +14,8 @@ KERNELS = {
     "add2d_bwd_dp": add2d.KERNEL_BWD_DP,
     "add2d_bwd_dw": add2d.KERNEL_BWD_DW,
     "int8_conv": int8_conv.KERNEL,
+    "int8_conv_general": int8_conv.KERNEL_GENERAL,
+    "int8_quantize": int8_conv.KERNEL_QUANTIZE,
 }
 
 __all__ = ["KERNELS", "add2d", "int8_conv", "involution"]

@@ -1,12 +1,20 @@
-"""int8 x int8 -> int32 convolution with the float requantize epilogue: the port of
-the int8 conv in ``holocron_tpu/quant.py:_quantized_conv`` (``quant.py:259-274``),
-which the JAX package leaves to XLA.
+"""The int8 convolution of ``holocron_tpu/quant.py:_quantized_conv`` (``quant.py:228-274``),
+which the JAX package leaves to XLA: activation quantization, then int8 x int8 -> int32
+convolution with the float requantize epilogue.
 
-Layouts are the JAX package's: int8 NHWC activations and int8 HWIO weights; the
-result is NHWC. On CUDA tensors the wrappers launch ``csrc/int8_conv.cu``; on CPU
-tensors they compute the plain versions, a float64 convolution over the
-integer-valued tensors, which is exact (every partial sum is an integer far below
-2**53), followed by the same epilogue in float32.
+Layouts are the JAX package's: NHWC activations and int8 HWIO weights; the result is
+NHWC. On CUDA tensors the wrappers launch one of two routes, chosen by shape in
+:func:`conv_route`:
+
+- ``"wgmma"`` (``csrc/int8_conv.cu``, counter ``int8_conv``): C % 16 == 0 and
+  O % 8 == 0, every int8 layer of repvgg_a0. It reads the weights packed once per layer
+  by :func:`pack_weights`; its quantization prologue has the counter ``int8_quantize``.
+- ``"general"`` (``csrc/int8_conv_general.cu``, counter ``int8_conv_general``): every
+  other shape (C = 3, byte-wise channel counts).
+
+On CPU tensors they compute the plain versions: :func:`quantize_activation_plain`, and a
+float64 convolution over the integer-valued tensors, which is exact (every partial sum
+is an integer far below 2**53), followed by the same epilogue in float32.
 """
 
 import ctypes
@@ -17,17 +25,69 @@ from torch.nn import functional as F
 
 from ._build import Kernel
 
-__all__ = ["KERNEL", "int8_conv", "int8_conv_acc", "int8_conv_acc_plain", "int8_conv_plain"]
+__all__ = [
+    "KERNEL",
+    "KERNEL_GENERAL",
+    "KERNEL_QUANTIZE",
+    "STEP_K",
+    "TILE_N",
+    "conv_route",
+    "int8_conv",
+    "int8_conv_acc",
+    "int8_conv_acc_plain",
+    "int8_conv_plain",
+    "pack_weights",
+    "quantize_activation",
+    "quantize_activation_plain",
+    "quantized_conv",
+    "tile_n",
+]
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-KERNEL = Kernel("int8_conv", "int8_conv_forward", [_P, _P, _P, _P, _P, _I, _P, _I] + [_I] * 16 + [_P])
+_CONV_ARGS = [_P, _P, _P, _P, _P, _I, _P, _I] + [_I] * 15
+KERNEL = Kernel("int8_conv", "int8_conv_wgmma_forward", _CONV_ARGS + [_I, _I, _P])
+KERNEL_GENERAL = Kernel("int8_conv_general", "int8_conv_forward", _CONV_ARGS + [_I, _P])
+KERNEL_QUANTIZE = Kernel("int8_conv", "int8_quantize_forward", [_P, _P, _P, _I, ctypes.c_longlong, _P])
 _OUT_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int32: 2}
+QINT_MAX = 127.0
+
+# wgmma column tiles the kernel is built for, and its reduction step in bytes
+TILE_N = (48, 64, 96, 128, 192, 256)
+STEP_K = 128
 
 IntPair = Union[int, Tuple[int, int]]
 
 
 def _pair(v: IntPair) -> Tuple[int, int]:
     return (v, v) if isinstance(v, int) else (int(v[0]), int(v[1]))
+
+
+def conv_route(c: int, o: int) -> str:
+    """The route a CUDA int8 conv with ``c`` input and ``o`` output channels takes:
+    ``"wgmma"`` where 16-channel copies and even column pairs fit (C % 16 == 0,
+    O % 8 == 0), else ``"general"``."""
+    return "wgmma" if c % 16 == 0 and o % 8 == 0 else "general"
+
+
+def tile_n(o: int) -> int:
+    """The wgmma route's column tile: the layer's whole O rounded up to a built width,
+    or 256-wide tiles beyond 256."""
+    return next((n for n in TILE_N if n >= o), TILE_N[-1])
+
+
+def pack_weights(w_q: torch.Tensor) -> torch.Tensor:
+    """HWIO int8 weights as the wgmma route reads them: an (O_pad, K_pad) K-major matrix,
+    row o holding ``w_q[r, s, c, o]`` at ``(r * KW + s) * C + c``, zero beyond O (whole
+    column tiles) and K (whole 128-byte steps)."""
+    kh, kw, c, o = w_q.shape
+    packed = w_q.new_zeros(_packed_shape(kh, kw, c, o))
+    packed[:o, : kh * kw * c] = w_q.permute(3, 0, 1, 2).reshape(o, kh * kw * c)
+    return packed
+
+
+def _packed_shape(kh: int, kw: int, c: int, o: int) -> Tuple[int, int]:
+    bn = tile_n(o)
+    return -(-o // bn) * bn, -(-kh * kw * c // STEP_K) * STEP_K
 
 
 def _geometry(x_q: torch.Tensor, w_q: torch.Tensor, stride: IntPair, padding: IntPair, dilation: IntPair):
@@ -41,6 +101,31 @@ def _geometry(x_q: torch.Tensor, w_q: torch.Tensor, stride: IntPair, padding: In
     oh = (h + 2 * ph - dh * (kh - 1) - 1) // sh + 1
     ow = (w + 2 * pw - dw * (kw - 1) - 1) // sw + 1
     return (sh, sw), (ph, pw), (dh, dw), oh, ow
+
+
+def quantize_activation_plain(x: torch.Tensor, s_x: torch.Tensor) -> torch.Tensor:
+    """``clip(round(x / s_x), -127, 127)`` as int8 (``quant.py:237-244``); torch.round
+    rounds half to even, as jnp.round does."""
+    return torch.round(x.float() / s_x).clamp_(-QINT_MAX, QINT_MAX).to(torch.int8)
+
+
+def quantize_activation(x: torch.Tensor, s_x: torch.Tensor) -> torch.Tensor:
+    """:func:`quantize_activation_plain`, by the ``int8_quantize`` kernel for a CUDA
+    ``x`` (float32 or bfloat16, any shape; the result is contiguous in ``x``'s shape)."""
+    if x.device.type == "cpu":
+        return quantize_activation_plain(x, s_x)
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"the quantize kernel takes float32 or bfloat16, got {x.dtype}")
+    if s_x.device != x.device or s_x.dtype != torch.float32 or s_x.numel() != 1:
+        raise ValueError("s_x must be a float32 scalar tensor on x's device")
+    x = x.contiguous()
+    if x.data_ptr() % 16:
+        x = x.clone()
+    q = torch.empty(x.shape, dtype=torch.int8, device=x.device)
+    with torch.cuda.device(x.device):
+        KERNEL_QUANTIZE(x.data_ptr(), s_x.data_ptr(), q.data_ptr(), int(x.dtype == torch.bfloat16), x.numel(),
+                        torch.cuda.current_stream().cuda_stream)
+    return q
 
 
 def int8_conv_acc_plain(
@@ -78,48 +163,77 @@ def int8_conv_plain(
     return _epilogue(int8_conv_acc_plain(x_q, w_q, stride, padding, dilation), s_x, w_scale, bias, out_dtype)
 
 
-def _launch(x_q, w_q, s_x, w_scale, bias, stride, padding, dilation, out_dtype) -> torch.Tensor:
-    (sh, sw), (ph, pw), (dh, dw), oh, ow = _geometry(x_q, w_q, stride, padding, dilation)
-    dev = x_q.device
-    operands = [x_q, w_q] + ([] if out_dtype == torch.int32 else [s_x, w_scale]) + ([] if bias is None else [bias])
+def _launch(x, w_q, w_packed, s_x, w_scale, bias, stride, padding, dilation, out_dtype):
+    """Launches the route :func:`conv_route` picks on the int8 NHWC ``x``."""
+    (sh, sw), (ph, pw), (dh, dw), oh, ow = _geometry(x, w_q, stride, padding, dilation)
+    dev = x.device
+    operands = [x, w_q] + ([] if out_dtype == torch.int32 else [s_x, w_scale]) + ([] if bias is None else [bias])
     if dev.type != "cuda" or any(t.device != dev for t in operands):
         raise ValueError("all operands of the int8 conv must lie on one CUDA device")
-    if not (x_q.is_contiguous() and w_q.is_contiguous()):
+    if not (x.is_contiguous() and w_q.is_contiguous()):
         raise ValueError("x_q (NHWC) and w_q (HWIO) must be contiguous")
-    n, h, w, c = x_q.shape
+    n, h, w, c = x.shape
     kh, kw, _, o = w_q.shape
-    if out_dtype == torch.int32:
-        s_ptr = ws_ptr = b_ptr = None
-        bias_bf16 = 0
-    else:
-        if s_x.dtype != torch.float32 or s_x.numel() != 1 or w_scale.dtype != torch.float32 or w_scale.shape != (o,):
-            raise ValueError("s_x must be a float32 scalar tensor and w_scale a float32 (O,) tensor")
+    s_ptr = ws_ptr = b_ptr = None
+    bias_bf16 = 0
+    if out_dtype != torch.int32:
+        if s_x.dtype != torch.float32 or s_x.numel() != 1:
+            raise ValueError("s_x must be a float32 scalar tensor")
+        s_x = s_x.contiguous()
+        s_ptr = s_x.data_ptr()
+        if w_scale.dtype != torch.float32 or w_scale.shape != (o,):
+            raise ValueError("w_scale must be a float32 (O,) tensor")
         if bias is not None and (bias.dtype not in (torch.float32, torch.bfloat16) or bias.shape != (o,)):
             raise ValueError("bias must be a float32 or bfloat16 (O,) tensor")
-        s_x, w_scale = s_x.contiguous(), w_scale.contiguous()
+        w_scale = w_scale.contiguous()
         bias = None if bias is None else bias.contiguous()
-        s_ptr, ws_ptr = s_x.data_ptr(), w_scale.data_ptr()
+        ws_ptr = w_scale.data_ptr()
         b_ptr = None if bias is None else bias.data_ptr()
         bias_bf16 = int(bias is not None and bias.dtype == torch.bfloat16)
     out = torch.empty((n, oh, ow, o), dtype=out_dtype, device=dev)
-    # the kernel's fast staging path takes 16-channel runs of x and 4-channel runs of w
-    fast = int(c % 16 == 0 and o % 4 == 0 and x_q.data_ptr() % 16 == 0 and w_q.data_ptr() % 4 == 0)
+    geometry = (n, h, w, c, o, kh, kw, sh, sw, ph, pw, dh, dw, oh, ow)
+    route = conv_route(c, o)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        KERNEL(
-            x_q.data_ptr(), w_q.data_ptr(), s_ptr, ws_ptr, b_ptr, bias_bf16, out.data_ptr(), _OUT_CODES[out_dtype],
-            n, h, w, c, o, kh, kw, sh, sw, ph, pw, dh, dw, oh, ow, fast, stream,
-        )
+        if route == "wgmma":
+            if w_packed is None:
+                w_packed = pack_weights(w_q)
+            if (w_packed.device != dev or w_packed.dtype != torch.int8 or not w_packed.is_contiguous()
+                    or tuple(w_packed.shape) != _packed_shape(kh, kw, c, o)):
+                raise ValueError(f"w_packed ({tuple(w_packed.shape)}, {w_packed.device}) is not pack_weights(w_q)")
+            if x.data_ptr() % 16:
+                x = x.clone()
+            KERNEL(x.data_ptr(), w_packed.data_ptr(), s_ptr, ws_ptr, b_ptr, bias_bf16, out.data_ptr(),
+                   _OUT_CODES[out_dtype], *geometry, tile_n(o), w_packed.shape[1], stream)
+        else:
+            # the general kernel's fast staging path takes 16-channel runs of x and 4-channel runs of w
+            fast = int(c % 16 == 0 and o % 4 == 0 and x.data_ptr() % 16 == 0 and w_q.data_ptr() % 4 == 0)
+            KERNEL_GENERAL(x.data_ptr(), w_q.data_ptr(), s_ptr, ws_ptr, b_ptr, bias_bf16, out.data_ptr(),
+                           _OUT_CODES[out_dtype], *geometry, fast, stream)
     return out
 
 
 def int8_conv_acc(
-    x_q: torch.Tensor, w_q: torch.Tensor, stride: IntPair = 1, padding: IntPair = 0, dilation: IntPair = 1
+    x_q: torch.Tensor,
+    w_q: torch.Tensor,
+    stride: IntPair = 1,
+    padding: IntPair = 0,
+    dilation: IntPair = 1,
+    w_packed: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """The int32 accumulator of the int8 conv, NHWC (no epilogue)."""
+    """The int32 accumulator of the int8 conv, NHWC (no epilogue). ``w_packed``:
+    :func:`pack_weights` of ``w_q``, made here when the wgmma route needs it and it is
+    not given."""
     if x_q.device.type == "cpu" and w_q.device.type == "cpu":
         return int8_conv_acc_plain(x_q, w_q, stride, padding, dilation)
-    return _launch(x_q, w_q, None, None, None, stride, padding, dilation, torch.int32)
+    return _launch(x_q, w_q, w_packed, None, None, None, stride, padding, dilation, torch.int32)
+
+
+def _check_call(groups: int, out_dtype: torch.dtype) -> None:
+    if groups != 1:
+        raise NotImplementedError("the int8 conv kernel supports groups=1 only")
+    if out_dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"out_dtype must be float32 or bfloat16, got {out_dtype}")
 
 
 def int8_conv(
@@ -133,6 +247,7 @@ def int8_conv(
     dilation: IntPair = 1,
     groups: int = 1,
     out_dtype: torch.dtype = torch.float32,
+    w_packed: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """``float(conv(x_q, w_q)) * (s_x * w_scale) + bias`` in ``out_dtype``, NHWC.
 
@@ -143,11 +258,31 @@ def int8_conv(
         bias: optional ``(O,)``, float32 or bfloat16
         groups: must be 1 (the kernel has no grouped form yet)
         out_dtype: float32 or bfloat16
+        w_packed: :func:`pack_weights` of ``w_q``, made here when the wgmma route needs
+            it and it is not given
     """
-    if groups != 1:
-        raise NotImplementedError("the int8 conv kernel supports groups=1 only")
-    if out_dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"out_dtype must be float32 or bfloat16, got {out_dtype}")
+    _check_call(groups, out_dtype)
     if x_q.device.type == "cpu" and w_q.device.type == "cpu":
         return int8_conv_plain(x_q, w_q, s_x, w_scale, bias, stride, padding, dilation, out_dtype)
-    return _launch(x_q, w_q, s_x, w_scale, bias, stride, padding, dilation, out_dtype)
+    return _launch(x_q, w_q, w_packed, s_x, w_scale, bias, stride, padding, dilation, out_dtype)
+
+
+def quantized_conv(
+    x: torch.Tensor,
+    s_x: torch.Tensor,
+    w_q: torch.Tensor,
+    w_scale: torch.Tensor,
+    bias: Optional[torch.Tensor] = None,
+    stride: IntPair = 1,
+    padding: IntPair = 0,
+    dilation: IntPair = 1,
+    out_dtype: torch.dtype = torch.float32,
+    w_packed: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """``_quantized_conv`` (``quant.py:237-274``) on a float NHWC ``x``: quantized with
+    ``s_x`` by :func:`quantize_activation`, then :func:`int8_conv`. On the card that is
+    two launches; ``x`` is read in place when its NHWC view is contiguous (an NCHW
+    tensor in channels_last)."""
+    return int8_conv(quantize_activation(x, s_x), w_q, s_x, w_scale, bias, stride, padding, dilation,
+                     out_dtype=out_dtype, w_packed=w_packed)
+

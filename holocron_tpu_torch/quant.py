@@ -4,10 +4,12 @@
 - **Weights**: per-output-channel symmetric int8, ``w_scale[o] = max(absmax(W[o]), 1e-12) / 127``.
 - **Activations**: per-tensor symmetric int8, ``s_x = max(absmax(x), 1e-12) / 127``,
   calibrated on sample batches by forward pre-hooks, or computed per call without them.
-  Quantizing is ``clip(round_half_even(x / s_x), -127, 127)``, in plain PyTorch.
-- **Compute**: the int8 x int8 -> int32 conv and its epilogue
-  ``acc * (s_x * w_scale) + bias`` run in :mod:`.kernels.int8_conv` (the CUDA kernel
-  on the card).
+  Quantizing is ``clip(round_half_even(x / s_x), -127, 127)``: :func:`quantize_activation`,
+  a kernel on the card and its plain PyTorch version (``quantize_activation_plain``) on
+  the CPU.
+- **Compute**: quantization, the int8 x int8 -> int32 conv and its epilogue
+  ``acc * (s_x * w_scale) + bias`` run in :func:`.kernels.int8_conv.quantized_conv` (two
+  CUDA launches a layer on the card, with weights packed once per layer).
 
 :func:`quantize_model` copies a model and swaps each selected ``nn.Conv2d`` for a
 :class:`QuantizedConv2d`; architecture code has no quantized variant. The same convs
@@ -24,7 +26,7 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
-from .kernels.int8_conv import int8_conv
+from .kernels.int8_conv import conv_route, pack_weights, quantize_activation, quantized_conv
 
 __all__ = [
     "QINT_MAX",
@@ -72,12 +74,6 @@ def selection_policy(arch: str) -> Optional[Dict]:
 def _is_quantizable_conv(module: nn.Module) -> bool:
     # type(...) is, as in quant.py:93: subclasses may have other semantics
     return type(module) is nn.Conv2d and module.padding_mode == "zeros" and not isinstance(module.padding, str)
-
-
-def quantize_activation(x: torch.Tensor, s_x: torch.Tensor) -> torch.Tensor:
-    """``clip(round(x / s_x), -127, 127)`` as int8 (``quant.py:237-244``); torch.round
-    rounds half to even, as jnp.round does."""
-    return torch.round(x.float() / s_x).clamp_(-QINT_MAX, QINT_MAX).to(torch.int8)
 
 
 @torch.no_grad()
@@ -135,7 +131,10 @@ class QuantizedConv2d(nn.Module):
 
     ``w_scale`` and ``act_scale`` belong to the int8 arithmetic and stay float32 when
     the module's float remainder (the bias) is cast, e.g. by ``.to(torch.bfloat16)``.
-    ``act_scale`` is None for a per-call (dynamic) activation scale.
+    ``act_scale`` is None for a per-call (dynamic) activation scale. ``kernel_packed``
+    is ``kernel_q`` as the wgmma route reads it (``pack_weights``), None for shapes of
+    the general route; a non-persistent buffer, remade when the module moves, so the
+    ``state_dict`` holds ``kernel_q`` (HWIO) alone.
     """
 
     def __init__(
@@ -147,6 +146,7 @@ class QuantizedConv2d(nn.Module):
         self.stride, self.padding, self.dilation = conv.stride, conv.padding, conv.dilation
         device = conv.weight.device
         self.register_buffer("kernel_q", kernel_q.to(device))
+        self.register_buffer("kernel_packed", self._packed(), persistent=False)
         self.register_buffer("w_scale", w_scale.to(device=device, dtype=torch.float32))
         act_scale = None
         if act_absmax is not None:
@@ -155,13 +155,22 @@ class QuantizedConv2d(nn.Module):
         self.register_buffer("act_scale", act_scale)
         self.bias = None if conv.bias is None else nn.Parameter(conv.bias.detach().clone(), requires_grad=False)
 
+    def _packed(self) -> Optional[torch.Tensor]:
+        _, _, c, o = self.kernel_q.shape
+        return pack_weights(self.kernel_q) if conv_route(c, o) == "wgmma" else None
+
     def _apply(self, fn, recurse=True):
         scales = {"w_scale": self.w_scale, "act_scale": self.act_scale}
         super()._apply(fn, recurse)
         for name, value in scales.items():  # follow device moves, not dtype casts
             if value is not None:
                 setattr(self, name, value.to(self.kernel_q.device))
+        self.kernel_packed = self._packed()
         return self
+
+    def _load_from_state_dict(self, *args, **kwargs):
+        super()._load_from_state_dict(*args, **kwargs)
+        self.kernel_packed = self._packed()  # kernel_q may have changed in place
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.act_scale is None:
@@ -169,10 +178,9 @@ class QuantizedConv2d(nn.Module):
         else:
             s_x = self.act_scale
         # NHWC: a free view when x is channels_last, as on the card
-        x_q = quantize_activation(x, s_x).permute(0, 2, 3, 1).contiguous()
-        y = int8_conv(
-            x_q, self.kernel_q, s_x, self.w_scale, self.bias,
-            self.stride, self.padding, self.dilation, out_dtype=x.dtype,
+        y = quantized_conv(
+            x.permute(0, 2, 3, 1), s_x, self.kernel_q, self.w_scale, self.bias,
+            self.stride, self.padding, self.dilation, out_dtype=x.dtype, w_packed=self.kernel_packed,
         )
         return y.permute(0, 3, 1, 2)
 

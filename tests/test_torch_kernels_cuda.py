@@ -12,6 +12,7 @@ import torch
 
 from holocron_tpu_torch.kernels import add2d as A
 from holocron_tpu_torch.kernels import involution as V
+from holocron_tpu_torch.kernels import int8_conv as Q
 from holocron_tpu_torch.kernels.int8_conv import KERNEL as INT8_KERNEL
 from holocron_tpu_torch.kernels.int8_conv import int8_conv, int8_conv_acc, int8_conv_acc_plain, int8_conv_plain
 from holocron_tpu_torch.kernels.involution import KERNEL as INVOLUTION_KERNEL
@@ -62,7 +63,11 @@ def test_int8_conv_kernel_matches_plain(cuda, n, h, w, c, o, ksize, stride, padd
     gen = torch.Generator(device=cuda).manual_seed(1)
     x_q = torch.randint(-127, 128, (n, h, w, c), generator=gen, device=cuda, dtype=torch.int8)
     w_q = torch.randint(-127, 128, (ksize, ksize, c, o), generator=gen, device=cuda, dtype=torch.int8)
+    counter = INT8_KERNEL if Q.conv_route(c, o) == "wgmma" else Q.KERNEL_GENERAL
+    before = counter.launches
     acc = int8_conv_acc(x_q, w_q, stride, padding, dilation)
+    torch.cuda.synchronize()
+    assert counter.launches == before + 1
     assert torch.equal(acc, int8_conv_acc_plain(x_q, w_q, stride, padding, dilation).contiguous())
     s_x = torch.tensor(0.013, device=cuda)
     w_scale = torch.rand(o, generator=gen, device=cuda) / 127
@@ -72,6 +77,84 @@ def test_int8_conv_kernel_matches_plain(cuda, n, h, w, c, o, ksize, stride, padd
             got = int8_conv(x_q, w_q, s_x, w_scale, b, stride, padding, dilation, out_dtype=dtype).float()
             ref = int8_conv_plain(x_q, w_q, s_x, w_scale, b, stride, padding, dilation, out_dtype=dtype).float()
             assert bool(((got - ref).abs() <= ref.abs() * ulp).all())
+
+
+def _int8_route_matches_plain(cuda, x, w_q, stride, padding, dilation, seed):
+    """quantize + conv on the card against quantize_activation_plain + the plain conv:
+    quantized activations equal, int32 accumulator equal, float32 within one float32
+    ulp and bf16 within one bf16 ulp, with and without bias; the route's two counters
+    advance once each and the general route's not at all."""
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    o = w_q.shape[3]
+    s_x = x.float().abs().amax() / 127
+    w_scale = torch.rand(o, generator=gen, device=cuda) / 127
+    packed = Q.pack_weights(w_q)
+    x_q = Q.quantize_activation(x, s_x)
+    assert torch.equal(x_q, Q.quantize_activation_plain(x, s_x))
+    acc = int8_conv_acc(x_q, w_q, stride, padding, dilation, w_packed=packed)
+    assert torch.equal(acc, int8_conv_acc_plain(x_q, w_q, stride, padding, dilation).contiguous())
+    for bias in (None, torch.randn(o, generator=gen, device=cuda)):
+        for dtype, ulp in ((torch.float32, 2.0**-23), (torch.bfloat16, 2.0**-7)):
+            b = None if bias is None else bias.to(dtype)
+            before = (INT8_KERNEL.launches, Q.KERNEL_QUANTIZE.launches, Q.KERNEL_GENERAL.launches)
+            got = Q.quantized_conv(x, s_x, w_q, w_scale, b, stride, padding, dilation, out_dtype=dtype,
+                                   w_packed=packed)
+            torch.cuda.synchronize()
+            assert (INT8_KERNEL.launches, Q.KERNEL_QUANTIZE.launches, Q.KERNEL_GENERAL.launches) == (
+                before[0] + 1, before[1] + 1, before[2])
+            ref = int8_conv_plain(x_q, w_q, s_x, w_scale, b, stride, padding, dilation, out_dtype=dtype).float()
+            assert got.dtype == dtype
+            assert bool(((got.float() - ref).abs() <= ref.abs() * ulp).all())
+
+
+@pytest.mark.parametrize(
+    "hw,c,o,stride",
+    [(112, 48, 48, 1), (112, 48, 48, 2), (56, 48, 48, 1), (56, 48, 96, 2), (28, 96, 96, 1), (28, 96, 192, 2),
+     (14, 192, 192, 1), (14, 192, 1280, 2), (7, 1280, 1280, 1)],
+)
+def test_int8_route_at_repvgg_a0_geometries(cuda, hw, c, o, stride):
+    """The nine int8 layer geometries of repvgg_a0 (3x3, padding 1), batch 2."""
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    x = torch.randn(2, hw, hw, c, generator=gen, device=cuda).relu().to(torch.bfloat16)
+    w_q = torch.randint(-127, 128, (3, 3, c, o), generator=gen, device=cuda, dtype=torch.int8)
+    _int8_route_matches_plain(cuda, x, w_q, stride, 1, 1, 7)
+
+
+@pytest.mark.parametrize(
+    "n,h,w,c,o,ksize,stride,padding,dilation,dtype",
+    [
+        (3, 5, 7, 48, 48, 3, 1, 1, 1, torch.bfloat16),      # ragged M (105 rows), C = 48 (K = 432)
+        (1, 9, 11, 48, 1280, 3, 2, 1, 1, torch.float32),    # O = 1280 over five 256-wide tiles, float32 x
+        (2, 6, 5, 64, 320, 3, 1, 2, 2, torch.bfloat16),     # O = 320: a 256-wide tile and a padded one; dilation
+        (1, 4, 4, 16, 8, 1, 1, 0, 1, torch.float32),        # the narrowest shapes the route takes
+        (2, 13, 3, 32, 24, 3, 2, 1, 1, torch.bfloat16),     # non-square, tile 48 > O
+    ],
+)
+def test_int8_route_edge_cases(cuda, n, h, w, c, o, ksize, stride, padding, dilation, dtype):
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    x = torch.randn(n, h, w, c, generator=gen, device=cuda).to(dtype)
+    w_q = torch.randint(-127, 128, (ksize, ksize, c, o), generator=gen, device=cuda, dtype=torch.int8)
+    _int8_route_matches_plain(cuda, x, w_q, stride, padding, dilation, 9)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_int8_quantize_ties_and_clip(cuda, dtype):
+    """Exactly on the ties (k + 0.5) * s_x (s_x a power of two, so the division is
+    exact), one ulp either side, at and beyond +-127 * s_x, zeros; and near the ties of
+    a scale that is not a power of two: equal to the plain version, with a ragged tail
+    (the length is not a multiple of 16)."""
+    s = torch.tensor(2.0**-5, device=cuda)
+    k = torch.arange(-140, 141, device=cuda, dtype=torch.float32)
+    ties = (k + 0.5) * s
+    x = torch.cat([ties, torch.nextafter(ties, ties + 1), torch.nextafter(ties, ties - 1), k * s,
+                   torch.tensor([127.0, -127.0, 127.49, -127.51, 1e6, -1e6, 0.0, -0.0], device=cuda) * s])
+    assert x.numel() % 16 != 0
+    before = Q.KERNEL_QUANTIZE.launches
+    for xs, sx in ((x, s), (x / s * 0.0123, torch.tensor(0.0123, device=cuda))):
+        xs = xs.to(dtype)
+        assert torch.equal(Q.quantize_activation(xs, sx), Q.quantize_activation_plain(xs, sx))
+    torch.cuda.synchronize()
+    assert Q.KERNEL_QUANTIZE.launches == before + 2
 
 
 def test_int8_conv_refuses_what_it_does_not_take(cuda):

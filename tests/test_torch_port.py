@@ -53,7 +53,8 @@ def test_cpu_tensors_never_launch_a_kernel():
         qm = quant.quantize_model(model, min_in_channels=8)
         qm(torch.randn(2, 3, 32, 32, generator=g))
     assert set(kernels.KERNELS) == {"involution", "involution_bwd_dxp", "involution_bwd_dkern", "add2d_fwd",
-                                    "add2d_bwd_dp", "add2d_bwd_dw", "int8_conv"}
+                                    "add2d_bwd_dp", "add2d_bwd_dw", "int8_conv", "int8_conv_general",
+                                    "int8_quantize"}
     assert all(k.launches == 0 for k in kernels.KERNELS.values())
     assert all(k._fn is None for k in kernels.KERNELS.values())
 
