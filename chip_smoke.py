@@ -29,7 +29,9 @@ Phases, each printing one JSON line to stdout:
    moments and the optimizer's count unchanged), and ``check_setup`` for 10 steps on a
    fresh model (the loss must fall).
 5. ``involution_train``: ``Involution2d`` at the same shape, forward and backward
-   through the module in bf16 (its forward and both gradient kernels).
+   through the module in bf16: its forward and both gradient kernels of the tiled route
+   (``csrc/involution.cu``, halo tiles in shared memory), which must launch, and none
+   of the general route's.
 6. ``add2d``: ``Add2d(64 -> 128, k3, pad 1)`` on N4 x 56 x 56 in float32, forward and
    backward through the module (``scripts/bench_ops.py:112-113``'s layer: L 12544,
    D 576, O 128).
@@ -37,9 +39,10 @@ Phases, each printing one JSON line to stdout:
    the paths gave it, with its time, its plain version's time, the time of one PyTorch
    call computing the same function where there is one (``torch.cdist`` for add2d), and
    its bound: the larger of the bytes it must move over 3.35 TB/s and the operations it
-   must do over the card's rate for them. The int8 route is checked (bit-exact
-   quantization, also on inputs on its ties and beyond its clip; exact accumulator;
-   outputs within one ulp) at each of repvgg_a0's int8 layer geometries, checked
+   must do over the card's rate for them. Both routes of the involution backward (tiled
+   and general) are checked and timed at the path's shape. The int8 route is checked
+   (bit-exact quantization, also on inputs on its ties and beyond its clip; exact
+   accumulator; outputs within one ulp) at each of repvgg_a0's int8 layer geometries, checked
    again and timed at each at batch 256 (``check_int8_geometry`` lines, device time
    from CUDA graphs): quantize + conv, each kernel, the general route, cuDNN's bf16
    conv of the layer, the plain version, and the bounds of the route and of each kernel.
@@ -712,12 +715,14 @@ def phase_involution_train(device, n: int = 32, hw: int = 56, iters: int = 10) -
     torch.cuda.synchronize()
 
     names = ("involution", "involution_bwd_dxp", "involution_bwd_dkern")
+    general = ("involution_bwd_dxp_general", "involution_bwd_dkern_general")
     reset_counts()
     module(x).backward(gy)
     torch.cuda.synchronize()
-    launches = {name: KERNELS[name].launches for name in names}
-    if not all(launches.values()):
-        fail(f"Involution2d training never launched some of its kernels: {launches}")
+    launches = {name: KERNELS[name].launches for name in names + general}
+    if not all(launches[name] for name in names) or any(launches[name] for name in general):
+        fail(f"Involution2d training: expected the forward and the tiled backward kernels, not the general "
+             f"route's, got {launches}")
     grads = {"x": x.grad, "reduce.weight": module.reduce.weight.grad, "span.weight": module.span.weight.grad}
     if not all(gr is not None and bool(torch.isfinite(gr).all()) and bool(gr.abs().sum() > 0) for gr in grads.values()):
         fail("Involution2d training: a gradient is missing, zero or not finite")
@@ -778,11 +783,13 @@ def _excess(got, ref, allowed) -> float:
 
 
 def check_involution_bwd(device, n: int = 32, hw: int = 56, iters: int = 20) -> dict:
-    """Both backward kernels against their plain versions at the module's shapes. dxp:
-    the kernel adds in the plain version's tap order with separate roundings, so bf16
-    within one bf16 ulp of plain and f32 within 1e-5. dkern: each group's cg = 16
-    products are summed in another order (a warp butterfly), so within 1e-5 of the sum
-    of their absolute values, plus one bf16 rounding of each side in bf16."""
+    """Both backward kernels of both routes against their plain versions at the module's
+    shapes; the path takes the tiled route, and the general route's public functions
+    are called directly. dxp: each kernel adds in the plain version's tap order with
+    separate roundings, so equal to plain, bit for bit. dkern: each group's cg = 16
+    products are summed in another order (tiled: four partial sums of fused
+    multiply-adds; general: a warp butterfly), so within 1e-5 of the sum of their
+    absolute values, plus one bf16 rounding of each side in bf16."""
     import torch
 
     from holocron_tpu_torch.kernels import involution as V
@@ -792,32 +799,39 @@ def check_involution_bwd(device, n: int = 32, hw: int = 56, iters: int = 20) -> 
     xp = torch.randn(n, h + k - 1, w + k - 1, c, generator=gen, device=device)
     kern = torch.randn(n, h, w, k * k * g, generator=gen, device=device)
     gout = torch.randn(n, h, w, c, generator=gen, device=device)
-    errs = {"dxp": 0.0, "dkern": 0.0}
+    if V.bwd_route(c, g, torch.bfloat16) != "tiled":
+        fail("involution backward: the path's shape does not take the tiled route")
+    kernels = {"involution_bwd_dxp": (V.involution_bwd_dxp, V.involution_bwd_dxp_plain),
+               "involution_bwd_dkern": (V.involution_bwd_dkern, V.involution_bwd_dkern_plain),
+               "involution_bwd_dxp_general": (V.involution_bwd_dxp_general, V.involution_bwd_dxp_plain),
+               "involution_bwd_dkern_general": (V.involution_bwd_dkern_general, V.involution_bwd_dkern_plain)}
+    errs = dict.fromkeys(kernels, 0.0)
     for dtype, ulp in ((torch.bfloat16, 2.0**-7), (torch.float32, 0.0)):
         a, b, gg = xp.to(dtype), kern.to(dtype), gout.to(dtype)
-        got, ref = V.involution_bwd_dxp(a, b, gg, k, g), V.involution_bwd_dxp_plain(a, b, gg, k, g)
-        allowed = ref.float().abs() * ulp if dtype == torch.bfloat16 else torch.full_like(ref.float(), 1e-5)
-        if _excess(got, ref, allowed) > 0:
-            fail(f"involution dxp {dtype}: kernel and plain differ beyond {'one bf16 ulp' if ulp else '1e-5'}")
-        errs["dxp"] = max(errs["dxp"], float((got.float() - ref.float()).abs().max()))
-        got, ref = V.involution_bwd_dkern(a, b, gg, k, g), V.involution_bwd_dkern_plain(a, b, gg, k, g)
+        refs = {"dxp": V.involution_bwd_dxp_plain(a, b, gg, k, g), "dkern": V.involution_bwd_dkern_plain(a, b, gg, k, g)}
         absterms = V.involution_bwd_dkern_plain(a.float().abs(), b.float(), gg.float().abs(), k, g)
-        if _excess(got, ref, 1e-5 * absterms + ulp * ref.float().abs()) > 0:
-            fail(f"involution dkern {dtype}: kernel and plain differ beyond the stated tolerance")
-        errs["dkern"] = max(errs["dkern"], float((got.float() - ref.float()).abs().max()))
-        del got, ref, absterms
+        for name, (fn, _) in kernels.items():
+            got = fn(a, b, gg, k, g)
+            if "dxp" in name:
+                ref = refs["dxp"]
+                if not torch.equal(got, ref):
+                    fail(f"{name} {dtype}: kernel and plain differ (expected bit for bit)")
+            else:
+                ref = refs["dkern"]
+                if _excess(got, ref, 1e-5 * absterms + ulp * ref.float().abs()) > 0:
+                    fail(f"{name} {dtype}: kernel and plain differ beyond the stated tolerance")
+            errs[name] = max(errs[name], float((got.float() - ref.float()).abs().max()))
+            del got
+        del refs, absterms
     a, b, gg = xp.to(torch.bfloat16), kern.to(torch.bfloat16), gout.to(torch.bfloat16)
     records = {}
     ops = 2 * n * h * w * c * k * k  # a multiply and an add per (output element, tap)
-    for name, fn, plain, nbytes in (
-        ("involution_bwd_dxp", V.involution_bwd_dxp, V.involution_bwd_dxp_plain, 2 * (b.numel() + gg.numel() + a.numel())),
-        ("involution_bwd_dkern", V.involution_bwd_dkern, V.involution_bwd_dkern_plain,
-         2 * (a.numel() + gg.numel() + b.numel())),
-    ):
+    # each reads two of xp, kern and g once and writes the third's shape once, bf16
+    nbytes = 2 * (a.numel() + b.numel() + gg.numel())
+    for name, (fn, plain) in kernels.items():
         ms = cuda_ms(lambda: fn(a, b, gg, k, g), iters)
         plain_ms = cuda_ms(lambda: plain(a, b, gg, k, g), max(1, iters // 4), warmup=1)
-        key = name.rsplit("_", 1)[1]
-        records[name] = {"max_abs_err": errs[key], "ms": ms, "plain_ms": plain_ms, "library_ms": None,
+        records[name] = {"max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms, "library_ms": None,
                          **bound(nbytes, ops, FP32_INSTR_PER_S)}
     torch.cuda.synchronize()
     emit({"phase": "check", "kernel": "involution_bwd", "shape": [n, h, w, c, g, k], **records})
@@ -940,7 +954,9 @@ def main() -> int:
         entry("involution", inv_src, "holocron_tpu/kernels/involution.py:30", inv_launches, inv,
               max(inv["max_abs_err_bf16"], inv["max_abs_err_f32"])),
         *(entry(name, inv_src, "holocron_tpu/kernels/involution.py:100", inv_train[name], inv_bwd[name],
-                inv_bwd[name]["max_abs_err"]) for name in ("involution_bwd_dxp", "involution_bwd_dkern")),
+                inv_bwd[name]["max_abs_err"]) for name in ("involution_bwd_dxp", "involution_bwd_dkern",
+                                                           "involution_bwd_dxp_general",
+                                                           "involution_bwd_dkern_general")),
         entry("add2d_fwd", add_src, "holocron_tpu/kernels/add2d.py:20", add2d_launches["add2d_fwd"], add["add2d_fwd"],
               add["add2d_fwd"]["max_abs_err"]),
         *(entry(name, add_src, "holocron_tpu/kernels/add2d.py:82", add2d_launches[name], add[name],

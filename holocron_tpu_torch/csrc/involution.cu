@@ -28,23 +28,48 @@
 //                                                              * g[n,yy-dy,xx-dx,c]
 //   dkern[n,h,w,tap*G+j] = sum_{c in group j} xp[n,h+dy,w+dx,c] * g[n,h,w,c]
 //
-// Both are bound by device-memory bytes too (xp, kern and g read once, dxp and dkern
-// written once). dxp is written in gather form: one thread per element of dxp, c
-// fastest, looping over the k*k taps that reach it, so no two threads write one
-// element and no atomics are needed; it adds in tap order with separate roundings, as
-// the plain version does, so the two agree bit for bit. dkern gives one thread per
-// (pixel, channel), c fastest as in the forward; for each tap the cg = C/G products of
-// a group are summed across the group's lanes with warp shuffles (a butterfly, when cg
-// is a power of two that divides 32 and C is a multiple of 32), and the group's first
-// lane stores the sum. Other shapes take one thread per dkern element summing its
-// group's channels in order. Sums are float32, rounded once into the dtype.
+// Both would be bound by device-memory bytes (xp, kern and g read once, dxp and dkern
+// written once: 0.041 ms at N32, 56x56, C128, G8, k7, bf16), but a kernel that reads
+// each of the k*k taps through the cache, two bytes at a time, is bound instead by the
+// load and shuffle instructions it issues and their latency (the general route below:
+// 1.1 and 1.6 ms there). Two routes, chosen by shape in kernels/involution.py:bwd_route.
 //
-// Next step: a shared-memory halo tile of xp per block (each element loaded once
-// instead of k*k times through the cache) and several channels per thread with
-// 16-byte loads, in all three kernels.
+// Tiled route, where one group's channels are whole 16-byte vectors (cg * itemsize a
+// multiple of 16). A block takes a TH x TW tile of pixels of one image and a chunk of
+// whole groups, and first copies into shared memory, once, the tile's halo (TH+k-1) x
+// (TW+k-1) of the tensor it re-reads k*k times, with 16-byte cp.async copies, a warp
+// along each row (copy_halo_tile, then cp_async_wait_all_and_sync: the forward can use
+// them as they are). Every other access is a 16-byte vector, and index arithmetic is 32-bit (the
+// wrapper refuses tensors of 2^31 elements or more). With the loads gone, what bounds
+// both kernels on the H100 is the instructions they issue per product: the bf16 unpack
+// and the float32 arithmetic, and the shared-memory reads (PERF.md gives the measured
+// split).
+//  - dkern: the halo is of xp. A thread owns one (pixel, group), holds the group's cg
+//    values of g in registers, and for each tap reads the group's cg values of xp from
+//    shared memory, with no shuffles: the cg products are summed in float32 (four
+//    partial sums of fused multiply-adds, so in another order than the plain version)
+//    and the tap's value is staged in shared memory. The staged (pixel, tap, group)
+//    rows then go out as whole 16-byte stores. The vector a thread reads first is
+//    rotated by its group, so the eight threads of a quarter-warp hit distinct banks.
+//  - dxp (gather form: no atomics, deterministic): the halo is of g, every output pixel
+//    q that reaches the tile, and beside it the kern values the tile needs, copied as
+//    runs (for a q and a tap row dy, the taps dx that land in the tile are contiguous
+//    in kern): each (q, tap) value feeds one dxp pixel, so kern is read once, but
+//    through shared memory its loads leave the taps' critical path. A thread owns one
+//    dxp pixel and one 16-byte vector of channels (inside one group), and walks the
+//    taps in the plain version's order, multiplying and adding with separate roundings
+//    (__fmul_rn, __fadd_rn) in float32, so it agrees with the plain version bit for bit.
+//
+// General route, every other shape (e.g. cg = 4 in bfloat16, cg = 1): one thread per
+// element, loads through the cache, 64-bit indices. dxp as above, in tap order, bit
+// for bit; dkern sums a group's lanes with a warp butterfly (when cg is a power of two
+// that divides 32 and C is a multiple of 32), else one thread per dkern element sums
+// its group's channels in order.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <algorithm>
 
 namespace {
 
@@ -170,6 +195,315 @@ __global__ void __launch_bounds__(256) involution_backward_dkern_kernel(
   store_f32(dkern + idx, acc);
 }
 
+// ---- tiled route ------------------------------------------------------------------
+
+// elements of T in one 16-byte vector
+template <typename T>
+constexpr int kVec = 16 / static_cast<int>(sizeof(T));
+
+__device__ __forceinline__ void to_float(const uint4& v, float (&f)[4]) {
+  f[0] = __uint_as_float(v.x), f[1] = __uint_as_float(v.y), f[2] = __uint_as_float(v.z), f[3] = __uint_as_float(v.w);
+}
+
+// bfloat16 is the upper half of a float32; element 0 is the low half of v.x
+__device__ __forceinline__ void to_float(const uint4& v, float (&f)[8]) {
+  const unsigned int u[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) f[2 * i] = __uint_as_float(u[i] << 16), f[2 * i + 1] = __uint_as_float(u[i] & 0xffff0000u);
+}
+
+__device__ __forceinline__ uint4 from_float(const float (&f)[4]) {
+  return make_uint4(__float_as_uint(f[0]), __float_as_uint(f[1]), __float_as_uint(f[2]), __float_as_uint(f[3]));
+}
+
+__device__ __forceinline__ unsigned int pack_bf16x2(float lo, float hi) {
+  const __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const unsigned int*>(&p);
+}
+
+__device__ __forceinline__ uint4 from_float(const float (&f)[8]) {
+  return make_uint4(pack_bf16x2(f[0], f[1]), pack_bf16x2(f[2], f[3]), pack_bf16x2(f[4], f[5]), pack_bf16x2(f[6], f[7]));
+}
+
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+
+template <typename T>
+__device__ __forceinline__ uint4 ld16(const T* p) { return *reinterpret_cast<const uint4*>(p); }
+
+template <typename T>
+__device__ __forceinline__ uint4 ldg16(const T* p) { return __ldg(reinterpret_cast<const uint4*>(p)); }
+
+__device__ __forceinline__ unsigned int smem_addr(const void* p) {
+  return static_cast<unsigned int>(__cvta_generic_to_shared(p));
+}
+
+// Waits for this thread's cp.async copies, then for the block's.
+__device__ __forceinline__ void cp_async_wait_all_and_sync() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  __syncthreads();
+}
+
+// Starts copying rows [oy, oy + rows) x columns [ox, ox + cols) of image n of the NHWC
+// tensor src (hs x ws x c), channels [c0, c0 + cc), into shared memory laid out
+// [rows][cols][cc], with 16-byte cp.async copies. Pixels outside the image are not
+// written: callers never read them. cc, c0 and c are whole 16-byte vectors and the
+// image has fewer than 2^31 elements.
+template <typename T>
+__device__ void copy_halo_tile(T* tile, const T* __restrict__ src, int n, int hs, int ws, int c, int oy, int ox,
+                               int rows, int cols, int c0, int cc) {
+  constexpr int E = kVec<T>;
+  // a warp per row; the row's pixels inside the image are one run of vectors (one
+  // contiguous run of src when the tile holds every channel)
+  const int vecs = cc / E, x_lo = max(ox, 0), run = (min(ox + cols, ws) - x_lo) * vecs;
+  for (int r = threadIdx.x / 32; r < rows; r += blockDim.x / 32) {
+    const int y = oy + r;
+    if (y < 0 || y >= hs) continue;
+    const T* from = src + ((n * hs + y) * ws + x_lo) * c + c0;
+    const unsigned int to = smem_addr(tile + (r * cols + x_lo - ox) * cc);
+    for (int j = threadIdx.x % 32; j < run; j += 32) {
+      const int offset = cc == c ? j * E : (j / vecs) * c + (j % vecs) * E;
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(to + 16u * j), "l"(from + offset) : "memory");
+    }
+  }
+}
+
+// Starts copying `bytes` from global to shared memory in units of `unit` bytes (16, 8,
+// 4 or 2; both addresses and `bytes` are multiples of it): cp.async where the unit is 4
+// bytes or more, else through registers.
+__device__ __forceinline__ void copy_run(void* dst, const void* src, int bytes, int unit) {
+  const unsigned int d = smem_addr(dst);
+  const char* s = static_cast<const char*>(src);
+  if (unit == 16) {
+    for (int b = 0; b < bytes; b += 16)
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d + b), "l"(s + b) : "memory");
+  } else if (unit == 8) {
+    for (int b = 0; b < bytes; b += 8)
+      asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(d + b), "l"(s + b) : "memory");
+  } else if (unit == 4) {
+    for (int b = 0; b < bytes; b += 4)
+      asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d + b), "l"(s + b) : "memory");
+  } else {
+    for (int b = 0; b < bytes; b += 2)
+      *reinterpret_cast<unsigned short*>(static_cast<char*>(dst) + b) = *reinterpret_cast<const unsigned short*>(s + b);
+  }
+}
+
+// The tiles of a tiled launch: block t takes (image, chunk of gb groups, TH x TW tile of
+// a rows x cols grid), the tile fastest, so that neighbouring blocks, which run at the
+// same time, share their halos' rows through L2.
+struct Tiling {
+  int n, g0, y0, x0;
+  __device__ Tiling(int rows, int cols, int groups, int th, int tw, int gb) {
+    const int tiles_x = (cols + tw - 1) / tw, tiles = tiles_x * ((rows + th - 1) / th);
+    const int tile = blockIdx.x % tiles, rest = blockIdx.x / tiles, chunks = groups / gb;
+    n = rest / chunks, g0 = (rest % chunks) * gb;
+    y0 = (tile / tiles_x) * th, x0 = (tile % tiles_x) * tw;
+  }
+};
+
+// One tap of dxp: acc += kv * g, a multiply and an add, each rounded (the plain
+// version's arithmetic), for one 16-byte vector of g in shared memory.
+template <typename T>
+__device__ __forceinline__ void dxp_tap(float (&acc)[kVec<T>], T kv, const T* g) {
+  const float kf = to_f32(kv);
+  float gf[kVec<T>];
+  to_float(ld16(g), gf);
+#pragma unroll
+  for (int e = 0; e < kVec<T>; ++e) acc[e] = __fadd_rn(acc[e], __fmul_rn(kf, gf[e]));
+}
+
+// dxp: shared memory holds the halo of g, [TH+k-1][TW+k-1][cc], and the kern values the
+// tile needs, [dy][TH][TW+k-1][dx][gb]: for each tap row dy and each q of the TH rows
+// that reach the tile through it, the values of the taps (dy, dx) that land inside the
+// tile, a contiguous run of kern when the block holds every group. K: the kernel size
+// when it is known at compile time (3, 5, 7), else 0; with K known the taps of a pixel
+// whose k x k taps all lie inside the image unroll with no checks.
+template <typename T, int K>
+__global__ void __launch_bounds__(256) involution_backward_dxp_tiled_kernel(
+    const T* __restrict__ kern, const T* __restrict__ g, T* __restrict__ dxp, int h, int w, int c, int groups,
+    int k_arg, int th, int tw, int gb) {
+  extern __shared__ uint4 smem[];
+  constexpr int E = kVec<T>, kUnrolled = K > 0 ? K : 1;  // K = 0 never takes the unrolled loops
+  const int k = K > 0 ? K : k_arg;
+  const int hp = h + k - 1, wp = w + k - 1, cols = tw + k - 1, kk = k * k * groups;
+  const int cg = c / groups, cc = gb * cg, vecs = cc / E;
+  const Tiling at(hp, wp, groups, th, tw, gb);
+  const int n = at.n, g0 = at.g0, y0 = at.y0, x0 = at.x0, c0 = g0 * cg;
+  T* tile = reinterpret_cast<T*>(smem);
+  T* ks = tile + (th + k - 1) * cols * cc;  // a whole number of 16-byte vectors in
+  copy_halo_tile(tile, g, n, h, w, c, y0 - (k - 1), x0 - (k - 1), th + k - 1, cols, c0, cc);
+  {
+    // a warp per (dy, q row), a lane per q: the run of taps dx in [lo, hi) whose dxp
+    // column lies in the tile
+    const int bytes = gb * static_cast<int>(sizeof(T)), unit = min(16, bytes & -bytes);
+    for (int r = threadIdx.x / 32; r < k * th; r += blockDim.x / 32) {
+      const int dy = r / th, qy = y0 - dy + r % th;
+      if (qy < 0 || qy >= h) continue;
+      for (int qc = threadIdx.x % 32; qc < cols; qc += 32) {
+        const int qx = x0 - (k - 1) + qc;
+        if (qx < 0 || qx >= w) continue;
+        const int lo = max(0, k - 1 - qc), hi = min(k, cols - qc);
+        const T* src = kern + ((n * h + qy) * w + qx) * kk + dy * k * groups + g0;
+        T* dst = ks + ((r * cols + qc) * k) * gb;
+        if (gb == groups) {
+          copy_run(dst + lo * gb, src + lo * groups, (hi - lo) * bytes, unit);
+        } else {
+          for (int dx = lo; dx < hi; ++dx) copy_run(dst + dx * gb, src + dx * groups, bytes, unit);
+        }
+      }
+    }
+  }
+  cp_async_wait_all_and_sync();
+
+  for (int i = threadIdx.x; i < th * tw * vecs; i += blockDim.x) {
+    const int v = i % vecs, p = i / vecs, py = p / tw, px = p % tw;
+    const int yy = y0 + py, xx = x0 + px;
+    if (yy >= hp || xx >= wp) continue;
+    // tap (dy, dx) reads kv[dy * kv_dy + dx * kv_dx] and gv[-(dy * cols + dx) * cc]
+    const T* kv = ks + ((py * cols + px + k - 1) * k) * gb + (c0 + v * E) / cg - g0;
+    const int kv_dy = th * cols * k * gb, kv_dx = (1 - k) * gb;
+    const T* gv = tile + ((py + k - 1) * cols + px + k - 1) * cc + v * E;
+    float acc[E];
+#pragma unroll
+    for (int e = 0; e < E; ++e) acc[e] = 0.f;
+    if (K > 0 && yy >= k - 1 && yy < h && xx >= k - 1 && xx < w) {  // every tap inside the image
+#pragma unroll
+      for (int dy = 0; dy < kUnrolled; ++dy)
+#pragma unroll
+        for (int dx = 0; dx < kUnrolled; ++dx)
+          dxp_tap(acc, kv[dy * kv_dy + dx * kv_dx], gv - (dy * cols + dx) * cc);
+    } else {
+      for (int dy = 0; dy < k; ++dy) {
+        if (yy - dy < 0 || yy - dy >= h) continue;
+        for (int dx = 0; dx < k; ++dx)
+          if (xx - dx >= 0 && xx - dx < w) dxp_tap(acc, kv[dy * kv_dy + dx * kv_dx], gv - (dy * cols + dx) * cc);
+      }
+    }
+    *reinterpret_cast<uint4*>(dxp + ((n * hp + yy) * wp + xx) * c + c0 + v * E) = from_float(acc);
+  }
+}
+
+// The dot product of a group's cg values of xp (shared memory, 16-byte vectors at xt +
+// off[j]) and of g (registers), in float32: four partial sums of fused multiply-adds.
+template <typename T, int NV>
+__device__ __forceinline__ float group_dot(const T* xt, const int (&off)[NV], const float (&gf)[NV][kVec<T>]) {
+  constexpr int E = kVec<T>;
+  float a[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+  for (int j = 0; j < NV; ++j) {
+    float xf[E];
+    to_float(ld16(xt + off[j]), xf);
+#pragma unroll
+    for (int e = 0; e < E; ++e) a[e % 4] = fmaf(xf[e], gf[j][e], a[e % 4]);
+  }
+  return (a[0] + a[1]) + (a[2] + a[3]);
+}
+
+// Writes the 16-byte-aligned chunk [a, a + E) of out that a run [start, start + len)
+// covers, from src (src[j - start] is element j): a whole vector where the run covers
+// the chunk, else element by element.
+template <typename T>
+__device__ __forceinline__ void store_chunk(T* __restrict__ out, int start, int len, const T* src, int a) {
+  constexpr int E = kVec<T>;
+  if (a >= start && a + E <= start + len) {
+    float f[E];
+#pragma unroll
+    for (int e = 0; e < E; ++e) f[e] = to_f32(src[a + e - start]);
+    *reinterpret_cast<uint4*>(out + a) = from_float(f);
+  } else {
+    for (int j = max(a, start); j < min(a + E, start + len); ++j) out[j] = src[j - start];
+  }
+}
+
+// dkern: shared memory holds the halo of xp, [TH+k-1][TW+k-1][cc], then the tile's
+// staged dkern values [pixel][tap][group of the chunk]. NV: 16-byte vectors in a group,
+// held in registers (1, 2 or 4), or 0: any count, g read per tap. K as for dxp.
+template <typename T, int NV, int K>
+__global__ void __launch_bounds__(256) involution_backward_dkern_tiled_kernel(
+    const T* __restrict__ xp, const T* __restrict__ g, T* __restrict__ dkern, int h, int w, int c, int groups,
+    int k_arg, int th, int tw, int gb) {
+  extern __shared__ uint4 smem[];
+  constexpr int E = kVec<T>;
+  const int k = K > 0 ? K : k_arg;
+  const int hp = h + k - 1, wp = w + k - 1, cols = tw + k - 1, taps = k * k;
+  const int cg = c / groups, cc = gb * cg;
+  const Tiling at(h, w, groups, th, tw, gb);
+  const int n = at.n, g0 = at.g0, y0 = at.y0, x0 = at.x0;
+  T* tile = reinterpret_cast<T*>(smem);
+  T* staged = tile + (th + k - 1) * cols * cc;  // a whole number of 16-byte vectors in
+  copy_halo_tile(tile, xp, n, hp, wp, c, y0, x0, th + k - 1, cols, g0 * cg, cc);
+  cp_async_wait_all_and_sync();
+
+  for (int i = threadIdx.x; i < th * tw * gb; i += blockDim.x) {
+    const int gl = i % gb, p = i / gb;
+    const int py = p / tw, px = p % tw;
+    if (y0 + py >= h || x0 + px >= w) continue;
+    const T* gp = g + ((n * h + y0 + py) * w + x0 + px) * c + (g0 + gl) * cg;
+    const T* xb = tile + (py * cols + px) * cc + gl * cg;
+    T* out = staged + p * taps * gb + gl;
+    if constexpr (NV > 0) {
+      // rotate the first vector by the group, so that a quarter-warp's eight threads
+      // (eight groups of one pixel) read eight distinct 16-byte bank slots
+      const int rot = ((gl * NV) >> 3) % NV;
+      int off[NV];
+      float gf[NV][E];
+#pragma unroll
+      for (int j = 0; j < NV; ++j) {
+        off[j] = ((j + rot) % NV) * E;
+        to_float(ldg16(gp + off[j]), gf[j]);
+      }
+      if constexpr (K > 0) {
+#pragma unroll
+        for (int dy = 0; dy < K; ++dy)
+#pragma unroll
+          for (int dx = 0; dx < K; ++dx)
+            store_f32(out + (dy * k + dx) * gb, group_dot<T, NV>(xb + (dy * cols + dx) * cc, off, gf));
+      } else {
+        for (int dy = 0; dy < k; ++dy)
+          for (int dx = 0; dx < k; ++dx)
+            store_f32(out + (dy * k + dx) * gb, group_dot<T, NV>(xb + (dy * cols + dx) * cc, off, gf));
+      }
+    } else {
+      for (int dy = 0; dy < k; ++dy) {
+        for (int dx = 0; dx < k; ++dx) {
+          const T* xt = xb + (dy * cols + dx) * cc;
+          float a0 = 0.f, a1 = 0.f;
+          for (int j = 0; j < cg; j += E) {
+            float xf[E], gf[E];
+            to_float(ld16(xt + j), xf);
+            to_float(ldg16(gp + j), gf);
+#pragma unroll
+            for (int e = 0; e < E; e += 2) a0 = fmaf(xf[e], gf[e], a0), a1 = fmaf(xf[e + 1], gf[e + 1], a1);
+          }
+          store_f32(out + (dy * k + dx) * gb, a0 + a1);
+        }
+      }
+    }
+  }
+  __syncthreads();
+
+  // Out in contiguous runs of 16-byte-aligned chunks: when the block holds every group,
+  // each tile row's whole dkern rows are one run, a warp per run; else each (pixel,
+  // tap)'s gb values are one, a thread per run.
+  const int row = taps * groups;
+  if (gb == groups) {
+    for (int r = threadIdx.x / 32; r < th; r += blockDim.x / 32) {
+      if (y0 + r >= h) continue;
+      const int start = ((n * h + y0 + r) * w + x0) * row, len = min(tw, w - x0) * row;
+      for (int a = (start & ~(E - 1)) + (threadIdx.x % 32) * E; a < start + len; a += 32 * E)
+        store_chunk(dkern, start, len, staged + r * tw * row, a);
+    }
+  } else {
+    for (int r = threadIdx.x; r < th * tw * taps; r += blockDim.x) {
+      const int p = r / taps, tap = r % taps;
+      if (y0 + p / tw >= h || x0 + p % tw >= w) continue;
+      const int start = ((n * h + y0 + p / tw) * w + x0 + p % tw) * row + tap * groups + g0;
+      for (int a = start & ~(E - 1); a < start + gb; a += E) store_chunk(dkern, start, gb, staged + r * gb, a);
+    }
+  }
+}
+
 }  // namespace
 
 extern "C" const char* holocron_cuda_error_string(int err) {
@@ -199,8 +533,8 @@ extern "C" int involution_forward(const void* xp, const void* kern, void* out, i
   return static_cast<int>(cudaGetLastError());
 }
 
-// The two gradients, one entry point each; dtype as above.
-extern "C" int involution_backward_dxp(const void* kern, const void* g, void* dxp, int dtype, int n, int h,
+// The general route's two gradients, one entry point each; dtype as above.
+extern "C" int involution_backward_dxp_general(const void* kern, const void* g, void* dxp, int dtype, int n, int h,
                                        int w, int c, int groups, int k, void* stream) {
   if (groups <= 0 || k <= 0 || c % groups != 0) return static_cast<int>(cudaErrorInvalidValue);
   const long long total = static_cast<long long>(n) * (h + k - 1) * (w + k - 1) * c;
@@ -241,8 +575,8 @@ static void launch_dkern(const void* xp, const void* g, void* dkern, int n, int 
   }
 }
 
-extern "C" int involution_backward_dkern(const void* xp, const void* g, void* dkern, int dtype, int n, int h,
-                                         int w, int c, int groups, int k, void* stream) {
+extern "C" int involution_backward_dkern_general(const void* xp, const void* g, void* dkern, int dtype, int n,
+                                                 int h, int w, int c, int groups, int k, void* stream) {
   if (groups <= 0 || k <= 0 || c % groups != 0) return static_cast<int>(cudaErrorInvalidValue);
   if (static_cast<long long>(n) * h * w * c == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -254,4 +588,125 @@ extern "C" int involution_backward_dkern(const void* xp, const void* g, void* dk
     return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+
+// ---- tiled route: launch -----------------------------------------------------------
+
+// Shared memory a tiled block plans for: first at most half of an SM's 228 KB, so that
+// at least two blocks share an SM; else all a block may have.
+constexpr long long kHalfSmBytes = 113 * 1024;
+constexpr long long kBlockSmemMax = 227 * 1024;
+
+template <typename T>
+using TiledKernel = void (*)(const T*, const T*, T*, int, int, int, int, int, int, int, int);
+
+// Tiles of dxp (tile the padded Hp x Wp grid) and dkern (the H x W grid), in the order
+// tried. The first are the fastest measured at N32, 56x56, C128, G8, k7 on an H100
+// (PERF.md): dxp in rows of 16 pixels, dkern in 4 x 8 tiles; larger tiles re-read
+// less of the halo but hold fewer blocks an SM.
+constexpr int kDxpTiles[][2] = {{1, 16}, {1, 8}, {1, 4}, {1, 2}, {1, 1}};
+constexpr int kDkernTiles[][2] = {{4, 8}, {4, 4}, {2, 4}, {2, 2}, {1, 2}, {1, 1}};
+
+// Launches a tiled kernel, one block a tile, on the first plan that fits: the most
+// groups a block (all of them down to one), then the largest tile, within half an SM's
+// shared memory, else within a block's. Shared memory: the halo, then dxp's kern values
+// or dkern's staged output.
+template <typename T>
+static int launch_tiled(TiledKernel<T> kernel, bool dkern, const void* a, const void* b, void* out, int n, int h,
+                        int w, int c, int groups, int k, cudaStream_t s) {
+  const int cg = c / groups;
+  const int rows = dkern ? h : h + k - 1, cols = dkern ? w : w + k - 1;
+  const int (*tiles)[2] = dkern ? kDkernTiles : kDxpTiles;
+  const int ntiles = dkern ? sizeof(kDkernTiles) / sizeof(kDkernTiles[0]) : sizeof(kDxpTiles) / sizeof(kDxpTiles[0]);
+  const long long budgets[] = {kHalfSmBytes, kBlockSmemMax};
+  for (long long budget : budgets) {
+    for (int gb = groups; gb >= 1; --gb) {
+      if (groups % gb != 0) continue;
+      for (int t = 0; t < ntiles; ++t) {
+        const int th = std::min(tiles[t][0], rows), tw = std::min(tiles[t][1], cols);
+        const long long halo = static_cast<long long>(th + k - 1) * (tw + k - 1) * gb * cg;
+        const long long staged = static_cast<long long>(th) * (dkern ? tw : tw + k - 1) * k * k * gb;
+        const long long bytes = (halo + staged) * sizeof(T);
+        if (bytes > budget) continue;
+        const int smem = static_cast<int>(bytes);
+        const cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        if (err != cudaSuccess) return static_cast<int>(err);
+        const long long blocks =
+            static_cast<long long>((rows + th - 1) / th) * ((cols + tw - 1) / tw) * (groups / gb) * n;
+        if (blocks >= (1LL << 31)) return static_cast<int>(cudaErrorInvalidValue);
+        kernel<<<static_cast<unsigned int>(blocks), 256, smem, s>>>(static_cast<const T*>(a), static_cast<const T*>(b),
+                                                                    static_cast<T*>(out), h, w, c, groups, k, th, tw,
+                                                                    gb);
+        return static_cast<int>(cudaGetLastError());
+      }
+    }
+  }
+  return static_cast<int>(cudaErrorInvalidValue);  // even one pixel of one group exceeds a block's shared memory
+}
+
+// What the tiled route takes: a non-empty output, whole 16-byte vectors in a group,
+// 32-bit indices (xp, and kern as if it spanned the padded grid, below 2^31 elements).
+static bool tiled_shape_ok(int n, int h, int w, int c, int groups, int k, int itemsize) {
+  if (n <= 0 || h < 0 || w < 0 || c <= 0 || groups <= 0 || k <= 0 || c % groups != 0) return false;
+  if ((c / groups) * itemsize % 16 != 0) return false;
+  const long long pixels = static_cast<long long>(n) * (h + k - 1) * (w + k - 1);
+  return pixels * c < (1LL << 31) && pixels * k * k * groups < (1LL << 31);
+}
+
+template <typename T>
+static int launch_dxp_tiled(const void* kern, const void* g, void* dxp, int n, int h, int w, int c, int groups, int k,
+                            cudaStream_t s) {
+  TiledKernel<T> kernel;
+  switch (k) {
+    case 3: kernel = involution_backward_dxp_tiled_kernel<T, 3>; break;
+    case 5: kernel = involution_backward_dxp_tiled_kernel<T, 5>; break;
+    case 7: kernel = involution_backward_dxp_tiled_kernel<T, 7>; break;
+    default: kernel = involution_backward_dxp_tiled_kernel<T, 0>; break;
+  }
+  return launch_tiled<T>(kernel, false, kern, g, dxp, n, h, w, c, groups, k, s);
+}
+
+template <typename T, int NV>
+static TiledKernel<T> dkern_kernel(int k) {
+  switch (k) {
+    case 3: return involution_backward_dkern_tiled_kernel<T, NV, 3>;
+    case 5: return involution_backward_dkern_tiled_kernel<T, NV, 5>;
+    case 7: return involution_backward_dkern_tiled_kernel<T, NV, 7>;
+    default: return involution_backward_dkern_tiled_kernel<T, NV, 0>;
+  }
+}
+
+template <typename T>
+static int launch_dkern_tiled(const void* xp, const void* g, void* dkern, int n, int h, int w, int c, int groups,
+                              int k, cudaStream_t s) {
+  TiledKernel<T> kernel;
+  switch ((c / groups) * static_cast<int>(sizeof(T)) / 16) {
+    case 1: kernel = dkern_kernel<T, 1>(k); break;
+    case 2: kernel = dkern_kernel<T, 2>(k); break;
+    case 4: kernel = dkern_kernel<T, 4>(k); break;
+    default: kernel = involution_backward_dkern_tiled_kernel<T, 0, 0>; break;
+  }
+  return launch_tiled<T>(kernel, true, xp, g, dkern, n, h, w, c, groups, k, s);
+}
+
+// The tiled route's two gradients; dtype as above.
+extern "C" int involution_backward_dxp(const void* kern, const void* g, void* dxp, int dtype, int n, int h, int w,
+                                       int c, int groups, int k, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0 && tiled_shape_ok(n, h, w, c, groups, k, 4))
+    return launch_dxp_tiled<float>(kern, g, dxp, n, h, w, c, groups, k, s);
+  if (dtype == 1 && tiled_shape_ok(n, h, w, c, groups, k, 2))
+    return launch_dxp_tiled<__nv_bfloat16>(kern, g, dxp, n, h, w, c, groups, k, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+extern "C" int involution_backward_dkern(const void* xp, const void* g, void* dkern, int dtype, int n, int h, int w,
+                                         int c, int groups, int k, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0 && tiled_shape_ok(n, h, w, c, groups, k, 4))
+    return launch_dkern_tiled<float>(xp, g, dkern, n, h, w, c, groups, k, s);
+  if (dtype == 1 && tiled_shape_ok(n, h, w, c, groups, k, 2))
+    return launch_dkern_tiled<__nv_bfloat16>(xp, g, dkern, n, h, w, c, groups, k, s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -10,6 +10,8 @@ KERNELS = {
     "involution": involution.KERNEL,
     "involution_bwd_dxp": involution.KERNEL_DXP,
     "involution_bwd_dkern": involution.KERNEL_DKERN,
+    "involution_bwd_dxp_general": involution.KERNEL_DXP_GENERAL,
+    "involution_bwd_dkern_general": involution.KERNEL_DKERN_GENERAL,
     "add2d_fwd": add2d.KERNEL_FWD,
     "add2d_bwd_dp": add2d.KERNEL_BWD_DP,
     "add2d_bwd_dw": add2d.KERNEL_BWD_DW,

@@ -5,11 +5,15 @@ for stride 1 and dilation 1, accumulated in float32 and stored in ``xp``'s dtype
 Layouts are the JAX package's: NHWC pre-padded ``xp`` and a tap-major kernel field.
 
 On a CUDA tensor :func:`involution_stencil` launches the forward of
-``csrc/involution.cu``, and :func:`involution_bwd_dxp` / :func:`involution_bwd_dkern`
-its two backward kernels; on a CPU tensor each computes its plain version (``*_plain``),
-the per-tap sums that the tests hold the kernels against. :class:`InvolutionStencil`
-(``involution_stencil_ad``, as the JAX package names it) is the differentiable form:
-the forward and the two gradients, each a kernel on the card.
+``csrc/involution.cu``, and the two gradients take one of two routes, chosen by shape
+in :func:`bwd_route`: :func:`involution_bwd_dxp` / :func:`involution_bwd_dkern`, the
+tiled kernels (a shared-memory halo tile, 16-byte vectors), where a group's channels
+are whole 16-byte vectors; :func:`involution_bwd_dxp_general` /
+:func:`involution_bwd_dkern_general` for every other shape. On a CPU tensor each
+computes its plain version (``*_plain``), the per-tap sums that the tests hold the
+kernels against. :class:`InvolutionStencil` (``involution_stencil_ad``, as the JAX
+package names it) is the differentiable form: the forward and the two gradients, each
+a kernel on the card.
 """
 
 import ctypes
@@ -21,11 +25,16 @@ from ._build import FLOAT_DTYPES, Kernel, cuda_operands
 __all__ = [
     "KERNEL",
     "KERNEL_DKERN",
+    "KERNEL_DKERN_GENERAL",
     "KERNEL_DXP",
+    "KERNEL_DXP_GENERAL",
     "InvolutionStencil",
+    "bwd_route",
     "involution_bwd_dkern",
+    "involution_bwd_dkern_general",
     "involution_bwd_dkern_plain",
     "involution_bwd_dxp",
+    "involution_bwd_dxp_general",
     "involution_bwd_dxp_plain",
     "involution_stencil",
     "involution_stencil_ad",
@@ -37,6 +46,10 @@ _ARGS = [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]
 KERNEL = Kernel("involution", "involution_forward", _ARGS)
 KERNEL_DXP = Kernel("involution", "involution_backward_dxp", _ARGS)
 KERNEL_DKERN = Kernel("involution", "involution_backward_dkern", _ARGS)
+KERNEL_DXP_GENERAL = Kernel("involution", "involution_backward_dxp_general", _ARGS)
+KERNEL_DKERN_GENERAL = Kernel("involution", "involution_backward_dkern_general", _ARGS)
+# the tiled kernels index in 32 bits
+INDEX_LIMIT = 2**31
 
 
 def _check(xp: torch.Tensor, kern: torch.Tensor, k: int, groups: int):
@@ -115,39 +128,80 @@ def involution_bwd_dkern_plain(xp: torch.Tensor, kern: torch.Tensor, g: torch.Te
     return torch.cat(taps, dim=-1).to(kern.dtype)
 
 
+def bwd_route(c: int, groups: int, dtype: torch.dtype) -> str:
+    """The route the backward of a CUDA involution with ``c`` channels in ``groups``
+    groups takes: ``"tiled"`` where a group's channels are whole 16-byte vectors
+    (``(c / groups) * itemsize % 16 == 0``, float32 or bfloat16), else ``"general"``."""
+    return "tiled" if dtype in FLOAT_DTYPES and (c // groups) * dtype.itemsize % 16 == 0 else "general"
+
+
+def _backward(kernel: Kernel, tiled: bool, ins, out_shape, n: int, h: int, w: int, c: int, k: int, groups: int):
+    """Launches one backward kernel on ``ins`` (two tensors) into a new tensor of
+    ``out_shape``; raises on what the route does not take."""
+    # xp, and kern as if it spanned the padded grid (the dxp kernel's offsets reach that far)
+    padded = n * (h + k - 1) * (w + k - 1)
+    if tiled and padded * max(c, k * k * groups) >= INDEX_LIMIT:
+        raise ValueError(f"the tiled involution backward indexes in 32 bits: (N, H + k - 1, W + k - 1) x "
+                         f"max(C, k^2 G) must be below 2^31, got {(n, h + k - 1, w + k - 1)} x {max(c, k * k * groups)}")
+    a, b = cuda_operands(*ins)
+    if tiled and bwd_route(c, groups, a.dtype) != "tiled":
+        raise ValueError(f"the tiled involution backward needs whole 16-byte vectors in a group: "
+                         f"(C / G) * itemsize = {c // groups * a.dtype.itemsize} bytes")
+    out = torch.empty(out_shape, dtype=a.dtype, device=a.device)
+    if out.numel():
+        with torch.cuda.device(a.device):
+            stream = torch.cuda.current_stream().cuda_stream
+            kernel(a.data_ptr(), b.data_ptr(), out.data_ptr(), FLOAT_DTYPES[a.dtype], n, h, w, c, groups, k, stream)
+    return out
+
+
 def involution_bwd_dxp(xp: torch.Tensor, kern: torch.Tensor, g: torch.Tensor, k: int, groups: int) -> torch.Tensor:
     """The gradient of :func:`involution_stencil` for ``xp``, given the cotangent ``g``
-    of its output: the gather-form kernel on the card, the plain version on the CPU."""
+    of its output: on the card the tiled kernel (raises where :func:`bwd_route` is not
+    ``"tiled"``), bit for bit the plain version, which it computes on the CPU."""
     if g.device.type == "cpu" and kern.device.type == "cpu":
         return involution_bwd_dxp_plain(xp, kern, g, k, groups)
     n, h, w, c = _check_grad(xp, kern, g, k, groups)
-    kern, g = cuda_operands(kern, g)
-    dxp = torch.empty(xp.shape, dtype=g.dtype, device=g.device)
-    with torch.cuda.device(g.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        KERNEL_DXP(kern.data_ptr(), g.data_ptr(), dxp.data_ptr(), FLOAT_DTYPES[g.dtype], n, h, w, c, groups, k, stream)
-    return dxp
+    return _backward(KERNEL_DXP, True, (kern, g), xp.shape, n, h, w, c, k, groups)
 
 
 def involution_bwd_dkern(xp: torch.Tensor, kern: torch.Tensor, g: torch.Tensor, k: int, groups: int) -> torch.Tensor:
-    """The gradient of :func:`involution_stencil` for ``kern``, given ``g``: the kernel
-    on the card (a warp-shuffle sum over each group's channels), the plain version on
-    the CPU."""
+    """The gradient of :func:`involution_stencil` for ``kern``, given ``g``: on the card
+    the tiled kernel (raises where :func:`bwd_route` is not ``"tiled"``), on the CPU the
+    plain version."""
     if g.device.type == "cpu" and xp.device.type == "cpu":
         return involution_bwd_dkern_plain(xp, kern, g, k, groups)
     n, h, w, c = _check_grad(xp, kern, g, k, groups)
-    xp, g = cuda_operands(xp, g)
-    dkern = torch.empty(kern.shape, dtype=g.dtype, device=g.device)
-    with torch.cuda.device(g.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        KERNEL_DKERN(xp.data_ptr(), g.data_ptr(), dkern.data_ptr(), FLOAT_DTYPES[g.dtype], n, h, w, c, groups, k, stream)
-    return dkern
+    return _backward(KERNEL_DKERN, True, (xp, g), kern.shape, n, h, w, c, k, groups)
+
+
+def involution_bwd_dxp_general(xp: torch.Tensor, kern: torch.Tensor, g: torch.Tensor, k: int,
+                               groups: int) -> torch.Tensor:
+    """:func:`involution_bwd_dxp` for any shape: on the card the general route's
+    gather-form kernel (one thread per element, bit for bit the plain version), on the
+    CPU the plain version."""
+    if g.device.type == "cpu" and kern.device.type == "cpu":
+        return involution_bwd_dxp_plain(xp, kern, g, k, groups)
+    n, h, w, c = _check_grad(xp, kern, g, k, groups)
+    return _backward(KERNEL_DXP_GENERAL, False, (kern, g), xp.shape, n, h, w, c, k, groups)
+
+
+def involution_bwd_dkern_general(xp: torch.Tensor, kern: torch.Tensor, g: torch.Tensor, k: int,
+                                 groups: int) -> torch.Tensor:
+    """:func:`involution_bwd_dkern` for any shape: on the card the general route's
+    kernel (a warp-shuffle sum over each group's channels), on the CPU the plain
+    version."""
+    if g.device.type == "cpu" and xp.device.type == "cpu":
+        return involution_bwd_dkern_plain(xp, kern, g, k, groups)
+    n, h, w, c = _check_grad(xp, kern, g, k, groups)
+    return _backward(KERNEL_DKERN_GENERAL, False, (xp, g), kern.shape, n, h, w, c, k, groups)
 
 
 class InvolutionStencil(torch.autograd.Function):
     """:func:`involution_stencil` with its gradients for ``xp`` and ``kern``
     (``involution_stencil_ad``, ``holocron_tpu/kernels/involution.py:90-120``). All
-    three take the kernels on the card and the plain versions on the CPU."""
+    three take the kernels on the card (the gradients the route :func:`bwd_route`
+    picks) and the plain versions on the CPU."""
 
     @staticmethod
     def forward(ctx, xp: torch.Tensor, kern: torch.Tensor, k: int, groups: int) -> torch.Tensor:
@@ -159,8 +213,12 @@ class InvolutionStencil(torch.autograd.Function):
     def backward(ctx, g: torch.Tensor):
         xp, kern = ctx.saved_tensors
         g = g.contiguous()
-        dxp = involution_bwd_dxp(xp, kern, g, ctx.k, ctx.groups) if ctx.needs_input_grad[0] else None
-        dkern = involution_bwd_dkern(xp, kern, g, ctx.k, ctx.groups) if ctx.needs_input_grad[1] else None
+        if bwd_route(xp.shape[-1], ctx.groups, g.dtype) == "tiled":
+            dxp_fn, dkern_fn = involution_bwd_dxp, involution_bwd_dkern
+        else:
+            dxp_fn, dkern_fn = involution_bwd_dxp_general, involution_bwd_dkern_general
+        dxp = dxp_fn(xp, kern, g, ctx.k, ctx.groups) if ctx.needs_input_grad[0] else None
+        dkern = dkern_fn(xp, kern, g, ctx.k, ctx.groups) if ctx.needs_input_grad[1] else None
         return dxp, dkern, None, None
 
 

@@ -146,3 +146,91 @@ def test_involution2d_grads_match_jax():
     expected = convert.involution_state_dict({"params": jgv["params"]})
     for name, param in pmod.named_parameters():
         np.testing.assert_allclose(param.grad.numpy(), expected[name].numpy(), atol=1e-4, err_msg=name)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["float32", "bfloat16"])
+def test_bwd_route_is_tiled_exactly_on_whole_16_byte_vectors(dtype):
+    """The tiled backward takes a shape exactly where a group's cg = C / G channels are
+    whole 16-byte vectors; every other shape takes the general route."""
+    from holocron_tpu_torch.kernels.involution import bwd_route
+
+    for c in (1, 3, 8, 12, 16, 24, 32, 48, 64, 96, 128, 256):
+        for groups in (1, 2, 3, 4, 8, 16, 32):
+            if c % groups:
+                continue
+            expected = "tiled" if (c // groups) * dtype.itemsize % 16 == 0 else "general"
+            assert bwd_route(c, groups, dtype) == expected, (c, groups)
+    assert bwd_route(128, 8, torch.float16) == "general"  # no kernel takes float16
+
+
+@pytest.mark.parametrize("k", [7, 3])
+def test_bf16_backward_at_least_as_accurate_as_jax(k):
+    """bf16 dxp and dkern of the port (the plain versions, which the kernels equal on the
+    card: dxp bit for bit, dkern within its stated tolerance) against the float64
+    gradient on the same bf16-rounded inputs, beside jax.vjp of involution_stencil_ad in
+    bf16 (Pallas forward in interpret mode), at 2 x 12 x 12 x 32, G = 4. JAX accumulates
+    dxp in bf16 tap by tap (holocron_tpu/kernels/involution.py:105,112-114); the port in
+    float32, rounded once. So each port value is within one bf16 rounding of the exact
+    one (half an ulp, at most 2^-8 of its magnitude, plus the float32 sum's 1e-5 of the
+    sum of |terms|), and its largest error exceeds JAX's by at most half an ulp of the
+    largest value (2^-9 * max |ref|): where JAX also rounds only once (dkern), which of
+    the two lands closer is luck of the rounding."""
+    from holocron_tpu.kernels.involution import involution_stencil_ad as jax_stencil_ad
+    from holocron_tpu_torch.kernels.involution import involution_bwd_dkern_plain, involution_bwd_dxp_plain
+
+    rng = np.random.default_rng(5)
+    n, h, w, c, g = 2, 12, 12, 32, 4
+    shapes = ((n, h + k - 1, w + k - 1, c), (n, h, w, k * k * g), (n, h, w, c))
+    xp, kern, gcot = (torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(torch.bfloat16) for s in shapes)
+    _, vjp = jax.vjp(lambda a, b: jax_stencil_ad(a, b, k, g, True),
+                     *(jax.numpy.asarray(t.float().numpy(), jax.numpy.bfloat16) for t in (xp, kern)))
+    jax_grads = [np.asarray(t, np.float64) for t in vjp(jax.numpy.asarray(gcot.float().numpy(), jax.numpy.bfloat16))]
+    for name, plain, jax_grad in (("dxp", involution_bwd_dxp_plain, jax_grads[0]),
+                                  ("dkern", involution_bwd_dkern_plain, jax_grads[1])):
+        ref = plain(xp.double(), kern.double(), gcot.double(), k, g).numpy()
+        absterms = plain(xp.double().abs(), kern.double().abs(), gcot.double().abs(), k, g).numpy()
+        got = plain(xp, kern, gcot, k, g)
+        assert got.dtype == torch.bfloat16
+        err = np.abs(got.double().numpy() - ref)
+        assert (err <= 2.0**-8 * np.abs(ref) + 1e-5 * absterms).all(), name
+        jax_err = np.abs(jax_grad - ref).max()
+        assert err.max() <= jax_err + 2.0**-9 * np.abs(ref).max(), (name, err.max(), jax_err)
+
+
+@pytest.mark.parametrize("route", ["tiled", "general"])
+def test_backward_wrappers_compute_the_plain_versions_on_the_cpu(route):
+    """On CPU tensors both routes' wrappers are the plain versions, bit for bit, and
+    InvolutionStencil's backward gives the same whichever route the shape picks."""
+    from holocron_tpu_torch.kernels import involution as V
+
+    dxp_fn, dkern_fn = ((V.involution_bwd_dxp, V.involution_bwd_dkern) if route == "tiled"
+                        else (V.involution_bwd_dxp_general, V.involution_bwd_dkern_general))
+    rng = np.random.default_rng(6)
+    for n, h, w, c, g, k in ((1, 5, 4, 16, 4, 3), (2, 3, 6, 32, 2, 5)):
+        xp, kern, gcot = (torch.from_numpy(rng.normal(size=s).astype(np.float32))
+                          for s in ((n, h + k - 1, w + k - 1, c), (n, h, w, k * k * g), (n, h, w, c)))
+        assert torch.equal(dxp_fn(xp, kern, gcot, k, g), V.involution_bwd_dxp_plain(xp, kern, gcot, k, g))
+        assert torch.equal(dkern_fn(xp, kern, gcot, k, g), V.involution_bwd_dkern_plain(xp, kern, gcot, k, g))
+        a, b = xp.clone().requires_grad_(), kern.clone().requires_grad_()
+        V.InvolutionStencil.apply(a, b, k, g).backward(gcot)
+        assert torch.equal(a.grad, V.involution_bwd_dxp_plain(xp, kern, gcot, k, g))
+        assert torch.equal(b.grad, V.involution_bwd_dkern_plain(xp, kern, gcot, k, g))
+
+
+def test_tiled_backward_refuses_32_bit_overflow_before_touching_memory():
+    """A tensor off the CPU goes to a kernel: the tiled wrappers refuse 2^31 elements or
+    more (32-bit indices) from the shapes alone, before any copy (meta tensors hold no
+    memory), and every wrapper refuses operands that are not on one CUDA device."""
+    from holocron_tpu_torch.kernels import involution as V
+
+    n, h, w, c, g, k = 4096, 128, 128, 128, 8, 7  # xp: 4096 * 134^2 * 128 >= 2^31
+    meta = dict(device="meta", dtype=torch.bfloat16)
+    xp, kern, gcot = (torch.empty(s, **meta) for s in ((n, h + k - 1, w + k - 1, c), (n, h, w, k * k * g), (n, h, w, c)))
+    for fn in (V.involution_bwd_dxp, V.involution_bwd_dkern):
+        with pytest.raises(ValueError, match="32 bits"):
+            fn(xp, kern, gcot, k, g)
+    small = [t[:1, :3 + k - 1, :3 + k - 1] if i == 0 else t[:1, :3, :3] for i, t in enumerate((xp, kern, gcot))]
+    for fn in (V.involution_bwd_dxp, V.involution_bwd_dkern, V.involution_bwd_dxp_general,
+               V.involution_bwd_dkern_general):
+        with pytest.raises(ValueError, match="CUDA device"):
+            fn(*small, k, g)

@@ -225,26 +225,86 @@ def test_add2d_autograd_matches_plain(cuda):
     _within(w1.grad, w2.grad, dw(w2.grad), "dw")
 
 
-@pytest.mark.parametrize("n,h,w,c,g,k", [(2, 5, 7, 24, 3, 3), (1, 9, 9, 16, 4, 5), (2, 6, 6, 64, 4, 3),
-                                         (3, 4, 4, 32, 32, 1), (32, 56, 56, 128, 8, 7)])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_involution_backward_kernels_match_plain(cuda, n, h, w, c, g, k, dtype):
+def _involution_bwd_routes():
+    """Each backward route's wrappers and launch counters."""
+    return {
+        "tiled": (V.involution_bwd_dxp, V.involution_bwd_dkern, V.KERNEL_DXP, V.KERNEL_DKERN),
+        "general": (V.involution_bwd_dxp_general, V.involution_bwd_dkern_general, V.KERNEL_DXP_GENERAL,
+                    V.KERNEL_DKERN_GENERAL),
+    }
+
+
+def _involution_bwd_matches_plain(cuda, n, h, w, c, g, k, dtype, route):
     """dxp: the same tap order and roundings, so equal. dkern: the group's channels are
-    summed in another order (a warp butterfly where cg divides 32, else in order):
-    within 1e-5 of sum |xp * g| over the group, plus one bf16 rounding of each side."""
+    summed in another order (tiled: four partial sums of fused multiply-adds; general: a
+    warp butterfly where cg divides 32, else in order): within 1e-5 of sum |xp * g| over
+    the group, plus one bf16 rounding of each side. Only the route's two counters move."""
     gen = torch.Generator(device=cuda).manual_seed(4)
     xp = torch.randn(n, h + k - 1, w + k - 1, c, generator=gen, device=cuda).to(dtype)
     kern = torch.randn(n, h, w, k * k * g, generator=gen, device=cuda).to(dtype)
     gout = torch.randn(n, h, w, c, generator=gen, device=cuda).to(dtype)
-    before = (V.KERNEL_DXP.launches, V.KERNEL_DKERN.launches)
-    dxp, dkern = V.involution_bwd_dxp(xp, kern, gout, k, g), V.involution_bwd_dkern(xp, kern, gout, k, g)
+    routes = _involution_bwd_routes()
+    counters = [kernel for *_, dxp_k, dkern_k in routes.values() for kernel in (dxp_k, dkern_k)]
+    before = [kernel.launches for kernel in counters]
+    dxp_fn, dkern_fn, dxp_k, dkern_k = routes[route]
+    dxp, dkern = dxp_fn(xp, kern, gout, k, g), dkern_fn(xp, kern, gout, k, g)
     torch.cuda.synchronize()
-    assert (V.KERNEL_DXP.launches, V.KERNEL_DKERN.launches) == (before[0] + 1, before[1] + 1)
+    moved = {id(dxp_k), id(dkern_k)}
+    assert [kernel.launches - b for kernel, b in zip(counters, before)] == [
+        int(id(kernel) in moved) for kernel in counters]
     torch.testing.assert_close(dxp, V.involution_bwd_dxp_plain(xp, kern, gout, k, g), rtol=0, atol=0)
     ref = V.involution_bwd_dkern_plain(xp, kern, gout, k, g)
     absterms = V.involution_bwd_dkern_plain(xp.float().abs(), kern.float(), gout.float().abs(), k, g)
     ulp = 2.0**-7 if dtype == torch.bfloat16 else 0.0
     _within(dkern, ref, 1e-5 * absterms + ulp * ref.float().abs(), "dkern")
+
+
+@pytest.mark.parametrize("n,h,w,c,g,k", [(2, 5, 7, 24, 3, 3), (1, 9, 9, 16, 4, 5), (2, 6, 6, 64, 4, 3),
+                                         (3, 4, 4, 32, 32, 1), (32, 56, 56, 128, 8, 7),
+                                         (2, 19, 37, 64, 4, 7), (1, 13, 9, 32, 4, 3), (2, 3, 2, 256, 2, 5)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_involution_backward_kernels_match_plain(cuda, n, h, w, c, g, k, dtype):
+    """Through the route bwd_route picks: tiled where a group is whole 16-byte vectors
+    (19 x 37 and 13 x 9 cross tile edges that are not multiples of the tile; C 256 in
+    2 groups holds 16 or 32 vectors a group), general for cg = 4 in bf16 and cg = 1."""
+    _involution_bwd_matches_plain(cuda, n, h, w, c, g, k, dtype, V.bwd_route(c, g, dtype))
+
+
+@pytest.mark.parametrize("n,h,w,c,g,k", [(2, 19, 37, 64, 4, 7), (2, 6, 6, 64, 4, 3)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_involution_general_backward_matches_plain_at_tiled_shapes(cuda, n, h, w, c, g, k, dtype):
+    """The general route takes any shape: held to the same tolerances where the tiled
+    route would be picked."""
+    _involution_bwd_matches_plain(cuda, n, h, w, c, g, k, dtype, "general")
+
+
+def test_involution_backward_wrappers_refuse_what_they_do_not_take(cuda):
+    """Every backward wrapper refuses float16 and operands off one CUDA device; the
+    tiled ones also refuse a shape whose groups are not whole 16-byte vectors and
+    tensors of 2^31 elements or more (checked on the shapes, before any copy). Nothing
+    launches."""
+    routes = _involution_bwd_routes()
+    counters = [kernel for *_, dxp_k, dkern_k in routes.values() for kernel in (dxp_k, dkern_k)]
+    before = [kernel.launches for kernel in counters]
+    n, h, w, c, g, k = 1, 4, 4, 32, 4, 3
+    xp, kern, gout = (torch.zeros(s, device=cuda) for s in ((n, h + k - 1, w + k - 1, c), (n, h, w, k * k * g),
+                                                            (n, h, w, c)))
+    for dxp_fn, dkern_fn, _, _ in routes.values():
+        for fn in (dxp_fn, dkern_fn):
+            with pytest.raises(TypeError):
+                fn(xp.half(), kern.half(), gout.half(), k, g)
+            with pytest.raises(ValueError):
+                fn(xp, kern, gout.cpu(), k, g)  # the cotangent on the CPU
+    bf = [t.to(torch.bfloat16) for t in (xp, torch.zeros(n, h, w, k * k * 8, device=cuda), gout)]  # G = 8: cg = 4, 8 bytes
+    huge_n = 2**31 // ((h + k - 1) * (w + k - 1) * c) + 1
+    huge = [t.expand(huge_n, *t.shape[1:]) for t in (xp, kern, gout)]  # stride 0: no memory behind them
+    for fn in routes["tiled"][:2]:
+        with pytest.raises(ValueError, match="16-byte"):
+            fn(*bf, k, 8)
+        with pytest.raises(ValueError, match="32 bits"):
+            fn(*huge, k, g)
+    torch.cuda.synchronize()
+    assert [kernel.launches for kernel in counters] == before
 
 
 def test_involution_autograd_matches_plain(cuda):
