@@ -18,7 +18,9 @@ Phases, each printing one JSON line to stdout:
    of the general route. (After the checks, a ``serving_profile`` line:
    ``torch.profiler`` over the int8 and bf16 forwards at batch 256 and 8.)
 3. ``involution``: ``Involution2d`` at ``scripts/bench_ops.py:82-87``'s shape (N32,
-   56x56, C128, G8, k7, reduction 2, bf16) through the module.
+   56x56, C128, G8, k7, reduction 2, bf16) through the module: the tiled route's forward
+   (``csrc/involution.cu``, a halo tile in shared memory), which must launch, and never
+   the general route's.
 4. ``training``: the repvgg_a0 classification trainer at full width (224 px, batch 128,
    10 classes, random weights from a seed) on synthetic uint8 NCHW batches, as
    ``references/classification/train.py:204-302`` builds it: bf16 compute (``amp``),
@@ -29,9 +31,11 @@ Phases, each printing one JSON line to stdout:
    moments and the optimizer's count unchanged), and ``check_setup`` for 10 steps on a
    fresh model (the loss must fall).
 5. ``involution_train``: ``Involution2d`` at the same shape, forward and backward
-   through the module in bf16: its forward and both gradient kernels of the tiled route
-   (``csrc/involution.cu``, halo tiles in shared memory), which must launch, and none
-   of the general route's.
+   through the module in bf16: the forward and both gradient kernels of the tiled route,
+   which must launch, and none of the general route's. Its step time from CUDA events
+   (``fwd_bwd_ms``), which the host sets once the step's kernels take less time than
+   their launches, and the step's summed kernel time (``fwd_bwd_kernel_ms``, the same
+   for ``add2d``).
 6. ``add2d``: ``Add2d(64 -> 128, k3, pad 1)`` on N4 x 56 x 56 in float32, forward and
    backward through the module (``scripts/bench_ops.py:112-113``'s layer: L 12544,
    D 576, O 128).
@@ -39,8 +43,8 @@ Phases, each printing one JSON line to stdout:
    the paths gave it, with its time, its plain version's time, the time of one PyTorch
    call computing the same function where there is one (``torch.cdist`` for add2d), and
    its bound: the larger of the bytes it must move over 3.35 TB/s and the operations it
-   must do over the card's rate for them. Both routes of the involution backward (tiled
-   and general) are checked and timed at the path's shape. The int8 route is checked
+   must do over the card's rate for them. Both routes of the involution forward and
+   backward (tiled and general) are checked and timed at the path's shape. The int8 route is checked
    (bit-exact quantization, also on inputs on its ties and beyond its clip; exact
    accumulator; outputs within one ulp) at each of repvgg_a0's int8 layer geometries, checked
    again and timed at each at batch 256 (``check_int8_geometry`` lines, device time
@@ -291,9 +295,9 @@ def phase_involution(device, iters: int = 20):
     with torch.no_grad():
         out = module(x)
     torch.cuda.synchronize()
-    launches = KERNELS["involution"].launches
-    if launches == 0:
-        fail("Involution2d never launched the involution kernel")
+    launches = {name: KERNELS[name].launches for name in ("involution", "involution_general")}
+    if launches["involution"] == 0 or launches["involution_general"]:
+        fail(f"Involution2d: expected the tiled forward and not the general route's, got {launches}")
     if tuple(out.shape) != (n, c, hw, hw) or not bool(torch.isfinite(out).all()):
         fail(f"Involution2d: expected finite output of shape {(n, c, hw, hw)}, got {tuple(out.shape)}")
     with torch.no_grad():
@@ -305,38 +309,40 @@ def phase_involution(device, iters: int = 20):
 
 
 def check_involution(device, iters: int = 20) -> dict:
-    """Kernel against plain at the module's stencil shapes: bf16 within one bf16 ulp
-    of the plain value, f32 within 1e-5 (both accumulate in float32 in one order, so
-    both are expected to agree exactly)."""
+    """Both forward routes against the plain version at the module's stencil shape, in
+    bf16 and float32: each accumulates in float32 in the plain version's tap order with
+    separate roundings, so equal, bit for bit."""
     import torch
 
-    from holocron_tpu_torch.kernels.involution import involution_stencil, involution_stencil_plain
+    from holocron_tpu_torch.kernels import involution as V
 
     n, h, w, c, g, k = 32, 56, 56, 128, 8, 7
     gen = torch.Generator(device=device).manual_seed(SEED + 2)
     xp = torch.randn(n, h + k - 1, w + k - 1, c, generator=gen, device=device)
     kern = torch.randn(n, h, w, k * k * g, generator=gen, device=device)
-    errs = {}
+    if V.bwd_route(c, g, torch.bfloat16) != "tiled":
+        fail("involution forward: the path's shape does not take the tiled route")
+    kernels = {"involution": V.involution_stencil_tiled, "involution_general": V.involution_stencil_general}
+    errs = dict.fromkeys(kernels, 0.0)
     for dtype in (torch.bfloat16, torch.float32):
         a, b = xp.to(dtype), kern.to(dtype)
-        got, ref = involution_stencil(a, b, k, g).float(), involution_stencil_plain(a, b, k, g).float()
-        err = (got - ref).abs()
-        errs[str(dtype).split(".")[-1]] = float(err.max())
-        if dtype == torch.bfloat16 and bool((err > ref.abs() * 2.0**-7).any()):
-            fail(f"involution bf16: kernel and plain differ by more than one bf16 ulp (max {float(err.max())})")
-        if dtype == torch.float32 and float(err.max()) > 1e-5:
-            fail(f"involution f32: max abs error {float(err.max())} > 1e-5")
+        ref = V.involution_stencil_plain(a, b, k, g)
+        for name, fn in kernels.items():
+            got = fn(a, b, k, g)
+            errs[name] = max(errs[name], float((got.float() - ref.float()).abs().max()))
+            if not torch.equal(got, ref):
+                fail(f"{name} {dtype}: kernel and plain differ (expected bit for bit)")
+        del ref, got
     a, b = xp.to(torch.bfloat16), kern.to(torch.bfloat16)
-    ms = cuda_ms(lambda: involution_stencil(a, b, k, g), iters)
-    plain_ms = cuda_ms(lambda: involution_stencil_plain(a, b, k, g), max(1, iters // 4), warmup=1)
-    torch.cuda.synchronize()
     # xp and kern read once, out written once, bf16; a multiply and an add per (output, tap)
-    nbytes = 2 * (xp.numel() + kern.numel() + n * h * w * c)
-    record = {"kernel": "involution", "shape": [n, h, w, c, g, k], "max_abs_err_bf16": errs["bfloat16"],
-              "max_abs_err_f32": errs["float32"], "ms": ms, "plain_ms": plain_ms,
-              **bound(nbytes, 2 * n * h * w * c * k * k, FP32_INSTR_PER_S)}
-    emit({"phase": "check", **record})
-    return record
+    rec = {"library_ms": None, **bound(2 * (xp.numel() + kern.numel() + n * h * w * c), 2 * n * h * w * c * k * k,
+                                       FP32_INSTR_PER_S)}
+    rec["plain_ms"] = cuda_ms(lambda: V.involution_stencil_plain(a, b, k, g), max(1, iters // 4), warmup=1)
+    records = {name: {**rec, "max_abs_err": errs[name], "ms": cuda_ms(lambda: fn(a, b, k, g), iters)}
+               for name, fn in kernels.items()}
+    torch.cuda.synchronize()
+    emit({"phase": "check", "kernel": "involution_fwd", "shape": [n, h, w, c, g, k], **records})
+    return records
 
 
 def graph_ms(fn, iters: int = 20, replays: int = 3) -> float:
@@ -667,6 +673,24 @@ def phase_training(device, batch: int = 128, size: int = 224, num_classes: int =
     emit({"phase": "training_profile", **profile})
 
 
+def step_kernel_ms(step, steps: int = 5) -> float:
+    """The summed device time of the kernels one call of ``step`` launches, from
+    ``torch.profiler`` over ``steps`` calls after warm-up: the step's time on the card,
+    whatever time the host adds between launches."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(2):
+        step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            step()
+        torch.cuda.synchronize()
+    return sum(e.device_time_total for e in prof.key_averages() if e.device_type == DeviceType.CUDA) / 1e3 / steps
+
+
 def summarize_profile(prof, steps: int, top: int = 12) -> dict:
     """Per step: the host time of the train step's ranges (``train_step.*``), the device
     span of each range and of ``LAMB.step`` (first to last kernel under it), the summed
@@ -715,7 +739,7 @@ def phase_involution_train(device, n: int = 32, hw: int = 56, iters: int = 10) -
     torch.cuda.synchronize()
 
     names = ("involution", "involution_bwd_dxp", "involution_bwd_dkern")
-    general = ("involution_bwd_dxp_general", "involution_bwd_dkern_general")
+    general = ("involution_general", "involution_bwd_dxp_general", "involution_bwd_dkern_general")
     reset_counts()
     module(x).backward(gy)
     torch.cuda.synchronize()
@@ -733,9 +757,10 @@ def phase_involution_train(device, n: int = 32, hw: int = 56, iters: int = 10) -
         module(x).backward(gy)
 
     ms = cuda_ms(step, iters)
+    kernel_ms = step_kernel_ms(step)
     torch.cuda.synchronize()
     emit({"phase": "involution_train", "shape": [n, c, hw, hw], "groups": g, "kernel_size": k, "dtype": "bfloat16",
-          "fwd_bwd_ms": ms, "launches": launches})
+          "fwd_bwd_ms": ms, "fwd_bwd_kernel_ms": kernel_ms, "launches": launches})
     return launches
 
 
@@ -771,9 +796,10 @@ def phase_add2d(device, n: int = 4, hw: int = 56, iters: int = 10) -> dict:
         module(x).backward(gy)
 
     ms = cuda_ms(step, iters)
+    kernel_ms = step_kernel_ms(step)
     torch.cuda.synchronize()
     emit({"phase": "add2d", "shape": [n, 64, hw, hw], "out_channels": 128, "dtype": "float32", "fwd_bwd_ms": ms,
-          "launches": launches})
+          "fwd_bwd_kernel_ms": kernel_ms, "launches": launches})
     return launches
 
 
@@ -951,8 +977,8 @@ def main() -> int:
 
     inv_src, add_src = "holocron_tpu_torch/csrc/involution.cu", "holocron_tpu_torch/csrc/add2d.cu"
     emit({"kernels": [
-        entry("involution", inv_src, "holocron_tpu/kernels/involution.py:30", inv_launches, inv,
-              max(inv["max_abs_err_bf16"], inv["max_abs_err_f32"])),
+        *(entry(name, inv_src, "holocron_tpu/kernels/involution.py:30", inv_launches[name], inv[name],
+                inv[name]["max_abs_err"]) for name in ("involution", "involution_general")),
         *(entry(name, inv_src, "holocron_tpu/kernels/involution.py:100", inv_train[name], inv_bwd[name],
                 inv_bwd[name]["max_abs_err"]) for name in ("involution_bwd_dxp", "involution_bwd_dkern",
                                                            "involution_bwd_dxp_general",

@@ -9,7 +9,7 @@
 //
 // p is (L, D), w is (D, O), g and out are (L, O), all row-major and of one dtype
 // (float32 or bfloat16). Sums are float32; each result is rounded once into the
-// dtype. sign(0) = 0 and a NaN difference gives NaN, as torch.sign and jnp.sign do.
+// dtype. sign(0) = 0 and a NaN difference gives NaN, as jnp.sign does.
 //
 // What bounds it: operations. |x - w| has no tensor-core form, so every element step
 // of the L*D*O product is CUDA-core work: a subtract and an add of an absolute value
@@ -18,10 +18,10 @@
 // D 576, O 128) that is 0.92 G element steps a pass against 35 MB of operands, so the
 // design spends everything on keeping the FP32 pipes fed:
 //
-// - one block computes a 64 x 64 output tile with 256 threads; each thread owns a 4 x 4
-//   register block, so one element step costs two float4 shared-memory loads per 16
-//   (l, o) pairs;
-// - the reduced dimension is streamed through shared memory in chunks of 16, both
+// - one block computes a 64 x 64 output tile; in the forward and dp 256 threads each
+//   own a 4 x 4 register block, so one element step costs two float4 shared-memory
+//   loads per 16 (l, o) pairs;
+// - there the reduced dimension is streamed through shared memory in chunks of 16, both
 //   operands laid out [chunk][64] so a thread's four values are one 16-byte load;
 // - ragged edges are masked at the load: a position past the end is staged as 0 in
 //   both operands (|0 - 0| = 0, and g = 0 kills a gradient term), nothing is padded in
@@ -29,9 +29,17 @@
 // - dw reduces over L, the longest dimension, with only (D/64)*(O/64) output tiles, so
 //   L is split into slices over blocks; each slice writes float32 partial sums and a
 //   second pass adds the slices in slice order. No atomics: the result is the same on
-//   every run.
+//   every run. dw's operands need no transpose (p[l, d0:d0+64] and g[l, o0:o0+64] are
+//   contiguous rows), so its chunks of 32 rows stream into a ring of three stages with
+//   16-byte cp.async copies, the next chunks in flight during this chunk's products; 128
+//   threads each own an 8 x 4 register block, w's block held in registers; and the
+//   slice count makes the (tile, slice) blocks the same whole number for every SM
+//   (kernels/add2d.py:dw_slices). Its element step, sign included, is four
+//   instructions of which one (a bitwise op) goes to the integer/logic pipe, which
+//   issues at half the float pipe's rate: a sign by compares and selects takes three or
+//   four of that pipe's slots a step, which bounded the earlier dw (add_g_sign_scaled).
 //
-// Next step: double-buffered chunks (cp.async) and an 8 x 4 register block.
+// Next step for the forward and dp: the same ring and register block.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -167,39 +175,165 @@ __global__ void __launch_bounds__(kThreads) add2d_backward_dp_kernel(
   store_block(dp, D, l0, L, d0, D, acc, -1.f);
 }
 
-// partial[s, d, o] = sum_{l in slice s} g[l,o] * sign(p[l,d] - w[d,o]);
-// grid (ceil(O/64), ceil(D/64), slices), each slice `rows` rows of L long
+// ---- dw ----
+
+constexpr int kDwRows = 32;     // rows of L a ring stage holds
+constexpr int kDwStages = 3;    // ring stages: two chunks in flight while one is used
+constexpr int kDwThreads = 128; // 8 x 16 threads, an 8 (d) x 4 (o) block of sums each
+
+// acc + g * sign(d), with sign(0) = 0 and sign(NaN) = NaN as jnp.sign: copysign(1, d)
+// where |d| > 0 (false for NaN, where d != 0 would be true), else d itself.
+__device__ __forceinline__ float add_g_sign(float acc, float g, float d) {
+  const float s = fabsf(d) > 0.f ? __uint_as_float((__float_as_uint(d) & 0x80000000u) | 0x3f800000u) : d;
+  return fmaf(g, s, acc);
+}
+
+// The same step with one integer/logic-pipe op where add_g_sign takes three (a compare,
+// a bitwise op and a select), for finite p and |w| < 2^100, given nw = -w * 2^24 (exact):
+// d = fma(p, 2^24, nw) is (p - w) * 2^24 rounded, so it has the sign of p - w and is 0
+// exactly where p == w; a nonzero p - w is at least 2^-149, so |d| >= 2^-125 and
+// sat(|d| * 2^125) is exactly 1, else 0. g with d's sign bit, times that, is g * sign(p - w),
+// and the sum is add_g_sign's, bit for bit.
+constexpr float kDwScale = 0x1p24f, kDwUnscale = 0x1p125f, kDwScaledLimit = 0x1p124f;  // |nw| < 2^100 * 2^24
+__device__ __forceinline__ float add_g_sign_scaled(float acc, float g, float p, float nw) {
+  const float d = fmaf(p, kDwScale, nw);
+  const float t = __uint_as_float(__float_as_uint(g) ^ (__float_as_uint(d) & 0x80000000u));
+  return fmaf(t, __saturatef(fabsf(d) * kDwUnscale), acc);
+}
+
+// N consecutive values from shared memory as float32
+template <int N>
+__device__ __forceinline__ void load_row(const float* s, float (&v)[N]) {
+#pragma unroll
+  for (int q = 0; q < N / 4; ++q) {
+    const float4 a = reinterpret_cast<const float4*>(s)[q];
+    v[4 * q] = a.x, v[4 * q + 1] = a.y, v[4 * q + 2] = a.z, v[4 * q + 3] = a.w;
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void load_row(const __nv_bfloat16* s, float (&v)[N]) {
+#pragma unroll
+  for (int q = 0; q < N / 2; ++q) {  // bfloat16 is the upper half of a float32
+    const unsigned int u = reinterpret_cast<const unsigned int*>(s)[q];
+    v[2 * q] = __uint_as_float(u << 16), v[2 * q + 1] = __uint_as_float(u & 0xffff0000u);
+  }
+}
+
+// Starts staging rows [l0, l0 + kDwRows) x columns [c0, c0 + 64) of the row-major src
+// (leading dimension ld = its column count C) into dst, zeros past l_end or C. vec: ld
+// and src are 16-byte aligned, so whole 16-byte cp.async copies, zero-filled past the
+// edges; else element by element through registers.
 template <typename T>
-__global__ void __launch_bounds__(kThreads) add2d_backward_dw_partial_kernel(
+__device__ __forceinline__ void stage_rows(T (*dst)[kTile], const T* __restrict__ src, int ld, int l0, int l_end,
+                                           int c0, bool vec) {
+  constexpr int E = 16 / static_cast<int>(sizeof(T)), kUnits = kTile / E;
+  if (vec) {
+    for (int i = threadIdx.x; i < kDwRows * kUnits; i += kDwThreads) {
+      const int r = i / kUnits, col = c0 + (i % kUnits) * E;
+      const bool in = l0 + r < l_end && col < ld;
+      const T* from = in ? src + static_cast<long long>(l0 + r) * ld + col : src;
+      const unsigned int to = static_cast<unsigned int>(__cvta_generic_to_shared(&dst[r][(i % kUnits) * E]));
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(to), "l"(from), "r"(in ? 16 : 0)
+                   : "memory");
+    }
+  } else {
+    for (int i = threadIdx.x; i < kDwRows * kTile; i += kDwThreads) {
+      const int r = i / kTile, col = c0 + i % kTile;
+      dst[r][i % kTile] = (l0 + r < l_end && col < ld) ? src[static_cast<long long>(l0 + r) * ld + col]
+                                                       : static_cast<T>(0.f);
+    }
+  }
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// partial[s, d, o] = sum_{l in slice s} g[l,o] * sign(p[l,d] - w[d,o]); block b takes
+// the 64 x 64 (d, o) tile b % tiles and the slice b / tiles, `rows` rows of L long.
+template <typename T>
+__global__ void __launch_bounds__(kDwThreads) add2d_backward_dw_partial_kernel(
     const T* __restrict__ p, const T* __restrict__ w, const T* __restrict__ g, float* __restrict__ partial,
-    int L, int D, int O, int rows) {
-  __shared__ __align__(16) float ps[kChunk][kPitch];  // p[l, d] as [l][d]
-  __shared__ __align__(16) float gs[kChunk][kPitch];  // g[l, o] as [l][o]
-  const int d0 = blockIdx.y * kTile, o0 = blockIdx.x * kTile;
-  const int l_begin = blockIdx.z * rows;
-  const int l_end = min(L, l_begin + rows);
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  float wv[4][4];
-  load_block(wv, w, O, d0, D, o0, O);
-  float acc[4][4] = {};
-  for (int l0 = l_begin; l0 < l_end; l0 += kChunk) {
-    stage_direct(ps, p, D, l0, l_end, d0, D);
-    stage_direct(gs, g, O, l0, l_end, o0, O);
+    int L, int D, int O, int rows, bool vec_p, bool vec_g) {
+  __shared__ __align__(16) T ps[kDwStages][kDwRows][kTile];  // p[l, d] as [l][d]
+  __shared__ __align__(16) T gs[kDwStages][kDwRows][kTile];  // g[l, o] as [l][o]
+  const int tiles_o = (O + kTile - 1) / kTile, tiles = tiles_o * ((D + kTile - 1) / kTile);
+  const int d0 = (blockIdx.x % tiles / tiles_o) * kTile, o0 = (blockIdx.x % tiles % tiles_o) * kTile;
+  const int l_begin = (blockIdx.x / tiles) * rows, l_end = min(L, l_begin + rows);
+  const int chunks = max(0, (l_end - l_begin + kDwRows - 1) / kDwRows);
+  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;  // rows d0 + 8 ty + i, columns o0 + 4 tx + j
+  // nw: -w * 2^24 for add_g_sign_scaled; chk[i]: the sum of p * 0 over row i's values,
+  // NaN once one of them is not finite
+  float nw[8][4], acc[8][4], chk[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    chk[i] = 0.f;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int d = d0 + 8 * ty + i, o = o0 + 4 * tx + j;
+      nw[i][j] = (d < D && o < O) ? -kDwScale * to_f32(w[static_cast<long long>(d) * O + o]) : 0.f;
+      acc[i][j] = 0.f;
+    }
+  }
+  for (int c = 0; c < kDwStages - 1; ++c) {  // the ring's first chunks (empty copy groups past the end)
+    if (c < chunks) {
+      stage_rows(ps[c], p, D, l_begin + c * kDwRows, l_end, d0, vec_p);
+      stage_rows(gs[c], g, O, l_begin + c * kDwRows, l_end, o0, vec_g);
+    } else {
+      asm volatile("cp.async.commit_group;\n" ::: "memory");
+    }
+  }
+  for (int c = 0; c < chunks; ++c) {
+    // chunk c has landed (at most kDwStages - 2 later groups pending), and every thread
+    // is done with chunk c - 1, whose stage is refilled next
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(kDwStages - 2) : "memory");
     __syncthreads();
+    const int next = c + kDwStages - 1, slot = next % kDwStages;
+    if (next < chunks) {
+      stage_rows(ps[slot], p, D, l_begin + next * kDwRows, l_end, d0, vec_p);
+      stage_rows(gs[slot], g, O, l_begin + next * kDwRows, l_end, o0, vec_g);
+    } else {
+      asm volatile("cp.async.commit_group;\n" ::: "memory");
+    }
+    const T (*pc)[kTile] = ps[c % kDwStages];
+    const T (*gc)[kTile] = gs[c % kDwStages];
+#pragma unroll 4
+    for (int r = 0; r < kDwRows; ++r) {  // rows past l_end are zeros: g = 0 adds +-0
+      float pv[8], gv[4];
+      load_row(&pc[r][8 * ty], pv);
+      load_row(&gc[r][4 * tx], gv);
 #pragma unroll
-    for (int k = 0; k < kChunk; ++k) {
-      const float4 a = *reinterpret_cast<const float4*>(&ps[k][4 * ty]);
-      const float4 b = *reinterpret_cast<const float4*>(&gs[k][4 * tx]);
-      const float pv[4] = {a.x, a.y, a.z, a.w}, gv[4] = {b.x, b.y, b.z, b.w};
+      for (int i = 0; i < 8; ++i) {
+        chk[i] = fmaf(pv[i], 0.f, chk[i]);
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(gv[j], sgn(pv[i] - wv[i][j]), acc[i][j]);
+        for (int j = 0; j < 4; ++j) acc[i][j] = add_g_sign_scaled(acc[i][j], gv[j], pv[i], nw[i][j]);
       }
     }
-    __syncthreads();
   }
-  store_block(partial + static_cast<long long>(blockIdx.z) * D * O, O, d0, D, o0, O, acc, 1.f);
+  // A sum that met a p that is not finite, or a w outside the scaled step's range, again
+  // with add_g_sign from device memory, in the same order.
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int d = d0 + 8 * ty + i, o = o0 + 4 * tx + j;
+      if (d < D && o < O && (chk[i] != chk[i] || !(fabsf(nw[i][j]) < kDwScaledLimit))) {
+        const float wf = to_f32(w[static_cast<long long>(d) * O + o]);
+        float a = 0.f;
+        for (int l = l_begin; l < l_end; ++l)
+          a = add_g_sign(a, to_f32(g[static_cast<long long>(l) * O + o]),
+                         to_f32(p[static_cast<long long>(l) * D + d]) - wf);
+        acc[i][j] = a;
+      }
+    }
+  }
+  float* out = partial + static_cast<long long>(blockIdx.x / tiles) * D * O;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int d = d0 + 8 * ty + i, o = o0 + 4 * tx + j;
+      if (d < D && o < O) out[static_cast<long long>(d) * O + o] = acc[i][j];
+    }
+  }
 }
 
 // dw[i] = sum_s partial[s, i], in slice order
@@ -213,9 +347,7 @@ __global__ void __launch_bounds__(kThreads) add2d_backward_dw_reduce_kernel(
   store(dw + idx, acc);
 }
 
-dim3 tiles(int cols, int rows, int depth = 1) {
-  return dim3((cols + kTile - 1) / kTile, (rows + kTile - 1) / kTile, depth);
-}
+dim3 tiles(int cols, int rows) { return dim3((cols + kTile - 1) / kTile, (rows + kTile - 1) / kTile); }
 
 }  // namespace
 
@@ -268,20 +400,25 @@ extern "C" int add2d_backward_dw(const void* p, const void* w, const void* g, vo
   if (slices <= 0 || rows <= 0 || static_cast<long long>(slices) * rows < L) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  const long long blocks = static_cast<long long>(slices) * ((D + kTile - 1) / kTile) * ((O + kTile - 1) / kTile);
+  if (blocks >= (1LL << 31)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* part = static_cast<float*>(partial);
   const long long size = static_cast<long long>(D) * O;
   const unsigned int reduce_blocks = static_cast<unsigned int>((size + kThreads - 1) / kThreads);
+  const int elems = dtype == 0 ? 4 : 8;  // per 16 bytes
+  const auto aligned = [](const void* ptr) { return reinterpret_cast<unsigned long long>(ptr) % 16 == 0; };
+  const bool vec_p = D % elems == 0 && aligned(p), vec_g = O % elems == 0 && aligned(g);
   if (dtype == 0) {
-    add2d_backward_dw_partial_kernel<float><<<tiles(O, D, slices), kThreads, 0, s>>>(
+    add2d_backward_dw_partial_kernel<float><<<static_cast<unsigned int>(blocks), kDwThreads, 0, s>>>(
         static_cast<const float*>(p), static_cast<const float*>(w), static_cast<const float*>(g), part,
-        L, D, O, rows);
+        L, D, O, rows, vec_p, vec_g);
     add2d_backward_dw_reduce_kernel<float><<<reduce_blocks, kThreads, 0, s>>>(
         part, static_cast<float*>(dw), size, slices);
   } else if (dtype == 1) {
-    add2d_backward_dw_partial_kernel<__nv_bfloat16><<<tiles(O, D, slices), kThreads, 0, s>>>(
+    add2d_backward_dw_partial_kernel<__nv_bfloat16><<<static_cast<unsigned int>(blocks), kDwThreads, 0, s>>>(
         static_cast<const __nv_bfloat16*>(p), static_cast<const __nv_bfloat16*>(w),
-        static_cast<const __nv_bfloat16*>(g), part, L, D, O, rows);
+        static_cast<const __nv_bfloat16*>(g), part, L, D, O, rows, vec_p, vec_g);
     add2d_backward_dw_reduce_kernel<__nv_bfloat16><<<reduce_blocks, kThreads, 0, s>>>(
         part, static_cast<__nv_bfloat16*>(dw), size, slices);
   } else {

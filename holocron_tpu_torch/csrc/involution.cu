@@ -10,17 +10,10 @@
 // field (N, H, W, k*k*G). Accumulation is float32; the result is stored in the
 // input's dtype (float32 or bfloat16).
 //
-// What bounds it: device-memory bytes. The kernel field holds k*k*G values for every
-// output pixel and each is used by only the C/G channels of its group at that pixel,
-// so it is read once and never reused; at the repo's benchmark shape (N32, 56x56,
-// C128, G8, k7) that is k*k*G = 392 values per pixel against C = 128 values of input,
-// three times the input's bytes. The design keeps that one
-// read coalesced-friendly and adds nothing to it: one thread per output element
-// (n,h,w,c) with c fastest, so a warp reads 32 neighbouring channels of xp per tap,
-// and the C/G threads of one group read the same kernel value (one transaction,
-// broadcast). The k*k re-reads of xp by neighbouring pixels hit L1/L2, not device
-// memory. Multiplies and adds are rounded separately (no fused multiply-add) in tap
-// order, which is the order of the plain PyTorch version, so the two agree bit for bit.
+// What would bound it is device-memory bytes: the kernel field holds k*k*G values for
+// every output pixel, each used by only the C/G channels of its group at that pixel, so
+// it is read once and never reused (at N32, 56x56, C128, G8, k7 that is 392 values per
+// pixel against C = 128 of input: 0.041 ms for xp, kern and out in bf16).
 //
 // Backward, for the cotangent g of out (N, H, W, C):
 //
@@ -29,21 +22,26 @@
 //   dkern[n,h,w,tap*G+j] = sum_{c in group j} xp[n,h+dy,w+dx,c] * g[n,h,w,c]
 //
 // Both would be bound by device-memory bytes (xp, kern and g read once, dxp and dkern
-// written once: 0.041 ms at N32, 56x56, C128, G8, k7, bf16), but a kernel that reads
-// each of the k*k taps through the cache, two bytes at a time, is bound instead by the
-// load and shuffle instructions it issues and their latency (the general route below:
-// 1.1 and 1.6 ms there). Two routes, chosen by shape in kernels/involution.py:bwd_route.
+// written once: 0.041 ms at the same shape). But a kernel that reads each of the k*k
+// taps through the cache, two bytes at a time, is bound instead by the load (and
+// shuffle) instructions it issues and their latency (the general route below: 0.7 ms
+// for the forward there, 1.1 and 1.6 ms for the gradients). So all three take one of
+// two routes, chosen by shape alone in kernels/involution.py:bwd_route.
 //
 // Tiled route, where one group's channels are whole 16-byte vectors (cg * itemsize a
 // multiple of 16). A block takes a TH x TW tile of pixels of one image and a chunk of
 // whole groups, and first copies into shared memory, once, the tile's halo (TH+k-1) x
 // (TW+k-1) of the tensor it re-reads k*k times, with 16-byte cp.async copies, a warp
-// along each row (copy_halo_tile, then cp_async_wait_all_and_sync: the forward can use
-// them as they are). Every other access is a 16-byte vector, and index arithmetic is 32-bit (the
-// wrapper refuses tensors of 2^31 elements or more). With the loads gone, what bounds
-// both kernels on the H100 is the instructions they issue per product: the bf16 unpack
-// and the float32 arithmetic, and the shared-memory reads (PERF.md gives the measured
-// split).
+// along each row (copy_halo_tile, then cp_async_wait_all_and_sync). Every other access
+// is a 16-byte vector, and index arithmetic is 32-bit (the wrapper refuses tensors of
+// 2^31 elements or more). With the loads gone, what bounds the three kernels on the H100
+// is the instructions they issue per product: the bf16 unpack and the float32
+// arithmetic, and the shared-memory reads (PERF.md gives the measured split).
+//  - the forward: the halo is of xp, and beside it the tile's kern values, copied as
+//    runs (one run a tile row when the block holds every group). A thread owns one
+//    output pixel and one 16-byte vector of channels (inside one group) and walks the
+//    taps in the plain version's order, multiplying and adding with separate roundings
+//    (__fmul_rn, __fadd_rn) in float32, so it agrees with the plain version bit for bit.
 //  - dkern: the halo is of xp. A thread owns one (pixel, group), holds the group's cg
 //    values of g in registers, and for each tap reads the group's cg values of xp from
 //    shared memory, with no shuffles: the cg products are summed in float32 (four
@@ -61,10 +59,11 @@
 //    (__fmul_rn, __fadd_rn) in float32, so it agrees with the plain version bit for bit.
 //
 // General route, every other shape (e.g. cg = 4 in bfloat16, cg = 1): one thread per
-// element, loads through the cache, 64-bit indices. dxp as above, in tap order, bit
-// for bit; dkern sums a group's lanes with a warp butterfly (when cg is a power of two
-// that divides 32 and C is a multiple of 32), else one thread per dkern element sums
-// its group's channels in order.
+// element, loads through the cache, 64-bit indices. The forward and dxp as above, in tap
+// order, bit for bit (the C/G threads of a group read the same kern value: one
+// broadcast transaction); dkern sums a group's lanes with a warp butterfly (when cg is
+// a power of two that divides 32 and C is a multiple of 32), else one thread per dkern
+// element sums its group's channels in order.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -79,7 +78,7 @@ __device__ __forceinline__ void store_f32(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store_f32(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
 
 template <typename T>
-__global__ void __launch_bounds__(256) involution_forward_kernel(
+__global__ void __launch_bounds__(256) involution_forward_general_kernel(
     const T* __restrict__ xp, const T* __restrict__ kern, T* __restrict__ out,
     int h, int w, int c, int groups, int k, long long total) {
   const long long idx = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
@@ -270,21 +269,24 @@ __device__ void copy_halo_tile(T* tile, const T* __restrict__ src, int n, int hs
 
 // Starts copying `bytes` from global to shared memory in units of `unit` bytes (16, 8,
 // 4 or 2; both addresses and `bytes` are multiples of it): cp.async where the unit is 4
-// bytes or more, else through registers.
-__device__ __forceinline__ void copy_run(void* dst, const void* src, int bytes, int unit) {
+// bytes or more, else through registers. Shared by `lanes` threads, of which this is
+// `lane`: it copies units lane, lane + lanes, ...
+__device__ __forceinline__ void copy_run(void* dst, const void* src, int bytes, int unit, int lane = 0,
+                                         int lanes = 1) {
   const unsigned int d = smem_addr(dst);
   const char* s = static_cast<const char*>(src);
+  const int first = lane * unit, step = lanes * unit;
   if (unit == 16) {
-    for (int b = 0; b < bytes; b += 16)
+    for (int b = first; b < bytes; b += step)
       asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d + b), "l"(s + b) : "memory");
   } else if (unit == 8) {
-    for (int b = 0; b < bytes; b += 8)
+    for (int b = first; b < bytes; b += step)
       asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(d + b), "l"(s + b) : "memory");
   } else if (unit == 4) {
-    for (int b = 0; b < bytes; b += 4)
+    for (int b = first; b < bytes; b += step)
       asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d + b), "l"(s + b) : "memory");
   } else {
-    for (int b = 0; b < bytes; b += 2)
+    for (int b = first; b < bytes; b += step)
       *reinterpret_cast<unsigned short*>(static_cast<char*>(dst) + b) = *reinterpret_cast<const unsigned short*>(s + b);
   }
 }
@@ -302,15 +304,75 @@ struct Tiling {
   }
 };
 
-// One tap of dxp: acc += kv * g, a multiply and an add, each rounded (the plain
-// version's arithmetic), for one 16-byte vector of g in shared memory.
+// One tap of the forward or of dxp: acc += kv * v, a multiply and an add, each rounded
+// (the plain version's arithmetic), for one 16-byte vector v in shared memory.
 template <typename T>
-__device__ __forceinline__ void dxp_tap(float (&acc)[kVec<T>], T kv, const T* g) {
+__device__ __forceinline__ void tap_mul_add(float (&acc)[kVec<T>], T kv, const T* v) {
   const float kf = to_f32(kv);
-  float gf[kVec<T>];
-  to_float(ld16(g), gf);
+  float vf[kVec<T>];
+  to_float(ld16(v), vf);
 #pragma unroll
-  for (int e = 0; e < kVec<T>; ++e) acc[e] = __fadd_rn(acc[e], __fmul_rn(kf, gf[e]));
+  for (int e = 0; e < kVec<T>; ++e) acc[e] = __fadd_rn(acc[e], __fmul_rn(kf, vf[e]));
+}
+
+// The forward: shared memory holds the halo of xp, [TH+k-1][TW+k-1][cc], then the tile's
+// kern values [pixel][tap][group of the chunk]: when the block holds every group, a tile
+// row's pixels are one contiguous run of kern, copied by a warp. A thread owns one output
+// pixel and one 16-byte vector of channels (inside one group) and walks the taps in the
+// plain version's order: one kern value and one 16-byte vector of xp a tap, both from
+// shared memory. K as for dxp below; every tap of an output pixel lies inside the
+// pre-padded xp, so the taps need no checks.
+template <typename T, int K>
+__global__ void __launch_bounds__(256) involution_forward_tiled_kernel(
+    const T* __restrict__ xp, const T* __restrict__ kern, T* __restrict__ out, int h, int w, int c, int groups,
+    int k_arg, int th, int tw, int gb) {
+  extern __shared__ uint4 smem[];
+  constexpr int E = kVec<T>, kUnrolled = K > 0 ? K : 1;  // K = 0 never takes the unrolled loops
+  const int k = K > 0 ? K : k_arg;
+  const int cols = tw + k - 1, taps = k * k, kk = taps * groups;
+  const int cg = c / groups, cc = gb * cg, vecs = cc / E;
+  const Tiling at(h, w, groups, th, tw, gb);
+  const int n = at.n, g0 = at.g0, y0 = at.y0, x0 = at.x0, c0 = g0 * cg, tw_in = min(tw, w - x0);
+  T* tile = reinterpret_cast<T*>(smem);
+  T* ks = tile + (th + k - 1) * cols * cc;  // a whole number of 16-byte vectors in
+  copy_halo_tile(tile, xp, n, h + k - 1, w + k - 1, c, y0, x0, th + k - 1, cols, c0, cc);
+  if (gb == groups) {
+    const int bytes = kk * static_cast<int>(sizeof(T)), unit = min(16, bytes & -bytes);
+    for (int r = threadIdx.x / 32; r < th; r += blockDim.x / 32) {
+      if (y0 + r >= h) continue;
+      copy_run(ks + r * tw * kk, kern + ((n * h + y0 + r) * w + x0) * kk, tw_in * bytes, unit, threadIdx.x % 32, 32);
+    }
+  } else {  // a thread per (pixel, tap): the chunk's gb values
+    const int bytes = gb * static_cast<int>(sizeof(T)), unit = min(16, bytes & -bytes);
+    for (int i = threadIdx.x; i < th * tw * taps; i += blockDim.x) {
+      const int p = i / taps, py = p / tw, px = p % tw;
+      if (y0 + py >= h || px >= tw_in) continue;
+      copy_run(ks + i * gb, kern + ((n * h + y0 + py) * w + x0 + px) * kk + (i % taps) * groups + g0, bytes, unit);
+    }
+  }
+  cp_async_wait_all_and_sync();
+
+  for (int i = threadIdx.x; i < th * tw * vecs; i += blockDim.x) {
+    const int v = i % vecs, p = i / vecs, py = p / tw, px = p % tw;
+    if (y0 + py >= h || px >= tw_in) continue;
+    // tap (dy, dx) reads kv[(dy * k + dx) * gb] and xv[(dy * cols + dx) * cc]
+    const T* kv = ks + p * taps * gb + v * E / cg;
+    const T* xv = tile + (py * cols + px) * cc + v * E;
+    float acc[E];
+#pragma unroll
+    for (int e = 0; e < E; ++e) acc[e] = 0.f;
+    if (K > 0) {
+#pragma unroll
+      for (int dy = 0; dy < kUnrolled; ++dy)
+#pragma unroll
+        for (int dx = 0; dx < kUnrolled; ++dx)
+          tap_mul_add(acc, kv[(dy * kUnrolled + dx) * gb], xv + (dy * cols + dx) * cc);
+    } else {
+      for (int dy = 0; dy < k; ++dy)
+        for (int dx = 0; dx < k; ++dx) tap_mul_add(acc, kv[(dy * k + dx) * gb], xv + (dy * cols + dx) * cc);
+    }
+    *reinterpret_cast<uint4*>(out + ((n * h + y0 + py) * w + x0 + px) * c + c0 + v * E) = from_float(acc);
+  }
 }
 
 // dxp: shared memory holds the halo of g, [TH+k-1][TW+k-1][cc], and the kern values the
@@ -372,12 +434,12 @@ __global__ void __launch_bounds__(256) involution_backward_dxp_tiled_kernel(
       for (int dy = 0; dy < kUnrolled; ++dy)
 #pragma unroll
         for (int dx = 0; dx < kUnrolled; ++dx)
-          dxp_tap(acc, kv[dy * kv_dy + dx * kv_dx], gv - (dy * cols + dx) * cc);
+          tap_mul_add(acc, kv[dy * kv_dy + dx * kv_dx], gv - (dy * cols + dx) * cc);
     } else {
       for (int dy = 0; dy < k; ++dy) {
         if (yy - dy < 0 || yy - dy >= h) continue;
         for (int dx = 0; dx < k; ++dx)
-          if (xx - dx >= 0 && xx - dx < w) dxp_tap(acc, kv[dy * kv_dy + dx * kv_dx], gv - (dy * cols + dx) * cc);
+          if (xx - dx >= 0 && xx - dx < w) tap_mul_add(acc, kv[dy * kv_dy + dx * kv_dx], gv - (dy * cols + dx) * cc);
       }
     }
     *reinterpret_cast<uint4*>(dxp + ((n * hp + yy) * wp + xx) * c + c0 + v * E) = from_float(acc);
@@ -510,9 +572,10 @@ extern "C" const char* holocron_cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// dtype: 0 = float32, 1 = bfloat16. Returns cudaGetLastError() after the launch.
-extern "C" int involution_forward(const void* xp, const void* kern, void* out, int dtype,
-                                  int n, int h, int w, int c, int groups, int k, void* stream) {
+// The general route's forward (one thread per element, any shape). dtype: 0 = float32,
+// 1 = bfloat16. Each entry point returns cudaGetLastError() after its launch.
+extern "C" int involution_forward_general(const void* xp, const void* kern, void* out, int dtype,
+                                          int n, int h, int w, int c, int groups, int k, void* stream) {
   const long long total = static_cast<long long>(n) * h * w * c;
   if (total == 0) return 0;
   if (groups <= 0 || k <= 0 || c % groups != 0) return static_cast<int>(cudaErrorInvalidValue);
@@ -520,11 +583,11 @@ extern "C" int involution_forward(const void* xp, const void* kern, void* out, i
   const unsigned int blocks = static_cast<unsigned int>((total + threads - 1) / threads);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    involution_forward_kernel<float><<<blocks, threads, 0, s>>>(
+    involution_forward_general_kernel<float><<<blocks, threads, 0, s>>>(
         static_cast<const float*>(xp), static_cast<const float*>(kern), static_cast<float*>(out),
         h, w, c, groups, k, total);
   } else if (dtype == 1) {
-    involution_forward_kernel<__nv_bfloat16><<<blocks, threads, 0, s>>>(
+    involution_forward_general_kernel<__nv_bfloat16><<<blocks, threads, 0, s>>>(
         static_cast<const __nv_bfloat16*>(xp), static_cast<const __nv_bfloat16*>(kern),
         static_cast<__nv_bfloat16*>(out), h, w, c, groups, k, total);
   } else {
@@ -601,32 +664,33 @@ constexpr long long kBlockSmemMax = 227 * 1024;
 template <typename T>
 using TiledKernel = void (*)(const T*, const T*, T*, int, int, int, int, int, int, int, int);
 
-// Tiles of dxp (tile the padded Hp x Wp grid) and dkern (the H x W grid), in the order
-// tried. The first are the fastest measured at N32, 56x56, C128, G8, k7 on an H100
-// (PERF.md): dxp in rows of 16 pixels, dkern in 4 x 8 tiles; larger tiles re-read
-// less of the halo but hold fewer blocks an SM.
+// Tiles of the forward and dkern (they tile the H x W grid) and of dxp (the padded
+// Hp x Wp grid), in the order tried. The first are the fastest measured at N32, 56x56,
+// C128, G8, k7 on an H100 (PERF.md): the forward in 8 x 8 tiles, dxp in rows of 16
+// pixels, dkern in 4 x 8 tiles; larger tiles re-read less of the halo but hold fewer
+// blocks an SM.
+constexpr int kFwdTiles[][2] = {{8, 8}, {4, 8}, {2, 8}, {1, 8}, {1, 4}, {1, 2}, {1, 1}};
 constexpr int kDxpTiles[][2] = {{1, 16}, {1, 8}, {1, 4}, {1, 2}, {1, 1}};
 constexpr int kDkernTiles[][2] = {{4, 8}, {4, 4}, {2, 4}, {2, 2}, {1, 2}, {1, 1}};
 
 // Launches a tiled kernel, one block a tile, on the first plan that fits: the most
-// groups a block (all of them down to one), then the largest tile, within half an SM's
-// shared memory, else within a block's. Shared memory: the halo, then dxp's kern values
-// or dkern's staged output.
-template <typename T>
-static int launch_tiled(TiledKernel<T> kernel, bool dkern, const void* a, const void* b, void* out, int n, int h,
-                        int w, int c, int groups, int k, cudaStream_t s) {
+// groups a block (all of them down to one), then the first tile of `tiles`, within half
+// an SM's shared memory, else within a block's. `padded`: the tiles cover dxp's padded
+// grid. Shared memory: the halo, then the forward's or dxp's kern values or dkern's
+// staged output.
+template <typename T, int N>
+static int launch_tiled(TiledKernel<T> kernel, const int (&tiles)[N][2], bool padded, const void* a, const void* b,
+                        void* out, int n, int h, int w, int c, int groups, int k, cudaStream_t s) {
   const int cg = c / groups;
-  const int rows = dkern ? h : h + k - 1, cols = dkern ? w : w + k - 1;
-  const int (*tiles)[2] = dkern ? kDkernTiles : kDxpTiles;
-  const int ntiles = dkern ? sizeof(kDkernTiles) / sizeof(kDkernTiles[0]) : sizeof(kDxpTiles) / sizeof(kDxpTiles[0]);
+  const int rows = padded ? h + k - 1 : h, cols = padded ? w + k - 1 : w;
   const long long budgets[] = {kHalfSmBytes, kBlockSmemMax};
   for (long long budget : budgets) {
     for (int gb = groups; gb >= 1; --gb) {
       if (groups % gb != 0) continue;
-      for (int t = 0; t < ntiles; ++t) {
+      for (int t = 0; t < N; ++t) {
         const int th = std::min(tiles[t][0], rows), tw = std::min(tiles[t][1], cols);
         const long long halo = static_cast<long long>(th + k - 1) * (tw + k - 1) * gb * cg;
-        const long long staged = static_cast<long long>(th) * (dkern ? tw : tw + k - 1) * k * k * gb;
+        const long long staged = static_cast<long long>(th) * (padded ? tw + k - 1 : tw) * k * k * gb;
         const long long bytes = (halo + staged) * sizeof(T);
         if (bytes > budget) continue;
         const int smem = static_cast<int>(bytes);
@@ -664,7 +728,7 @@ static int launch_dxp_tiled(const void* kern, const void* g, void* dxp, int n, i
     case 7: kernel = involution_backward_dxp_tiled_kernel<T, 7>; break;
     default: kernel = involution_backward_dxp_tiled_kernel<T, 0>; break;
   }
-  return launch_tiled<T>(kernel, false, kern, g, dxp, n, h, w, c, groups, k, s);
+  return launch_tiled<T>(kernel, kDxpTiles, true, kern, g, dxp, n, h, w, c, groups, k, s);
 }
 
 template <typename T, int NV>
@@ -687,10 +751,33 @@ static int launch_dkern_tiled(const void* xp, const void* g, void* dkern, int n,
     case 4: kernel = dkern_kernel<T, 4>(k); break;
     default: kernel = involution_backward_dkern_tiled_kernel<T, 0, 0>; break;
   }
-  return launch_tiled<T>(kernel, true, xp, g, dkern, n, h, w, c, groups, k, s);
+  return launch_tiled<T>(kernel, kDkernTiles, false, xp, g, dkern, n, h, w, c, groups, k, s);
 }
 
-// The tiled route's two gradients; dtype as above.
+template <typename T>
+static int launch_forward_tiled(const void* xp, const void* kern, void* out, int n, int h, int w, int c, int groups,
+                                int k, cudaStream_t s) {
+  TiledKernel<T> kernel;
+  switch (k) {
+    case 3: kernel = involution_forward_tiled_kernel<T, 3>; break;
+    case 5: kernel = involution_forward_tiled_kernel<T, 5>; break;
+    case 7: kernel = involution_forward_tiled_kernel<T, 7>; break;
+    default: kernel = involution_forward_tiled_kernel<T, 0>; break;
+  }
+  return launch_tiled<T>(kernel, kFwdTiles, false, xp, kern, out, n, h, w, c, groups, k, s);
+}
+
+// The tiled route's forward and two gradients; dtype as above.
+extern "C" int involution_forward(const void* xp, const void* kern, void* out, int dtype, int n, int h, int w, int c,
+                                  int groups, int k, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0 && tiled_shape_ok(n, h, w, c, groups, k, 4))
+    return launch_forward_tiled<float>(xp, kern, out, n, h, w, c, groups, k, s);
+  if (dtype == 1 && tiled_shape_ok(n, h, w, c, groups, k, 2))
+    return launch_forward_tiled<__nv_bfloat16>(xp, kern, out, n, h, w, c, groups, k, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 extern "C" int involution_backward_dxp(const void* kern, const void* g, void* dxp, int dtype, int n, int h, int w,
                                        int c, int groups, int k, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);

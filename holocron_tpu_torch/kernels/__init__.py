@@ -8,6 +8,7 @@ from . import add2d, int8_conv, involution
 
 KERNELS = {
     "involution": involution.KERNEL,
+    "involution_general": involution.KERNEL_GENERAL,
     "involution_bwd_dxp": involution.KERNEL_DXP,
     "involution_bwd_dkern": involution.KERNEL_DKERN,
     "involution_bwd_dxp_general": involution.KERNEL_DXP_GENERAL,

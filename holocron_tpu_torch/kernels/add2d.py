@@ -3,7 +3,8 @@
 ``out[l, o] = -sum_d |p[l, d] - w[d, o]|`` for ``p (L, D)`` and ``w (D, O)``, accumulated
 in float32 and stored in ``p``'s dtype (float32 or bfloat16). Its gradients, for the
 cotangent ``g (L, O)``, are ``dp[l, d] = -sum_o g[l, o] * sign(p[l, d] - w[d, o])`` (in
-``p``'s dtype) and ``dw[d, o] = sum_l g[l, o] * sign(p[l, d] - w[d, o])`` (in ``w``'s).
+``p``'s dtype) and ``dw[d, o] = sum_l g[l, o] * sign(p[l, d] - w[d, o])`` (in ``w``'s),
+with ``jnp.sign``'s sign: 0 at 0, NaN at NaN.
 
 On a CUDA tensor :func:`add2d_matmul`, :func:`add2d_bwd_dp` and :func:`add2d_bwd_dw`
 launch the three kernels of ``csrc/add2d.cu``; on a CPU tensor each computes its plain
@@ -42,8 +43,8 @@ KERNEL_BWD_DP = Kernel("add2d", "add2d_backward_dp", [_P, _P, _P, _P, _I, _I, _I
 KERNEL_BWD_DW = Kernel("add2d", "add2d_backward_dw", [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P])
 _BUDGET = 1 << 23  # broadcast elements per chunk of the plain versions (add2d.py:92)
 _TILE = 64  # output tile edge of the kernels
-_TARGET_BLOCKS = 264  # two blocks for each of the H100's 132 SMs
-_MIN_ROWS = 256  # fewest rows of L a dw slice reduces
+_MIN_ROWS = 64  # fewest rows of L a dw slice reduces: two chunks of the kernel's ring
+_MAX_PER_SM = 3  # most dw blocks a balanced plan gives an SM: the three it holds at once
 
 
 def _check(p: torch.Tensor, w: torch.Tensor) -> Tuple[int, int, int]:
@@ -67,6 +68,12 @@ def _stream(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
+def _sign(x: torch.Tensor) -> torch.Tensor:
+    """``jnp.sign``: 0 at 0 and NaN at NaN, as the kernels compute it (``torch.sign``
+    gives 0 at NaN)."""
+    return torch.sign(x).where(~x.isnan(), x)
+
+
 def add2d_matmul_plain(p: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """The broadcast ``-sum_d |p - w|`` in float32 over chunks of O, cast to ``p``'s dtype."""
     l, d, o = _check(p, w)
@@ -86,7 +93,7 @@ def add2d_bwd_dp_plain(p: torch.Tensor, w: torch.Tensor, g: torch.Tensor) -> tor
     step = _chunk(l, d, o)
     dp = torch.zeros((l, d), dtype=torch.float32, device=p.device)
     for start in range(0, o, step):
-        sign = torch.sign(pf[:, :, None] - wf[None, :, start : start + step])
+        sign = _sign(pf[:, :, None] - wf[None, :, start : start + step])
         dp -= torch.einsum("lc,ldc->ld", gf[:, start : start + step], sign)
     return dp.to(p.dtype)
 
@@ -99,7 +106,7 @@ def add2d_bwd_dw_plain(p: torch.Tensor, w: torch.Tensor, g: torch.Tensor) -> tor
     step = _chunk(l, d, o)
     dw = torch.empty((d, o), dtype=torch.float32, device=p.device)
     for start in range(0, o, step):
-        sign = torch.sign(pf[:, :, None] - wf[None, :, start : start + step])
+        sign = _sign(pf[:, :, None] - wf[None, :, start : start + step])
         dw[:, start : start + step] = torch.einsum("lc,ldc->dc", gf[:, start : start + step], sign)
     return dw.to(w.dtype)
 
@@ -131,11 +138,17 @@ def add2d_bwd_dp(p: torch.Tensor, w: torch.Tensor, g: torch.Tensor) -> torch.Ten
     return dp
 
 
-def dw_slices(l: int, d: int, o: int) -> Tuple[int, int]:
-    """``(slices, rows)``: how the dw kernel splits L over blocks, enough slices for
-    about two blocks an SM, none shorter than 256 rows."""
+def dw_slices(l: int, d: int, o: int, sms: int) -> Tuple[int, int]:
+    """``(slices, rows)``: how the dw kernel splits L over blocks, one block a (64 x 64
+    tile of dw, slice). The fewest slices that make the blocks a whole number for each
+    of the card's ``sms`` SMs, so every SM does the same work, as long as that is at most
+    ``_MAX_PER_SM`` blocks an SM and no slice is shorter than ``_MIN_ROWS`` rows; else
+    (few rows, or tiles enough to fill the card) about two blocks an SM."""
     tiles = math.ceil(d / _TILE) * math.ceil(o / _TILE)
-    slices = max(1, min(math.ceil(l / _MIN_ROWS), math.ceil(_TARGET_BLOCKS / max(tiles, 1))))
+    longest = max(1, math.ceil(l / _MIN_ROWS))
+    slices = sms // math.gcd(tiles, sms)
+    if slices > longest or tiles * slices > _MAX_PER_SM * sms:
+        slices = max(1, min(longest, math.ceil(2 * sms / max(tiles, 1))))
     rows = max(1, math.ceil(l / slices))
     return math.ceil(l / rows) if l else 1, rows
 
@@ -148,7 +161,7 @@ def add2d_bwd_dw(p: torch.Tensor, w: torch.Tensor, g: torch.Tensor) -> torch.Ten
         return add2d_bwd_dw_plain(p, w, g)
     l, d, o = _check_grad(p, w, g)
     p, w, g = cuda_operands(p, w, g)
-    slices, rows = dw_slices(l, d, o)
+    slices, rows = dw_slices(l, d, o, torch.cuda.get_device_properties(p.device).multi_processor_count)
     partial = torch.empty((slices, d, o), dtype=torch.float32, device=p.device)
     dw = torch.empty((d, o), dtype=w.dtype, device=p.device)
     with torch.cuda.device(p.device):

@@ -4,16 +4,17 @@
 for stride 1 and dilation 1, accumulated in float32 and stored in ``xp``'s dtype.
 Layouts are the JAX package's: NHWC pre-padded ``xp`` and a tap-major kernel field.
 
-On a CUDA tensor :func:`involution_stencil` launches the forward of
-``csrc/involution.cu``, and the two gradients take one of two routes, chosen by shape
-in :func:`bwd_route`: :func:`involution_bwd_dxp` / :func:`involution_bwd_dkern`, the
-tiled kernels (a shared-memory halo tile, 16-byte vectors), where a group's channels
-are whole 16-byte vectors; :func:`involution_bwd_dxp_general` /
-:func:`involution_bwd_dkern_general` for every other shape. On a CPU tensor each
-computes its plain version (``*_plain``), the per-tap sums that the tests hold the
-kernels against. :class:`InvolutionStencil` (``involution_stencil_ad``, as the JAX
-package names it) is the differentiable form: the forward and the two gradients, each
-a kernel on the card.
+On CUDA tensors the forward and the two gradients take one of the two routes of
+``csrc/involution.cu``, chosen by shape alone in :func:`bwd_route`: the tiled kernels (a
+shared-memory halo tile, 16-byte vectors), where a group's channels are whole 16-byte
+vectors (:func:`involution_stencil_tiled`, :func:`involution_bwd_dxp`,
+:func:`involution_bwd_dkern`), and the general ones for every other shape
+(:func:`involution_stencil_general`, :func:`involution_bwd_dxp_general`,
+:func:`involution_bwd_dkern_general`). :func:`involution_stencil` takes any shape and
+picks the route. On a CPU tensor each computes its plain version (``*_plain``), the
+per-tap sums that the tests hold the kernels against. :class:`InvolutionStencil`
+(``involution_stencil_ad``, as the JAX package names it) is the differentiable form: the
+forward and the two gradients, each a kernel on the card.
 """
 
 import ctypes
@@ -28,6 +29,7 @@ __all__ = [
     "KERNEL_DKERN_GENERAL",
     "KERNEL_DXP",
     "KERNEL_DXP_GENERAL",
+    "KERNEL_GENERAL",
     "InvolutionStencil",
     "bwd_route",
     "involution_bwd_dkern",
@@ -38,12 +40,15 @@ __all__ = [
     "involution_bwd_dxp_plain",
     "involution_stencil",
     "involution_stencil_ad",
+    "involution_stencil_general",
     "involution_stencil_plain",
+    "involution_stencil_tiled",
 ]
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGS = [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]
 KERNEL = Kernel("involution", "involution_forward", _ARGS)
+KERNEL_GENERAL = Kernel("involution", "involution_forward_general", _ARGS)
 KERNEL_DXP = Kernel("involution", "involution_backward_dxp", _ARGS)
 KERNEL_DKERN = Kernel("involution", "involution_backward_dkern", _ARGS)
 KERNEL_DXP_GENERAL = Kernel("involution", "involution_backward_dxp_general", _ARGS)
@@ -77,22 +82,37 @@ def involution_stencil_plain(xp: torch.Tensor, kern: torch.Tensor, k: int, group
 
 
 def involution_stencil(xp: torch.Tensor, kern: torch.Tensor, k: int, groups: int) -> torch.Tensor:
-    """Applies the involution stencil (stride 1, dilation 1).
+    """Applies the involution stencil (stride 1, dilation 1), for any shape: on the card
+    through the route :func:`bwd_route` picks from the shape, on the CPU the plain
+    version.
 
     Args:
         xp: ``(N, H + k - 1, W + k - 1, C)``, the pre-padded NHWC input
         kern: ``(N, H, W, k^2 * G)`` kernel field, tap-major (channel = tap * G + g)
         k: kernel size; groups: G (C must be divisible by it)
     """
+    tiled = bwd_route(xp.shape[-1], groups, xp.dtype) == "tiled"
+    return (involution_stencil_tiled if tiled else involution_stencil_general)(xp, kern, k, groups)
+
+
+def involution_stencil_tiled(xp: torch.Tensor, kern: torch.Tensor, k: int, groups: int) -> torch.Tensor:
+    """:func:`involution_stencil` on the card by the tiled kernel (raises where
+    :func:`bwd_route` is not ``"tiled"``), bit for bit the plain version, which it
+    computes on the CPU."""
     if xp.device.type == "cpu" and kern.device.type == "cpu":
         return involution_stencil_plain(xp, kern, k, groups)
     n, h, w, c = _check(xp, kern, k, groups)
-    xp, kern = cuda_operands(xp, kern)
-    out = torch.empty((n, h, w, c), dtype=xp.dtype, device=xp.device)
-    with torch.cuda.device(xp.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        KERNEL(xp.data_ptr(), kern.data_ptr(), out.data_ptr(), FLOAT_DTYPES[xp.dtype], n, h, w, c, groups, k, stream)
-    return out
+    return _launch(KERNEL, True, (xp, kern), (n, h, w, c), n, h, w, c, k, groups)
+
+
+def involution_stencil_general(xp: torch.Tensor, kern: torch.Tensor, k: int, groups: int) -> torch.Tensor:
+    """:func:`involution_stencil` for any shape: on the card the general route's kernel
+    (one thread per element, bit for bit the plain version), on the CPU the plain
+    version."""
+    if xp.device.type == "cpu" and kern.device.type == "cpu":
+        return involution_stencil_plain(xp, kern, k, groups)
+    n, h, w, c = _check(xp, kern, k, groups)
+    return _launch(KERNEL_GENERAL, False, (xp, kern), (n, h, w, c), n, h, w, c, k, groups)
 
 
 def _check_grad(xp: torch.Tensor, kern: torch.Tensor, g: torch.Tensor, k: int, groups: int):
@@ -129,24 +149,27 @@ def involution_bwd_dkern_plain(xp: torch.Tensor, kern: torch.Tensor, g: torch.Te
 
 
 def bwd_route(c: int, groups: int, dtype: torch.dtype) -> str:
-    """The route the backward of a CUDA involution with ``c`` channels in ``groups``
-    groups takes: ``"tiled"`` where a group's channels are whole 16-byte vectors
-    (``(c / groups) * itemsize % 16 == 0``, float32 or bfloat16), else ``"general"``."""
+    """The route the forward and the backward of a CUDA involution with ``c`` channels
+    in ``groups`` groups take: ``"tiled"`` where a group's channels are whole 16-byte
+    vectors (``(c / groups) * itemsize % 16 == 0``, float32 or bfloat16), else
+    ``"general"``."""
     return "tiled" if dtype in FLOAT_DTYPES and (c // groups) * dtype.itemsize % 16 == 0 else "general"
 
 
-def _backward(kernel: Kernel, tiled: bool, ins, out_shape, n: int, h: int, w: int, c: int, k: int, groups: int):
-    """Launches one backward kernel on ``ins`` (two tensors) into a new tensor of
-    ``out_shape``; raises on what the route does not take."""
+def _launch(kernel: Kernel, tiled: bool, ins, out_shape, n: int, h: int, w: int, c: int, k: int, groups: int):
+    """Launches one kernel on ``ins`` (two tensors) into a new tensor of ``out_shape``;
+    raises on what the route does not take."""
     # xp, and kern as if it spanned the padded grid (the dxp kernel's offsets reach that far)
     padded = n * (h + k - 1) * (w + k - 1)
     if tiled and padded * max(c, k * k * groups) >= INDEX_LIMIT:
-        raise ValueError(f"the tiled involution backward indexes in 32 bits: (N, H + k - 1, W + k - 1) x "
+        raise ValueError(f"the tiled involution kernels index in 32 bits: (N, H + k - 1, W + k - 1) x "
                          f"max(C, k^2 G) must be below 2^31, got {(n, h + k - 1, w + k - 1)} x {max(c, k * k * groups)}")
     a, b = cuda_operands(*ins)
     if tiled and bwd_route(c, groups, a.dtype) != "tiled":
-        raise ValueError(f"the tiled involution backward needs whole 16-byte vectors in a group: "
+        raise ValueError(f"the tiled involution kernels need whole 16-byte vectors in a group: "
                          f"(C / G) * itemsize = {c // groups * a.dtype.itemsize} bytes")
+    if tiled:  # 16-byte copies: a view that starts off a 16-byte boundary is copied first
+        a, b = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (a, b))
     out = torch.empty(out_shape, dtype=a.dtype, device=a.device)
     if out.numel():
         with torch.cuda.device(a.device):
@@ -162,7 +185,7 @@ def involution_bwd_dxp(xp: torch.Tensor, kern: torch.Tensor, g: torch.Tensor, k:
     if g.device.type == "cpu" and kern.device.type == "cpu":
         return involution_bwd_dxp_plain(xp, kern, g, k, groups)
     n, h, w, c = _check_grad(xp, kern, g, k, groups)
-    return _backward(KERNEL_DXP, True, (kern, g), xp.shape, n, h, w, c, k, groups)
+    return _launch(KERNEL_DXP, True, (kern, g), xp.shape, n, h, w, c, k, groups)
 
 
 def involution_bwd_dkern(xp: torch.Tensor, kern: torch.Tensor, g: torch.Tensor, k: int, groups: int) -> torch.Tensor:
@@ -172,7 +195,7 @@ def involution_bwd_dkern(xp: torch.Tensor, kern: torch.Tensor, g: torch.Tensor, 
     if g.device.type == "cpu" and xp.device.type == "cpu":
         return involution_bwd_dkern_plain(xp, kern, g, k, groups)
     n, h, w, c = _check_grad(xp, kern, g, k, groups)
-    return _backward(KERNEL_DKERN, True, (xp, g), kern.shape, n, h, w, c, k, groups)
+    return _launch(KERNEL_DKERN, True, (xp, g), kern.shape, n, h, w, c, k, groups)
 
 
 def involution_bwd_dxp_general(xp: torch.Tensor, kern: torch.Tensor, g: torch.Tensor, k: int,
@@ -183,7 +206,7 @@ def involution_bwd_dxp_general(xp: torch.Tensor, kern: torch.Tensor, g: torch.Te
     if g.device.type == "cpu" and kern.device.type == "cpu":
         return involution_bwd_dxp_plain(xp, kern, g, k, groups)
     n, h, w, c = _check_grad(xp, kern, g, k, groups)
-    return _backward(KERNEL_DXP_GENERAL, False, (kern, g), xp.shape, n, h, w, c, k, groups)
+    return _launch(KERNEL_DXP_GENERAL, False, (kern, g), xp.shape, n, h, w, c, k, groups)
 
 
 def involution_bwd_dkern_general(xp: torch.Tensor, kern: torch.Tensor, g: torch.Tensor, k: int,
@@ -194,14 +217,14 @@ def involution_bwd_dkern_general(xp: torch.Tensor, kern: torch.Tensor, g: torch.
     if g.device.type == "cpu" and xp.device.type == "cpu":
         return involution_bwd_dkern_plain(xp, kern, g, k, groups)
     n, h, w, c = _check_grad(xp, kern, g, k, groups)
-    return _backward(KERNEL_DKERN_GENERAL, False, (xp, g), kern.shape, n, h, w, c, k, groups)
+    return _launch(KERNEL_DKERN_GENERAL, False, (xp, g), kern.shape, n, h, w, c, k, groups)
 
 
 class InvolutionStencil(torch.autograd.Function):
     """:func:`involution_stencil` with its gradients for ``xp`` and ``kern``
     (``involution_stencil_ad``, ``holocron_tpu/kernels/involution.py:90-120``). All
-    three take the kernels on the card (the gradients the route :func:`bwd_route`
-    picks) and the plain versions on the CPU."""
+    three take the kernels of the route :func:`bwd_route` picks on the card and the
+    plain versions on the CPU."""
 
     @staticmethod
     def forward(ctx, xp: torch.Tensor, kern: torch.Tensor, k: int, groups: int) -> torch.Tensor:

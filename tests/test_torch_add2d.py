@@ -3,6 +3,8 @@ plain ``add2d_matmul`` and its autograd form against the Pallas kernel (interpre
 mode) and ``jax.grad`` of ``add2d_matmul_ad``, and ``add2d`` / ``Add2d`` against the
 JAX functional and module on the same weights (``convert.add2d_state_dict``)."""
 
+import math
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -49,6 +51,28 @@ def test_autograd_matches_jax_grad():
     np.testing.assert_allclose(tw.grad.numpy(), np.asarray(jdw), atol=1e-5)
 
 
+def test_gradients_keep_jax_zeros_and_nans():
+    """sign(0) = 0 and sign(NaN) = NaN, as jnp.sign in the JAX backward (torch.sign gives
+    0 at NaN): with p == w in whole columns and a NaN in p, the port's gradients have
+    the zeros and NaNs of jax.grad of add2d_matmul_ad, and agree elsewhere (atol 1e-5)."""
+    rng = np.random.default_rng(6)
+    p = rng.normal(size=(37, 19)).astype(np.float32)
+    w = rng.normal(size=(19, 23)).astype(np.float32)
+    g = rng.normal(size=(37, 23)).astype(np.float32)
+    p[:, :4] = p[:1, :4]
+    w[:4, 7] = p[0, :4]  # p == w in every row: dw[:4, 7] = 0
+    p[11, 9] = np.nan  # dw[9, :] and dp[11, 9] are NaN
+    jdp, jdw = (np.asarray(t) for t in jax.grad(lambda a, b: jnp.sum(jax_add2d_matmul_ad(a, b, True) * g),
+                                                argnums=(0, 1))(jnp.asarray(p), jnp.asarray(w)))
+    tp, tw, tg = torch.from_numpy(p), torch.from_numpy(w), torch.from_numpy(g)
+    dp, dw = K.add2d_bwd_dp(tp, tw, tg).numpy(), K.add2d_bwd_dw(tp, tw, tg).numpy()
+    assert (jdw[:4, 7] == 0).all() and np.isnan(jdw[9]).all() and np.isnan(jdp[11, 9])
+    for ours, theirs in ((dp, jdp), (dw, jdw)):
+        np.testing.assert_array_equal(np.isnan(ours), np.isnan(theirs))
+        np.testing.assert_array_equal(ours == 0, theirs == 0)
+        np.testing.assert_allclose(ours, theirs, atol=1e-5)
+
+
 def test_plain_versions_chunk_without_changing_results(monkeypatch):
     """With a budget of 3 output columns per chunk the plain forward and backward give
     what one chunk gives: the chunking is over O only, so each entry is the same sum."""
@@ -62,10 +86,26 @@ def test_plain_versions_chunk_without_changing_results(monkeypatch):
         torch.testing.assert_close(a, b, rtol=0, atol=1e-5)
 
 
-def test_dw_slices_cover_l():
-    for l, d, o in ((12544, 576, 128), (50, 36, 10), (1, 8, 8), (100000, 64, 64)):
-        slices, rows = K.dw_slices(l, d, o)
-        assert slices * rows >= l and (slices - 1) * rows < l and rows >= 1
+@pytest.mark.parametrize("l,d,o,sms,balanced", [
+    (12544, 576, 128, 132, True),  # the path's layer: 22 slices, 396 blocks, 3 an SM
+    (12544, 100, 70, 132, True),  # D and O not multiples of the 64-wide tile
+    (50000, 36, 10, 132, True),  # one tile, 132 slices
+    (100000, 64, 64, 132, True),
+    (12544, 576, 128, 114, True),  # another SM count
+    (50, 36, 10, 132, False),  # too few rows for 132 slices of 64
+    (1, 8, 8, 132, False),
+    (0, 8, 8, 132, False),
+    (12544, 4096, 4096, 132, False),  # 4096 tiles fill the card without slicing
+])
+def test_dw_slices_cover_l(l, d, o, sms, balanced):
+    """The dw plan covers L with slices none of which is empty, and, where L is long
+    enough and the tiles alone do not fill the card, gives every SM the same number of
+    (tile, slice) blocks, at most three: those it holds at once."""
+    slices, rows = K.dw_slices(l, d, o, sms)
+    assert slices * rows >= l and (slices - 1) * rows < max(l, 1) and rows >= 1
+    blocks = math.ceil(d / 64) * math.ceil(o / 64) * slices
+    if balanced:
+        assert blocks % sms == 0 and blocks <= 3 * sms and rows >= 64
 
 
 @pytest.mark.parametrize("normalize_slices", [False, True], ids=["plain", "normalized"])

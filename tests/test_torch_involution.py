@@ -148,19 +148,35 @@ def test_involution2d_grads_match_jax():
         np.testing.assert_allclose(param.grad.numpy(), expected[name].numpy(), atol=1e-4, err_msg=name)
 
 
+@pytest.mark.parametrize("direction", ["forward", "backward"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["float32", "bfloat16"])
-def test_bwd_route_is_tiled_exactly_on_whole_16_byte_vectors(dtype):
-    """The tiled backward takes a shape exactly where a group's cg = C / G channels are
-    whole 16-byte vectors; every other shape takes the general route."""
-    from holocron_tpu_torch.kernels.involution import bwd_route
+def test_bwd_route_is_tiled_exactly_on_whole_16_byte_vectors(dtype, direction, monkeypatch):
+    """The tiled kernels take a shape exactly where a group's cg = C / G channels are
+    whole 16-byte vectors; every other shape takes the general route. One rule,
+    bwd_route, and both involution_stencil and InvolutionStencil's backward pick their
+    wrappers by it (recorded here in place of the wrappers)."""
+    from holocron_tpu_torch.kernels import involution as V
 
+    picked = []
+    names = {"forward": ("involution_stencil_tiled", "involution_stencil_general"),
+             "backward": ("involution_bwd_dxp", "involution_bwd_dxp_general")}[direction]
+    for route, name in zip(("tiled", "general"), names):
+        monkeypatch.setattr(V, name, lambda xp, *args, route=route: picked.append(route) or torch.zeros_like(xp))
+    k = 1
     for c in (1, 3, 8, 12, 16, 24, 32, 48, 64, 96, 128, 256):
         for groups in (1, 2, 3, 4, 8, 16, 32):
             if c % groups:
                 continue
             expected = "tiled" if (c // groups) * dtype.itemsize % 16 == 0 else "general"
-            assert bwd_route(c, groups, dtype) == expected, (c, groups)
-    assert bwd_route(128, 8, torch.float16) == "general"  # no kernel takes float16
+            assert V.bwd_route(c, groups, dtype) == expected, (c, groups)
+            xp, kern = torch.zeros(1, 2, 2, c, dtype=dtype), torch.zeros(1, 2, 2, groups, dtype=dtype)
+            if direction == "forward":
+                V.involution_stencil(xp, kern, k, groups)
+            else:
+                xp.requires_grad_()
+                V.InvolutionStencil.apply(xp, kern, k, groups).sum().backward()
+            assert picked.pop() == expected, (c, groups)
+    assert V.bwd_route(128, 8, torch.float16) == "general"  # no kernel takes float16
 
 
 @pytest.mark.parametrize("k", [7, 3])
@@ -218,9 +234,10 @@ def test_backward_wrappers_compute_the_plain_versions_on_the_cpu(route):
 
 
 def test_tiled_backward_refuses_32_bit_overflow_before_touching_memory():
-    """A tensor off the CPU goes to a kernel: the tiled wrappers refuse 2^31 elements or
-    more (32-bit indices) from the shapes alone, before any copy (meta tensors hold no
-    memory), and every wrapper refuses operands that are not on one CUDA device."""
+    """A tensor off the CPU goes to a kernel: the tiled wrappers (the forward and both
+    gradients) refuse 2^31 elements or more (32-bit indices) from the shapes alone,
+    before any copy (meta tensors hold no memory), and every wrapper refuses operands
+    that are not on one CUDA device."""
     from holocron_tpu_torch.kernels import involution as V
 
     n, h, w, c, g, k = 4096, 128, 128, 128, 8, 7  # xp: 4096 * 134^2 * 128 >= 2^31
@@ -229,8 +246,29 @@ def test_tiled_backward_refuses_32_bit_overflow_before_touching_memory():
     for fn in (V.involution_bwd_dxp, V.involution_bwd_dkern):
         with pytest.raises(ValueError, match="32 bits"):
             fn(xp, kern, gcot, k, g)
+    for fn in (V.involution_stencil_tiled, V.involution_stencil):
+        with pytest.raises(ValueError, match="32 bits"):
+            fn(xp, kern, k, g)
     small = [t[:1, :3 + k - 1, :3 + k - 1] if i == 0 else t[:1, :3, :3] for i, t in enumerate((xp, kern, gcot))]
     for fn in (V.involution_bwd_dxp, V.involution_bwd_dkern, V.involution_bwd_dxp_general,
                V.involution_bwd_dkern_general):
         with pytest.raises(ValueError, match="CUDA device"):
             fn(*small, k, g)
+    for fn in (V.involution_stencil_tiled, V.involution_stencil_general):
+        with pytest.raises(ValueError, match="CUDA device"):
+            fn(*small[:2], k, g)
+
+
+@pytest.mark.parametrize("n,h,w,c,g,k", [(1, 5, 4, 16, 4, 3), (2, 3, 6, 32, 2, 5), (2, 4, 4, 8, 8, 1)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["float32", "bfloat16"])
+def test_forward_wrappers_compute_the_plain_version_on_the_cpu(n, h, w, c, g, k, dtype):
+    """On CPU tensors involution_stencil and both routes' wrappers are the plain
+    version, bit for bit, whatever the shape's route."""
+    from holocron_tpu_torch.kernels import involution as V
+
+    rng = np.random.default_rng(7)
+    xp, kern = (torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(dtype)
+                for s in ((n, h + k - 1, w + k - 1, c), (n, h, w, k * k * g)))
+    ref = V.involution_stencil_plain(xp, kern, k, g)
+    for fn in (V.involution_stencil, V.involution_stencil_tiled, V.involution_stencil_general):
+        assert torch.equal(fn(xp, kern, k, g), ref)

@@ -7,6 +7,8 @@ JAX, so it also runs on a machine without it:
     python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py
 """
 
+import math
+
 import pytest
 import torch
 
@@ -15,7 +17,6 @@ from holocron_tpu_torch.kernels import involution as V
 from holocron_tpu_torch.kernels import int8_conv as Q
 from holocron_tpu_torch.kernels.int8_conv import KERNEL as INT8_KERNEL
 from holocron_tpu_torch.kernels.int8_conv import int8_conv, int8_conv_acc, int8_conv_acc_plain, int8_conv_plain
-from holocron_tpu_torch.kernels.involution import KERNEL as INVOLUTION_KERNEL
 from holocron_tpu_torch.kernels.involution import involution_stencil, involution_stencil_plain
 
 pytestmark = pytest.mark.cuda
@@ -30,18 +31,71 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("n,h,w,c,g,k", [(2, 5, 7, 24, 3, 3), (1, 9, 9, 16, 4, 5), (3, 4, 4, 8, 8, 1)])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_involution_kernel_matches_plain(cuda, n, h, w, c, g, k, dtype):
-    """Both accumulate in float32 in tap order with separate roundings: equal."""
+# the backward's shapes: 19 x 37 and 13 x 9 cross tile edges that are not multiples of
+# the tile, C 256 in 2 groups holds 16 or 32 vectors a group, k 3, 5, 7 and k 1 (outside
+# the unrolled set), and the path's 32 x 56 x 56 x 128, G8, k7
+_INVOLUTION_SHAPES = [(2, 5, 7, 24, 3, 3), (1, 9, 9, 16, 4, 5), (2, 6, 6, 64, 4, 3), (3, 4, 4, 32, 32, 1),
+                      (32, 56, 56, 128, 8, 7), (2, 19, 37, 64, 4, 7), (1, 13, 9, 32, 4, 3), (2, 3, 2, 256, 2, 5)]
+
+
+def _involution_fwd_routes():
+    """Each forward route's wrapper and launch counter."""
+    return {"tiled": (V.involution_stencil_tiled, V.KERNEL), "general": (V.involution_stencil_general,
+                                                                          V.KERNEL_GENERAL)}
+
+
+def _involution_fwd_matches_plain(cuda, n, h, w, c, g, k, dtype, fn, route):
+    """Both accumulate in float32 in tap order with separate roundings: equal. Only the
+    route's counter moves, by one."""
     gen = torch.Generator(device=cuda).manual_seed(0)
     xp = torch.randn(n, h + k - 1, w + k - 1, c, generator=gen, device=cuda).to(dtype)
     kern = torch.randn(n, h, w, k * k * g, generator=gen, device=cuda).to(dtype)
-    before = INVOLUTION_KERNEL.launches
-    out = involution_stencil(xp, kern, k, g)
+    counters = [kernel for _, kernel in _involution_fwd_routes().values()]
+    before = [kernel.launches for kernel in counters]
+    out = fn(xp, kern, k, g)
     torch.cuda.synchronize()
-    assert INVOLUTION_KERNEL.launches == before + 1
+    moved = _involution_fwd_routes()[route][1]
+    assert [kernel.launches - b for kernel, b in zip(counters, before)] == [int(kernel is moved) for kernel in counters]
     torch.testing.assert_close(out, involution_stencil_plain(xp, kern, k, g), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("n,h,w,c,g,k", [(3, 4, 4, 8, 8, 1), *_INVOLUTION_SHAPES])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_involution_kernel_matches_plain(cuda, n, h, w, c, g, k, dtype):
+    """involution_stencil through the route bwd_route picks: tiled where a group is whole
+    16-byte vectors, general for cg = 4 in bf16 and cg = 1."""
+    _involution_fwd_matches_plain(cuda, n, h, w, c, g, k, dtype, involution_stencil, V.bwd_route(c, g, dtype))
+
+
+@pytest.mark.parametrize("n,h,w,c,g,k", [(2, 19, 37, 64, 4, 7), (2, 6, 6, 64, 4, 3), (32, 56, 56, 128, 8, 7)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_involution_general_forward_matches_plain_at_tiled_shapes(cuda, n, h, w, c, g, k, dtype):
+    """The general route's forward takes any shape, bit for bit the plain version where
+    the tiled route would be picked."""
+    _involution_fwd_matches_plain(cuda, n, h, w, c, g, k, dtype, V.involution_stencil_general, "general")
+
+
+def test_involution_forward_wrappers_refuse_what_they_do_not_take(cuda):
+    """Every forward wrapper refuses float16 and operands off one CUDA device; the tiled
+    one also refuses groups that are not whole 16-byte vectors and 2^31 elements or
+    more (from the shapes, before any copy). Nothing launches."""
+    counters = [kernel for _, kernel in _involution_fwd_routes().values()]
+    before = [kernel.launches for kernel in counters]
+    n, h, w, c, g, k = 1, 4, 4, 32, 4, 3
+    xp, kern = torch.zeros(n, h + k - 1, w + k - 1, c, device=cuda), torch.zeros(n, h, w, k * k * g, device=cuda)
+    for fn in (involution_stencil, V.involution_stencil_tiled, V.involution_stencil_general):
+        with pytest.raises(TypeError):
+            fn(xp.half(), kern.half(), k, g)
+        with pytest.raises(ValueError):
+            fn(xp, kern.cpu(), k, g)
+    bf_kern = torch.zeros(n, h, w, k * k * 8, device=cuda, dtype=torch.bfloat16)  # G = 8: cg = 4, 8 bytes
+    with pytest.raises(ValueError, match="16-byte"):
+        V.involution_stencil_tiled(xp.to(torch.bfloat16), bf_kern, k, 8)
+    huge_n = 2**31 // ((h + k - 1) * (w + k - 1) * c) + 1
+    with pytest.raises(ValueError, match="32 bits"):
+        V.involution_stencil_tiled(xp.expand(huge_n, -1, -1, -1), kern.expand(huge_n, -1, -1, -1), k, g)
+    torch.cuda.synchronize()
+    assert [kernel.launches for kernel in counters] == before
 
 
 @pytest.mark.parametrize(
@@ -190,10 +244,13 @@ def _add2d_bounds(p, w, g, dtype):
     return fwd, dp, dw
 
 
-@pytest.mark.parametrize("l,d,o", [(50, 36, 10), (130, 70, 67), (1, 9, 3), (12544, 576, 128)])
+@pytest.mark.parametrize("l,d,o", [(50, 36, 10), (130, 70, 67), (1, 9, 3), (300, 100, 72), (5000, 36, 10),
+                                   (12544, 576, 128)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_add2d_kernels_match_plain(cuda, l, d, o, dtype):
-    """Forward, dp and dw at ragged shapes and at the path's layer (L 12544, D 576, O 128)."""
+    """Forward, dp and dw at ragged shapes (L = 1; L not a multiple of dw's 32-row chunk;
+    D and O not multiples of the 64-wide tile, with rows of whole 16-byte vectors or not;
+    79 slices of L) and at the path's layer (L 12544, D 576, O 128)."""
     gen = torch.Generator(device=cuda).manual_seed(2)
     p, w, g = (torch.randn(*s, generator=gen, device=cuda).to(dtype) for s in ((l, d), (d, o), (l, o)))
     fwd, dp, dw = _add2d_bounds(p, w, g, dtype)
@@ -209,6 +266,25 @@ def test_add2d_kernels_match_plain(cuda, l, d, o, dtype):
     ref = A.add2d_bwd_dw_plain(p, w, g)
     _within(gw, ref, dw(ref), "dw")
     torch.testing.assert_close(A.add2d_bwd_dw(p, w, g), gw, rtol=0, atol=0)  # no atomics: the same every run
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_add2d_dw_keeps_the_plain_zeros_and_nans(cuda, dtype):
+    """sign(0) = 0 and sign(NaN) = NaN: where p == w in every row dw is 0, as the plain
+    version's, and a NaN in p makes its row of dw NaN; elsewhere within the stated
+    tolerance."""
+    gen = torch.Generator(device=cuda).manual_seed(10)
+    l, d, o = 700, 70, 72
+    p, w, g = (torch.randn(*s, generator=gen, device=cuda).to(dtype) for s in ((l, d), (d, o), (l, o)))
+    p[:, :8] = p[:1, :8]  # rows of p constant in the first 8 columns ...
+    w[:8, 5] = p[0, :8]  # ... and equal to w there in column 5: dw[:8, 5] = 0
+    p[123, 40] = float("nan")  # dw[40, :] = NaN
+    ref, got = A.add2d_bwd_dw_plain(p, w, g), A.add2d_bwd_dw(p, w, g)
+    assert bool((ref[:8, 5] == 0).all()) and bool(ref[40].isnan().all())
+    assert torch.equal(got.isnan(), ref.isnan()) and torch.equal(got == 0, ref == 0)
+    finite = ~ref.isnan()
+    _, _, dw = _add2d_bounds(p, w, g, dtype)
+    _within(got[finite], ref[finite], dw(ref).expand_as(ref)[finite], "dw")
 
 
 def test_add2d_autograd_matches_plain(cuda):
@@ -259,9 +335,7 @@ def _involution_bwd_matches_plain(cuda, n, h, w, c, g, k, dtype, route):
     _within(dkern, ref, 1e-5 * absterms + ulp * ref.float().abs(), "dkern")
 
 
-@pytest.mark.parametrize("n,h,w,c,g,k", [(2, 5, 7, 24, 3, 3), (1, 9, 9, 16, 4, 5), (2, 6, 6, 64, 4, 3),
-                                         (3, 4, 4, 32, 32, 1), (32, 56, 56, 128, 8, 7),
-                                         (2, 19, 37, 64, 4, 7), (1, 13, 9, 32, 4, 3), (2, 3, 2, 256, 2, 5)])
+@pytest.mark.parametrize("n,h,w,c,g,k", _INVOLUTION_SHAPES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_involution_backward_kernels_match_plain(cuda, n, h, w, c, g, k, dtype):
     """Through the route bwd_route picks: tiled where a group is whole 16-byte vectors
@@ -305,6 +379,24 @@ def test_involution_backward_wrappers_refuse_what_they_do_not_take(cuda):
             fn(*huge, k, g)
     torch.cuda.synchronize()
     assert [kernel.launches for kernel in counters] == before
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_involution_tiled_kernels_take_views_off_16_byte_boundaries(cuda, dtype):
+    """Contiguous views that start one element into their storage: the tiled forward and
+    dxp equal their plain versions bit for bit, and dkern stays within its tolerance."""
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    n, h, w, c, g, k = 2, 9, 11, 64, 4, 3
+    shapes = ((n, h + k - 1, w + k - 1, c), (n, h, w, k * k * g), (n, h, w, c))
+    xp, kern, gout = (torch.randn(math.prod(s) + 1, generator=gen, device=cuda).to(dtype)[1:].view(s)
+                      for s in shapes)
+    assert all(t.data_ptr() % 16 for t in (xp, kern, gout))
+    assert torch.equal(V.involution_stencil_tiled(xp, kern, k, g), V.involution_stencil_plain(xp, kern, k, g))
+    assert torch.equal(V.involution_bwd_dxp(xp, kern, gout, k, g), V.involution_bwd_dxp_plain(xp, kern, gout, k, g))
+    ref = V.involution_bwd_dkern_plain(xp, kern, gout, k, g)
+    absterms = V.involution_bwd_dkern_plain(xp.float().abs(), kern.float(), gout.float().abs(), k, g)
+    ulp = 2.0**-7 if dtype == torch.bfloat16 else 0.0
+    _within(V.involution_bwd_dkern(xp, kern, gout, k, g), ref, 1e-5 * absterms + ulp * ref.float().abs(), "dkern")
 
 
 def test_involution_autograd_matches_plain(cuda):

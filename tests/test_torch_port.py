@@ -52,7 +52,7 @@ def test_cpu_tensors_never_launch_a_kernel():
         model = RepVGG([1, 1], [8, 16], 1.0, 1.0, generator=g, device="cpu").reparametrize().eval()
         qm = quant.quantize_model(model, min_in_channels=8)
         qm(torch.randn(2, 3, 32, 32, generator=g))
-    assert set(kernels.KERNELS) == {"involution", "involution_bwd_dxp", "involution_bwd_dkern",
+    assert set(kernels.KERNELS) == {"involution", "involution_general", "involution_bwd_dxp", "involution_bwd_dkern",
                                     "involution_bwd_dxp_general", "involution_bwd_dkern_general", "add2d_fwd",
                                     "add2d_bwd_dp", "add2d_bwd_dw", "int8_conv", "int8_conv_general",
                                     "int8_quantize"}

@@ -5,6 +5,8 @@ gets the same deploy weights through ``holocron_tpu_torch.convert`` and the same
 calibration batch.
 """
 
+import copy
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -160,3 +162,69 @@ def test_policy_copy_equals_the_jax_policy_file():
     fields = ("min_in_channels", "quantize_strided", "quality_veto")
     expected = {arch: {k: e[k] for k in fields if k in e} for arch, e in policy.items()}
     assert quant.QUANT_POLICY == {arch: e for arch, e in expected.items() if e}
+
+
+def _naturalistic(rng, batch: int, size: int) -> np.ndarray:
+    """bench.py:58-69's batches from a numpy seed, NCHW float32: bilinear-upsampled noise
+    plus a per-image colour cast, standardized per image."""
+    coarse = torch.from_numpy(rng.normal(size=(batch, 3, size // 8, size // 8)).astype(np.float32))
+    img = torch.nn.functional.interpolate(coarse, size=(size, size), mode="bilinear", align_corners=False)
+    img = img + 0.5 * torch.from_numpy(rng.normal(size=(batch, 3, 1, 1)).astype(np.float32))
+    mean, std = img.mean(dim=(1, 2, 3), keepdim=True), img.std(dim=(1, 2, 3), keepdim=True, unbiased=False)
+    return ((img - mean) / (std + 1e-6)).numpy()
+
+
+def test_int8_gate_protocol_matches_jax_on_the_same_weights():
+    """The int8 agreement gate (settled in ROADMAP Queue 3) run by each package as its
+    entry point runs it, on the same weights (the port's, carried into JAX by
+    convert_state_dict) and the same naturalistic batches: the port as chip_smoke.py
+    (BN warm-up in float32, bf16 deploy form, calibration in float32), JAX as
+    bench.py:115-157 (a bf16-compute model throughout). On this random-weight model
+    both gates fail (the port reads 0.92, JAX 0.90: near-ties of the bf16 logits that
+    either int8 form flips), and they read within 5 images in 100 of each other: a gate
+    that fails in the port fails in JAX too, on the same weights."""
+    from holocron_tpu.models._torch_convert import convert_state_dict
+
+    cfg, size, batch = ([1, 1, 1], [16, 32, 64], 1.0, 1.0), 64, 50
+    rng = np.random.default_rng(0)
+    warm = [_naturalistic(rng, batch, size) for _ in range(2)]
+    calib = _naturalistic(rng, batch, size)
+    gate = [_naturalistic(rng, batch, size) for _ in range(2)]
+
+    def adapted(state):
+        m = RepVGG(*cfg, device="cpu")
+        m.load_state_dict(state)
+        with torch.no_grad():
+            m.train()
+            for x in warm:
+                m(torch.from_numpy(x))
+            return m.eval().reparametrize()
+
+    # random weights send every image to one class; a head bias that centres the logits
+    # of the warm-up batches (BN statistics do not see it) spreads them over the classes
+    state = RepVGG(*cfg, generator=torch.Generator().manual_seed(0), device="cpu").state_dict()
+    with torch.no_grad():
+        state["head.bias"] = -torch.cat([adapted(state)(torch.from_numpy(x)) for x in warm]).mean(0)
+    pm = adapted(state)
+    state = {k: v.numpy() for k, v in state.items()}
+    pm16 = copy.deepcopy(pm).to(torch.bfloat16)
+    pq = quant.quantize_model(pm, calibration_batches=[torch.from_numpy(calib)], min_in_channels=16).to(torch.bfloat16)
+    port_gate = [torch.from_numpy(x).to(torch.bfloat16) for x in gate]
+    ours = quant.measure_agreement(pm16, pq, port_gate)
+
+    jm = Model(JaxRepVGG(*cfg, dtype=jnp.bfloat16)).init((batch, size, size, 3), key=jax.random.key(0))
+    jm.variables = convert_state_dict(jm, state)
+    for x in warm:
+        jm(jnp.asarray(x.transpose(0, 2, 3, 1)), train=True)
+    jm.reparametrize()
+    variables = jax.tree.map(lambda t: t.astype(jnp.bfloat16), jm.variables)
+    fwd = jax.jit(lambda a: jm.module.apply(variables, a, train=False))
+    jq = jquant.quantize_model(jm, calibration_batches=[jnp.asarray(calib.transpose(0, 2, 3, 1))], min_in_channels=16)
+    jq.variables = variables
+    qfwd, qparams = jq.apply_fn(), jq.qparams
+    jfwd = jax.jit(lambda a: qfwd(jq.variables, qparams, a))
+    jax_gate = [jnp.asarray(x.transpose(0, 2, 3, 1), jnp.bfloat16) for x in gate]
+    theirs = jquant.measure_agreement(fwd, jfwd, jax_gate)
+
+    assert (ours["top1_agreement"] >= 0.99) == (theirs["top1_agreement"] >= 0.99)  # bench.py:156's floor
+    assert abs(ours["top1_agreement"] - theirs["top1_agreement"]) <= 0.05
