@@ -898,8 +898,9 @@ def check_add2d(device, l: int = 12544, d: int = 576, o: int = 128, iters: int =
         records[name] = {"max_abs_err": float((got - ref).abs().max()), "ms": cuda_ms(kernel, iters),
                          "plain_ms": cuda_ms(plain, 2, warmup=1), **bound(nbytes[name], instr[name] * steps,
                                                                          FP32_INSTR_PER_S)}
-    if not torch.equal(A.add2d_bwd_dw(p, w, gg), A.add2d_bwd_dw(p, w, gg)):
-        fail("add2d_bwd_dw: two runs on the same inputs differ")
+    for name, kernel, _, _ in checks:
+        if not torch.equal(kernel(), kernel()):
+            fail(f"{name}: two runs on the same inputs differ")
     pl, wl = p.clone().requires_grad_(), w.clone().requires_grad_()
     with torch.no_grad():
         lib = -torch.cdist(p, w.T, p=1)

@@ -42,7 +42,7 @@ KERNEL_FWD = Kernel("add2d", "add2d_forward", [_P, _P, _P, _I, _I, _I, _I, _P])
 KERNEL_BWD_DP = Kernel("add2d", "add2d_backward_dp", [_P, _P, _P, _P, _I, _I, _I, _I, _P])
 KERNEL_BWD_DW = Kernel("add2d", "add2d_backward_dw", [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P])
 _BUDGET = 1 << 23  # broadcast elements per chunk of the plain versions (add2d.py:92)
-_TILE = 64  # output tile edge of the kernels
+_TILE = 64  # output tile edge of the dw kernel
 _MIN_ROWS = 64  # fewest rows of L a dw slice reduces: two chunks of the kernel's ring
 _MAX_PER_SM = 3  # most dw blocks a balanced plan gives an SM: the three it holds at once
 

@@ -245,12 +245,14 @@ def _add2d_bounds(p, w, g, dtype):
 
 
 @pytest.mark.parametrize("l,d,o", [(50, 36, 10), (130, 70, 67), (1, 9, 3), (300, 100, 72), (5000, 36, 10),
-                                   (12544, 576, 128)])
+                                   (257, 576, 128), (33, 1001, 24), (12544, 576, 128)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_add2d_kernels_match_plain(cuda, l, d, o, dtype):
-    """Forward, dp and dw at ragged shapes (L = 1; L not a multiple of dw's 32-row chunk;
-    D and O not multiples of the 64-wide tile, with rows of whole 16-byte vectors or not;
-    79 slices of L) and at the path's layer (L 12544, D 576, O 128)."""
+    """Forward, dp and dw at ragged shapes (L = 1; L not a multiple of a tile or of dw's
+    32-row chunk; D and O not multiples of the 64-wide tile or of a chunk of the reduced
+    dimension, with rows of whole 16-byte vectors or not; O = 24 below one chunk of dp;
+    79 slices of L) and at the path's layer (L 12544, D 576, O 128). Each kernel gives
+    the same bits on a second run (no atomics)."""
     gen = torch.Generator(device=cuda).manual_seed(2)
     p, w, g = (torch.randn(*s, generator=gen, device=cuda).to(dtype) for s in ((l, d), (d, o), (l, o)))
     fwd, dp, dw = _add2d_bounds(p, w, g, dtype)
@@ -265,26 +267,83 @@ def test_add2d_kernels_match_plain(cuda, l, d, o, dtype):
     _within(gp, ref, dp(ref), "dp")
     ref = A.add2d_bwd_dw_plain(p, w, g)
     _within(gw, ref, dw(ref), "dw")
-    torch.testing.assert_close(A.add2d_bwd_dw(p, w, g), gw, rtol=0, atol=0)  # no atomics: the same every run
+    assert torch.equal(A.add2d_matmul(p, w), out) and torch.equal(A.add2d_bwd_dp(p, w, g), gp)
+    assert torch.equal(A.add2d_bwd_dw(p, w, g), gw)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_add2d_dw_keeps_the_plain_zeros_and_nans(cuda, dtype):
-    """sign(0) = 0 and sign(NaN) = NaN: where p == w in every row dw is 0, as the plain
-    version's, and a NaN in p makes its row of dw NaN; elsewhere within the stated
-    tolerance."""
+def _add2d_special_inputs(cuda, dtype):
+    """Inputs at a ragged shape (L 700, D 70, O 72) with every special case of the sign:
+    p == w wherever d < 8 (p constant down those columns, w's rows there equal to it), a
+    NaN in p at (123, 40), a NaN in w at (50, 7), values beyond the scaled sign step's
+    range (|x| >= 2^100): w at (60, 3) and p at (200, 10), and an infinite g at (300, 20)
+    (an amp overflow), whose terms are Inf * +-1 and, where d < 8, Inf * 0 = NaN; w at
+    (9, 20) lies below every p, so that sign is +1."""
     gen = torch.Generator(device=cuda).manual_seed(10)
     l, d, o = 700, 70, 72
     p, w, g = (torch.randn(*s, generator=gen, device=cuda).to(dtype) for s in ((l, d), (d, o), (l, o)))
-    p[:, :8] = p[:1, :8]  # rows of p constant in the first 8 columns ...
-    w[:8, 5] = p[0, :8]  # ... and equal to w there in column 5: dw[:8, 5] = 0
-    p[123, 40] = float("nan")  # dw[40, :] = NaN
-    ref, got = A.add2d_bwd_dw_plain(p, w, g), A.add2d_bwd_dw(p, w, g)
-    assert bool((ref[:8, 5] == 0).all()) and bool(ref[40].isnan().all())
+    p[:, :8] = p[:1, :8]
+    w[:8, :] = p[0, :8, None]
+    p[123, 40] = float("nan")
+    w[50, 7] = float("nan")
+    w[60, 3] = 2.0**101
+    p[200, 10] = -(2.0**101)
+    g[300, 20] = float("inf")
+    w[9, 20] = -8.0
+    return p, w, g
+
+
+@pytest.mark.parametrize("fn", ["forward", "dp", "dw"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_add2d_kernels_keep_the_plain_zeros_and_nans(cuda, dtype, fn):
+    """sign(0) = 0 and sign(NaN) = NaN, as jnp.sign. dp is 0 where p == w along all of O
+    and dw where p == w along all of L; a NaN in p makes its element of dp and its row of
+    dw NaN, a NaN in w its column of dp and its element of dw; the forward carries both
+    NaNs into its rows or columns. An infinite g makes its row of dp and its column of dw
+    +-Inf (NaN where p == w). Values beyond the scaled step's range take the exact step.
+    The kernels have the plain versions' zeros, NaNs and infinities, and are within the
+    stated tolerance elsewhere."""
+    p, w, g = _add2d_special_inputs(cuda, dtype)
+    fwd, dp, dw = _add2d_bounds(p, w, g, dtype)
+    kernel, plain, bound = {"forward": (A.add2d_matmul, A.add2d_matmul_plain, fwd),
+                            "dp": (A.add2d_bwd_dp, A.add2d_bwd_dp_plain, dp),
+                            "dw": (A.add2d_bwd_dw, A.add2d_bwd_dw_plain, dw)}[fn]
+    args = (p, w) if fn == "forward" else (p, w, g)
+    ref, got = plain(*args), kernel(*args)
+    if fn == "dp":
+        rest = torch.arange(ref.shape[0], device=cuda) != 300
+        assert bool((ref[rest, :8] == 0).all()) and bool(ref[123, 40].isnan()) and bool(ref[:, 50].isnan().all())
+        assert int(ref[rest].isnan().sum()) == ref.shape[0] and bool(ref[rest, 60].isfinite().all())
+        assert bool(ref[300, :8].isnan().all()) and bool(ref[300, 9] == -math.inf) and not bool(ref[300].isfinite().any())
+    elif fn == "dw":
+        rest = torch.arange(ref.shape[1], device=cuda) != 20
+        assert bool((ref[:8, rest] == 0).all()) and bool(ref[:8, 20].isnan().all()) and bool(ref[40].isnan().all())
+        assert bool(ref[50, 7].isnan()) and bool(ref[60, 3].isfinite()) and bool(ref[10, rest].isfinite().all())
+        assert bool(ref[9, 20] == math.inf) and not bool(ref[:, 20].isfinite().any())
+    else:
+        assert bool(ref[123].isnan().all()) and bool(ref[:, 7].isnan().all())
     assert torch.equal(got.isnan(), ref.isnan()) and torch.equal(got == 0, ref == 0)
-    finite = ~ref.isnan()
-    _, _, dw = _add2d_bounds(p, w, g, dtype)
-    _within(got[finite], ref[finite], dw(ref).expand_as(ref)[finite], "dw")
+    assert torch.equal(got.isinf(), ref.isinf()) and torch.equal(got[ref.isinf()], ref[ref.isinf()])
+    finite = ref.isfinite()
+    _within(got[finite], ref[finite], bound(ref).expand_as(ref)[finite], fn)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_add2d_kernels_take_views_off_16_byte_boundaries(cuda, dtype):
+    """Contiguous p, w and g that start one element into their storage, at a shape whose
+    rows are whole 16-byte vectors (the pointers alone force element-wise staging), and
+    at a ragged one: all three kernels within the stated tolerance."""
+    gen = torch.Generator(device=cuda).manual_seed(12)
+    for l, d, o in ((300, 128, 64), (130, 70, 67)):
+        p, w, g = (torch.randn(math.prod(s) + 1, generator=gen, device=cuda).to(dtype)[1:].view(s)
+                   for s in ((l, d), (d, o), (l, o)))
+        assert all(t.data_ptr() % 16 for t in (p, w, g))
+        fwd, dp, dw = _add2d_bounds(p, w, g, dtype)
+        ref = A.add2d_matmul_plain(p, w)
+        _within(A.add2d_matmul(p, w), ref, fwd(ref), "forward")
+        ref = A.add2d_bwd_dp_plain(p, w, g)
+        _within(A.add2d_bwd_dp(p, w, g), ref, dp(ref), "dp")
+        ref = A.add2d_bwd_dw_plain(p, w, g)
+        _within(A.add2d_bwd_dw(p, w, g), ref, dw(ref), "dw")
 
 
 def test_add2d_autograd_matches_plain(cuda):
