@@ -17,11 +17,17 @@ Phases, each printing one JSON line to stdout:
    wgmma route: two launches a layer a forward (``int8_quantize``, ``int8_conv``), none
    of the general route. (After the checks, a ``serving_profile`` line:
    ``torch.profiler`` over the int8 and bf16 forwards at batch 256 and 8.)
-3. ``involution``: ``Involution2d`` at ``scripts/bench_ops.py:82-87``'s shape (N32,
+3. ``resnet_serving``: the same path for resnet50 (10 classes, 23,528,522 parameters):
+   BN adapted on 4 naturalistic batches, no reparametrization (BN stays after each
+   conv, as the JAX package serves a ResNet), the bf16 copy, the selective-int8 form
+   (52 ``wgmma`` convs: every conv but the 3-channel stem), the gate, the requests and
+   the throughput, with the same launch counts. (Last, a ``resnet_serving_profile``
+   line.)
+4. ``involution``: ``Involution2d`` at ``scripts/bench_ops.py:82-87``'s shape (N32,
    56x56, C128, G8, k7, reduction 2, bf16) through the module: the tiled route's forward
    (``csrc/involution.cu``, a halo tile in shared memory), which must launch, and never
    the general route's.
-4. ``training``: the repvgg_a0 classification trainer at full width (224 px, batch 128,
+5. ``training``: the repvgg_a0 classification trainer at full width (224 px, batch 128,
    10 classes, random weights from a seed) on synthetic uint8 NCHW batches, as
    ``references/classification/train.py:204-302`` builds it: bf16 compute (``amp``),
    LAMB (lr 1e-3, weight decay 5e-5) under a onecycle schedule, label smoothing 0.1,
@@ -30,31 +36,38 @@ Phases, each printing one JSON line to stdout:
    steps, one step on a float32 batch holding a NaN (which must be skipped: params,
    moments and the optimizer's count unchanged), and ``check_setup`` for 10 steps on a
    fresh model (the loss must fall).
-5. ``involution_train``: ``Involution2d`` at the same shape, forward and backward
+6. ``resnet_training``: resnet50 in the same trainer and settings, one epoch of 4
+   batches (2 updates), ``evaluate()`` on one, and a timed window of steps.
+7. ``involution_train``: ``Involution2d`` at the same shape, forward and backward
    through the module in bf16: the forward and both gradient kernels of the tiled route,
    which must launch, and none of the general route's. Its step time from CUDA events
    (``fwd_bwd_ms``), which the host sets once the step's kernels take less time than
    their launches, and the step's summed kernel time (``fwd_bwd_kernel_ms``, the same
    for ``add2d``).
-6. ``add2d``: ``Add2d(64 -> 128, k3, pad 1)`` on N4 x 56 x 56 in float32, forward and
+8. ``add2d``: ``Add2d(64 -> 128, k3, pad 1)`` on N4 x 56 x 56 in float32, forward and
    backward through the module (``scripts/bench_ops.py:112-113``'s layer: L 12544,
    D 576, O 128).
-7. ``checks``: each kernel against its plain PyTorch version on the card at the shapes
+9. ``resnet_zoo``: one eval forward each of resnet50d, resnext50_32x4d, res2net50_26w_4s,
+   sknet50, tridentnet50, pyconv_resnet50 and pyconvhg_resnet50 at full width, 224 px,
+   batch 32, in float32 and bf16: parameter count, bf16-vs-f32 logits, bf16 img/s.
+10. ``checks``: each kernel against its plain PyTorch version on the card at the shapes
    the paths gave it, with its time, its plain version's time, the time of one PyTorch
    call computing the same function where there is one (``torch.cdist`` for add2d), and
    its bound: the larger of the bytes it must move over 3.35 TB/s and the operations it
    must do over the card's rate for them. Both routes of the involution forward and
    backward (tiled and general) are checked and timed at the path's shape. The int8 route is checked
    (bit-exact quantization, also on inputs on its ties and beyond its clip; exact
-   accumulator; outputs within one ulp) at each of repvgg_a0's int8 layer geometries, checked
-   again and timed at each at batch 256 (``check_int8_geometry`` lines, device time
-   from CUDA graphs): quantize + conv, each kernel, the general route, cuDNN's bf16
-   conv of the layer, the plain version, and the bounds of the route and of each kernel.
+   accumulator; outputs within one ulp) at each int8 layer geometry of repvgg_a0 (nine)
+   and of resnet50 (22) at batch 8 and 32, checked again and timed at each at batch
+   256 (``check_int8_geometry`` lines, device time from CUDA graphs): quantize + conv,
+   each kernel, the general route, cuDNN's bf16 conv of the layer, the plain version,
+   and the bounds of the route and of each kernel.
 
 Each kernel's launch counter is set to 0 just before the path that runs it and read
 just after; a kernel that its path never launched fails the run. Then come the
-``kernels`` line, the card's name and power limit as ``nvidia-smi`` reports them, and
-last ``{"ok": true, "device": {...}}``. Float32 checks run with TF32 off
+``kernels`` line (the int8 entries over both serving paths), the card's name and power
+limit as ``nvidia-smi`` reports them, and last ``{"ok": true, "device": {...}}``. Each
+phase's wall time goes to stderr. Float32 checks run with TF32 off
 (``torch.backends.cudnn.allow_tf32`` and ``torch.backends.cuda.matmul.allow_tf32``).
 Any mismatch or error exits non-zero; so does a machine with no CUDA device, or a
 directory that holds this script without the package.
@@ -94,6 +107,16 @@ def emit(record: dict) -> None:
 
 def fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
+
+
+def timed(fn, *args, **kwargs):
+    """``fn(*args, **kwargs)``, its wall time on stderr (the script's time limit is shared
+    by its phases)."""
+    t0 = time.perf_counter()
+    out = fn(*args, **kwargs)
+    label = " ".join([fn.__name__, *(a for a in args if isinstance(a, str))])
+    print(f"chip_smoke: {label} took {time.perf_counter() - t0:.1f} s", file=sys.stderr, flush=True)
+    return out
 
 
 def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
@@ -151,39 +174,49 @@ def phase_build() -> None:
     emit({"phase": "build", "libraries": [p.name for p in paths], "seconds": round(seconds, 3)})
 
 
-def phase_serving(device, batch: int = 256, size: int = 224, num_classes: int = 10, iters: int = 30):
+def phase_serving(device, arch: str = "repvgg_a0", int8_layers: int = 26, phase: str = "serving", batch: int = 256,
+                  size: int = 224, num_classes: int = 10, iters: int = 30):
+    """The serving path of ``arch``; a model with ``reparametrize`` (RepVGG) is folded
+    into its deploy form, one without (ResNet) is served with BN after each conv, as
+    the JAX package serves it. Fails unless ``int8_layers`` convs are int8."""
     import torch
 
+    from holocron_tpu_torch import models
     from holocron_tpu_torch.kernels import KERNELS
-    from holocron_tpu_torch.models import repvgg_a0
     from holocron_tpu_torch.quant import QuantizedConv2d, measure_agreement, quantize_model
 
     gen = torch.Generator(device=device).manual_seed(SEED)
-    model = repvgg_a0(num_classes=num_classes, generator=torch.Generator().manual_seed(SEED), device=device)
+    model = getattr(models, arch)(num_classes=num_classes, generator=torch.Generator().manual_seed(SEED),
+                                  device=device)
     model = model.to(memory_format=torch.channels_last)
 
     # BN statistics adapted to the input distribution before folding (bench.py:123-124)
     model.train()
+    reparam = {}
     with torch.no_grad():
         for _ in range(4):
             model(naturalistic_batch(gen, batch, size, device))
         model.eval()
-        probe = naturalistic_batch(gen, 16, size, device)
-        train_eval = model(probe)
-        model.reparametrize()
-        model = model.to(memory_format=torch.channels_last)
-        deploy = model(probe)
-    drift = float((train_eval - deploy).abs().max())
-    scale = max(1.0, float(train_eval.abs().max()))
-    if drift > 1e-3 * scale:  # docs/ARCHITECTURE.md:58
-        fail(f"reparametrization drift {drift} > 1e-3 * {scale}")
+        if hasattr(model, "reparametrize"):
+            probe = naturalistic_batch(gen, 16, size, device)
+            train_eval = model(probe)
+            model.reparametrize()
+            model = model.to(memory_format=torch.channels_last)
+            deploy = model(probe)
+            drift = float((train_eval - deploy).abs().max())
+            scale = max(1.0, float(train_eval.abs().max()))
+            if drift > 1e-3 * scale:  # docs/ARCHITECTURE.md:58
+                fail(f"reparametrization drift {drift} > 1e-3 * {scale}")
+            reparam["reparam_drift_f32"] = drift
 
     model_bf16 = copy.deepcopy(model).to(dtype=torch.bfloat16, memory_format=torch.channels_last)
     x = naturalistic_batch(gen, batch, size, device).to(torch.bfloat16)
     # as bench.py: calibrated on the timing batch in float32, float remainder in bf16
-    qm = quantize_model(model, calibration_batches=[x.float()], arch="repvgg_a0").to(torch.bfloat16)
+    qm = quantize_model(model, calibration_batches=[x.float()], arch=arch).to(torch.bfloat16)
     n_int8 = sum(isinstance(m, QuantizedConv2d) for m in qm.modules())
     n_convs = sum(isinstance(m, torch.nn.Conv2d) for m in model.modules())
+    if n_int8 != int8_layers:
+        fail(f"{arch}: {n_int8} int8 convs, expected {int8_layers}")
     gate_batches = [naturalistic_batch(gen, batch, size, device).to(torch.bfloat16) for _ in range(2)]
     requests = [naturalistic_batch(gen, 8, size, device).to(torch.bfloat16) for _ in range(8)] + [x]
     torch.cuda.synchronize()
@@ -200,11 +233,12 @@ def phase_serving(device, batch: int = 256, size: int = 224, num_classes: int = 
                 check_logits(qm(r), r.shape[0], num_classes, "int8 deploy")
     torch.cuda.synchronize()
     launches = {name: k.launches for name, k in KERNELS.items()}
-    # every int8 layer of repvgg_a0 takes the wgmma route: two launches a layer a forward
+    # every int8 layer takes the wgmma route: two launches a layer a forward
     forwards = len(gate_batches) + (len(requests) if served else 0)
     expected = {"int8_conv": n_int8 * forwards, "int8_quantize": n_int8 * forwards, "int8_conv_general": 0}
     if any(launches[k] != v for k, v in expected.items()):
-        fail(f"the int8 path launched {[launches[k] for k in expected]} of {list(expected)}, expected {expected}")
+        fail(f"{arch}: the int8 path launched {[launches[k] for k in expected]} of {list(expected)}, "
+             f"expected {expected}")
 
     with torch.no_grad():
         ref32 = model(x.float())
@@ -219,11 +253,11 @@ def phase_serving(device, batch: int = 256, size: int = 224, num_classes: int = 
         int8_b8_ms = cuda_ms(lambda: qm(r8), iters)
     torch.cuda.synchronize()
     emit({
-        "phase": "serving",
-        "model": "repvgg_a0",
+        "phase": phase,
+        "model": arch,
         "image_size": size,
         "batch": batch,
-        "reparam_drift_f32": drift,
+        **reparam,
         "bf16_vs_f32_max_abs": bf16_vs_f32,
         "bf16_top1_vs_f32": bf16_top1_vs_f32,
         "int8_top1_vs_f32": int8_top1_vs_f32,
@@ -234,6 +268,8 @@ def phase_serving(device, batch: int = 256, size: int = 224, num_classes: int = 
         "max_prob_drift": agreement["max_prob_drift"],
         "int8_served": served,
         "served_form": "selective-int8" if served else "bf16",
+        # bench.py:162's choice: the faster of bf16 and the int8 form that passed the gate
+        "best_form": "selective-int8" if served and int8_ms < bf16_ms else "bf16",
         "bf16_img_per_s": batch / (bf16_ms / 1e3),
         "int8_img_per_s": batch / (int8_ms / 1e3),
         "bf16_batch8_ms": bf16_b8_ms,
@@ -243,11 +279,11 @@ def phase_serving(device, batch: int = 256, size: int = 224, num_classes: int = 
     return qm, model_bf16, x, r8, launches
 
 
-def phase_serving_profile(qm, model_bf16, x, r8) -> None:
+def phase_serving_profile(qm, model_bf16, x, r8, phase: str = "serving_profile") -> None:
     """The int8 and bf16 forwards under ``torch.profiler`` at batch 256 and 8. Last of
     the timed phases: once the profiler has run, the host launches more slowly."""
-    emit({"phase": "serving_profile", **{f"{form}_b{xb.shape[0]}": profile_forward(fn, xb)
-                                         for form, fn in (("int8", qm), ("bf16", model_bf16)) for xb in (x, r8)}})
+    emit({"phase": phase, **{f"{form}_b{xb.shape[0]}": profile_forward(fn, xb)
+                             for form, fn in (("int8", qm), ("bf16", model_bf16)) for xb in (x, r8)}})
 
 
 def profile_forward(fn, x, steps: int = 5, top: int = 10) -> dict:
@@ -402,10 +438,10 @@ def within_ulp(got, ref, ulp: float, what: str) -> float:
     return float(err.max())
 
 
-def check_int8(device, qm, model_bf16, x, iters: int = 20) -> dict:
+def check_int8(device, qm, model_bf16, x, model: str = "repvgg_a0", iters: int = 20) -> dict:
     """The int8 route against its plain versions at each distinct int8 layer geometry
-    of the served model (inputs captured from it), at a 256 -> 256, 14x14 layer and at a
-    byte-wise shape of the general route: quantized activations equal to
+    of the served ``model`` (inputs captured from it at batch 8 and 32), at a 256 -> 256,
+    14x14 layer and at a byte-wise shape of the general route: quantized activations equal to
     ``quantize_activation_plain`` (also on inputs built on its ties and beyond its
     clip), the int32 accumulator equal to the float64 plain conv, float32 output within
     one float32 ulp and bf16 output within one bf16 ulp of the plain epilogue. Then each
@@ -435,6 +471,7 @@ def check_int8(device, qm, model_bf16, x, iters: int = 20) -> dict:
 
     handles = [m.register_forward_pre_hook(capture(name)) for name, m in layers]
     with torch.no_grad():
+        qm(x[:8])
         qm(x[:32])
         qm(x)
     for hd in handles:
@@ -451,9 +488,9 @@ def check_int8(device, qm, model_bf16, x, iters: int = 20) -> dict:
 
     # -- correctness at every geometry, the synthetic 256 -> 256 layer and a byte-wise shape
     gen = torch.Generator(device=device).manual_seed(SEED + 3)
-    cases = [(str(key), g["module"].kernel_q, g["module"].kernel_packed, g["module"].w_scale, g["module"].act_scale,
-              g["module"].bias, g["module"].stride, g["module"].padding, g["module"].dilation, g["x"][32])
-             for key, g in geometries.items()]
+    cases = [(f"{key} batch {b}", g["module"].kernel_q, g["module"].kernel_packed, g["module"].w_scale,
+              g["module"].act_scale, g["module"].bias, g["module"].stride, g["module"].padding, g["module"].dilation,
+              g["x"][b]) for key, g in geometries.items() for b in (8, 32)]
     for c, o, hw in ((256, 256, 14), (12, 20, 15)):
         w_q = torch.randint(-127, 128, (3, 3, c, o), generator=gen, device=device, dtype=torch.int8)
         xin = torch.randn(32, c, hw, hw, generator=gen, device=device).to(torch.bfloat16)
@@ -525,7 +562,7 @@ def check_int8(device, qm, model_bf16, x, iters: int = 20) -> dict:
                 "quantize_ms": graph_ms(lambda: K.quantize_activation(xn, s_x), iters),
                 "general_ms": graph_ms(general, iters),
                 "cudnn_bf16_ms": graph_ms(lambda: F.conv2d(xin, deploy.weight, deploy.bias, deploy.stride,
-                                                           deploy.padding), iters),
+                                                           deploy.padding, deploy.dilation), iters),
                 "plain_ms": cuda_ms(run_plain, 2, 1),
                 "quantize_plain_ms": cuda_ms(lambda: K.quantize_activation_plain(xn, s_x), 2, 1),
             }
@@ -547,13 +584,13 @@ def check_int8(device, qm, model_bf16, x, iters: int = 20) -> dict:
                 totals[k_] = totals.get(k_, 0.0) + g["count"] * v
         bound_by[row["bound_by"]] = bound_by.get(row["bound_by"], 0.0) + g["count"] * row["bound_ms"]
         rows.append(row)
-        emit({"phase": "check_int8_geometry", **row})
+        emit({"phase": "check_int8_geometry", "model": model, **row})
         del out_g
     torch.cuda.synchronize()
-    record = {"kernel": "int8_conv", "checked": checked, "max_abs_err_bf16": max_err["wgmma"],
+    record = {"kernel": "int8_conv", "model": model, "checked": checked, "max_abs_err_bf16": max_err["wgmma"],
               "max_abs_err_bf16_general": max_err["general"], "per_forward": totals, "geometries": len(rows),
               # the larger share of the summed bound
-              "bound_by": max(bound_by, key=bound_by.get)}
+              "bound_by": max(bound_by, key=bound_by.get), "bound_ms_by": bound_by}
     emit({"phase": "check", **record})
     return record
 
@@ -571,14 +608,14 @@ def synthetic_batches(gen, count: int, batch: int, size: int, num_classes: int, 
     ]
 
 
-def make_trainer(device, train, val, num_classes: int, **kwargs):
+def make_trainer(device, train, val, num_classes: int, arch: str = "repvgg_a0", **kwargs):
     """The classification reference's trainer (references/classification/train.py:204-302)
-    around a fresh repvgg_a0 with weights from the seed."""
+    around a fresh ``arch`` with weights from the seed."""
     import functools
 
     import torch
 
-    from holocron_tpu_torch.models import repvgg_a0
+    from holocron_tpu_torch import models
     from holocron_tpu_torch.nn.functional import multilabel_cross_entropy
     from holocron_tpu_torch.optim import LAMB
     from holocron_tpu_torch.trainer import ClassificationTrainer
@@ -587,7 +624,8 @@ def make_trainer(device, train, val, num_classes: int, **kwargs):
         onehot = torch.nn.functional.one_hot(target, num_classes).to(out.dtype)
         return multilabel_cross_entropy(out, onehot * 0.9 + 0.1 / num_classes)
 
-    model = repvgg_a0(num_classes=num_classes, generator=torch.Generator().manual_seed(SEED), device=device)
+    model = getattr(models, arch)(num_classes=num_classes, generator=torch.Generator().manual_seed(SEED),
+                                  device=device)
     model = model.to(memory_format=torch.channels_last)
     return ClassificationTrainer(
         model, train, val, criterion, functools.partial(LAMB, weight_decay=5e-5), device=device,
@@ -596,49 +634,66 @@ def make_trainer(device, train, val, num_classes: int, **kwargs):
     )
 
 
-def phase_training(device, batch: int = 128, size: int = 224, num_classes: int = 10, timed_steps: int = 6):
-    import torch
-
-    gen = torch.Generator(device=device).manual_seed(SEED + 4)
-    train = synthetic_batches(gen, 8, batch, size, num_classes, device)
-    val = synthetic_batches(gen, 2, batch, size, num_classes, device)
-    evaluated = []
-    trainer = make_trainer(device, train, val, num_classes, on_epoch_end=evaluated.append)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-
-    # one epoch (4 applied updates at gradient_acc=2), then evaluate() on 2 batches; the
-    # step is wrapped to keep each batch's loss
-    losses = []
+def fit_one_epoch(trainer, what: str) -> tuple:
+    """``fit_n_epochs(1, 1e-3)`` (``gradient_acc=2``: an update every 2 batches), then
+    ``evaluate()``, with each batch's loss kept by wrapping the step. Fails unless every
+    loss and the validation loss are finite and every update was applied. Returns the
+    losses and the eval metrics."""
+    evaluated, losses = [], []
     run_step = trainer._run_step_async
 
     def recorded_step(x, y):
         losses.append(run_step(x, y))
         return losses[-1]
 
+    trainer.on_epoch_end = evaluated.append
     trainer._run_step_async = recorded_step
     trainer.fit_n_epochs(1, 1e-3)
     trainer._run_step_async = run_step
     losses = [float(v) for v in losses]
     metrics = evaluated[0]
-    if len(losses) != 8 or not all(map(math.isfinite, losses)) or not math.isfinite(metrics["val_loss"]):
-        fail(f"training: expected 8 finite losses and a finite val_loss, got {losses} and {metrics}")
-    if trainer._opt.param_groups[0]["count"] != 4:
-        fail(f"training: expected 4 applied updates, got {trainer._opt.param_groups[0]['count']}")
+    n = len(trainer.train_loader)
+    if len(losses) != n or not all(map(math.isfinite, losses)) or not math.isfinite(metrics["val_loss"]):
+        fail(f"{what}: expected {n} finite losses and a finite val_loss, got {losses} and {metrics}")
+    if trainer._opt.param_groups[0]["count"] != n // 2:
+        fail(f"{what}: expected {n // 2} applied updates, got {trainer._opt.param_groups[0]['count']}")
+    return losses, metrics
 
-    # a steady window of steps, CUDA events around them
-    x, y = train[0]
+
+def time_train_steps(trainer, batches, steps: int) -> float:
+    """Mean ms of a train step over a steady window of ``steps``, after 2 more; CUDA
+    events around them."""
+    import torch
+
+    run_step = trainer._run_step_async
     for _ in range(2):
-        run_step(x, y)
+        run_step(*batches[0])
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
     start.record()
-    for i in range(timed_steps):
-        run_step(*train[i % len(train)])
+    for i in range(steps):
+        run_step(*batches[i % len(batches)])
     end.record()
     end.synchronize()
-    step_ms = start.elapsed_time(end) / timed_steps
+    return start.elapsed_time(end) / steps
+
+
+def phase_training(device, batch: int = 128, size: int = 224, num_classes: int = 10, timed_steps: int = 6):
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 4)
+    train = synthetic_batches(gen, 8, batch, size, num_classes, device)
+    val = synthetic_batches(gen, 2, batch, size, num_classes, device)
+    trainer = make_trainer(device, train, val, num_classes)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    # one epoch (4 applied updates), then evaluate() on 2 batches; then a steady window
+    losses, metrics = fit_one_epoch(trainer, "training")
+    step_ms = time_train_steps(trainer, train, timed_steps)
     peak_bytes = torch.cuda.max_memory_allocated()
+    run_step = trainer._run_step_async
+    y = train[0][1]
 
     # a float32 batch holding a NaN (float batches bypass input_norm): the update is
     # skipped; last, since its BN statistics are NaN from here on (core.py:496-503)
@@ -671,6 +726,74 @@ def phase_training(device, batch: int = 128, size: int = 224, num_classes: int =
           "train_img_per_s": batch / (step_ms / 1e3), "peak_memory_gib": peak_bytes / 2**30,
           "params_f32": params_f32, "check_setup_first": setup[0], "check_setup_last": setup[-1]})
     emit({"phase": "training_profile", **profile})
+
+
+def phase_resnet_training(device, batch: int = 128, size: int = 224, num_classes: int = 10, timed_steps: int = 4):
+    """resnet50 in the trainer of ``phase_training``, with the same settings: one epoch
+    of 4 batches (2 updates) and ``evaluate()`` on one, then a steady window."""
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 9)
+    train = synthetic_batches(gen, 4, batch, size, num_classes, device)
+    val = synthetic_batches(gen, 1, batch, size, num_classes, device)
+    trainer = make_trainer(device, train, val, num_classes, arch="resnet50")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, metrics = fit_one_epoch(trainer, "resnet50 training")
+    step_ms = time_train_steps(trainer, train, timed_steps)
+    peak_bytes = torch.cuda.max_memory_allocated()
+    params_f32 = all(p.dtype == torch.float32 for p in trainer.model.parameters())
+    if not params_f32:
+        fail("resnet50 training: amp left master params in another dtype than float32")
+    torch.cuda.synchronize()
+    emit({"phase": "resnet_training", "model": "resnet50", "image_size": size, "batch": batch, "amp": True,
+          "gradient_acc": 2, "loss_first": losses[0], "loss_last": losses[-1], "losses": losses, **metrics,
+          "train_step_ms": step_ms, "train_img_per_s": batch / (step_ms / 1e3), "peak_memory_gib": peak_bytes / 2**30,
+          "params_f32": params_f32, "params": sum(p.numel() for p in trainer.model.parameters())})
+
+
+ZOO = ("resnet50d", "resnext50_32x4d", "res2net50_26w_4s", "sknet50", "tridentnet50", "pyconv_resnet50",
+       "pyconvhg_resnet50")
+
+
+def phase_resnet_zoo(device, batch: int = 32, size: int = 224, num_classes: int = 10, iters: int = 10) -> None:
+    """One eval forward of each other family of the ResNet container at full width, in
+    float32 and bf16 (channels_last, default BN statistics, random weights from the
+    seed): cuDNN's grouped, dilated and pyramidal convs at their real widths. Fails on
+    logits that are not finite. cuDNN picks its algorithms by its heuristics here
+    (``cudnn.benchmark`` off): autotuning each new shape of seven models in two dtypes
+    took most of the phase's time, and these forwards are host-bound at batch 32."""
+    import torch
+
+    from holocron_tpu_torch import models
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 10)
+    x = naturalistic_batch(gen, batch, size, device)
+    x16 = x.to(torch.bfloat16)
+    rows = {}
+    benchmark, torch.backends.cudnn.benchmark = torch.backends.cudnn.benchmark, False
+    try:
+        for arch in ZOO:
+            model = getattr(models, arch)(num_classes=num_classes, generator=torch.Generator().manual_seed(SEED),
+                                          device=device)
+            model = model.to(memory_format=torch.channels_last).eval()
+            with torch.no_grad():
+                ref = model(x)
+                check_logits(ref, batch, num_classes, f"{arch} float32")
+                model = model.to(torch.bfloat16)
+                out = model(x16)
+                check_logits(out, batch, num_classes, f"{arch} bf16")
+                ms = cuda_ms(lambda: model(x16), iters)
+            rows[arch] = {"params": sum(p.numel() for p in model.parameters()),
+                          "bf16_vs_f32_max_abs": float((out.float() - ref).abs().max()),
+                          "logit_absmax_f32": float(ref.abs().max()),
+                          "bf16_top1_vs_f32": float((out.argmax(-1) == ref.argmax(-1)).float().mean()),
+                          "bf16_ms": ms, "bf16_img_per_s": batch / (ms / 1e3)}
+            del model, ref, out
+    finally:
+        torch.backends.cudnn.benchmark = benchmark
+    torch.cuda.synchronize()
+    emit({"phase": "resnet_zoo", "image_size": size, "batch": batch, "models": rows})
 
 
 def step_kernel_ms(step, steps: int = 5) -> float:
@@ -916,27 +1039,33 @@ def check_add2d(device, l: int = 12544, d: int = 576, o: int = 128, iters: int =
     return records
 
 
-def int8_entries(launches: dict, record: dict) -> list:
+def int8_entries(launches: list, records: list) -> list:
     """The ``kernels`` line's entries of the int8 route's kernels and of the general
-    route: times and bounds summed over one batch-256 forward (each geometry times its
-    count of layers; each conv's bound counts the int8 x it reads); launches from the
-    serving path."""
-    t = record["per_forward"]
+    route, over the serving paths (repvgg_a0's and resnet50's): launches summed over
+    the paths' runs; times and bounds summed over one batch-256 forward of each model
+    (each geometry times its count of layers; each conv's bound counts the int8 x it
+    reads)."""
+    t = {k: sum(r["per_forward"][k] for r in records) for k in records[0]["per_forward"]}
+    bound_by = {}
+    for r in records:
+        for k, v in r["bound_ms_by"].items():
+            bound_by[k] = bound_by.get(k, 0.0) + v
     src = "holocron_tpu_torch/csrc/"
 
     def entry(name, source, replaces, ms, plain_ms, bound_ms, max_abs_err):
         return {"name": name, "route": "cuda", "source": src + source, "replaces": replaces,
-                "launches": launches[name], "max_abs_err": max_abs_err, "ms": ms, "plain_ms": plain_ms,
-                "bound_ms": bound_ms, "bound_by": "bytes" if name == "int8_quantize" else record["bound_by"],
+                "launches": sum(run[name] for run in launches), "max_abs_err": max_abs_err, "ms": ms,
+                "plain_ms": plain_ms, "bound_ms": bound_ms,
+                "bound_by": "bytes" if name == "int8_quantize" else max(bound_by, key=bound_by.get),
                 "library_ms": None}
 
     return [
         entry("int8_conv", "int8_conv.cu", "holocron_tpu/quant.py:259", t["conv_ms"], t["plain_ms"], t["bound_ms"],
-              record["max_abs_err_bf16"]),
+              max(r["max_abs_err_bf16"] for r in records)),
         entry("int8_quantize", "int8_conv.cu", "holocron_tpu/quant.py:244", t["quantize_ms"],
               t["quantize_plain_ms"], t["quantize_bound_ms"], 0.0),
         entry("int8_conv_general", "int8_conv_general.cu", "holocron_tpu/quant.py:259", t["general_ms"],
-              t["plain_ms"], t["bound_ms"], record["max_abs_err_bf16_general"]),
+              t["plain_ms"], t["bound_ms"], max(r["max_abs_err_bf16_general"] for r in records)),
     ]
 
 
@@ -959,17 +1088,22 @@ def main() -> int:
     device = torch.device("cuda", 0)
     torch.cuda.set_device(device)
 
-    phase_build()
-    qm, model_bf16, x, r8, serving_launches = phase_serving(device)
-    inv_launches = phase_involution(device)
-    phase_training(device)
-    inv_train = phase_involution_train(device)
-    add2d_launches = phase_add2d(device)
-    inv = check_involution(device)
-    inv_bwd = check_involution_bwd(device)
-    add = check_add2d(device)
-    i8 = check_int8(device, qm, model_bf16, x)
-    phase_serving_profile(qm, model_bf16, x, r8)
+    timed(phase_build)
+    qm, model_bf16, x, r8, serving_launches = timed(phase_serving, device)
+    rqm, rmodel_bf16, rx, rr8, resnet_launches = timed(phase_serving, device, "resnet50", 52, "resnet_serving")
+    inv_launches = timed(phase_involution, device)
+    timed(phase_training, device)
+    timed(phase_resnet_training, device)
+    inv_train = timed(phase_involution_train, device)
+    add2d_launches = timed(phase_add2d, device)
+    timed(phase_resnet_zoo, device)
+    inv = timed(check_involution, device)
+    inv_bwd = timed(check_involution_bwd, device)
+    add = timed(check_add2d, device)
+    i8 = timed(check_int8, device, qm, model_bf16, x)
+    i8_resnet = timed(check_int8, device, rqm, rmodel_bf16, rx, "resnet50")
+    timed(phase_serving_profile, qm, model_bf16, x, r8)
+    timed(phase_serving_profile, rqm, rmodel_bf16, rx, rr8, "resnet_serving_profile")
 
     def entry(name, source, replaces, launches, record, max_abs_err):
         keys = ("ms", "plain_ms", "bound_ms", "bound_by")
@@ -988,7 +1122,7 @@ def main() -> int:
               add["add2d_fwd"]["max_abs_err"]),
         *(entry(name, add_src, "holocron_tpu/kernels/add2d.py:82", add2d_launches[name], add[name],
                 add[name]["max_abs_err"]) for name in ("add2d_bwd_dp", "add2d_bwd_dw")),
-        *int8_entries(serving_launches, i8),
+        *int8_entries([serving_launches, resnet_launches], [i8, i8_resnet]),
     ]})
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

@@ -7,14 +7,22 @@ of arrays (numpy, or anything ``np.asarray`` takes), ``{"params": ..., "batch_st
 - dense kernels: ``(in, out)`` -> ``(out, in)``
 - batch norm: ``scale/bias`` + ``mean/var`` -> ``weight/bias/running_mean/running_var``
   (and ``num_batches_tracked = 0``, which torch keeps and the JAX package does not)
+- frozen batch norm: ``scale/bias/mean/var``, all statistics, -> the same four buffers
 """
 
 from typing import Any, Dict, Mapping
 
 import numpy as np
 import torch
+from torch import nn
 
-__all__ = ["add2d_state_dict", "involution_state_dict", "repvgg_state_dict"]
+from .models.classification.res2net import ScaleConv2d
+from .models.classification.resnet import ResNet
+from .models.classification.sknet import SKConv2d
+from .models.classification.tridentnet import TridentConv2d
+from .nn.modules.conv import PyConv2d
+
+__all__ = ["add2d_state_dict", "involution_state_dict", "repvgg_state_dict", "resnet_state_dict"]
 
 
 def _t(a: Any) -> torch.Tensor:
@@ -83,4 +91,82 @@ def add2d_state_dict(variables: Mapping) -> Dict[str, torch.Tensor]:
     sd = {"weight": _conv(params["kernel"])}
     if "bias" in params:
         sd["bias"] = _t(params["bias"])
+    return sd
+
+
+def _node(tree: Mapping, path: str) -> Mapping:
+    for key in path.split("/"):
+        tree = tree.get(key, {})
+    return tree
+
+
+def _conv_at(sd: Dict[str, torch.Tensor], prefix: str, node: Mapping) -> None:
+    """A conv's ``kernel`` (HWIO) and, where it has one, ``bias``."""
+    sd[f"{prefix}.weight"] = _conv(node["kernel"])
+    if "bias" in node:
+        sd[f"{prefix}.bias"] = _t(node["bias"])
+
+
+def _norm_at(sd: Dict[str, torch.Tensor], prefix: str, variables: Mapping, path: str) -> None:
+    """A batch norm, or a frozen one (``FrozenBatchNorm2d``: no parameters, all four
+    tensors in ``batch_stats``)."""
+    params, stats = _node(variables["params"], path), _node(variables.get("batch_stats", {}), path)
+    if "scale" in params:
+        _bn(sd, prefix, params, stats)
+        return
+    for ours, theirs in (("weight", "scale"), ("bias", "bias"), ("running_mean", "mean"), ("running_var", "var")):
+        sd[f"{prefix}.{ours}"] = _t(stats[theirs])
+
+
+def resnet_state_dict(variables: Mapping, model: ResNet) -> Dict[str, torch.Tensor]:
+    """State dict of a :class:`~holocron_tpu_torch.models.ResNet` (any block of the
+    family) from the JAX ``ResNet``'s variables; the inverse of ``_convert_resnet``
+    (``holocron_tpu/models/_torch_convert.py:117-194``).
+
+    The feature indices come from ``model``'s layout (``deep_stem``, ``stem_pool``,
+    ``num_repeats``, its stages), and each block's keys from its ``conv`` layers in
+    order: the ``k``-th conv of a block (a conv, a :class:`ScaleConv2d`, an
+    :class:`SKConv2d` or a :class:`PyConv2d`) is the JAX block's ``conv_{k}``, the layer
+    after a conv or a pyramid its norm; then the shortcut and the head.
+    """
+    params = variables["params"]
+    sd: Dict[str, torch.Tensor] = {}
+
+    def conv_norm(conv_key: str, norm_key: str, path: str) -> None:
+        _conv_at(sd, conv_key, _node(params, f"{path}/conv"))
+        _norm_at(sd, norm_key, variables, f"{path}/bn")
+
+    idx = 0
+    for s in range(3 if model.deep_stem else 1):
+        conv_norm(f"features.{idx}", f"features.{idx + 1}", f"stem_{s}")
+        idx += 3  # conv, norm, act
+    idx += int(model.stem_pool) + int(model.num_repeats > 1)
+    for i, stage in enumerate(model.features[idx:]):
+        for j, block in enumerate(stage):
+            t, d = f"features.{idx + i}.{j}", f"layer_{i}_{j}"
+            k = 0
+            for off, layer in enumerate(block.conv):
+                src, dst = f"{d}/conv_{k}", f"{t}.conv.{off}"
+                if isinstance(layer, (nn.Conv2d, TridentConv2d)):
+                    conv_norm(dst, f"{t}.conv.{off + 1}", src)
+                elif isinstance(layer, PyConv2d):
+                    for level in range(len(layer)):
+                        _conv_at(sd, f"{dst}.{level}", _node(params, f"{src}/conv/level{level}"))
+                    _norm_at(sd, f"{t}.conv.{off + 1}", variables, f"{src}/bn")
+                elif isinstance(layer, ScaleConv2d):
+                    for n in range(len(layer.conv)):
+                        conv_norm(f"{dst}.conv.{n}.0", f"{dst}.conv.{n}.1", f"{src}/conv_{n}")
+                elif isinstance(layer, SKConv2d):
+                    for n in range(len(layer.path_convs)):
+                        conv_norm(f"{dst}.path_convs.{n}.0", f"{dst}.path_convs.{n}.1", f"{src}/path_{n}")
+                    conv_norm(f"{dst}.sa.1", f"{dst}.sa.2", f"{src}/sa/fc1")
+                    _conv_at(sd, f"{dst}.sa.4", _node(params, f"{src}/sa/fc2/conv"))
+                else:
+                    continue
+                k += 1
+            if block.downsample is not None:
+                off = len(block.downsample) - 2  # 1 after ResNet-D's pool
+                conv_norm(f"{t}.downsample.{off}", f"{t}.downsample.{off + 1}", f"{d}/downsample/proj")
+    sd["head.weight"] = _dense(params["head"]["kernel"])
+    sd["head.bias"] = _t(params["head"]["bias"])
     return sd

@@ -1,2 +1,2 @@
-from . import classification, layers, utils
+from . import checkpoints, classification, layers, presets, utils
 from .classification import *  # noqa: F403

@@ -1,4 +1,4 @@
 from . import functional, init
-from .modules import Add2d, Involution2d
+from .modules import Add2d, BlurPool2d, GlobalAvgPool2d, Involution2d, PyConv2d
 
-__all__ = ["Add2d", "Involution2d", "functional", "init"]
+__all__ = ["Add2d", "BlurPool2d", "GlobalAvgPool2d", "Involution2d", "PyConv2d", "functional", "init"]

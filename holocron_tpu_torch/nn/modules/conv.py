@@ -1,7 +1,7 @@
 """Convolution-like modules (``holocron_tpu/nn/modules/conv.py``)."""
 
 import math
-from typing import Optional, Tuple, Union
+from typing import List, Optional, Sequence, Tuple, Union
 
 import torch
 from torch import nn
@@ -11,7 +11,7 @@ from ...kernels.involution import involution_stencil_ad
 from .. import functional as HF
 from ..init import kaiming_normal_
 
-__all__ = ["Add2d", "Involution2d"]
+__all__ = ["Add2d", "Involution2d", "PyConv2d"]
 
 _PAD_MODES = ("zeros", "reflect", "replicate", "circular")
 
@@ -145,3 +145,70 @@ class Involution2d(nn.Module):
             sl = xp_nhwc[:, ys : ys + y_span : self.stride, xs : xs + x_span : self.stride]
             out = out + kern_full[..., idx] * sl
         return out.permute(0, 3, 1, 2)
+
+
+class PyConv2d(nn.ModuleList):
+    """Pyramidal convolution (`Duta et al. <https://arxiv.org/pdf/2006.11538.pdf>`_,
+    ``conv.py:262-340``): ``num_levels`` parallel convs of growing kernel size (k, k + 2,
+    ...), padding and groups, their outputs concatenated along channels. A
+    ``ModuleList`` of native grouped ``nn.Conv2d``, one a level (keys ``{k}.weight``), as
+    original Holocron; the JAX package's masked dense form of grouped levels is a TPU
+    workaround with the same parameters.
+
+    Output channels split by powers of two (:meth:`level_plan`); ``groups`` defaults to
+    ``[1, 4, 8, ...]``, each capped at its level's output channels. Weights are drawn
+    from ``generator`` on the CPU (fan-out He-normal, zero bias), then moved to
+    ``device``: the card unless the caller asks for the CPU.
+    """
+
+    def __init__(
+        self,
+        in_channels: int,
+        out_channels: int,
+        kernel_size: int,
+        num_levels: int = 2,
+        padding: int = 0,
+        groups: Optional[Sequence[int]] = None,
+        bias: bool = True,
+        stride: int = 1,
+        device: Union[str, torch.device] = torch.device("cuda"),
+        generator: Optional[torch.Generator] = None,
+    ) -> None:
+        super().__init__()
+        self.num_levels = num_levels
+        for oc, k, p, g in zip(*self.level_plan(out_channels, kernel_size, num_levels, padding, groups)):
+            conv = nn.Conv2d(in_channels, oc, k, stride, p, groups=g, bias=bias)
+            kaiming_normal_(conv.weight, generator=generator)
+            if bias:
+                nn.init.zeros_(conv.bias)
+            self.append(conv)
+        self.to(device)
+
+    @staticmethod
+    def level_plan(
+        out_channels: int, kernel_size: int, num_levels: int, padding: int, groups: Optional[Sequence[int]]
+    ) -> Tuple[List[int], List[int], List[int], List[int]]:
+        """Per level: output channels, kernel size, padding and groups (``_level_plan``,
+        ``conv.py:283-303``). With ``2^e <= num_levels`` levels and ``r = num_levels -
+        2^e``, the first ``2r`` levels take ``out / 2^(e + 1)`` channels and the others
+        ``out / 2^e``."""
+        if num_levels == 1:
+            g = groups[0] if isinstance(groups, (list, tuple)) else 1
+            return [out_channels], [kernel_size], [padding], [g]
+        exp2 = int(math.log2(num_levels))
+        reminder = num_levels - 2**exp2
+        out_chans = [out_channels // 2 ** (exp2 + 1)] * (2 * reminder) + [out_channels // 2**exp2] * (
+            num_levels - 2 * reminder
+        )
+        k_sizes = [kernel_size + 2 * idx for idx in range(num_levels)]
+        if groups is None:
+            groups = [1] + [min(2 ** (2 + idx), out_chan) for idx, out_chan in zip(range(num_levels - 1), out_chans[1:])]
+        elif not isinstance(groups, (list, tuple)) or len(groups) != num_levels:
+            raise ValueError("The argument `groups` is expected to be a list of integer of size `num_levels`.")
+        paddings = [padding + idx for idx in range(num_levels)]
+        return out_chans, k_sizes, paddings, list(groups)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if len(self) == 1:
+            return self[0](x)
+        return torch.cat([conv(x) for conv in self], dim=1)

@@ -175,6 +175,57 @@ def test_int8_route_at_repvgg_a0_geometries(cuda, hw, c, o, stride):
 
 
 @pytest.mark.parametrize(
+    "n,hw,c,o,ksize,stride,padding",
+    [
+        (2, 14, 64, 64, 1, 1, 0),       # 1x1, C = 64: K is half of one 128-byte step
+        (2, 14, 64, 256, 1, 1, 0),      # 1x1 C64 -> O256 (and the stage-1 shortcut)
+        (2, 14, 256, 512, 1, 2, 0),     # 1x1 stride-2 projection, no padding, even map
+        (2, 7, 1024, 2048, 1, 2, 0),    # 1x1 stride 2 on an odd map, O = 2048: eight 256-wide column tiles
+        (8, 7, 512, 2048, 1, 1, 0),     # O = 2048 at batch 8, 7 x 7: M = 392, most blocks idle
+        (8, 7, 2048, 512, 1, 1, 0),     # C = 2048 (K = 16 steps), M = 392
+        (2, 14, 128, 128, 3, 2, 1),     # 3x3 stride 2
+        (8, 7, 512, 512, 3, 1, 1),      # 3x3 at 7 x 7, batch 8
+    ],
+)
+def test_int8_route_at_resnet50_geometries(cuda, n, hw, c, o, ksize, stride, padding):
+    """Small-batch copies of resnet50's int8 layer geometries that repvgg_a0 never
+    reaches."""
+    gen = torch.Generator(device=cuda).manual_seed(10)
+    x = torch.randn(n, hw, hw, c, generator=gen, device=cuda).relu().to(torch.bfloat16)
+    w_q = torch.randint(-127, 128, (ksize, ksize, c, o), generator=gen, device=cuda, dtype=torch.int8)
+    _int8_route_matches_plain(cuda, x, w_q, stride, padding, 1, 11)
+
+
+def test_int8_resnet_takes_only_the_wgmma_route(cuda):
+    """A small int8 ResNet on the card: every int8 layer (every conv but the 3-channel
+    stem) launches the quantization kernel and the wgmma conv once a forward, the
+    general route never; its logits agree with the CPU's plain int8 form within 1e-3 of
+    their largest magnitude (the convs agree to an ulp of float32, but BN and ReLU
+    between them round differently on the card and may move an activation across a
+    quantization tie)."""
+    import copy
+
+    from holocron_tpu_torch import quant
+    from holocron_tpu_torch.models import Bottleneck, ResNet
+
+    gen = torch.Generator().manual_seed(12)
+    model = ResNet(Bottleneck, [1, 1], [16, 32], generator=gen, device="cpu").eval()
+    x = torch.randn(4, 3, 32, 32, generator=gen)
+    qm = quant.quantize_model(model, calibration_batches=[x], min_in_channels=16)
+    layers = sum(isinstance(m, quant.QuantizedConv2d) for m in qm.modules())
+    assert layers == 7  # the first stage has no shortcut conv: 64 channels in and out
+    with torch.no_grad():
+        ref = qm(x)
+        qm_card = copy.deepcopy(qm).to(cuda)
+        before = (INT8_KERNEL.launches, Q.KERNEL_QUANTIZE.launches, Q.KERNEL_GENERAL.launches)
+        out = qm_card(x.to(cuda).contiguous(memory_format=torch.channels_last))
+        torch.cuda.synchronize()
+    assert (INT8_KERNEL.launches, Q.KERNEL_QUANTIZE.launches, Q.KERNEL_GENERAL.launches) == (
+        before[0] + layers, before[1] + layers, before[2])
+    torch.testing.assert_close(out.cpu(), ref, rtol=0, atol=1e-3 * float(ref.abs().max()))
+
+
+@pytest.mark.parametrize(
     "n,h,w,c,o,ksize,stride,padding,dilation,dtype",
     [
         (3, 5, 7, 48, 48, 3, 1, 1, 1, torch.bfloat16),      # ragged M (105 rows), C = 48 (K = 432)

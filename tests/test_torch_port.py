@@ -10,8 +10,8 @@ import pytest
 import torch
 
 from holocron_tpu_torch import kernels, quant
-from holocron_tpu_torch.models import RepVGG
-from holocron_tpu_torch.nn import Add2d, Involution2d
+from holocron_tpu_torch.models import Bottleneck, RepVGG, ResNet, pyconv_resnet50, resnet50, sknet50, tridentnet50
+from holocron_tpu_torch.nn import Add2d, Involution2d, PyConv2d
 from holocron_tpu_torch.trainer import ClassificationTrainer
 
 torch.set_num_threads(2)
@@ -52,6 +52,11 @@ def test_cpu_tensors_never_launch_a_kernel():
         model = RepVGG([1, 1], [8, 16], 1.0, 1.0, generator=g, device="cpu").reparametrize().eval()
         qm = quant.quantize_model(model, min_in_channels=8)
         qm(torch.randn(2, 3, 32, 32, generator=g))
+        resnet = ResNet(Bottleneck, [1, 1], [8, 16], generator=g, device="cpu").eval()
+        qr = quant.quantize_model(resnet, calibration_batches=[torch.randn(2, 3, 32, 32, generator=g)],
+                                  min_in_channels=8)
+        assert sum(isinstance(m, quant.QuantizedConv2d) for m in qr.modules()) == 8  # every conv but the stem
+        qr(torch.randn(2, 3, 32, 32, generator=g))
     assert set(kernels.KERNELS) == {"involution", "involution_general", "involution_bwd_dxp", "involution_bwd_dkern",
                                     "involution_bwd_dxp_general", "involution_bwd_dkern_general", "add2d_fwd",
                                     "add2d_bwd_dp", "add2d_bwd_dw", "int8_conv", "int8_conv_general",
@@ -81,6 +86,12 @@ def test_entry_points_default_to_the_card():
         lambda: Involution2d(8, 3, padding=1, groups=2),
         lambda: Add2d(8, 8, 3),
         lambda: ClassificationTrainer(model),
+        lambda: ResNet(Bottleneck, [1], [8]),
+        lambda: resnet50(),
+        lambda: sknet50(),
+        lambda: tridentnet50(),
+        lambda: pyconv_resnet50(),
+        lambda: PyConv2d(8, 8, 3, 2, 1),
     ):
         with pytest.raises((AssertionError, RuntimeError)):
             build()
