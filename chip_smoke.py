@@ -12,22 +12,25 @@ Phases, each printing one JSON line to stdout:
    batches in train mode, ``reparametrize()`` (train-form eval against deploy drift,
    float32), bf16 deploy requests (8 of batch 8, one of batch 256), the selective-int8
    form calibrated on one batch, the top-1 agreement gate (>= 0.99, ``bench.py:156``)
-   on 2 held-out batches, and bf16 / int8 throughput. A gate miss drops int8 from
-   serving and is reported; it does not fail the run. Every int8 layer must take the
-   wgmma route: two launches a layer a forward (``int8_quantize``, ``int8_conv``), none
-   of the general route. (After the checks, a ``serving_profile`` line:
-   ``torch.profiler`` over the int8 and bf16 forwards at batch 256 and 8.)
+   on 2 held-out batches, the same requests in int8, and bf16 / int8 throughput. A
+   gate miss is reported (``served_form``); it does not fail the run. Each int8 layer
+   launches, a forward, the quantization kernel and the conv of the route
+   ``conv_route`` picks for it: here every one the ``wgmma`` route, none the general
+   route. (After the checks, a ``serving_profile`` line: ``torch.profiler`` over the
+   int8 and bf16 forwards at batch 256 and 8.)
 3. ``resnet_serving``: the same path for resnet50 (10 classes, 23,528,522 parameters):
-   BN adapted on 4 naturalistic batches, no reparametrization (BN stays after each
-   conv, as the JAX package serves a ResNet), the bf16 copy, the selective-int8 form
-   (52 ``wgmma`` convs: every conv but the 3-channel stem), the gate, the requests and
-   the throughput, with the same launch counts. (Last, a ``resnet_serving_profile``
-   line.)
-4. ``involution``: ``Involution2d`` at ``scripts/bench_ops.py:82-87``'s shape (N32,
+   no reparametrization (BN stays after each conv, as the JAX package serves a ResNet),
+   52 ``wgmma`` convs (every conv but the 3-channel stem). (Last, a
+   ``resnet_serving_profile`` line.)
+4. ``rexnet_serving``: the same path for rexnet1_0x, the API's default model
+   (``api/app/config.py:8``; 3,527,996 parameters at 10 classes), BN kept: 44 int8
+   convs, 41 on the general ``mma.sync`` route (odd or byte-wise widths, the SE convs'
+   1 x 1 inputs) and 3 on ``wgmma``. (Last, a ``rexnet_serving_profile`` line.)
+5. ``involution``: ``Involution2d`` at ``scripts/bench_ops.py:82-87``'s shape (N32,
    56x56, C128, G8, k7, reduction 2, bf16) through the module: the tiled route's forward
    (``csrc/involution.cu``, a halo tile in shared memory), which must launch, and never
    the general route's.
-5. ``training``: the repvgg_a0 classification trainer at full width (224 px, batch 128,
+6. ``training``: the repvgg_a0 classification trainer at full width (224 px, batch 128,
    10 classes, random weights from a seed) on synthetic uint8 NCHW batches, as
    ``references/classification/train.py:204-302`` builds it: bf16 compute (``amp``),
    LAMB (lr 1e-3, weight decay 5e-5) under a onecycle schedule, label smoothing 0.1,
@@ -36,36 +39,43 @@ Phases, each printing one JSON line to stdout:
    steps, one step on a float32 batch holding a NaN (which must be skipped: params,
    moments and the optimizer's count unchanged), and ``check_setup`` for 10 steps on a
    fresh model (the loss must fall).
-6. ``resnet_training``: resnet50 in the same trainer and settings, one epoch of 4
-   batches (2 updates), ``evaluate()`` on one, and a timed window of steps.
-7. ``involution_train``: ``Involution2d`` at the same shape, forward and backward
+7. ``resnet_training`` and ``rexnet_training``: resnet50 and rexnet1_0x in the same
+   trainer and settings, one epoch of 4 batches (2 updates), ``evaluate()`` on one, and
+   a timed window of steps.
+8. ``involution_train``: ``Involution2d`` at the same shape, forward and backward
    through the module in bf16: the forward and both gradient kernels of the tiled route,
    which must launch, and none of the general route's. Its step time from CUDA events
    (``fwd_bwd_ms``), which the host sets once the step's kernels take less time than
    their launches, and the step's summed kernel time (``fwd_bwd_kernel_ms``, the same
    for ``add2d``).
-8. ``add2d``: ``Add2d(64 -> 128, k3, pad 1)`` on N4 x 56 x 56 in float32, forward and
+9. ``add2d``: ``Add2d(64 -> 128, k3, pad 1)`` on N4 x 56 x 56 in float32, forward and
    backward through the module (``scripts/bench_ops.py:112-113``'s layer: L 12544,
    D 576, O 128).
-9. ``resnet_zoo``: one eval forward each of resnet50d, resnext50_32x4d, res2net50_26w_4s,
+10. ``resnet_zoo``: one eval forward each of resnet50d, resnext50_32x4d, res2net50_26w_4s,
    sknet50, tridentnet50, pyconv_resnet50 and pyconvhg_resnet50 at full width, 224 px,
    batch 32, in float32 and bf16: parameter count, bf16-vs-f32 logits, bf16 img/s.
-10. ``checks``: each kernel against its plain PyTorch version on the card at the shapes
+11. ``nn_catalog``: each module and function of the nn catalog (activations, losses,
+   DropBlock, space-to-depth and pools, attention, the lambda layer, NormConv2d,
+   SlimConv2d) and each box op, forward and backward at small shapes, against the
+   same on the CPU with the same weights and random draw.
+12. ``checks``: each kernel against its plain PyTorch version on the card at the shapes
    the paths gave it, with its time, its plain version's time, the time of one PyTorch
    call computing the same function where there is one (``torch.cdist`` for add2d), and
    its bound: the larger of the bytes it must move over 3.35 TB/s and the operations it
    must do over the card's rate for them. Both routes of the involution forward and
-   backward (tiled and general) are checked and timed at the path's shape. The int8 route is checked
-   (bit-exact quantization, also on inputs on its ties and beyond its clip; exact
-   accumulator; outputs within one ulp) at each int8 layer geometry of repvgg_a0 (nine)
-   and of resnet50 (22) at batch 8 and 32, checked again and timed at each at batch
-   256 (``check_int8_geometry`` lines, device time from CUDA graphs): quantize + conv,
-   each kernel, the general route, cuDNN's bf16 conv of the layer, the plain version,
-   and the bounds of the route and of each kernel.
+   backward (tiled and general) are checked and timed at the path's shape. The int8
+   routes are checked (bit-exact quantization, also on inputs on its ties and beyond
+   its clip; exact accumulator; outputs within one ulp) at each int8 layer geometry of
+   repvgg_a0 (nine), resnet50 (22) and rexnet1_0x (44) at batch 8 and 32, checked again
+   and timed at each at batch 256 (``check_int8_geometry`` lines, device time from CUDA
+   graphs): quantize + conv, each kernel, cuDNN's bf16 conv of the layer, the plain
+   version, and the bounds of the route and of each kernel. The grouped general route
+   the same way at resnext101_32x8d's stage-4 3x3 conv (32 groups of 64, stride 1 and
+   2).
 
 Each kernel's launch counter is set to 0 just before the path that runs it and read
 just after; a kernel that its path never launched fails the run. Then come the
-``kernels`` line (the int8 entries over both serving paths), the card's name and power
+``kernels`` line (the int8 entries over the three serving paths), the card's name and power
 limit as ``nvidia-smi`` reports them, and last ``{"ok": true, "device": {...}}``. Each
 phase's wall time goes to stderr. Float32 checks run with TF32 off
 (``torch.backends.cudnn.allow_tf32`` and ``torch.backends.cuda.matmul.allow_tf32``).
@@ -174,15 +184,19 @@ def phase_build() -> None:
     emit({"phase": "build", "libraries": [p.name for p in paths], "seconds": round(seconds, 3)})
 
 
-def phase_serving(device, arch: str = "repvgg_a0", int8_layers: int = 26, phase: str = "serving", batch: int = 256,
-                  size: int = 224, num_classes: int = 10, iters: int = 30):
+def phase_serving(device, arch: str = "repvgg_a0", int8_layers: int = 26, wgmma_layers: int = 26,
+                  phase: str = "serving", batch: int = 256, size: int = 224, num_classes: int = 10, iters: int = 30):
     """The serving path of ``arch``; a model with ``reparametrize`` (RepVGG) is folded
-    into its deploy form, one without (ResNet) is served with BN after each conv, as
-    the JAX package serves it. Fails unless ``int8_layers`` convs are int8."""
+    into its deploy form, one without (ResNet, ReXNet) is served with BN after each
+    conv, as the JAX package serves it. Fails unless ``int8_layers`` convs are int8,
+    ``wgmma_layers`` of them on the ``wgmma`` route and the rest on the general route,
+    and unless each int8 conv launched the route ``conv_route`` picks for it once a
+    forward. The int8 requests run whether or not the gate passes."""
     import torch
 
     from holocron_tpu_torch import models
     from holocron_tpu_torch.kernels import KERNELS
+    from holocron_tpu_torch.kernels.int8_conv import conv_route
     from holocron_tpu_torch.quant import QuantizedConv2d, measure_agreement, quantize_model
 
     gen = torch.Generator(device=device).manual_seed(SEED)
@@ -213,10 +227,12 @@ def phase_serving(device, arch: str = "repvgg_a0", int8_layers: int = 26, phase:
     x = naturalistic_batch(gen, batch, size, device).to(torch.bfloat16)
     # as bench.py: calibrated on the timing batch in float32, float remainder in bf16
     qm = quantize_model(model, calibration_batches=[x.float()], arch=arch).to(torch.bfloat16)
-    n_int8 = sum(isinstance(m, QuantizedConv2d) for m in qm.modules())
+    routes = [conv_route(m.kernel_q.shape[2], m.kernel_q.shape[3], m.groups)
+              for m in qm.modules() if isinstance(m, QuantizedConv2d)]
+    n_int8, n_wgmma = len(routes), routes.count("wgmma")
     n_convs = sum(isinstance(m, torch.nn.Conv2d) for m in model.modules())
-    if n_int8 != int8_layers:
-        fail(f"{arch}: {n_int8} int8 convs, expected {int8_layers}")
+    if (n_int8, n_wgmma) != (int8_layers, wgmma_layers):
+        fail(f"{arch}: {n_int8} int8 convs, {n_wgmma} on the wgmma route; expected {int8_layers}, {wgmma_layers}")
     gate_batches = [naturalistic_batch(gen, batch, size, device).to(torch.bfloat16) for _ in range(2)]
     requests = [naturalistic_batch(gen, 8, size, device).to(torch.bfloat16) for _ in range(8)] + [x]
     torch.cuda.synchronize()
@@ -228,14 +244,14 @@ def phase_serving(device, arch: str = "repvgg_a0", int8_layers: int = 26, phase:
             check_logits(model_bf16(r), r.shape[0], num_classes, "bf16 deploy")
         agreement = measure_agreement(model_bf16, qm, gate_batches)
         served = agreement["top1_agreement"] >= AGREEMENT_FLOOR
-        if served:
-            for r in requests:
-                check_logits(qm(r), r.shape[0], num_classes, "int8 deploy")
+        for r in requests:
+            check_logits(qm(r), r.shape[0], num_classes, "int8 deploy")
     torch.cuda.synchronize()
     launches = {name: k.launches for name, k in KERNELS.items()}
-    # every int8 layer takes the wgmma route: two launches a layer a forward
-    forwards = len(gate_batches) + (len(requests) if served else 0)
-    expected = {"int8_conv": n_int8 * forwards, "int8_quantize": n_int8 * forwards, "int8_conv_general": 0}
+    # two launches a layer a forward: the quantization and the conv of its route
+    forwards = len(gate_batches) + len(requests)
+    expected = {"int8_conv": n_wgmma * forwards, "int8_quantize": n_int8 * forwards,
+                "int8_conv_general": (n_int8 - n_wgmma) * forwards}
     if any(launches[k] != v for k, v in expected.items()):
         fail(f"{arch}: the int8 path launched {[launches[k] for k in expected]} of {list(expected)}, "
              f"expected {expected}")
@@ -263,6 +279,8 @@ def phase_serving(device, arch: str = "repvgg_a0", int8_layers: int = 26, phase:
         "int8_top1_vs_f32": int8_top1_vs_f32,
         "logit_absmax_f32": float(ref32.abs().max()),
         "int8_convs": n_int8,
+        "int8_convs_wgmma": n_wgmma,
+        "int8_convs_general": n_int8 - n_wgmma,
         "convs": n_convs,
         "top1_agreement": agreement["top1_agreement"],
         "max_prob_drift": agreement["max_prob_drift"],
@@ -438,18 +456,93 @@ def within_ulp(got, ref, ulp: float, what: str) -> float:
     return float(err.max())
 
 
+def _int8_case_holds(name, route, xn, s_x, w_q, w_packed, w_scale, bias, stride, padding, dilation, groups,
+                     max_err) -> None:
+    """One int8 conv on the card against its plain versions: quantized activations
+    equal, the int32 accumulator equal, float32 output within one float32 ulp and bf16
+    output within one bf16 ulp of the plain epilogue, through ``int8_conv`` and
+    ``quantized_conv``. Keeps the largest bf16 error of each route in ``max_err``."""
+    import torch
+
+    from holocron_tpu_torch.kernels import int8_conv as K
+
+    x_q = K.quantize_activation(xn, s_x)
+    if not torch.equal(x_q, K.quantize_activation_plain(xn, s_x)):
+        fail(f"int8_quantize {name}: differs from quantize_activation_plain")
+    acc = K.int8_conv_acc(x_q, w_q, stride, padding, dilation, w_packed=w_packed, groups=groups)
+    if not torch.equal(acc, K.int8_conv_acc_plain(x_q, w_q, stride, padding, dilation, groups)):
+        fail(f"int8 conv {name} ({route}): int32 accumulator differs from the float64 plain conv")
+    for dtype, ulp in ((torch.float32, 2.0**-23), (torch.bfloat16, 2.0**-7)):
+        ref = K.int8_conv_plain(x_q, w_q, s_x, w_scale, bias, stride, padding, dilation, dtype, groups).float()
+        outs = [K.int8_conv(x_q, w_q, s_x, w_scale, bias, stride, padding, dilation, groups, out_dtype=dtype,
+                            w_packed=w_packed),
+                K.quantized_conv(xn, s_x, w_q, w_scale, bias, stride, padding, dilation, out_dtype=dtype,
+                                 w_packed=w_packed, groups=groups)]
+        for got in outs:
+            err = within_ulp(got, ref, ulp, f"int8 conv {name} ({route}) {dtype}")
+            if dtype == torch.bfloat16:
+                max_err[route] = max(max_err[route], err)
+
+
+def _time_int8_geometry(xin, w_q, w_packed, s_x, w_scale, bias, stride, padding, dilation, groups, cudnn,
+                        iters: int) -> dict:
+    """At the path's batch: quantized activations and bf16 outputs (of the conv and of
+    the route) held against the plain versions, then device time from CUDA graphs of
+    the route (quantize + conv), each of its two kernels, ``cudnn`` (cuDNN's bf16 conv of
+    the layer) and the plain version, beside the bounds."""
+    import torch
+
+    from holocron_tpu_torch.kernels import int8_conv as K
+
+    xn = xin.permute(0, 2, 3, 1)
+    kh, kw, c, o = w_q.shape
+    route = K.conv_route(c, o, groups)
+    args = (s_x, w_scale, bias, stride, padding, dilation, groups)
+    x_q = K.quantize_activation(xn, s_x)
+    if not torch.equal(x_q, K.quantize_activation_plain(xn, s_x)):
+        fail(f"int8_quantize {tuple(xin.shape)} {tuple(w_q.shape)}: differs from quantize_activation_plain")
+    y = K.int8_conv(x_q, w_q, *args, out_dtype=torch.bfloat16, w_packed=w_packed)
+    y_route = K.quantized_conv(xn, s_x, w_q, *args[1:-1], out_dtype=torch.bfloat16, w_packed=w_packed, groups=groups)
+    n, oh, ow, _ = y.shape
+    plain = {}
+
+    def run_plain():
+        plain["y"] = K.int8_conv_plain(x_q, w_q, *args[:-1], torch.bfloat16, groups)
+
+    with torch.no_grad():
+        row = {
+            "x": list(xin.shape), "w_hwio": list(w_q.shape), "stride": list(stride), "groups": groups, "route": route,
+            "route_ms": graph_ms(lambda: K.quantized_conv(xn, s_x, w_q, *args[1:-1], out_dtype=torch.bfloat16,
+                                                          w_packed=w_packed, groups=groups), iters),
+            "conv_ms": graph_ms(lambda: K.int8_conv(x_q, w_q, *args, out_dtype=torch.bfloat16, w_packed=w_packed),
+                                iters),
+            "quantize_ms": graph_ms(lambda: K.quantize_activation(xn, s_x), iters),
+            "cudnn_bf16_ms": graph_ms(cudnn, iters),
+            "plain_ms": cuda_ms(run_plain, 2, 1),
+            "quantize_plain_ms": cuda_ms(lambda: K.quantize_activation_plain(xn, s_x), 2, 1),
+        }
+    ref = plain["y"].float()
+    for what, got in (("int8_conv", y), ("quantized_conv", y_route)):
+        within_ulp(got, ref, 2.0**-7, f"{what} {tuple(xin.shape)} {tuple(w_q.shape)} bf16")
+    # The conv (either route) reads int8 x once, the int8 weights once and writes bf16 y
+    # once; 2 operations per multiply-accumulate. The route (quantize + conv) reads bf16
+    # x instead; the prologue alone moves 3 bytes an element.
+    macs = n * oh * ow * o * kh * kw * c
+    y_bytes = 2 * n * oh * ow * o
+    row.update(bound(xin.numel() + w_q.numel() + y_bytes, 2 * macs, INT8_OPS_PER_S))
+    row["route_bound_ms"] = bound(2 * xin.numel() + w_q.numel() + y_bytes, 2 * macs, INT8_OPS_PER_S)["bound_ms"]
+    row["quantize_bound_ms"] = 3 * xin.numel() / HBM_BYTES_PER_S * 1e3
+    row["tops"] = 2 * macs / (row["conv_ms"] * 1e-3) / 1e12
+    return row
+
+
 def check_int8(device, qm, model_bf16, x, model: str = "repvgg_a0", iters: int = 20) -> dict:
     """The int8 route against its plain versions at each distinct int8 layer geometry
     of the served ``model`` (inputs captured from it at batch 8 and 32), at a 256 -> 256,
-    14x14 layer and at a byte-wise shape of the general route: quantized activations equal to
-    ``quantize_activation_plain`` (also on inputs built on its ties and beyond its
-    clip), the int32 accumulator equal to the float64 plain conv, float32 output within
-    one float32 ulp and bf16 output within one bf16 ulp of the plain epilogue. Then each
-    geometry at the path's batch of 256: quantized activations and bf16 outputs (of the
-    conv and of the route) held against the plain versions again, and device time from
-    CUDA graphs of the route (quantize + conv), each of its two kernels, the general
-    route (the previous design), cuDNN's bf16 conv of the deploy layer and the plain
-    version, beside the bounds."""
+    14x14 layer and at a byte-wise shape of the general route (``_int8_case_holds``;
+    quantization also on inputs built on its ties and beyond its clip). Then each
+    geometry at the path's batch of 256 (``_time_int8_geometry``). Per-forward sums
+    are kept apart by route (``wgmma``, ``general``)."""
     import torch
     from torch.nn import functional as F
 
@@ -461,7 +554,7 @@ def check_int8(device, qm, model_bf16, x, model: str = "repvgg_a0", iters: int =
 
     def capture(name):
         def hook(module, args):
-            key = (tuple(args[0].shape[1:]), tuple(module.kernel_q.shape), module.stride)
+            key = (tuple(args[0].shape[1:]), tuple(module.kernel_q.shape), module.stride, module.groups)
             rec = geometries.setdefault(key, {"layer": name, "module": module, "count": 0, "x": {}})
             rec["x"][args[0].shape[0]] = args[0]
             if args[0].shape[0] == x.shape[0]:
@@ -490,109 +583,80 @@ def check_int8(device, qm, model_bf16, x, model: str = "repvgg_a0", iters: int =
     gen = torch.Generator(device=device).manual_seed(SEED + 3)
     cases = [(f"{key} batch {b}", g["module"].kernel_q, g["module"].kernel_packed, g["module"].w_scale,
               g["module"].act_scale, g["module"].bias, g["module"].stride, g["module"].padding, g["module"].dilation,
-              g["x"][b]) for key, g in geometries.items() for b in (8, 32)]
+              g["module"].groups, g["x"][b]) for key, g in geometries.items() for b in (8, 32)]
     for c, o, hw in ((256, 256, 14), (12, 20, 15)):
         w_q = torch.randint(-127, 128, (3, 3, c, o), generator=gen, device=device, dtype=torch.int8)
         xin = torch.randn(32, c, hw, hw, generator=gen, device=device).to(torch.bfloat16)
         cases.append((f"synthetic {c}->{o} {hw}x{hw}", w_q, None, torch.rand(o, generator=gen, device=device) / 127,
                       xin.abs().amax().float() / 127, torch.randn(o, generator=gen, device=device), (1, 1), (1, 1),
-                      (1, 1), xin.contiguous(memory_format=torch.channels_last)))
+                      (1, 1), 1, xin.contiguous(memory_format=torch.channels_last)))
     max_err = {"wgmma": 0.0, "general": 0.0}
     checked = []
-    for name, w_q, w_packed, w_scale, s_x, bias, stride, padding, dilation, xin in cases:
-        route = K.conv_route(w_q.shape[2], w_q.shape[3])
-        xn = xin.permute(0, 2, 3, 1)
-        x_q = K.quantize_activation(xn, s_x)
-        if not torch.equal(x_q, K.quantize_activation_plain(xn, s_x)):
-            fail(f"int8_quantize {name}: differs from quantize_activation_plain")
-        acc = K.int8_conv_acc(x_q, w_q, stride, padding, dilation, w_packed=w_packed)
-        if not torch.equal(acc, K.int8_conv_acc_plain(x_q, w_q, stride, padding, dilation)):
-            fail(f"int8 conv {name} ({route}): int32 accumulator differs from the float64 plain conv")
-        for dtype, ulp in ((torch.float32, 2.0**-23), (torch.bfloat16, 2.0**-7)):
-            ref = K.int8_conv_plain(x_q, w_q, s_x, w_scale, bias, stride, padding, dilation, out_dtype=dtype).float()
-            outs = [K.int8_conv(x_q, w_q, s_x, w_scale, bias, stride, padding, dilation, out_dtype=dtype,
-                                w_packed=w_packed),
-                    K.quantized_conv(xn, s_x, w_q, w_scale, bias, stride, padding, dilation, out_dtype=dtype,
-                                     w_packed=w_packed)]
-            for got in outs:
-                err = within_ulp(got, ref, ulp, f"int8 conv {name} ({route}) {dtype}")
-                if dtype == torch.bfloat16:
-                    max_err[route] = max(max_err[route], err)
+    for name, w_q, w_packed, w_scale, s_x, bias, stride, padding, dilation, groups, xin in cases:
+        route = K.conv_route(w_q.shape[2], w_q.shape[3], groups)
+        _int8_case_holds(name, route, xin.permute(0, 2, 3, 1), s_x, w_q, w_packed, w_scale, bias, stride, padding,
+                         dilation, groups, max_err)
         checked.append({"layer": name, "route": route, "x": list(xin.shape), "w_hwio": list(w_q.shape)})
 
     # -- checks again and timing at the path's batch
-    rows = []
-    totals, bound_by = {}, {}
+    totals = {"wgmma": {}, "general": {}}
+    bound_by = {"wgmma": {}, "general": {}}
+    deploy_layers = dict(model_bf16.named_modules())
     for key, g in geometries.items():
         m = g["module"]
         xin = g["x"][x.shape[0]]
-        xn = xin.permute(0, 2, 3, 1)
-        s_x, w_q, w_packed = m.act_scale, m.kernel_q, m.kernel_packed
-        args = (s_x, m.w_scale, m.bias, m.stride, m.padding, m.dilation)
-        x_q = K.quantize_activation(xn, s_x)
-        if not torch.equal(x_q, K.quantize_activation_plain(xn, s_x)):
-            fail(f"int8_quantize {key} batch {x.shape[0]}: differs from quantize_activation_plain")
-        kh, kw, c, o = w_q.shape
-        y = K.int8_conv(x_q, w_q, *args, out_dtype=torch.bfloat16, w_packed=w_packed)
-        y_route = K.quantized_conv(xn, s_x, w_q, *args[1:], out_dtype=torch.bfloat16, w_packed=w_packed)
-        n, oh, ow, _ = y.shape
-        plain = {}
-
-        def run_plain():
-            plain["y"] = K.int8_conv_plain(x_q, w_q, *args, out_dtype=torch.bfloat16)
-
-        out_g = torch.empty(n, oh, ow, o, dtype=torch.bfloat16, device=device)
-        (sh, sw), (ph, pw), (dh, dw) = m.stride, m.padding, m.dilation
-        bias_bf16 = int(m.bias is not None and m.bias.dtype == torch.bfloat16)
-        bias_ptr = None if m.bias is None else m.bias.data_ptr()
-
-        def general():  # the previous design, the general route's kernel, at this shape
-            K.KERNEL_GENERAL(x_q.data_ptr(), w_q.data_ptr(), s_x.data_ptr(), m.w_scale.data_ptr(), bias_ptr,
-                             bias_bf16, out_g.data_ptr(), 1, n, xn.shape[1], xn.shape[2], c, o, kh, kw, sh, sw, ph, pw,
-                             dh, dw, oh, ow, 1, torch.cuda.current_stream().cuda_stream)
-
-        deploy = dict(model_bf16.named_modules())[g["layer"].removeprefix("model.")]
-        with torch.no_grad():
-            row = {
-                "x": list(xin.shape), "w_hwio": list(w_q.shape), "stride": list(m.stride), "count": g["count"],
-                "route_ms": graph_ms(lambda: K.quantized_conv(xn, *args[:1], w_q, *args[1:], out_dtype=torch.bfloat16,
-                                                              w_packed=w_packed), iters),
-                "conv_ms": graph_ms(lambda: K.int8_conv(x_q, w_q, *args, out_dtype=torch.bfloat16, w_packed=w_packed),
-                                    iters),
-                "quantize_ms": graph_ms(lambda: K.quantize_activation(xn, s_x), iters),
-                "general_ms": graph_ms(general, iters),
-                "cudnn_bf16_ms": graph_ms(lambda: F.conv2d(xin, deploy.weight, deploy.bias, deploy.stride,
-                                                           deploy.padding, deploy.dilation), iters),
-                "plain_ms": cuda_ms(run_plain, 2, 1),
-                "quantize_plain_ms": cuda_ms(lambda: K.quantize_activation_plain(xn, s_x), 2, 1),
-            }
-        ref = plain["y"].float()
-        for what, got in (("int8_conv", y), ("quantized_conv", y_route)):
-            within_ulp(got, ref, 2.0**-7, f"{what} {key} batch {n} bf16")
-        del y, y_route, plain, ref
-        # The conv (either route) reads int8 x once, the int8 weights once and writes
-        # bf16 y once; 2 operations per multiply-accumulate. The route (quantize + conv)
-        # reads bf16 x instead; the prologue alone moves 3 bytes an element.
-        macs = n * oh * ow * o * kh * kw * c
-        y_bytes = 2 * n * oh * ow * o
-        row.update(bound(xin.numel() + w_q.numel() + y_bytes, 2 * macs, INT8_OPS_PER_S))
-        row["route_bound_ms"] = bound(2 * xin.numel() + w_q.numel() + y_bytes, 2 * macs, INT8_OPS_PER_S)["bound_ms"]
-        row["quantize_bound_ms"] = 3 * xin.numel() / HBM_BYTES_PER_S * 1e3
-        row["tops"] = 2 * macs / (row["conv_ms"] * 1e-3) / 1e12
+        deploy = deploy_layers[g["layer"].removeprefix("model.")]
+        row = _time_int8_geometry(
+            xin, m.kernel_q, m.kernel_packed, m.act_scale, m.w_scale, m.bias, m.stride, m.padding, m.dilation,
+            m.groups, lambda: F.conv2d(xin, deploy.weight, deploy.bias, deploy.stride, deploy.padding, deploy.dilation,
+                                       deploy.groups), iters)
+        row["count"] = g["count"]
+        route = row["route"]
         for k_, v in row.items():
             if k_.endswith("_ms"):
-                totals[k_] = totals.get(k_, 0.0) + g["count"] * v
-        bound_by[row["bound_by"]] = bound_by.get(row["bound_by"], 0.0) + g["count"] * row["bound_ms"]
-        rows.append(row)
+                totals[route][k_] = totals[route].get(k_, 0.0) + g["count"] * v
+        bound_by[route][row["bound_by"]] = bound_by[route].get(row["bound_by"], 0.0) + g["count"] * row["bound_ms"]
         emit({"phase": "check_int8_geometry", "model": model, **row})
-        del out_g
     torch.cuda.synchronize()
-    record = {"kernel": "int8_conv", "model": model, "checked": checked, "max_abs_err_bf16": max_err["wgmma"],
-              "max_abs_err_bf16_general": max_err["general"], "per_forward": totals, "geometries": len(rows),
-              # the larger share of the summed bound
-              "bound_by": max(bound_by, key=bound_by.get), "bound_ms_by": bound_by}
+    record = {"kernel": "int8_conv", "model": model, "checked": checked, "max_abs_err_bf16": max_err,
+              "per_forward": totals, "geometries": len(geometries), "bound_ms_by": bound_by}
     emit({"phase": "check", **record})
     return record
+
+
+def check_int8_grouped(device, batch: int = 256, iters: int = 20) -> list:
+    """The grouped general route at resnext101_32x8d's stage-4 3x3 conv (32 groups of
+    64 channels, 2048 -> 2048, pad 1): the 7 x 7 stride-1 conv and the stride-2 first
+    block on 14 x 14, random int8 weights from the seed; checked as ``check_int8``'s
+    cases at batch 8, 32 and ``batch``, and timed at ``batch`` beside cuDNN's grouped
+    bf16 conv of the same (dequantized) weights."""
+    import torch
+    from torch.nn import functional as F
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 11)
+    c, o, groups = 2048, 2048, 32
+    w_q = torch.randint(-127, 128, (3, 3, c // groups, o), generator=gen, device=device, dtype=torch.int8)
+    w_scale = torch.rand(o, generator=gen, device=device) / 127 / 64
+    bias = torch.randn(o, generator=gen, device=device).to(torch.bfloat16)
+    weight = (w_q.float() * w_scale).permute(3, 2, 0, 1).to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    max_err = {"wgmma": 0.0, "general": 0.0}
+    rows = []
+    for hw, stride in ((7, 1), (14, 2)):
+        x = torch.randn(batch, c, hw, hw, generator=gen, device=device).relu().to(torch.bfloat16)
+        x = x.contiguous(memory_format=torch.channels_last)
+        s_x = x.float().abs().amax() / 127
+        for b in (8, 32, batch):
+            _int8_case_holds(f"grouped {c}/{groups} {hw}x{hw} s{stride} batch {b}", "general",
+                             x[:b].permute(0, 2, 3, 1), s_x, w_q, None, w_scale, bias, (stride, stride), (1, 1), (1, 1),
+                             groups, max_err)
+        row = _time_int8_geometry(x, w_q, None, s_x, w_scale, bias, (stride, stride), (1, 1), (1, 1), groups,
+                                  lambda: F.conv2d(x, weight, bias, stride, 1, 1, groups), iters)
+        row["max_abs_err_bf16"] = max_err["general"]
+        emit({"phase": "check_int8_geometry", "model": "resnext101_32x8d", **row})
+        rows.append(row)
+        del x
+    torch.cuda.synchronize()
+    return rows
 
 
 def synthetic_batches(gen, count: int, batch: int, size: int, num_classes: int, device):
@@ -728,25 +792,26 @@ def phase_training(device, batch: int = 128, size: int = 224, num_classes: int =
     emit({"phase": "training_profile", **profile})
 
 
-def phase_resnet_training(device, batch: int = 128, size: int = 224, num_classes: int = 10, timed_steps: int = 4):
-    """resnet50 in the trainer of ``phase_training``, with the same settings: one epoch
+def phase_arch_training(device, arch: str = "resnet50", phase: str = "resnet_training", batch: int = 128,
+                        size: int = 224, num_classes: int = 10, timed_steps: int = 4):
+    """``arch`` in the trainer of ``phase_training``, with the same settings: one epoch
     of 4 batches (2 updates) and ``evaluate()`` on one, then a steady window."""
     import torch
 
     gen = torch.Generator(device=device).manual_seed(SEED + 9)
     train = synthetic_batches(gen, 4, batch, size, num_classes, device)
     val = synthetic_batches(gen, 1, batch, size, num_classes, device)
-    trainer = make_trainer(device, train, val, num_classes, arch="resnet50")
+    trainer = make_trainer(device, train, val, num_classes, arch=arch)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    losses, metrics = fit_one_epoch(trainer, "resnet50 training")
+    losses, metrics = fit_one_epoch(trainer, f"{arch} training")
     step_ms = time_train_steps(trainer, train, timed_steps)
     peak_bytes = torch.cuda.max_memory_allocated()
     params_f32 = all(p.dtype == torch.float32 for p in trainer.model.parameters())
     if not params_f32:
-        fail("resnet50 training: amp left master params in another dtype than float32")
+        fail(f"{arch} training: amp left master params in another dtype than float32")
     torch.cuda.synchronize()
-    emit({"phase": "resnet_training", "model": "resnet50", "image_size": size, "batch": batch, "amp": True,
+    emit({"phase": phase, "model": arch, "image_size": size, "batch": batch, "amp": True,
           "gradient_acc": 2, "loss_first": losses[0], "loss_last": losses[-1], "losses": losses, **metrics,
           "train_step_ms": step_ms, "train_img_per_s": batch / (step_ms / 1e3), "peak_memory_gib": peak_bytes / 2**30,
           "params_f32": params_f32, "params": sum(p.numel() for p in trainer.model.parameters())})
@@ -794,6 +859,135 @@ def phase_resnet_zoo(device, batch: int = 32, size: int = 224, num_classes: int 
         torch.backends.cudnn.benchmark = benchmark
     torch.cuda.synchronize()
     emit({"phase": "resnet_zoo", "image_size": size, "batch": batch, "models": rows})
+
+
+CATALOG_TOL = 1e-4
+
+
+def phase_nn_catalog(device) -> dict:
+    """Each module and function of the nn catalog and each box op, forward and backward
+    once on the card at small shapes, against the same on the CPU with the same weights
+    (built on the CPU from the seed, then copied) and the same random draw (DropBlock's
+    block centers, the mutual-channel loss's channel masks, drawn on the CPU): outputs,
+    the input's gradients and the BN statistics within ``CATALOG_TOL`` of each tensor's
+    largest magnitude plus ``CATALOG_TOL`` relative, the parameters' gradients against
+    the module's largest gradient (the card sums in other orders; TF32 is off). A
+    mismatch fails the run."""
+    import torch
+
+    from holocron_tpu_torch import nn, ops
+    from holocron_tpu_torch.nn import functional as HF
+
+    cpu = torch.device("cpu")
+    gen = torch.Generator().manual_seed(SEED + 12)
+    errs = {}
+
+    def close(name, got, ref, scale=None):
+        got, ref = got.detach().float().cpu(), ref.detach().float()
+        if scale is None:
+            scale = float(ref.abs().max()) if ref.numel() else 0.0
+        err = float((got - ref).abs().max()) if ref.numel() else 0.0
+        if tuple(got.shape) != tuple(ref.shape) or not bool(((got - ref).abs() <= CATALOG_TOL * (scale + ref.abs()))
+                                                            .all()):
+            fail(f"nn_catalog {name}: the card and the CPU differ (max {err} at scale {scale})")
+        errs[name] = max(errs.get(name, 0.0), err / max(scale, 1e-30))
+
+    def run(module, fn, inputs):
+        """``fn(module, *inputs)`` and the gradients of ``sum(out * w)``."""
+        inputs = [t.clone().requires_grad_(t.is_floating_point()) for t in inputs]
+        out = fn(module, *inputs)
+        w = torch.linspace(-1.0, 1.0, out.numel(), device=out.device).reshape(out.shape)
+        (out * w).sum().backward()
+        grads = [t.grad for t in inputs if t.grad is not None]
+        return out, grads
+
+    def compare(name, module, fn, *inputs, train=True):
+        if module is not None:
+            module.zero_grad(set_to_none=True)
+        card = copy.deepcopy(module).to(device) if module is not None else None
+        for m in (module, card):
+            if m is not None:
+                m.train(train)
+        out_c, g_c = run(module, fn, inputs)
+        out_d, g_d = run(card, fn, [t.to(device) for t in inputs])
+        close(name, out_d, out_c)
+        for i, (a, b) in enumerate(zip(g_d, g_c)):
+            close(f"{name} input grad {i}", a, b)
+        if module is not None:
+            # against the module's largest gradient: a bias that a train-mode norm follows
+            # has a zero gradient in exact arithmetic, rounding noise on either device
+            params_d = dict(card.named_parameters())
+            scale = max((float(p.grad.abs().max()) for p in module.parameters()), default=0.0)
+            for pname, p in module.named_parameters():
+                close(f"{name} grad {pname}", params_d[pname].grad, p.grad, scale)
+            buffers_d = dict(card.named_buffers())
+            for bname, b in module.named_buffers():
+                if bname.endswith(("running_mean", "running_var")):
+                    close(f"{name} {bname}", buffers_d[bname], b)
+
+    x = torch.randn(2, 8, 6, 7, generator=gen)
+    modules = {
+        "FReLU": nn.FReLU(8, device=cpu, generator=gen),
+        "SAM": nn.SAM(8, device=cpu, generator=gen),
+        "TripletAttention": nn.TripletAttention(device=cpu, generator=gen),
+        "LambdaLayer_r": nn.LambdaLayer(8, 8, 4, r=3, num_heads=2, dim_u=2, device=cpu, generator=gen),
+        "LambdaLayer_n": nn.LambdaLayer(8, 12, 4, n=42, num_heads=3, dim_u=2, device=cpu, generator=gen),
+        "NormConv2d": nn.NormConv2d(8, 6, 3, stride=2, padding=1, eps=1e-5, device=cpu, generator=gen),
+        "SlimConv2d": nn.SlimConv2d(8, 3, padding=1, r=2, device=cpu, generator=gen),
+        "HardMish": nn.HardMish(),
+        "NLReLU": nn.NLReLU(0.5),
+        "ConcatDownsample2d": nn.ConcatDownsample2d(2),
+        "GlobalMaxPool2d": nn.GlobalMaxPool2d(True),
+        "SPP": nn.SPP((3, 5)),
+        "ZPool": nn.ZPool(),
+    }
+    for name, module in modules.items():
+        xin = x[:, :, :, :6] if name == "ConcatDownsample2d" else x
+        compare(name, module, lambda m, t: m(t), xin)
+        if any(True for _ in module.parameters()):
+            compare(f"{name} eval", module, lambda m, t: m(t), xin, train=False)
+
+    # DropBlock: its draw on the CPU, then the part after it; the module's own draw on the card
+    centers = torch.rand(2, 6, 7, generator=gen) <= 0.2
+    compare("dropblock2d", None, lambda _, t, c: HF.dropblock2d_from_centers(t, c, 3),
+            x.permute(0, 2, 3, 1), centers)
+    drop = nn.DropBlock2d(0.5, 3, generator=torch.Generator(device=device).manual_seed(SEED)).train()
+    out = drop(x.to(device))
+    if tuple(out.shape) != tuple(x.shape) or not bool(torch.isfinite(out).all()):
+        fail("nn_catalog DropBlock2d: expected a finite output of the input's shape on the card")
+
+    # losses (channel-last logits), the mutual-channel loss on masks drawn on the CPU
+    logits = torch.randn(4, 3, 2, 5, generator=gen)
+    target = torch.randint(0, 5, (4, 3, 2), generator=gen)
+    soft = torch.softmax(torch.randn(4, 3, 2, 5, generator=gen), -1)
+    weight = torch.rand(5, generator=gen) + 0.5
+    losses = {
+        "FocalLoss": (nn.FocalLoss(weight=weight, ignore_index=2, device=cpu), target),
+        "ComplementCrossEntropy": (nn.ComplementCrossEntropy(weight=weight, reduction="sum", device=cpu), target),
+        "PolyLoss": (nn.PolyLoss(weight=weight, reduction="none", device=cpu), target),
+        "PolyLoss_soft": (nn.PolyLoss(eps=1.0, device=cpu), soft),
+        "MultiLabelCrossEntropy": (nn.MultiLabelCrossEntropy(weight=weight, device=cpu), soft),
+        "ClassBalancedWrapper": (nn.ClassBalancedWrapper(nn.FocalLoss(device=cpu), [10, 20, 5, 40, 8], device=cpu),
+                                 target),
+        "DiceLoss": (nn.DiceLoss(weight=weight, gamma=0.5, device=cpu), soft),
+    }
+    for name, (loss, tgt) in losses.items():
+        compare(name, loss, lambda m, t, y: m(t, y), logits, tgt)
+    mask = torch.stack([torch.randperm(2, generator=gen) < 1 for _ in range(5)]).float()
+    compare("mutual_channel_loss", None,
+            lambda _, t, y, mk: HF.mutual_channel_loss_masked(t, y, mk, None, -100, "mean", 2, 0.7),
+            torch.randn(4, 3, 2, 10, generator=gen), target, mask)
+
+    # box ops on overlapping, nested, disjoint and touching boxes
+    b1 = torch.tensor([[0, 0, 4, 4], [1, 1, 3, 5], [0, 0, 10, 1], [5, 5, 6, 7]], dtype=torch.float32)
+    b2 = torch.tensor([[0, 0, 4, 4], [2, 1, 6, 3], [4, 0, 8, 4], [0.5, 0.5, 9, 2], [10, 10, 12, 13]])
+    for name in ("box_iou", "box_giou", "iou_penalty", "diou_loss", "aspect_ratio_consistency", "ciou_loss"):
+        compare(name, None, lambda _, a, b, fn=getattr(ops, name): fn(a, b), b1, b2)
+    torch.cuda.synchronize()
+    record = {"phase": "nn_catalog", "tolerance": CATALOG_TOL, "checks": len(errs),
+              "max_rel_err": max(errs.values()), "worst": max(errs, key=errs.get)}
+    emit(record)
+    return record
 
 
 def step_kernel_ms(step, steps: int = 5) -> float:
@@ -1040,32 +1234,39 @@ def check_add2d(device, l: int = 12544, d: int = 576, o: int = 128, iters: int =
 
 
 def int8_entries(launches: list, records: list) -> list:
-    """The ``kernels`` line's entries of the int8 route's kernels and of the general
-    route, over the serving paths (repvgg_a0's and resnet50's): launches summed over
-    the paths' runs; times and bounds summed over one batch-256 forward of each model
-    (each geometry times its count of layers; each conv's bound counts the int8 x it
-    reads)."""
-    t = {k: sum(r["per_forward"][k] for r in records) for k in records[0]["per_forward"]}
-    bound_by = {}
-    for r in records:
-        for k, v in r["bound_ms_by"].items():
-            bound_by[k] = bound_by.get(k, 0.0) + v
+    """The ``kernels`` line's entries of the int8 kernels, over the serving paths
+    (repvgg_a0's, resnet50's and rexnet1_0x's): launches summed over the paths' runs;
+    times and bounds summed over one batch-256 forward of each model (each geometry
+    times its count of layers; each conv's bound counts the int8 x it reads), the
+    convs of each route apart, the quantization over both."""
+
+    def total(route, key):
+        return sum(r["per_forward"][route].get(key, 0.0) for r in records)
+
+    def bound_by(route):
+        by = {}
+        for r in records:
+            for k, v in r["bound_ms_by"][route].items():
+                by[k] = by.get(k, 0.0) + v
+        return max(by, key=by.get)
+
     src = "holocron_tpu_torch/csrc/"
 
-    def entry(name, source, replaces, ms, plain_ms, bound_ms, max_abs_err):
+    def entry(name, source, replaces, route, ms_key, plain_key, bound_key, by):
+        routes = ("wgmma", "general") if route is None else (route,)
         return {"name": name, "route": "cuda", "source": src + source, "replaces": replaces,
-                "launches": sum(run[name] for run in launches), "max_abs_err": max_abs_err, "ms": ms,
-                "plain_ms": plain_ms, "bound_ms": bound_ms,
-                "bound_by": "bytes" if name == "int8_quantize" else max(bound_by, key=bound_by.get),
-                "library_ms": None}
+                "launches": sum(run[name] for run in launches),
+                "max_abs_err": 0.0 if route is None else max(r["max_abs_err_bf16"][route] for r in records),
+                "ms": sum(total(r, ms_key) for r in routes), "plain_ms": sum(total(r, plain_key) for r in routes),
+                "bound_ms": sum(total(r, bound_key) for r in routes), "bound_by": by, "library_ms": None}
 
     return [
-        entry("int8_conv", "int8_conv.cu", "holocron_tpu/quant.py:259", t["conv_ms"], t["plain_ms"], t["bound_ms"],
-              max(r["max_abs_err_bf16"] for r in records)),
-        entry("int8_quantize", "int8_conv.cu", "holocron_tpu/quant.py:244", t["quantize_ms"],
-              t["quantize_plain_ms"], t["quantize_bound_ms"], 0.0),
-        entry("int8_conv_general", "int8_conv_general.cu", "holocron_tpu/quant.py:259", t["general_ms"],
-              t["plain_ms"], t["bound_ms"], max(r["max_abs_err_bf16_general"] for r in records)),
+        entry("int8_conv", "int8_conv.cu", "holocron_tpu/quant.py:259", "wgmma", "conv_ms", "plain_ms", "bound_ms",
+              bound_by("wgmma")),
+        entry("int8_quantize", "int8_conv.cu", "holocron_tpu/quant.py:244", None, "quantize_ms", "quantize_plain_ms",
+              "quantize_bound_ms", "bytes"),
+        entry("int8_conv_general", "int8_conv_general.cu", "holocron_tpu/quant.py:259", "general", "conv_ms",
+              "plain_ms", "bound_ms", bound_by("general")),
     ]
 
 
@@ -1090,20 +1291,26 @@ def main() -> int:
 
     timed(phase_build)
     qm, model_bf16, x, r8, serving_launches = timed(phase_serving, device)
-    rqm, rmodel_bf16, rx, rr8, resnet_launches = timed(phase_serving, device, "resnet50", 52, "resnet_serving")
+    rqm, rmodel_bf16, rx, rr8, resnet_launches = timed(phase_serving, device, "resnet50", 52, 52, "resnet_serving")
+    xqm, xmodel_bf16, xx, xr8, rexnet_launches = timed(phase_serving, device, "rexnet1_0x", 44, 3, "rexnet_serving")
     inv_launches = timed(phase_involution, device)
     timed(phase_training, device)
-    timed(phase_resnet_training, device)
+    timed(phase_arch_training, device)
+    timed(phase_arch_training, device, "rexnet1_0x", "rexnet_training")
     inv_train = timed(phase_involution_train, device)
     add2d_launches = timed(phase_add2d, device)
     timed(phase_resnet_zoo, device)
+    timed(phase_nn_catalog, device)
     inv = timed(check_involution, device)
     inv_bwd = timed(check_involution_bwd, device)
     add = timed(check_add2d, device)
     i8 = timed(check_int8, device, qm, model_bf16, x)
     i8_resnet = timed(check_int8, device, rqm, rmodel_bf16, rx, "resnet50")
+    i8_rexnet = timed(check_int8, device, xqm, xmodel_bf16, xx, "rexnet1_0x")
+    timed(check_int8_grouped, device)
     timed(phase_serving_profile, qm, model_bf16, x, r8)
     timed(phase_serving_profile, rqm, rmodel_bf16, rx, rr8, "resnet_serving_profile")
+    timed(phase_serving_profile, xqm, xmodel_bf16, xx, xr8, "rexnet_serving_profile")
 
     def entry(name, source, replaces, launches, record, max_abs_err):
         keys = ("ms", "plain_ms", "bound_ms", "bound_by")
@@ -1122,7 +1329,7 @@ def main() -> int:
               add["add2d_fwd"]["max_abs_err"]),
         *(entry(name, add_src, "holocron_tpu/kernels/add2d.py:82", add2d_launches[name], add[name],
                 add[name]["max_abs_err"]) for name in ("add2d_bwd_dp", "add2d_bwd_dw")),
-        *int8_entries([serving_launches, resnet_launches], [i8, i8_resnet]),
+        *int8_entries([serving_launches, resnet_launches, rexnet_launches], [i8, i8_resnet, i8_rexnet]),
     ]})
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

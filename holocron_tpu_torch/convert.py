@@ -18,11 +18,19 @@ from torch import nn
 
 from .models.classification.res2net import ScaleConv2d
 from .models.classification.resnet import ResNet
+from .models.classification.rexnet import ReXNet, SEBlock
 from .models.classification.sknet import SKConv2d
 from .models.classification.tridentnet import TridentConv2d
 from .nn.modules.conv import PyConv2d
 
-__all__ = ["add2d_state_dict", "involution_state_dict", "repvgg_state_dict", "resnet_state_dict"]
+__all__ = [
+    "add2d_state_dict",
+    "involution_state_dict",
+    "nn_state_dict",
+    "repvgg_state_dict",
+    "resnet_state_dict",
+    "rexnet_state_dict",
+]
 
 
 def _t(a: Any) -> torch.Tensor:
@@ -169,4 +177,71 @@ def resnet_state_dict(variables: Mapping, model: ResNet) -> Dict[str, torch.Tens
                 conv_norm(f"{t}.downsample.{off}", f"{t}.downsample.{off + 1}", f"{d}/downsample/proj")
     sd["head.weight"] = _dense(params["head"]["kernel"])
     sd["head.bias"] = _t(params["head"]["bias"])
+    return sd
+
+
+def rexnet_state_dict(variables: Mapping, model: ReXNet) -> Dict[str, torch.Tensor]:
+    """State dict of a :class:`~holocron_tpu_torch.models.ReXNet` from the JAX
+    ``ReXNet``'s variables; the inverse of ``_convert_rexnet``
+    (``holocron_tpu/models/_torch_convert.py:197-242``).
+
+    ``features.0``/``.1`` are the stem's conv and norm; each block ``features.{3 + i}``
+    holds, in ``conv``, the JAX block ``block_{i}``'s ``expand`` (conv, norm, act; when
+    it expands), ``dw`` (conv, norm), ``se`` (``conv.0``/``.1`` fc1's conv and norm,
+    ``conv.3`` fc2's conv), the activation and ``project`` (conv, norm); then the
+    penultimate conv and norm and ``head.1``.
+    """
+    params = variables["params"]
+    sd: Dict[str, torch.Tensor] = {}
+
+    def conv_norm(conv_key: str, norm_key: str, path: str) -> None:
+        _conv_at(sd, conv_key, _node(params, f"{path}/conv"))
+        _norm_at(sd, norm_key, variables, f"{path}/bn")
+
+    conv_norm("features.0", "features.1", "stem")
+    blocks = model.features[3:-3]
+    for i, block in enumerate(blocks):
+        t, d = f"features.{3 + i}.conv", f"block_{i}"
+        names = ["expand", "dw"] if block.t != 1 else ["dw"]
+        off = 0
+        for name in names:
+            conv_norm(f"{t}.{off}", f"{t}.{off + 1}", f"{d}/{name}")
+            off += 3 if name == "expand" else 2
+        if isinstance(block.conv[off], SEBlock):
+            conv_norm(f"{t}.{off}.conv.0", f"{t}.{off}.conv.1", f"{d}/se/fc1")
+            _conv_at(sd, f"{t}.{off}.conv.3", _node(params, f"{d}/se/fc2/conv"))
+            off += 1
+        conv_norm(f"{t}.{off + 1}", f"{t}.{off + 2}", f"{d}/project")
+    pen = 3 + len(blocks)
+    conv_norm(f"features.{pen}", f"features.{pen + 1}", "penultimate")
+    sd["head.1.weight"] = _dense(params["head"]["kernel"])
+    sd["head.1.bias"] = _t(params["head"]["bias"])
+    return sd
+
+
+def nn_state_dict(variables: Mapping, module: nn.Module) -> Dict[str, torch.Tensor]:
+    """State dict of a module of the nn catalog (``FReLU``, ``SAM``, ``DimAttention``,
+    ``TripletAttention``, ``LambdaLayer``, ``NormConv2d``, ``SlimConv2d``) from the JAX
+    module's variables. The port's submodules carry the JAX names, so each is read at
+    its path: a conv's ``kernel`` (HWIO -> OIHW) and ``bias``, a norm's parameters and
+    statistics; then the module's own parameters: ``weight`` from ``kernel`` (HWIO ->
+    OIHW), ``R`` (HWIO ``(r, r, dim_u, dim_k)`` -> ``(dim_k, dim_u, r, r)``), the rest
+    (``bias``, ``pos_emb``) as they are."""
+    params = variables["params"]
+    sd: Dict[str, torch.Tensor] = {}
+    for name, sub in module.named_modules():
+        if not name:
+            continue
+        path = name.replace(".", "/")
+        if isinstance(sub, nn.Conv2d):
+            _conv_at(sd, name, _node(params, path))
+        elif isinstance(sub, nn.BatchNorm2d):
+            _norm_at(sd, name, variables, path)
+    for name, _ in module.named_parameters(recurse=False):
+        if name == "weight":
+            sd[name] = _conv(params["kernel"])
+        elif name == "R":
+            sd[name] = _conv(params["R"])
+        else:
+            sd[name] = _t(params[name])
     return sd

@@ -1,6 +1,7 @@
 // int8 x int8 -> int32 2D convolution with the float requantize epilogue: the general
 // route, for shapes the Hopper route of int8_conv.cu does not take (C % 16 != 0 or
-// O % 8 != 0, e.g. C = 3). Built for sm_90a; its instructions are Ampere's.
+// O % 8 != 0, e.g. C = 3, rexnet's odd widths) and for every grouped conv. Built for
+// sm_90a; its instructions are Ampere's.
 //
 // Replaces, like int8_conv.cu, the int8 convolution of
 // holocron_tpu/quant.py:_quantized_conv (quant.py:259-274), which the JAX package
@@ -10,7 +11,12 @@
 //   y = float(acc) * (s_x * w_scale[o]) + bias[o]        (quant.py:270-273's order)
 //
 // x is int8 NHWC, w is int8 HWIO, acc is int32 (exact), y is stored as float32 or
-// bfloat16; out_dtype 2 stores the raw int32 accumulator instead. groups must be 1.
+// bfloat16; out_dtype 2 stores the raw int32 accumulator instead.
+//
+// Grouped convs (feature_group_count = G, quant.py:267): x has G * C channels, w is
+// (KH, KW, C, G * O), and group g maps channels g*C .. g*C + C - 1 of x to columns
+// g*O .. g*O + O - 1 of w and y. Each group is one GEMM of its own; the grid's z
+// dimension is the group, and a block offsets its x, w and y by the group's channels.
 //
 // Form: implicit GEMM on the tensor cores. Rows are output pixels (M = N*OH*OW),
 // columns output channels (O), and the reduction runs over K = KH*KW*C in the
@@ -52,7 +58,8 @@ constexpr int A_LD = BKW + 4;
 constexpr int B_LD = BN + 8;
 
 struct ConvShape {
-  int h, w, c, o;
+  int h, w, c, o;  // c, o: input and output channels of one group
+  int cs, os;      // pixel pitch of x (G * c) and row pitch of w and y (G * o)
   int kh, kw, sh, sw, ph, pw, dh, dw;
   int oh, ow;
   long long m;  // N * OH * OW
@@ -75,7 +82,7 @@ __device__ __forceinline__ int gather_a_word(const int8_t* __restrict__ x, const
     const int ix = ix0 + (tap - r * s.kw) * s.dw;
     if (static_cast<unsigned>(iy) < static_cast<unsigned>(s.h) &&
         static_cast<unsigned>(ix) < static_cast<unsigned>(s.w)) {
-      const int8_t v = x[((img * s.h + iy) * s.w + ix) * s.c + ch];
+      const int8_t v = x[((img * s.h + iy) * s.w + ix) * s.cs + ch];
       packed |= static_cast<int>(static_cast<uint8_t>(v)) << (8 * i);
     }
   }
@@ -104,6 +111,12 @@ __global__ void __launch_bounds__(THREADS) int8_conv_kernel(
   const int tid = threadIdx.x;
   const long long m0 = static_cast<long long>(blockIdx.x) * BM;
   const int o0 = blockIdx.y * BN;
+  // this block's group: its channels of x, its columns of w and y, its scales and bias
+  const int g_c = blockIdx.z * s.c;
+  const int g_o = blockIdx.z * s.o;
+  x += g_c;
+  w += g_o;
+  out += g_o;
 
   // A stager: 16 reduction elements (4 words, the a_q-th quarter of the step) of rows
   // tid / 4 and tid / 4 + 64
@@ -152,7 +165,7 @@ __global__ void __launch_bounds__(THREADS) int8_conv_kernel(
         const int ix = a_ix0[r] + fs * s.dw;
         if (a_ok[r] && fr < s.kh && static_cast<unsigned>(iy) < static_cast<unsigned>(s.h) &&
             static_cast<unsigned>(ix) < static_cast<unsigned>(s.w)) {
-          a_reg[r] = *reinterpret_cast<const int4*>(x + ((a_img[r] * s.h + iy) * s.w + ix) * s.c + fch);
+          a_reg[r] = *reinterpret_cast<const int4*>(x + ((a_img[r] * s.h + iy) * s.w + ix) * s.cs + fch);
         }
       }
       fch += BK;
@@ -168,7 +181,7 @@ __global__ void __launch_bounds__(THREADS) int8_conv_kernel(
       for (int i = 0; i < 4; ++i) {
         const int kk = k0 + 4 * b_kq + i;
         rows[i] = (kk < s.k && b_o < s.o)
-                      ? *reinterpret_cast<const int*>(w + static_cast<long long>(kk) * s.o + b_o)
+                      ? *reinterpret_cast<const int*>(w + static_cast<long long>(kk) * s.os + b_o)
                       : 0;
       }
       // 4x4 byte transpose: word j takes byte j of rows 0..3, i.e. the 4 reduction
@@ -198,7 +211,7 @@ __global__ void __launch_bounds__(THREADS) int8_conv_kernel(
         for (int i = 0; i < 4; ++i) {
           const int kk = k0 + 4 * b_kq + i;
           if (kk < s.k && o < s.o) {
-            packed |= static_cast<int>(static_cast<uint8_t>(w[static_cast<long long>(kk) * s.o + o])) << (8 * i);
+            packed |= static_cast<int>(static_cast<uint8_t>(w[static_cast<long long>(kk) * s.os + o])) << (8 * i);
           }
         }
         v[j] = packed;
@@ -277,10 +290,10 @@ __global__ void __launch_bounds__(THREADS) int8_conv_kernel(
       if (o >= s.o) continue;
       float scale = 0.f, bv = 0.f;
       if constexpr (!std::is_same<OutT, int>::value) {
-        scale = __fmul_rn(*s_x, w_scale[o]);
+        scale = __fmul_rn(*s_x, w_scale[g_o + o]);
         if (bias != nullptr) {
-          bv = bias_bf16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(bias)[o])
-                         : static_cast<const float*>(bias)[o];
+          bv = bias_bf16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(bias)[g_o + o])
+                         : static_cast<const float*>(bias)[g_o + o];
         }
       }
 #pragma unroll
@@ -291,11 +304,11 @@ __global__ void __launch_bounds__(THREADS) int8_conv_kernel(
           if (m >= s.m) continue;
           const int v = acc[i][j][2 * q1 + q2];
           if constexpr (std::is_same<OutT, int>::value) {
-            out[m * s.o + o] = v;
+            out[m * s.os + o] = v;
           } else {
             float y = __fmul_rn(__int2float_rn(v), scale);
             if (bias != nullptr) y = __fadd_rn(y, bv);
-            store_out(out + m * s.o + o, y);
+            store_out(out + m * s.os + o, y);
           }
         }
       }
@@ -305,8 +318,9 @@ __global__ void __launch_bounds__(THREADS) int8_conv_kernel(
 
 template <bool kFast>
 void launch(const void* x, const void* w, const void* s_x, const void* w_scale, const void* bias,
-            int bias_bf16, void* out, int out_dtype, const ConvShape& s, cudaStream_t stream) {
-  const dim3 grid(static_cast<unsigned int>((s.m + BM - 1) / BM), static_cast<unsigned int>((s.o + BN - 1) / BN));
+            int bias_bf16, void* out, int out_dtype, const ConvShape& s, int groups, cudaStream_t stream) {
+  const dim3 grid(static_cast<unsigned int>((s.m + BM - 1) / BM), static_cast<unsigned int>((s.o + BN - 1) / BN),
+                  static_cast<unsigned int>(groups));
   const auto* xq = static_cast<const int8_t*>(x);
   const auto* wq = static_cast<const int8_t*>(w);
   const auto* sx = static_cast<const float*>(s_x);
@@ -329,25 +343,28 @@ extern "C" const char* holocron_cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// out_dtype: 0 = float32, 1 = bfloat16 (both with the epilogue), 2 = raw int32
-// accumulator. fast requires C % 16 == 0, O % 4 == 0, x 16-byte aligned and w
-// 4-byte aligned. Returns cudaGetLastError() after the launch.
+// c and o are the channels of the whole conv (x's C, w's and y's O), groups divides
+// both. out_dtype: 0 = float32, 1 = bfloat16 (both with the epilogue), 2 = raw int32
+// accumulator. fast requires C / groups % 16 == 0, O / groups % 4 == 0, x 16-byte
+// aligned and w 4-byte aligned. Returns cudaGetLastError() after the launch.
 extern "C" int int8_conv_forward(const void* x, const void* w, const void* s_x, const void* w_scale,
                                  const void* bias, int bias_bf16, void* out, int out_dtype, int n, int h,
                                  int w_in, int c, int o, int kh, int kw, int sh, int sw, int ph, int pw,
-                                 int dh, int dw, int oh, int ow, int fast, void* stream) {
-  if (out_dtype < 0 || out_dtype > 2) return static_cast<int>(cudaErrorInvalidValue);
-  const ConvShape s{h, w_in, c, o, kh, kw, sh, sw, ph, pw, dh, dw, oh, ow,
-                    static_cast<long long>(n) * oh * ow, kh * kw * c};
+                                 int dh, int dw, int oh, int ow, int groups, int fast, void* stream) {
+  if (out_dtype < 0 || out_dtype > 2 || groups < 1 || groups > 65535 || c % groups != 0 || o % groups != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int cg = c / groups, og = o / groups;
+  const ConvShape s{h, w_in, cg, og, c, o, kh, kw, sh, sw, ph, pw, dh, dw, oh, ow,
+                    static_cast<long long>(n) * oh * ow, kh * kw * cg};
   if (s.m == 0 || s.o == 0) return 0;
-  if (fast && (c % 16 != 0 || o % 4 != 0 || reinterpret_cast<uintptr_t>(x) % 16 != 0 ||
+  if (fast && (cg % 16 != 0 || og % 4 != 0 || reinterpret_cast<uintptr_t>(x) % 16 != 0 ||
                reinterpret_cast<uintptr_t>(w) % 4 != 0))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t cu_stream = static_cast<cudaStream_t>(stream);
   if (fast) {
-    launch<true>(x, w, s_x, w_scale, bias, bias_bf16, out, out_dtype, s, cu_stream);
+    launch<true>(x, w, s_x, w_scale, bias, bias_bf16, out, out_dtype, s, groups, cu_stream);
   } else {
-    launch<false>(x, w, s_x, w_scale, bias, bias_bf16, out, out_dtype, s, cu_stream);
+    launch<false>(x, w, s_x, w_scale, bias, bias_bf16, out, out_dtype, s, groups, cu_stream);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -10,7 +10,8 @@ NHWC. On CUDA tensors the wrappers launch one of two routes, chosen by shape in
   O % 8 == 0, every int8 layer of repvgg_a0. It reads the weights packed once per layer
   by :func:`pack_weights`; its quantization prologue has the counter ``int8_quantize``.
 - ``"general"`` (``csrc/int8_conv_general.cu``, counter ``int8_conv_general``): every
-  other shape (C = 3, byte-wise channel counts).
+  other shape (C = 3, byte-wise channel counts) and every grouped conv, one GEMM a
+  group.
 
 On CPU tensors they compute the plain versions: :func:`quantize_activation_plain`, and a
 float64 convolution over the integer-valued tensors, which is exact (every partial sum
@@ -46,7 +47,7 @@ __all__ = [
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _CONV_ARGS = [_P, _P, _P, _P, _P, _I, _P, _I] + [_I] * 15
 KERNEL = Kernel("int8_conv", "int8_conv_wgmma_forward", _CONV_ARGS + [_I, _I, _P])
-KERNEL_GENERAL = Kernel("int8_conv_general", "int8_conv_forward", _CONV_ARGS + [_I, _P])
+KERNEL_GENERAL = Kernel("int8_conv_general", "int8_conv_forward", _CONV_ARGS + [_I, _I, _P])
 KERNEL_QUANTIZE = Kernel("int8_conv", "int8_quantize_forward", [_P, _P, _P, _I, ctypes.c_longlong, _P])
 _OUT_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int32: 2}
 QINT_MAX = 127.0
@@ -62,11 +63,12 @@ def _pair(v: IntPair) -> Tuple[int, int]:
     return (v, v) if isinstance(v, int) else (int(v[0]), int(v[1]))
 
 
-def conv_route(c: int, o: int) -> str:
-    """The route a CUDA int8 conv with ``c`` input and ``o`` output channels takes:
-    ``"wgmma"`` where 16-channel copies and even column pairs fit (C % 16 == 0,
-    O % 8 == 0), else ``"general"``."""
-    return "wgmma" if c % 16 == 0 and o % 8 == 0 else "general"
+def conv_route(c: int, o: int, groups: int = 1) -> str:
+    """The route a CUDA int8 conv with ``c`` input channels a group, ``o`` output
+    channels and ``groups`` groups takes: ``"wgmma"`` for an ungrouped conv where
+    16-channel copies and even column pairs fit (C % 16 == 0, O % 8 == 0), else
+    ``"general"``."""
+    return "wgmma" if groups == 1 and c % 16 == 0 and o % 8 == 0 else "general"
 
 
 def tile_n(o: int) -> int:
@@ -90,11 +92,13 @@ def _packed_shape(kh: int, kw: int, c: int, o: int) -> Tuple[int, int]:
     return -(-o // bn) * bn, -(-kh * kw * c // STEP_K) * STEP_K
 
 
-def _geometry(x_q: torch.Tensor, w_q: torch.Tensor, stride: IntPair, padding: IntPair, dilation: IntPair):
+def _geometry(x_q: torch.Tensor, w_q: torch.Tensor, stride: IntPair, padding: IntPair, dilation: IntPair,
+              groups: int = 1):
     if x_q.dtype != torch.int8 or w_q.dtype != torch.int8:
         raise TypeError(f"expected int8 x_q and w_q, got {x_q.dtype} and {w_q.dtype}")
-    if x_q.ndim != 4 or w_q.ndim != 4 or x_q.shape[-1] != w_q.shape[2]:
-        raise ValueError(f"expected NHWC x_q and HWIO w_q with matching C, got {tuple(x_q.shape)} and {tuple(w_q.shape)}")
+    if x_q.ndim != 4 or w_q.ndim != 4 or x_q.shape[-1] != w_q.shape[2] * groups or w_q.shape[3] % groups:
+        raise ValueError(f"expected NHWC x_q and HWIO w_q with C = I * groups and O divisible by groups = {groups}, "
+                         f"got {tuple(x_q.shape)} and {tuple(w_q.shape)}")
     (sh, sw), (ph, pw), (dh, dw) = _pair(stride), _pair(padding), _pair(dilation)
     n, h, w, _ = x_q.shape
     kh, kw, _, _ = w_q.shape
@@ -129,13 +133,15 @@ def quantize_activation(x: torch.Tensor, s_x: torch.Tensor) -> torch.Tensor:
 
 
 def int8_conv_acc_plain(
-    x_q: torch.Tensor, w_q: torch.Tensor, stride: IntPair = 1, padding: IntPair = 0, dilation: IntPair = 1
+    x_q: torch.Tensor, w_q: torch.Tensor, stride: IntPair = 1, padding: IntPair = 0, dilation: IntPair = 1,
+    groups: int = 1,
 ) -> torch.Tensor:
-    """The exact int32 accumulator, NHWC, from a float64 convolution."""
-    _geometry(x_q, w_q, stride, padding, dilation)
+    """The exact int32 accumulator, NHWC, from a float64 convolution (``w_q`` is
+    ``(KH, KW, C / groups, O)``, as ``feature_group_count`` takes it)."""
+    _geometry(x_q, w_q, stride, padding, dilation, groups)
     acc = F.conv2d(
         x_q.permute(0, 3, 1, 2).double(), w_q.permute(3, 2, 0, 1).double(),
-        stride=_pair(stride), padding=_pair(padding), dilation=_pair(dilation),
+        stride=_pair(stride), padding=_pair(padding), dilation=_pair(dilation), groups=groups,
     )
     return acc.to(torch.int32).permute(0, 2, 3, 1)
 
@@ -158,14 +164,15 @@ def int8_conv_plain(
     padding: IntPair = 0,
     dilation: IntPair = 1,
     out_dtype: torch.dtype = torch.float32,
+    groups: int = 1,
 ) -> torch.Tensor:
     """Plain version of :func:`int8_conv`."""
-    return _epilogue(int8_conv_acc_plain(x_q, w_q, stride, padding, dilation), s_x, w_scale, bias, out_dtype)
+    return _epilogue(int8_conv_acc_plain(x_q, w_q, stride, padding, dilation, groups), s_x, w_scale, bias, out_dtype)
 
 
-def _launch(x, w_q, w_packed, s_x, w_scale, bias, stride, padding, dilation, out_dtype):
+def _launch(x, w_q, w_packed, s_x, w_scale, bias, stride, padding, dilation, out_dtype, groups):
     """Launches the route :func:`conv_route` picks on the int8 NHWC ``x``."""
-    (sh, sw), (ph, pw), (dh, dw), oh, ow = _geometry(x, w_q, stride, padding, dilation)
+    (sh, sw), (ph, pw), (dh, dw), oh, ow = _geometry(x, w_q, stride, padding, dilation, groups)
     dev = x.device
     operands = [x, w_q] + ([] if out_dtype == torch.int32 else [s_x, w_scale]) + ([] if bias is None else [bias])
     if dev.type != "cuda" or any(t.device != dev for t in operands):
@@ -192,7 +199,7 @@ def _launch(x, w_q, w_packed, s_x, w_scale, bias, stride, padding, dilation, out
         bias_bf16 = int(bias is not None and bias.dtype == torch.bfloat16)
     out = torch.empty((n, oh, ow, o), dtype=out_dtype, device=dev)
     geometry = (n, h, w, c, o, kh, kw, sh, sw, ph, pw, dh, dw, oh, ow)
-    route = conv_route(c, o)
+    route = conv_route(w_q.shape[2], o, groups)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         if route == "wgmma":
@@ -206,10 +213,14 @@ def _launch(x, w_q, w_packed, s_x, w_scale, bias, stride, padding, dilation, out
             KERNEL(x.data_ptr(), w_packed.data_ptr(), s_ptr, ws_ptr, b_ptr, bias_bf16, out.data_ptr(),
                    _OUT_CODES[out_dtype], *geometry, tile_n(o), w_packed.shape[1], stream)
         else:
-            # the general kernel's fast staging path takes 16-channel runs of x and 4-channel runs of w
-            fast = int(c % 16 == 0 and o % 4 == 0 and x.data_ptr() % 16 == 0 and w_q.data_ptr() % 4 == 0)
+            # the general kernel's fast staging path takes 16-channel runs of x and 4-channel
+            # runs of w, in each group
+            cg, og = c // groups, o // groups
+            fast = int(cg % 16 == 0 and og % 4 == 0 and x.data_ptr() % 16 == 0 and w_q.data_ptr() % 4 == 0)
+            if groups > 65535:
+                raise ValueError(f"the general route takes at most 65535 groups, got {groups}")
             KERNEL_GENERAL(x.data_ptr(), w_q.data_ptr(), s_ptr, ws_ptr, b_ptr, bias_bf16, out.data_ptr(),
-                           _OUT_CODES[out_dtype], *geometry, fast, stream)
+                           _OUT_CODES[out_dtype], *geometry, groups, fast, stream)
     return out
 
 
@@ -220,18 +231,17 @@ def int8_conv_acc(
     padding: IntPair = 0,
     dilation: IntPair = 1,
     w_packed: Optional[torch.Tensor] = None,
+    groups: int = 1,
 ) -> torch.Tensor:
     """The int32 accumulator of the int8 conv, NHWC (no epilogue). ``w_packed``:
     :func:`pack_weights` of ``w_q``, made here when the wgmma route needs it and it is
     not given."""
     if x_q.device.type == "cpu" and w_q.device.type == "cpu":
-        return int8_conv_acc_plain(x_q, w_q, stride, padding, dilation)
-    return _launch(x_q, w_q, w_packed, None, None, None, stride, padding, dilation, torch.int32)
+        return int8_conv_acc_plain(x_q, w_q, stride, padding, dilation, groups)
+    return _launch(x_q, w_q, w_packed, None, None, None, stride, padding, dilation, torch.int32, groups)
 
 
-def _check_call(groups: int, out_dtype: torch.dtype) -> None:
-    if groups != 1:
-        raise NotImplementedError("the int8 conv kernel supports groups=1 only")
+def _check_call(out_dtype: torch.dtype) -> None:
     if out_dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"out_dtype must be float32 or bfloat16, got {out_dtype}")
 
@@ -252,19 +262,19 @@ def int8_conv(
     """``float(conv(x_q, w_q)) * (s_x * w_scale) + bias`` in ``out_dtype``, NHWC.
 
     Args:
-        x_q: int8 ``(N, H, W, C)``; w_q: int8 ``(KH, KW, C, O)``
+        x_q: int8 ``(N, H, W, C)``; w_q: int8 ``(KH, KW, C / groups, O)``
         s_x: float32 scalar tensor, the activation scale (abs-max / 127)
         w_scale: float32 ``(O,)``, the per-output-channel weight scales
         bias: optional ``(O,)``, float32 or bfloat16
-        groups: must be 1 (the kernel has no grouped form yet)
+        groups: ``feature_group_count``; a grouped conv takes the general route
         out_dtype: float32 or bfloat16
         w_packed: :func:`pack_weights` of ``w_q``, made here when the wgmma route needs
             it and it is not given
     """
-    _check_call(groups, out_dtype)
+    _check_call(out_dtype)
     if x_q.device.type == "cpu" and w_q.device.type == "cpu":
-        return int8_conv_plain(x_q, w_q, s_x, w_scale, bias, stride, padding, dilation, out_dtype)
-    return _launch(x_q, w_q, w_packed, s_x, w_scale, bias, stride, padding, dilation, out_dtype)
+        return int8_conv_plain(x_q, w_q, s_x, w_scale, bias, stride, padding, dilation, out_dtype, groups)
+    return _launch(x_q, w_q, w_packed, s_x, w_scale, bias, stride, padding, dilation, out_dtype, groups)
 
 
 def quantized_conv(
@@ -278,11 +288,12 @@ def quantized_conv(
     dilation: IntPair = 1,
     out_dtype: torch.dtype = torch.float32,
     w_packed: Optional[torch.Tensor] = None,
+    groups: int = 1,
 ) -> torch.Tensor:
     """``_quantized_conv`` (``quant.py:237-274``) on a float NHWC ``x``: quantized with
     ``s_x`` by :func:`quantize_activation`, then :func:`int8_conv`. On the card that is
     two launches; ``x`` is read in place when its NHWC view is contiguous (an NCHW
     tensor in channels_last)."""
-    return int8_conv(quantize_activation(x, s_x), w_q, s_x, w_scale, bias, stride, padding, dilation,
+    return int8_conv(quantize_activation(x, s_x), w_q, s_x, w_scale, bias, stride, padding, dilation, groups,
                      out_dtype=out_dtype, w_packed=w_packed)
 

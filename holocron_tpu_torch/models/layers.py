@@ -14,6 +14,8 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
+from ..nn.functional import hard_mish, nl_relu
+
 __all__ = ["AvgPool2d", "BatchNorm2d", "FrozenBatchNorm2d", "act_fn", "avg_pool2d", "max_pool2d"]
 
 BatchNorm2d = nn.BatchNorm2d
@@ -98,8 +100,8 @@ _ACTIVATIONS = {
     # jax.nn.gelu defaults to the tanh approximation
     "gelu": lambda x: F.gelu(x, approximate="tanh"),
     "leaky_relu": lambda x: F.leaky_relu(x, 0.01),
-    "hard_mish": lambda x: 0.5 * x * torch.clamp(x + 2.0, 0.0, 2.0),
-    "nl_relu": lambda x: torch.log1p(F.relu(x)),
+    "hard_mish": hard_mish,
+    "nl_relu": nl_relu,
     "sigmoid": torch.sigmoid,
 }
 

@@ -1,4 +1,5 @@
 from . import functional, init
-from .modules import Add2d, BlurPool2d, GlobalAvgPool2d, Involution2d, PyConv2d
+from .modules import *  # noqa: F403
+from .modules import __all__ as _modules
 
-__all__ = ["Add2d", "BlurPool2d", "GlobalAvgPool2d", "Involution2d", "PyConv2d", "functional", "init"]
+__all__ = ["functional", "init", *_modules]

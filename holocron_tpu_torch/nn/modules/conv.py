@@ -10,8 +10,9 @@ from torch.nn import functional as F
 from ...kernels.involution import involution_stencil_ad
 from .. import functional as HF
 from ..init import kaiming_normal_
+from ._norm import FlaxBatchNorm2d
 
-__all__ = ["Add2d", "Involution2d", "PyConv2d"]
+__all__ = ["Add2d", "Involution2d", "NormConv2d", "PyConv2d", "SlimConv2d"]
 
 _PAD_MODES = ("zeros", "reflect", "replicate", "circular")
 
@@ -64,6 +65,18 @@ class _SliceConv(nn.Module):
         return self.weight.permute(2, 3, 1, 0)
 
 
+class NormConv2d(_SliceConv):
+    """Normalized convolution (`Kim <https://arxiv.org/pdf/2005.05274v2.pdf>`_,
+    ``conv.py:124-135``): a conv over variance-normalized input slices, through
+    :func:`~holocron_tpu_torch.nn.functional.norm_conv2d` (im2col, the normalization of
+    each slice, then a product with the kernel). NCHW in and out."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x, pad = self._padded_input(x)
+        out = HF.norm_conv2d(x.permute(0, 2, 3, 1), self._hwio(), self.bias, self.stride, pad, self.dilation, self.eps)
+        return out.permute(0, 3, 1, 2)
+
+
 class Add2d(_SliceConv):
     """AdderNet layer (`Chen et al. <https://arxiv.org/pdf/1912.13200.pdf>`_,
     ``conv.py:138-151``): ``-sum |patch - w|`` in place of the dot product, through
@@ -79,6 +92,59 @@ class Add2d(_SliceConv):
         out = HF.add2d(x.permute(0, 2, 3, 1), self._hwio(), self.bias, self.stride, pad, self.dilation,
                        self.normalize_slices, self.eps)
         return out.permute(0, 3, 1, 2)
+
+
+class SlimConv2d(nn.Module):
+    """SlimConv (`Qiu et al. <https://arxiv.org/pdf/2003.07469.pdf>`_, ``conv.py:154-198``):
+    SE-style channel weights ``w`` (``fc1``, ``bn``, ReLU, ``fc2``, sigmoid), the halves
+    of ``x * w`` and of ``x * flip(w)`` summed, a ``kernel_size`` conv on the first
+    (``conv_top``, ``C / 2`` channels) and a 1x1 then a ``kernel_size`` conv on the
+    second (``conv_bot1``, ``conv_bot2``, ``C / 4``), concatenated: ``C / 2 + C / 4``
+    channels out. NCHW; ``in_channels`` even.
+
+    Weights are drawn from ``generator`` on the CPU (fan-out He-normal, zero biases),
+    then the module moves to ``device``: the card unless the caller asks for the CPU.
+    The norm is flax's (:class:`FlaxBatchNorm2d`), momentum 0.1 in torch's convention.
+    """
+
+    def __init__(
+        self,
+        in_channels: int,
+        kernel_size: Union[int, Tuple[int, int]] = 3,
+        stride: Union[int, Tuple[int, int]] = 1,
+        padding: Union[int, Tuple[int, int]] = 0,
+        dilation: Union[int, Tuple[int, int]] = 1,
+        bias: bool = True,
+        r: int = 32,
+        L: int = 2,
+        device: Union[str, torch.device] = torch.device("cuda"),
+        generator: Optional[torch.Generator] = None,
+    ) -> None:
+        super().__init__()
+        squeezed = max(in_channels // r, L)
+        half, quarter = in_channels // 2, in_channels // 4
+        conv_kw = {"kernel_size": kernel_size, "stride": stride, "padding": padding, "dilation": dilation, "bias": bias}
+        self.fc1 = nn.Conv2d(in_channels, squeezed, 1)
+        self.bn = FlaxBatchNorm2d(squeezed)
+        self.fc2 = nn.Conv2d(squeezed, in_channels, 1)
+        self.conv_top = nn.Conv2d(half, half, **conv_kw)
+        self.conv_bot1 = nn.Conv2d(half, quarter, 1)
+        self.conv_bot2 = nn.Conv2d(quarter, quarter, **conv_kw)
+        for conv in (self.fc1, self.fc2, self.conv_top, self.conv_bot1, self.conv_bot2):
+            kaiming_normal_(conv.weight, generator=generator)
+            if conv.bias is not None:
+                nn.init.zeros_(conv.bias)
+        self.to(device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        z = self.fc1(x.mean(dim=(2, 3), keepdim=True))
+        w = torch.sigmoid(self.fc2(F.relu(self.bn(z))))
+        half = x.shape[1] // 2
+        x_w = x * w
+        x_top = x_w[:, :half] + x_w[:, half:]
+        x_w = x * w.flip(1)
+        x_bot = x_w[:, :half] + x_w[:, half:]
+        return torch.cat([self.conv_top(x_top), self.conv_bot2(self.conv_bot1(x_bot))], dim=1)
 
 
 class Involution2d(nn.Module):

@@ -133,17 +133,16 @@ class QuantizedConv2d(nn.Module):
     the module's float remainder (the bias) is cast, e.g. by ``.to(torch.bfloat16)``.
     ``act_scale`` is None for a per-call (dynamic) activation scale. ``kernel_packed``
     is ``kernel_q`` as the wgmma route reads it (``pack_weights``), None for shapes of
-    the general route; a non-persistent buffer, remade when the module moves, so the
-    ``state_dict`` holds ``kernel_q`` (HWIO) alone.
+    the general route (grouped convs among them); a non-persistent buffer, remade when
+    the module moves, so the ``state_dict`` holds ``kernel_q`` (HWIO, ``(KH, KW,
+    C / groups, O)``) alone.
     """
 
     def __init__(
         self, conv: nn.Conv2d, kernel_q: torch.Tensor, w_scale: torch.Tensor, act_absmax: Optional[float] = None
     ) -> None:
         super().__init__()
-        if conv.groups != 1:
-            raise NotImplementedError("grouped int8 convs are not ported yet")
-        self.stride, self.padding, self.dilation = conv.stride, conv.padding, conv.dilation
+        self.stride, self.padding, self.dilation, self.groups = conv.stride, conv.padding, conv.dilation, conv.groups
         device = conv.weight.device
         self.register_buffer("kernel_q", kernel_q.to(device))
         self.register_buffer("kernel_packed", self._packed(), persistent=False)
@@ -157,7 +156,7 @@ class QuantizedConv2d(nn.Module):
 
     def _packed(self) -> Optional[torch.Tensor]:
         _, _, c, o = self.kernel_q.shape
-        return pack_weights(self.kernel_q) if conv_route(c, o) == "wgmma" else None
+        return pack_weights(self.kernel_q) if conv_route(c, o, self.groups) == "wgmma" else None
 
     def _apply(self, fn, recurse=True):
         scales = {"w_scale": self.w_scale, "act_scale": self.act_scale}
@@ -181,6 +180,7 @@ class QuantizedConv2d(nn.Module):
         y = quantized_conv(
             x.permute(0, 2, 3, 1), s_x, self.kernel_q, self.w_scale, self.bias,
             self.stride, self.padding, self.dilation, out_dtype=x.dtype, w_packed=self.kernel_packed,
+            groups=self.groups,
         )
         return y.permute(0, 3, 1, 2)
 

@@ -133,30 +133,35 @@ def test_int8_conv_kernel_matches_plain(cuda, n, h, w, c, o, ksize, stride, padd
             assert bool(((got - ref).abs() <= ref.abs() * ulp).all())
 
 
-def _int8_route_matches_plain(cuda, x, w_q, stride, padding, dilation, seed):
+def _int8_route_matches_plain(cuda, x, w_q, stride, padding, dilation, seed, groups=1, expected_route="wgmma"):
     """quantize + conv on the card against quantize_activation_plain + the plain conv:
     quantized activations equal, int32 accumulator equal, float32 within one float32
-    ulp and bf16 within one bf16 ulp, with and without bias; the route's two counters
-    advance once each and the general route's not at all."""
+    ulp and bf16 within one bf16 ulp, with and without bias; conv_route picks
+    ``expected_route``, and the quantization counter and that route's counter advance
+    once each, the other route's not at all."""
     gen = torch.Generator(device=cuda).manual_seed(seed)
-    o = w_q.shape[3]
+    c, o = w_q.shape[2], w_q.shape[3]
+    route = Q.conv_route(c, o, groups)
+    assert route == expected_route
     s_x = x.float().abs().amax() / 127
     w_scale = torch.rand(o, generator=gen, device=cuda) / 127
-    packed = Q.pack_weights(w_q)
+    packed = Q.pack_weights(w_q) if route == "wgmma" else None
     x_q = Q.quantize_activation(x, s_x)
     assert torch.equal(x_q, Q.quantize_activation_plain(x, s_x))
-    acc = int8_conv_acc(x_q, w_q, stride, padding, dilation, w_packed=packed)
-    assert torch.equal(acc, int8_conv_acc_plain(x_q, w_q, stride, padding, dilation).contiguous())
+    acc = int8_conv_acc(x_q, w_q, stride, padding, dilation, w_packed=packed, groups=groups)
+    assert torch.equal(acc, int8_conv_acc_plain(x_q, w_q, stride, padding, dilation, groups).contiguous())
     for bias in (None, torch.randn(o, generator=gen, device=cuda)):
         for dtype, ulp in ((torch.float32, 2.0**-23), (torch.bfloat16, 2.0**-7)):
             b = None if bias is None else bias.to(dtype)
             before = (INT8_KERNEL.launches, Q.KERNEL_QUANTIZE.launches, Q.KERNEL_GENERAL.launches)
             got = Q.quantized_conv(x, s_x, w_q, w_scale, b, stride, padding, dilation, out_dtype=dtype,
-                                   w_packed=packed)
+                                   w_packed=packed, groups=groups)
             torch.cuda.synchronize()
+            wgmma = int(route == "wgmma")
             assert (INT8_KERNEL.launches, Q.KERNEL_QUANTIZE.launches, Q.KERNEL_GENERAL.launches) == (
-                before[0] + 1, before[1] + 1, before[2])
-            ref = int8_conv_plain(x_q, w_q, s_x, w_scale, b, stride, padding, dilation, out_dtype=dtype).float()
+                before[0] + wgmma, before[1] + 1, before[2] + 1 - wgmma)
+            ref = int8_conv_plain(x_q, w_q, s_x, w_scale, b, stride, padding, dilation, out_dtype=dtype,
+                                  groups=groups).float()
             assert got.dtype == dtype
             assert bool(((got.float() - ref).abs() <= ref.abs() * ulp).all())
 
@@ -194,6 +199,77 @@ def test_int8_route_at_resnet50_geometries(cuda, n, hw, c, o, ksize, stride, pad
     x = torch.randn(n, hw, hw, c, generator=gen, device=cuda).relu().to(torch.bfloat16)
     w_q = torch.randint(-127, 128, (ksize, ksize, c, o), generator=gen, device=cuda, dtype=torch.int8)
     _int8_route_matches_plain(cuda, x, w_q, stride, padding, 1, 11)
+
+
+@pytest.mark.parametrize(
+    "n,hw,c,o,ksize,stride,padding",
+    [
+        (2, 112, 96, 27, 1, 1, 0),    # rexnet1_0x's first int8 conv: odd O, C % 16 == 0 with O % 4 != 0
+        (2, 56, 162, 38, 1, 1, 0),    # C % 16 != 0, O % 4 != 0: byte-wise staging
+        (8, 1, 228, 19, 1, 1, 0),     # an SE squeeze on its 1 x 1 input: M = 8, odd O
+        (8, 1, 75, 906, 1, 1, 0),     # an SE excite: odd C, O across fifteen column tiles
+        (2, 28, 72, 432, 1, 1, 0),    # an expand: byte-wise C, O % 8 == 0 but C % 16 != 0
+        (2, 7, 1044, 185, 1, 1, 0),   # the last projection: odd O, C % 16 == 4
+        (2, 7, 185, 1280, 1, 1, 0),   # the penultimate conv: odd C
+        (3, 5, 768, 140, 1, 1, 0),    # C % 16 == 0 and O % 4 == 0: the fast staging path, ragged M
+    ],
+)
+def test_int8_general_route_at_rexnet1_0x_geometries(cuda, n, hw, c, o, ksize, stride, padding):
+    """rexnet1_0x's general-route geometries (about 41 of its 44 int8 convs), at small
+    batches: odd output widths (the epilogue's column pairs), channel counts that are
+    not whole 16-byte runs and 1 x 1 spatial inputs (the M tail)."""
+    gen = torch.Generator(device=cuda).manual_seed(13)
+    x = torch.randn(n, hw, hw, c, generator=gen, device=cuda).to(torch.bfloat16)
+    w_q = torch.randint(-127, 128, (ksize, ksize, c, o), generator=gen, device=cuda, dtype=torch.int8)
+    _int8_route_matches_plain(cuda, x, w_q, stride, padding, 1, 14, expected_route="general")
+
+
+@pytest.mark.parametrize(
+    "n,hw,c,o,groups,stride",
+    [
+        (2, 7, 2048, 2048, 32, 1),    # resnext101_32x8d's stage-4 3x3: 32 groups of 64 (fast staging)
+        (2, 14, 2048, 2048, 32, 2),   # the stride-2 first block of that stage
+        (2, 9, 24, 12, 3, 1),         # 3 groups of 8 channels in, 4 out: byte-wise
+        (1, 6, 15, 35, 5, 2),         # 5 groups of 3 in, 7 out: odd per-group widths
+        (2, 8, 64, 64, 2, 1),         # 2 groups of 32 (the CPU tests' small ResNeXt)
+    ],
+)
+def test_int8_grouped_general_route(cuda, n, hw, c, o, groups, stride):
+    """Grouped convs take the general route, one GEMM a group (the grid's third
+    dimension), against the grouped float64 plain conv: exact accumulator, outputs
+    within one ulp."""
+    gen = torch.Generator(device=cuda).manual_seed(15)
+    x = torch.randn(n, hw, hw, c, generator=gen, device=cuda).to(torch.bfloat16)
+    w_q = torch.randint(-127, 128, (3, 3, c // groups, o), generator=gen, device=cuda, dtype=torch.int8)
+    _int8_route_matches_plain(cuda, x, w_q, stride, 1, 1, 16, groups, expected_route="general")
+
+
+def test_int8_rexnet_takes_both_routes(cuda):
+    """A small int8 ReXNet (``min_in_channels=16``) on the card: each int8 layer
+    launches the quantization kernel once a forward, and the route conv_route picks
+    for it once; its logits agree with the CPU's plain int8 form within 1e-3 of their
+    largest magnitude (as the ResNet's below)."""
+    import copy
+
+    from holocron_tpu_torch import quant
+    from holocron_tpu_torch.models import ReXNet
+
+    gen = torch.Generator().manual_seed(17)
+    model = ReXNet(0.5, 0.5, num_classes=10, generator=gen, device="cpu").eval()
+    x = torch.randn(4, 3, 32, 32, generator=gen)
+    qm = quant.quantize_model(model, calibration_batches=[x], min_in_channels=16)
+    layers = [m for m in qm.modules() if isinstance(m, quant.QuantizedConv2d)]
+    wgmma = sum(Q.conv_route(m.kernel_q.shape[2], m.kernel_q.shape[3], m.groups) == "wgmma" for m in layers)
+    assert 0 < wgmma < len(layers)
+    with torch.no_grad():
+        ref = qm(x)
+        qm_card = copy.deepcopy(qm).to(cuda)
+        before = (INT8_KERNEL.launches, Q.KERNEL_QUANTIZE.launches, Q.KERNEL_GENERAL.launches)
+        out = qm_card(x.to(cuda).contiguous(memory_format=torch.channels_last))
+        torch.cuda.synchronize()
+    assert (INT8_KERNEL.launches, Q.KERNEL_QUANTIZE.launches, Q.KERNEL_GENERAL.launches) == (
+        before[0] + wgmma, before[1] + len(layers), before[2] + len(layers) - wgmma)
+    torch.testing.assert_close(out.cpu(), ref, rtol=0, atol=1e-3 * float(ref.abs().max()))
 
 
 def test_int8_resnet_takes_only_the_wgmma_route(cuda):
@@ -267,7 +343,7 @@ def test_int8_conv_refuses_what_it_does_not_take(cuda):
     w_q = torch.zeros(3, 3, 8, 8, dtype=torch.int8, device=cuda)
     s_x, w_scale = torch.tensor(1.0, device=cuda), torch.ones(8, device=cuda)
     before = INT8_KERNEL.launches
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError):  # groups=2 needs w_q of 4 input channels a group
         int8_conv(x_q, w_q, s_x, w_scale, groups=2)
     with pytest.raises(ValueError):
         int8_conv(x_q, w_q.cpu(), s_x, w_scale)

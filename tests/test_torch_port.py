@@ -9,8 +9,18 @@ from pathlib import Path
 import pytest
 import torch
 
-from holocron_tpu_torch import kernels, quant
-from holocron_tpu_torch.models import Bottleneck, RepVGG, ResNet, pyconv_resnet50, resnet50, sknet50, tridentnet50
+from holocron_tpu_torch import kernels, models, nn, quant
+from holocron_tpu_torch.models import (
+    Bottleneck,
+    RepVGG,
+    ResNet,
+    ReXNet,
+    pyconv_resnet50,
+    resnet50,
+    resnext101_32x8d,
+    sknet50,
+    tridentnet50,
+)
 from holocron_tpu_torch.nn import Add2d, Involution2d, PyConv2d
 from holocron_tpu_torch.trainer import ClassificationTrainer
 
@@ -20,16 +30,19 @@ ROOT = Path(__file__).resolve().parents[1]
 
 
 def test_port_imports_no_jax():
-    """Every module of the package imports with jax, flax and optax made unimportable."""
+    """Every module of the package, and chip_smoke.py, imports with jax, flax, optax and
+    the JAX package made unimportable."""
     code = (
         "import sys, pkgutil, importlib\n"
-        "for name in ('jax', 'jaxlib', 'flax', 'optax'):\n"
+        "for name in ('jax', 'jaxlib', 'flax', 'optax', 'holocron_tpu'):\n"
         "    sys.modules[name] = None\n"
         "import holocron_tpu_torch\n"
         "for info in pkgutil.walk_packages(holocron_tpu_torch.__path__, 'holocron_tpu_torch.'):\n"
         "    importlib.import_module(info.name)\n"
         "import chip_smoke\n"
-        "assert not any(m.startswith('holocron_tpu.') or m == 'holocron_tpu' for m in sys.modules)\n"
+        "assert not any(sys.modules[m] is not None for m in sys.modules\n"
+        "               if m.startswith('holocron_tpu.') or m == 'holocron_tpu')\n"
+        "assert 'holocron_tpu_torch.ops.boxes' in sys.modules and 'holocron_tpu_torch.nn.modules.loss' in sys.modules\n"
         "print('ok')\n"
     )
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120)
@@ -57,6 +70,14 @@ def test_cpu_tensors_never_launch_a_kernel():
                                   min_in_channels=8)
         assert sum(isinstance(m, quant.QuantizedConv2d) for m in qr.modules()) == 8  # every conv but the stem
         qr(torch.randn(2, 3, 32, 32, generator=g))
+        # both routes and a grouped conv
+        rexnet = ReXNet(0.5, 0.5, num_classes=10, generator=g, device="cpu").eval()
+        quant.quantize_model(rexnet, min_in_channels=16)(torch.randn(2, 3, 32, 32, generator=g))
+        resnext = ResNet(Bottleneck, [1], [16], block_args={"groups": 2}, width_per_group=128, generator=g,
+                         device="cpu").eval()
+        qx = quant.quantize_model(resnext, min_in_channels=32)
+        assert any(isinstance(m, quant.QuantizedConv2d) and m.groups == 2 for m in qx.modules())
+        qx(torch.randn(2, 3, 32, 32, generator=g))
     assert set(kernels.KERNELS) == {"involution", "involution_general", "involution_bwd_dxp", "involution_bwd_dkern",
                                     "involution_bwd_dxp_general", "involution_bwd_dkern_general", "add2d_fwd",
                                     "add2d_bwd_dp", "add2d_bwd_dw", "int8_conv", "int8_conv_general",
@@ -92,6 +113,25 @@ def test_entry_points_default_to_the_card():
         lambda: tridentnet50(),
         lambda: pyconv_resnet50(),
         lambda: PyConv2d(8, 8, 3, 2, 1),
+        lambda: ReXNet(0.5, 0.5),
+        *(lambda arch=arch: getattr(models, arch)() for arch in ("rexnet1_0x", "rexnet1_3x", "rexnet1_5x", "rexnet2_0x",
+                                                                 "rexnet2_2x")),
+        lambda: resnext101_32x8d(),
+        lambda: nn.FReLU(8),
+        lambda: nn.SAM(8),
+        lambda: nn.DimAttention(2),
+        lambda: nn.TripletAttention(),
+        lambda: nn.LambdaLayer(8, 8, 4, r=3),
+        lambda: nn.LambdaLayer(8, 8, 4, n=16),
+        lambda: nn.NormConv2d(8, 8, 3),
+        lambda: nn.SlimConv2d(8),
+        lambda: nn.FocalLoss(weight=[1.0, 2.0]),
+        lambda: nn.ComplementCrossEntropy(weight=0.3),
+        lambda: nn.MultiLabelCrossEntropy(weight=[1.0, 2.0]),
+        lambda: nn.MutualChannelLoss(weight=[1.0, 2.0]),
+        lambda: nn.DiceLoss(weight=[1.0, 2.0]),
+        lambda: nn.PolyLoss(weight=[1.0, 2.0]),
+        lambda: nn.ClassBalancedWrapper(nn.FocalLoss(device="cpu"), [10, 20]),
     ):
         with pytest.raises((AssertionError, RuntimeError)):
             build()

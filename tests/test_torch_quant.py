@@ -85,7 +85,8 @@ def test_int8_accumulator_equals_lax_conv(ksize, stride, padding, dilation, c):
 
 def test_int8_conv_epilogue_and_guards():
     """Epilogue ``acc * (s_x * w_scale) + bias`` in float32, cast to the output dtype;
-    grouped convs and non-int8 operands are refused."""
+    a ``groups`` that the weights' shape does not fit (I * groups != C) and non-int8
+    operands are refused."""
     rng = np.random.default_rng(3)
     x_q = torch.from_numpy(rng.integers(-127, 128, size=(1, 5, 5, 8), dtype=np.int8))
     w_q = torch.from_numpy(rng.integers(-127, 128, size=(3, 3, 8, 4), dtype=np.int8))
@@ -99,7 +100,7 @@ def test_int8_conv_epilogue_and_guards():
     assert y16.dtype == torch.bfloat16
     torch.testing.assert_close(y16, int8_conv_plain(x_q, w_q, s_x, w_scale, bias.to(torch.bfloat16), 1, 1,
                                                     out_dtype=torch.bfloat16))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError):
         int8_conv(x_q, w_q, s_x, w_scale, groups=2)
     with pytest.raises(TypeError):
         int8_conv(x_q.float(), w_q, s_x, w_scale)
