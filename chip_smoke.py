@@ -24,8 +24,9 @@ Phases, each printing one JSON line to stdout:
    ``resnet_serving_profile`` line.)
 4. ``rexnet_serving``: the same path for rexnet1_0x, the API's default model
    (``api/app/config.py:8``; 3,527,996 parameters at 10 classes), BN kept: 44 int8
-   convs, 41 on the general ``mma.sync`` route (odd or byte-wise widths, the SE convs'
-   1 x 1 inputs) and 3 on ``wgmma``. (Last, a ``rexnet_serving_profile`` line.)
+   convs, all on ``wgmma`` (41 of them at C % 16 != 0 or O % 8 != 0: x_q at its 16-byte
+   channel pitch, the masked epilogue; the SE convs' 1 x 1 inputs), none on the
+   general route. (Last, a ``rexnet_serving_profile`` line.)
 5. ``involution``: ``Involution2d`` at ``scripts/bench_ops.py:82-87``'s shape (N32,
    56x56, C128, G8, k7, reduction 2, bf16) through the module: the tiled route's forward
    (``csrc/involution.cu``, a halo tile in shared memory), which must launch, and never
@@ -69,9 +70,14 @@ Phases, each printing one JSON line to stdout:
    repvgg_a0 (nine), resnet50 (22) and rexnet1_0x (44) at batch 8 and 32, checked again
    and timed at each at batch 256 (``check_int8_geometry`` lines, device time from CUDA
    graphs): quantize + conv, each kernel, cuDNN's bf16 conv of the layer, the plain
-   version, and the bounds of the route and of each kernel. The grouped general route
-   the same way at resnext101_32x8d's stage-4 3x3 conv (32 groups of 64, stride 1 and
-   2).
+   version, ``torch._int_mm`` on the same int8 operands for each 1x1 stride-1
+   geometry (the library call, alone, no epilogue), and the bounds of the route and of
+   each kernel. Then a ``rexnet_int8_by_kind`` line sums rexnet1_0x's geometries by
+   kind of conv. The grouped general route the same way at resnext101_32x8d's stage-4
+   3x3 conv (32 groups of 64, stride 1 and 2; its 16-byte staging), and checked at two
+   odd per-group widths (its byte-wise staging): the only launches of
+   ``int8_conv_general``, which no serving path runs (its check fails if it launched no
+   time).
 
 Each kernel's launch counter is set to 0 just before the path that runs it and read
 just after; a kernel that its path never launched fails the run. Then come the
@@ -484,12 +490,47 @@ def _int8_case_holds(name, route, xn, s_x, w_q, w_packed, w_scale, bias, stride,
                 max_err[route] = max(max_err[route], err)
 
 
+def int_mm_ms(x_q, w_packed, o: int, acc, iters: int) -> tuple:
+    """``torch._int_mm`` (cuBLASLt's int8 GEMM, int32 out, no epilogue) on a 1x1 stride-1
+    conv's operands: x_q at its pitch as an (M, K) int8 matrix and the packed weights'
+    first O rows as a column-major (K, N) one, zero-padded to what the call takes (K the
+    pitch, a multiple of 16; N = O rounded up to 8, and where cuBLASLt answers
+    CUBLAS_STATUS_NOT_SUPPORTED, as it does at some N, K and N rounded up further, to
+    32, 64, ...). The padded operands are made outside the timed window, the product
+    is checked against the exact accumulator ``acc``. Returns the device time and the
+    (M, K, N) timed."""
+    import torch
+
+    n, h, w, c = x_q.shape
+    pitch = x_q.stride(2)
+    m = n * h * w
+    x_mat = x_q.as_strided((m, pitch), (pitch, 1))
+    for k_mult, n_mult in ((16, 8), (32, 32), (64, 64), (128, 128), (128, 256)):
+        k, n_cols = -(-pitch // k_mult) * k_mult, -(-o // n_mult) * n_mult
+        a = x_mat if k == pitch else torch.nn.functional.pad(x_mat, (0, k - pitch))
+        b = torch.zeros((n_cols, k), dtype=torch.int8, device=x_q.device)
+        b[:o, :pitch] = w_packed[:o, :pitch]
+        b = b.t()  # column-major (K, N)
+        try:
+            out = torch._int_mm(a, b)
+        except RuntimeError as err:
+            if "CUBLAS_STATUS_NOT_SUPPORTED" not in str(err):
+                raise
+            continue
+        if not torch.equal(out[:, :o], acc.reshape(m, o)):
+            fail(f"torch._int_mm {(m, k, n_cols)}: differs from the exact accumulator")
+        return graph_ms(lambda: torch._int_mm(a, b), iters), [m, k, n_cols]
+    fail(f"torch._int_mm: cuBLASLt takes none of the paddings of {(m, pitch, o)}")
+
+
 def _time_int8_geometry(xin, w_q, w_packed, s_x, w_scale, bias, stride, padding, dilation, groups, cudnn,
                         iters: int) -> dict:
     """At the path's batch: quantized activations and bf16 outputs (of the conv and of
     the route) held against the plain versions, then device time from CUDA graphs of
     the route (quantize + conv), each of its two kernels, ``cudnn`` (cuDNN's bf16 conv of
-    the layer) and the plain version, beside the bounds."""
+    the layer), ``torch._int_mm`` on the same int8 operands where the conv is a 1x1
+    stride-1 GEMM (its int32 product checked against the accumulator first; the call
+    alone, no epilogue) and the plain version, beside the bounds."""
     import torch
 
     from holocron_tpu_torch.kernels import int8_conv as K
@@ -509,6 +550,7 @@ def _time_int8_geometry(xin, w_q, w_packed, s_x, w_scale, bias, stride, padding,
     def run_plain():
         plain["y"] = K.int8_conv_plain(x_q, w_q, *args[:-1], torch.bfloat16, groups)
 
+    gemm = kh == kw == 1 and tuple(stride) == (1, 1) and tuple(padding) == (0, 0) and groups == 1
     with torch.no_grad():
         row = {
             "x": list(xin.shape), "w_hwio": list(w_q.shape), "stride": list(stride), "groups": groups, "route": route,
@@ -518,9 +560,13 @@ def _time_int8_geometry(xin, w_q, w_packed, s_x, w_scale, bias, stride, padding,
                                 iters),
             "quantize_ms": graph_ms(lambda: K.quantize_activation(xn, s_x), iters),
             "cudnn_bf16_ms": graph_ms(cudnn, iters),
+            "int_mm_ms": None,
             "plain_ms": cuda_ms(run_plain, 2, 1),
             "quantize_plain_ms": cuda_ms(lambda: K.quantize_activation_plain(xn, s_x), 2, 1),
         }
+        if gemm:
+            acc = K.int8_conv_acc_plain(x_q, w_q, stride, padding, dilation, groups)
+            row["int_mm_ms"], row["int_mm_mkn"] = int_mm_ms(x_q, w_packed, o, acc, iters)
     ref = plain["y"].float()
     for what, got in (("int8_conv", y), ("quantized_conv", y_route)):
         within_ulp(got, ref, 2.0**-7, f"{what} {tuple(xin.shape)} {tuple(w_q.shape)} bf16")
@@ -536,13 +582,47 @@ def _time_int8_geometry(xin, w_q, w_packed, s_x, w_scale, bias, stride, padding,
     return row
 
 
+REXNET_KINDS = ("projections", "expansions", "se_squeezes", "penultimate", "se_excitations")
+
+
+def rexnet_int8_by_kind(rows: list) -> dict:
+    """rexnet1_0x's ``check_int8_geometry`` rows summed by kind of conv (each 1x1):
+    projections (6c -> c' on a map), expansions (c -> 6c), the penultimate 185 -> 1280,
+    and the SE squeezes and excitations on 1 x 1 maps. ``padded_or_masked``: the 41
+    convs with C % 16 != 0 (x at a padded pitch) or O % 8 != 0 (the masked epilogue),
+    by kind; ``whole_rows``: the other 3, whose x and y rows are whole 16-byte pieces.
+    ``int_mm_ms`` is None where a row has no such time."""
+
+    def kind(row):
+        _, _, hw, _ = row["x"]
+        _, _, c, o = row["w_hwio"]
+        if hw == 1:
+            return "se_squeezes" if o < c else "se_excitations"
+        return "projections" if o < c else "expansions" if o == 6 * c else "penultimate"
+
+    keys = ("conv_ms", "cudnn_bf16_ms", "int_mm_ms", "bound_ms")
+    out = {"padded_or_masked": {k: {"layers": 0, **dict.fromkeys(keys, 0.0)} for k in REXNET_KINDS},
+           "whole_rows": {"layers": 0, **dict.fromkeys(keys, 0.0)}}
+    for row in rows:
+        _, _, c, o = row["w_hwio"]
+        rec = out["padded_or_masked"][kind(row)] if c % 16 or o % 8 else out["whole_rows"]
+        rec["layers"] += row["count"]
+        for k in keys:
+            rec[k] = None if rec[k] is None or row.get(k) is None else rec[k] + row["count"] * row[k]
+    out["padded_or_masked_total"] = {k: sum(v[k] for v in out["padded_or_masked"].values())
+                                     if all(v[k] is not None for v in out["padded_or_masked"].values()) else None
+                                     for k in ("layers", *keys)}
+    return out
+
+
 def check_int8(device, qm, model_bf16, x, model: str = "repvgg_a0", iters: int = 20) -> dict:
     """The int8 route against its plain versions at each distinct int8 layer geometry
     of the served ``model`` (inputs captured from it at batch 8 and 32), at a 256 -> 256,
-    14x14 layer and at a byte-wise shape of the general route (``_int8_case_holds``;
+    14x14 layer and at a 3x3 layer of odd widths, 12 -> 20 (``_int8_case_holds``;
     quantization also on inputs built on its ties and beyond its clip). Then each
     geometry at the path's batch of 256 (``_time_int8_geometry``). Per-forward sums
-    are kept apart by route (``wgmma``, ``general``)."""
+    are kept apart by route (``wgmma``, ``general``); the record returned also holds
+    the geometries' rows (``rows``)."""
     import torch
     from torch.nn import functional as F
 
@@ -579,7 +659,7 @@ def check_int8(device, qm, model_bf16, x, model: str = "repvgg_a0", iters: int =
             if not torch.equal(K.quantize_activation(xd, s), K.quantize_activation_plain(xd, s)):
                 fail(f"int8_quantize {dtype}: differs from quantize_activation_plain on the tie/clip inputs")
 
-    # -- correctness at every geometry, the synthetic 256 -> 256 layer and a byte-wise shape
+    # -- correctness at every geometry, the synthetic 256 -> 256 layer and an odd-width one
     gen = torch.Generator(device=device).manual_seed(SEED + 3)
     cases = [(f"{key} batch {b}", g["module"].kernel_q, g["module"].kernel_packed, g["module"].w_scale,
               g["module"].act_scale, g["module"].bias, g["module"].stride, g["module"].padding, g["module"].dilation,
@@ -601,6 +681,7 @@ def check_int8(device, qm, model_bf16, x, model: str = "repvgg_a0", iters: int =
     # -- checks again and timing at the path's batch
     totals = {"wgmma": {}, "general": {}}
     bound_by = {"wgmma": {}, "general": {}}
+    rows = []
     deploy_layers = dict(model_bf16.named_modules())
     for key, g in geometries.items():
         m = g["module"]
@@ -611,9 +692,10 @@ def check_int8(device, qm, model_bf16, x, model: str = "repvgg_a0", iters: int =
             m.groups, lambda: F.conv2d(xin, deploy.weight, deploy.bias, deploy.stride, deploy.padding, deploy.dilation,
                                        deploy.groups), iters)
         row["count"] = g["count"]
+        rows.append(row)
         route = row["route"]
         for k_, v in row.items():
-            if k_.endswith("_ms"):
+            if k_.endswith("_ms") and v is not None:
                 totals[route][k_] = totals[route].get(k_, 0.0) + g["count"] * v
         bound_by[route][row["bound_by"]] = bound_by[route].get(row["bound_by"], 0.0) + g["count"] * row["bound_ms"]
         emit({"phase": "check_int8_geometry", "model": model, **row})
@@ -621,7 +703,7 @@ def check_int8(device, qm, model_bf16, x, model: str = "repvgg_a0", iters: int =
     record = {"kernel": "int8_conv", "model": model, "checked": checked, "max_abs_err_bf16": max_err,
               "per_forward": totals, "geometries": len(geometries), "bound_ms_by": bound_by}
     emit({"phase": "check", **record})
-    return record
+    return {**record, "rows": rows}
 
 
 def check_int8_grouped(device, batch: int = 256, iters: int = 20) -> list:
@@ -629,9 +711,14 @@ def check_int8_grouped(device, batch: int = 256, iters: int = 20) -> list:
     64 channels, 2048 -> 2048, pad 1): the 7 x 7 stride-1 conv and the stride-2 first
     block on 14 x 14, random int8 weights from the seed; checked as ``check_int8``'s
     cases at batch 8, 32 and ``batch``, and timed at ``batch`` beside cuDNN's grouped
-    bf16 conv of the same (dequantized) weights."""
+    bf16 conv of the same (dequantized) weights. Then the byte-wise staging at odd
+    per-group widths (3 groups of 8 -> 5, 5 groups of 3 -> 7 at stride 2; x at a padded
+    pitch), checked at batch 8 and 32. No serving path runs the general route, so these
+    are its only launches: fails if it launched no time."""
     import torch
     from torch.nn import functional as F
+
+    from holocron_tpu_torch.kernels.int8_conv import KERNEL_GENERAL
 
     gen = torch.Generator(device=device).manual_seed(SEED + 11)
     c, o, groups = 2048, 2048, 32
@@ -641,6 +728,17 @@ def check_int8_grouped(device, batch: int = 256, iters: int = 20) -> list:
     weight = (w_q.float() * w_scale).permute(3, 2, 0, 1).to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
     max_err = {"wgmma": 0.0, "general": 0.0}
     rows = []
+    before = KERNEL_GENERAL.launches
+    odd = torch.Generator(device=device).manual_seed(SEED + 12)
+    for hw, oc, oo, og, stride in ((9, 24, 15, 3, 1), (6, 15, 35, 5, 2)):
+        ow_q = torch.randint(-127, 128, (3, 3, oc // og, oo), generator=odd, device=device, dtype=torch.int8)
+        ox = torch.randn(32, hw, hw, oc, generator=odd, device=device).to(torch.bfloat16)
+        ow_scale = torch.rand(oo, generator=odd, device=device) / 127
+        obias = torch.randn(oo, generator=odd, device=device)
+        for b in (8, 32):
+            _int8_case_holds(f"grouped {oc}/{og} -> {oo} {hw}x{hw} s{stride} batch {b}", "general", ox[:b],
+                             ox.float().abs().amax() / 127, ow_q, None, ow_scale, obias, (stride, stride), (1, 1),
+                             (1, 1), og, max_err)
     for hw, stride in ((7, 1), (14, 2)):
         x = torch.randn(batch, c, hw, hw, generator=gen, device=device).relu().to(torch.bfloat16)
         x = x.contiguous(memory_format=torch.channels_last)
@@ -656,6 +754,8 @@ def check_int8_grouped(device, batch: int = 256, iters: int = 20) -> list:
         rows.append(row)
         del x
     torch.cuda.synchronize()
+    if KERNEL_GENERAL.launches == before:
+        fail("int8_conv_general: the grouped check never launched it")
     return rows
 
 
@@ -1233,40 +1333,42 @@ def check_add2d(device, l: int = 12544, d: int = 576, o: int = 128, iters: int =
     return records
 
 
-def int8_entries(launches: list, records: list) -> list:
+def int8_entries(launches: list, records: list, grouped: list) -> list:
     """The ``kernels`` line's entries of the int8 kernels, over the serving paths
     (repvgg_a0's, resnet50's and rexnet1_0x's): launches summed over the paths' runs;
-    times and bounds summed over one batch-256 forward of each model (each geometry
-    times its count of layers; each conv's bound counts the int8 x it reads), the
-    convs of each route apart, the quantization over both."""
+    the wgmma conv's and the quantization's times and bounds summed over one batch-256
+    forward of each model (each geometry times its count of layers; each conv's bound
+    counts the int8 x it reads). No path runs the general route (0 launches): its times
+    are those of the grouped check (``grouped``: resnext101_32x8d's two stage-4 convs,
+    summed). ``library_ms`` is None: ``torch._int_mm`` computes only the 1x1 stride-1
+    convs (``check_int8_geometry``'s ``int_mm_ms``), not the 3x3 ones of repvgg_a0 and
+    resnet50."""
 
-    def total(route, key):
-        return sum(r["per_forward"][route].get(key, 0.0) for r in records)
+    def total(key, route=None):
+        return sum(v for r in records for rt, t in r["per_forward"].items() if route in (None, rt)
+                   for k, v in t.items() if k == key)
 
-    def bound_by(route):
-        by = {}
-        for r in records:
-            for k, v in r["bound_ms_by"][route].items():
-                by[k] = by.get(k, 0.0) + v
-        return max(by, key=by.get)
-
+    by = {}
+    for r in records:
+        for k, v in r["bound_ms_by"]["wgmma"].items():
+            by[k] = by.get(k, 0.0) + v
     src = "holocron_tpu_torch/csrc/"
 
-    def entry(name, source, replaces, route, ms_key, plain_key, bound_key, by):
-        routes = ("wgmma", "general") if route is None else (route,)
-        return {"name": name, "route": "cuda", "source": src + source, "replaces": replaces,
-                "launches": sum(run[name] for run in launches),
-                "max_abs_err": 0.0 if route is None else max(r["max_abs_err_bf16"][route] for r in records),
-                "ms": sum(total(r, ms_key) for r in routes), "plain_ms": sum(total(r, plain_key) for r in routes),
-                "bound_ms": sum(total(r, bound_key) for r in routes), "bound_by": by, "library_ms": None}
+    def entry(name, source, ms, plain_ms, bound_ms, bound_by, max_abs_err):
+        return {"name": name, "route": "cuda", "source": src + source, "replaces": "holocron_tpu/quant.py:259",
+                "launches": sum(run[name] for run in launches), "max_abs_err": max_abs_err, "ms": ms,
+                "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
 
+    quantize = entry("int8_quantize", "int8_conv.cu", total("quantize_ms"), total("quantize_plain_ms"),
+                     total("quantize_bound_ms"), "bytes", 0.0)
+    quantize["replaces"] = "holocron_tpu/quant.py:244"
     return [
-        entry("int8_conv", "int8_conv.cu", "holocron_tpu/quant.py:259", "wgmma", "conv_ms", "plain_ms", "bound_ms",
-              bound_by("wgmma")),
-        entry("int8_quantize", "int8_conv.cu", "holocron_tpu/quant.py:244", None, "quantize_ms", "quantize_plain_ms",
-              "quantize_bound_ms", "bytes"),
-        entry("int8_conv_general", "int8_conv_general.cu", "holocron_tpu/quant.py:259", "general", "conv_ms",
-              "plain_ms", "bound_ms", bound_by("general")),
+        entry("int8_conv", "int8_conv.cu", total("conv_ms", "wgmma"), total("plain_ms", "wgmma"),
+              total("bound_ms", "wgmma"), max(by, key=by.get), max(r["max_abs_err_bf16"]["wgmma"] for r in records)),
+        quantize,
+        entry("int8_conv_general", "int8_conv_general.cu", sum(g["conv_ms"] for g in grouped),
+              sum(g["plain_ms"] for g in grouped), sum(g["bound_ms"] for g in grouped),
+              max(grouped, key=lambda g: g["bound_ms"])["bound_by"], max(g["max_abs_err_bf16"] for g in grouped)),
     ]
 
 
@@ -1292,7 +1394,7 @@ def main() -> int:
     timed(phase_build)
     qm, model_bf16, x, r8, serving_launches = timed(phase_serving, device)
     rqm, rmodel_bf16, rx, rr8, resnet_launches = timed(phase_serving, device, "resnet50", 52, 52, "resnet_serving")
-    xqm, xmodel_bf16, xx, xr8, rexnet_launches = timed(phase_serving, device, "rexnet1_0x", 44, 3, "rexnet_serving")
+    xqm, xmodel_bf16, xx, xr8, rexnet_launches = timed(phase_serving, device, "rexnet1_0x", 44, 44, "rexnet_serving")
     inv_launches = timed(phase_involution, device)
     timed(phase_training, device)
     timed(phase_arch_training, device)
@@ -1307,7 +1409,8 @@ def main() -> int:
     i8 = timed(check_int8, device, qm, model_bf16, x)
     i8_resnet = timed(check_int8, device, rqm, rmodel_bf16, rx, "resnet50")
     i8_rexnet = timed(check_int8, device, xqm, xmodel_bf16, xx, "rexnet1_0x")
-    timed(check_int8_grouped, device)
+    emit({"phase": "rexnet_int8_by_kind", **rexnet_int8_by_kind(i8_rexnet["rows"])})
+    grouped = timed(check_int8_grouped, device)
     timed(phase_serving_profile, qm, model_bf16, x, r8)
     timed(phase_serving_profile, rqm, rmodel_bf16, rx, rr8, "resnet_serving_profile")
     timed(phase_serving_profile, xqm, xmodel_bf16, xx, xr8, "rexnet_serving_profile")
@@ -1329,7 +1432,7 @@ def main() -> int:
               add["add2d_fwd"]["max_abs_err"]),
         *(entry(name, add_src, "holocron_tpu/kernels/add2d.py:82", add2d_launches[name], add[name],
                 add[name]["max_abs_err"]) for name in ("add2d_bwd_dp", "add2d_bwd_dw")),
-        *int8_entries([serving_launches, resnet_launches, rexnet_launches], [i8, i8_resnet, i8_rexnet]),
+        *int8_entries([serving_launches, resnet_launches, rexnet_launches], [i8, i8_resnet, i8_rexnet], grouped),
     ]})
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

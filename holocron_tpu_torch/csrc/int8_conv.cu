@@ -10,10 +10,13 @@
 //   acc[m, o] = sum_{r,s,c} x_q[n, oy*sh - ph + r*dh, ox*sw - pw + s*dw, c] * w[r,s,c,o]
 //   y = float(acc) * (s_x * w_scale[o]) + bias[o]         (quant.py:270-273's order)
 //
-// x is NHWC, w is packed once per layer (kernels/int8_conv.py:pack_weights) from HWIO
-// into an (O_pad, K_pad) K-major int8 matrix, zero beyond O and K. y is float32 or
-// bfloat16; out_dtype 2 stores the raw int32 accumulator. Takes C % 16 == 0 and
-// O % 8 == 0; other shapes go to int8_conv_general.cu.
+// x is NHWC at a pixel pitch of P = C rounded up to whole 16-byte copies, channels C ..
+// P - 1 zero (int8_quantize writes it so); w is packed once per layer
+// (kernels/int8_conv.py:pack_weights) from HWIO into an (O_pad, K_pad) K-major int8
+// matrix over the same pitch, zero beyond C, O and K, so the reduction runs over
+// K = KH*KW*P and the zeros add nothing. y is float32 or bfloat16; out_dtype 2 stores
+// the raw int32 accumulator. Every ungrouped conv takes this route; grouped convs go to
+// int8_conv_general.cu.
 //
 // What bounds it on an H100: at repvgg_a0's 192- and 1280-channel layers the int8
 // tensor-core rate (1,979 TOP/s, reachable only through wgmma); at the 48- and
@@ -46,11 +49,25 @@
 //   nothing in it waits on device memory: s_x * w_scale and the bias of the tile's
 //   columns go into a shared-memory table before the tile's products, and each
 //   warpgroup stages 32 columns at a time in shared memory and writes whole rows with
-//   16-byte stores.
+//   16-byte stores. Where a row of y is not whole 16-byte pieces (O * bytes % 16 != 0,
+//   rexnet's odd widths; an instance of its own, kRuns, so that the whole-row one is
+//   unchanged), a row is staged from byte (its address in y) % 16 of its staging row,
+//   so that y's 16-byte slots are 16-byte pieces of shared memory: a slot the chunk
+//   covers wholly is one 16-byte load and store; the slot a chunk shares with the next
+//   one of the row is carried over in shared memory, so only a row's first and last
+//   slot in a tile go element by element (store_row_runs). A tile that holds all of O,
+//   whose 64 rows a warpgroup fit its staging area (O <= 72 in bf16), stages them
+//   compactly: one contiguous run of y, 16-byte aligned (64 * O * bytes is a multiple
+//   of 128), that leaves in 16-byte pieces (store_flat). Few tiles of 256 columns (an
+//   SE excitation at M = the batch) take 64-wide ones instead (kernels/int8_conv.py),
+//   which spread the epilogue over more SMs.
 // - Quantization is a prologue kernel (int8_quantize: 16 elements a thread, IEEE
-//   division, round half to even, clamp), 3 bytes an element. Quantizing inside the A
-//   copy instead moves fewer bytes but divides each element once per filter tap and
-//   makes the producer's loads synchronous; it measured 8-14x slower (PERF.md).
+//   division, round half to even, clamp), 3 bytes an element. It writes x_q at the
+//   pitch P, zero beyond C, 16 bytes a store; where 2C or 4C bytes are not whole
+//   16-byte pieces it reads x with the widest loads the row's alignment allows.
+//   Quantizing inside the A copy instead moves fewer bytes but divides each element
+//   once per filter tap and makes the producer's loads synchronous; it measured 8-14x
+//   slower (PERF.md).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -256,6 +273,11 @@ __device__ __forceinline__ void st_shared8(uint32_t dst, uint32_t a, uint32_t b)
   asm volatile("st.shared.v2.b32 [%0], {%1, %2};\n" ::"r"(dst), "r"(a), "r"(b) : "memory");
 }
 
+__device__ __forceinline__ void st_shared16(uint32_t dst, uint4 v) {
+  asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(dst), "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w)
+               : "memory");
+}
+
 __device__ __forceinline__ uint4 ld_shared16(uint32_t src) {
   uint4 v;
   asm volatile("ld.shared.v4.b32 {%0, %1, %2, %3}, [%4];\n"
@@ -318,23 +340,106 @@ __device__ __forceinline__ uint4 quantize16(const float* p, float s) {
                     quantize4(c.x, c.y, c.z, c.w, s), quantize4(d.x, d.y, d.z, d.w, s));
 }
 
-__device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
-__device__ __forceinline__ float to_float(float v) { return v; }
-
-// The quantization prologue over a flat NHWC buffer of n elements; x 16-byte aligned.
+// The quantization prologue where C % 16 == 0: the pitch is C, so x_q is x's flat NHWC
+// buffer, 16 elements a thread (pieces = elements / 16); x 16-byte aligned.
 template <typename T>
 __global__ void __launch_bounds__(256) int8_quantize_kernel(const T* __restrict__ x, const float* __restrict__ s_x,
-                                                            int8_t* __restrict__ q, long long n) {
+                                                            int8_t* __restrict__ q, long long pieces) {
   const float s = *s_x;
-  const long long groups = n / 16;
   const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long g = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x; g < groups; g += stride) {
+  for (long long g = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x; g < pieces; g += stride) {
     *reinterpret_cast<uint4*>(q + 16 * g) = quantize16(x + 16 * g, s);
   }
-  if (blockIdx.x == 0) {
-    for (long long e = 16 * groups + threadIdx.x; e < n; e += blockDim.x) {
-      q[e] = static_cast<int8_t>(quantize_one(to_float(x[e]), s));
+}
+
+template <int VEC>
+struct LoadUnit;
+template <>
+struct LoadUnit<4> {
+  using T = uint32_t;
+  static __device__ __forceinline__ void words(T v, uint32_t* w) { w[0] = v; }
+};
+template <>
+struct LoadUnit<8> {
+  using T = uint2;
+  static __device__ __forceinline__ void words(T v, uint32_t* w) {
+    w[0] = v.x;
+    w[1] = v.y;
+  }
+};
+template <>
+struct LoadUnit<16> {
+  using T = uint4;
+  static __device__ __forceinline__ void words(T v, uint32_t* w) {
+    w[0] = v.x;
+    w[1] = v.y;
+    w[2] = v.z;
+    w[3] = v.w;
+  }
+};
+
+// The first `valid` of the 16 elements at p, the rest zero, as the little-endian words
+// of their bytes, read VEC bytes a load: p is VEC-byte aligned and `valid` elements are
+// whole loads. VEC = 2 (a bfloat16 row of odd C) reads 2 bytes a load.
+template <typename T, int VEC>
+__device__ __forceinline__ void load_run16(const T* p, int valid, uint32_t (&w)[4 * sizeof(T)]) {
+  constexpr int WORDS = 4 * sizeof(T);
+  if constexpr (VEC == 2) {
+    const uint16_t* h = reinterpret_cast<const uint16_t*>(p);
+#pragma unroll
+    for (int i = 0; i < WORDS; ++i) {
+      const uint32_t lo = 2 * i < valid ? h[2 * i] : 0u;
+      const uint32_t hi = 2 * i + 1 < valid ? h[2 * i + 1] : 0u;
+      w[i] = lo | (hi << 16);
     }
+  } else {
+    constexpr int PER = VEC / 4;                          // words a load
+    constexpr int ELEMS = VEC / static_cast<int>(sizeof(T));  // elements a load
+    const auto* v = reinterpret_cast<const typename LoadUnit<VEC>::T*>(p);
+#pragma unroll
+    for (int i = 0; i < WORDS / PER; ++i) {
+      if (ELEMS * i < valid) {
+        LoadUnit<VEC>::words(v[i], w + PER * i);
+      } else {
+#pragma unroll
+        for (int j = 0; j < PER; ++j) w[PER * i + j] = 0u;
+      }
+    }
+  }
+}
+
+__device__ __forceinline__ uint4 quantize_words(const uint32_t (&w)[8], float s) {  // 16 bfloat16
+  return make_uint4(quantize4_bf16(w[0], w[1], s), quantize4_bf16(w[2], w[3], s), quantize4_bf16(w[4], w[5], s),
+                    quantize4_bf16(w[6], w[7], s));
+}
+
+__device__ __forceinline__ uint4 quantize_words(const uint32_t (&w)[16], float s) {  // 16 float32
+  uint32_t q[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    q[i] = quantize4(__uint_as_float(w[4 * i]), __uint_as_float(w[4 * i + 1]), __uint_as_float(w[4 * i + 2]),
+                     __uint_as_float(w[4 * i + 3]), s);
+  }
+  return make_uint4(q[0], q[1], q[2], q[3]);
+}
+
+// The quantization prologue where C % 16 != 0: x_q at the pitch P = C rounded up to 16,
+// one thread a 16-byte piece (pixel g / chunks, channels 16 (g % chunks) .. + 15),
+// channels C .. P - 1 zero. x's rows are C * sizeof(T) bytes, so a pixel's run is only
+// VEC-byte aligned; VEC is the widest load that alignment allows.
+template <typename T, int VEC>
+__global__ void __launch_bounds__(256) int8_quantize_pitched_kernel(const T* __restrict__ x,
+                                                                    const float* __restrict__ s_x,
+                                                                    int8_t* __restrict__ q, unsigned pieces, int c,
+                                                                    unsigned chunks) {
+  const float s = *s_x;
+  const unsigned stride = gridDim.x * blockDim.x;
+  for (unsigned g = blockIdx.x * blockDim.x + threadIdx.x; g < pieces; g += stride) {
+    const unsigned pixel = g / chunks;
+    const int c0 = 16 * static_cast<int>(g - pixel * chunks);
+    uint32_t w[4 * sizeof(T)];
+    load_run16<T, VEC>(x + static_cast<long long>(pixel) * c + c0, min(16, c - c0), w);
+    *reinterpret_cast<uint4*>(q + 16LL * g) = quantize_words(w, s);
   }
 }
 
@@ -366,12 +471,112 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
   }
 }
 
+__device__ __forceinline__ void st_shared2(uint32_t dst, uint32_t v) {
+  asm volatile("st.shared.u16 [%0], %1;\n" ::"r"(dst), "r"(v) : "memory");
+}
+
+// y's elements (b0, b1) of `bytes` bytes each, or b0 alone, into the staging area at
+// `addr` (aligned to `bytes`): one store where the pair's alignment allows, else one a
+// element.
+__device__ __forceinline__ void stage_pair(uint32_t addr, int bytes, uint32_t b0, uint32_t b1, bool second) {
+  if (bytes == 2) {
+    if (second && (addr & 3) == 0) {
+      st_shared4(addr, b0 | b1 << 16);
+    } else {
+      st_shared2(addr, b0);
+      if (second) st_shared2(addr + 2, b1);
+    }
+  } else if (second && (addr & 7) == 0) {
+    st_shared8(addr, b0, b1);
+  } else {
+    st_shared4(addr, b0);
+    if (second) st_shared4(addr + 4, b1);
+  }
+}
+
+// Bytes [lo, hi) of the 16-byte piece v (whole elements of B bytes) to dst .. dst + 15.
+template <int B>
+__device__ __forceinline__ void store_part(char* dst, uint4 v, int lo, int hi) {
+  const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int j = 0; j < 16 / B; ++j) {
+    if (j * B < lo || j * B >= hi) continue;
+    if constexpr (B == 2) {
+      *reinterpret_cast<uint16_t*>(dst + 2 * j) = static_cast<uint16_t>(w[j / 2] >> (16 * (j % 2)));
+    } else {
+      *reinterpret_cast<uint32_t*>(dst + 4 * j) = w[j];
+    }
+  }
+}
+
+// The epilogue's stores where a row of y is not whole 16-byte pieces, by the 128
+// threads (t) of a warpgroup. store_flat: `nbytes` of y from byte `start` (16-byte
+// aligned), staged compactly, leave as 16-byte pieces (the last one element by element).
+template <int B>
+__device__ __forceinline__ void store_flat(char* __restrict__ out, long long start, int nbytes, uint32_t staging,
+                                           int t) {
+  for (int p = 16 * t; p < nbytes; p += 16 * 128) {
+    const uint4 v = ld_shared16(staging + p);
+    if (p + 16 <= nbytes) {
+      *reinterpret_cast<uint4*>(out + start + p) = v;
+    } else {
+      store_part<B>(out + start + p, v, 0, nbytes - p);
+    }
+  }
+}
+
+// store_row_runs: columns [c0, c0 + w) (w <= 32) of rows [m_base, m_base + rows) of y
+// (O columns), row r staged from byte a_r % 16 of its staging row, where a_r is the
+// byte offset of its first element in y: so y's 16-byte slot k of the run is bytes
+// 16k .. 16k + 15 of the staging row. A slot the run covers wholly is one 16-byte
+// store. The slot at a run's end that the next chunk of the row completes
+// (carry_out) is not stored: it moves to slot 0 of the staging row, where the next
+// chunk's elements fill it up (carry_in), so that only a row's first and last slot in
+// the tile go element by element. One thread takes a row's slots 0 and SLOTS - 1, so
+// the carried slot lands after slot 0 has left.
+template <int B>
+__device__ __forceinline__ void store_row_runs(char* __restrict__ out, int o, uint32_t staging, int m_base, int rows,
+                                               int c0, int w, bool carry_in, bool carry_out, int t) {
+  constexpr int SLOTS = 2 * B + 1;  // the most 16-byte slots a run of 32 columns touches
+  if (w <= 0) return;
+  for (int item = t; item < rows * (SLOTS - 1); item += 128) {
+    const int r = item / (SLOTS - 1), k = item - r * (SLOTS - 1);
+    const long long a = (static_cast<long long>(m_base + r) * o + c0) * B;
+    const int off = static_cast<int>(a & 15);
+    const uint32_t row = staging + r * EPI_PITCH;
+    char* const dst = out + (a - off);
+    auto store_slot = [&](int slot, int lo) {
+      const int hi = min(off + w * B - 16 * slot, 16);
+      if (hi <= lo) return;
+      const uint4 v = ld_shared16(row + 16 * slot);
+      if (hi - lo == 16) {
+        *reinterpret_cast<uint4*>(dst + 16 * slot) = v;
+      } else {
+        store_part<B>(dst + 16 * slot, v, lo, hi);
+      }
+    };
+    if (k != 0) {
+      store_slot(k, 0);
+      continue;
+    }
+    store_slot(0, carry_in ? 0 : off);
+    if (carry_out && off != 0) {  // w == 32: the run's last slot holds bytes [0, off) of the next chunk's first
+      st_shared16(row, ld_shared16(row + 16 * (SLOTS - 1)));
+    } else {
+      store_slot(SLOTS - 1, 0);
+    }
+  }
+}
+
 // One block walks over output tiles (m tile, column tile) t = blockIdx.x, + gridDim.x,
 // ... as one stream of steps. Warpgroup 2 copies each step into the ring and signals
 // its slot's `full` barrier; warpgroups 0 and 1 wait on it, run the step's products
 // and release the slot through its `empty` barrier. The producer runs up to STAGES
-// steps ahead, across tile boundaries and through the consumers' epilogues.
-template <int BN>
+// steps ahead, across tile boundaries and through the consumers' epilogues. kRuns: a
+// row of y is not whole 16-byte pieces (O * bytes % 16 != 0), so the epilogue stages
+// rows at y's alignment (store_flat, store_row_runs); the other instance is the
+// epilogue of whole 16-byte rows alone.
+template <int BN, bool kRuns>
 __global__ void __launch_bounds__(THREADS, Ring<BN>::BLOCKS) int8_conv_wgmma_kernel(
     const int8_t* __restrict__ x, const int8_t* __restrict__ wp, const float* __restrict__ s_x,
     const float* __restrict__ w_scale, const void* __restrict__ bias, int bias_bf16, void* __restrict__ out,
@@ -522,7 +727,84 @@ __global__ void __launch_bounds__(THREADS, Ring<BN>::BLOCKS) int8_conv_wgmma_ker
       // column 8jj + 2 * (lane % 4) + e. Column pairs go in; rows leave as 16-byte stores.
       if (out_dtype != 2) named_barrier(3, CONSUMERS);  // the table is written
       const int out_bytes = out_dtype == 1 ? 2 : 4;
+      const int m_base = mt * BM + wg * 64;
       const uint32_t staging = out_stage + wg * EPI_WG_BYTES;
+      if constexpr (kRuns) {
+        // Rows of y are not whole 16-byte pieces (O * bytes % 16 != 0), and the second
+        // column of a pair is masked past O. Where the tile holds all of O and the
+        // warpgroup's 64 rows fit its staging area, they are staged compactly (row r at
+        // r * O * bytes): one contiguous run of y, 16-byte aligned, that leaves after the
+        // last chunk (store_flat). Else each chunk's row r is staged from byte
+        // (its address in y) % 16 of its staging row (store_row_runs).
+        const bool flat = n0 == 0 && col_end == s.o && 64 * s.o * out_bytes <= EPI_WG_BYTES;
+        int row_off[2];  // y's byte offset % 16 of this thread's two rows, the same at every chunk
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const unsigned row = static_cast<unsigned>(m_base + warp * 16 + lane / 4 + 8 * h);
+          row_off[h] = static_cast<int>((row * static_cast<unsigned>(s.o) + n0) * out_bytes & 15u);
+        }
+#pragma unroll
+        for (int chunk = 0; chunk < (BN / 8 + 3) / 4; ++chunk) {
+          if (!flat || chunk == 0) named_barrier(1 + wg, 128);  // the previous rows have left
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            const int jj = 4 * chunk + q;
+            if (jj >= BN / 8) break;
+            const int col = n0 + 8 * jj + 2 * (lane % 4);
+            if (col >= col_end) continue;
+            const int c = col - n0;
+            const bool second = col + 1 < col_end;
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const int row = warp * 16 + lane / 4 + 8 * h;
+              const uint32_t dst = flat ? staging + (row * s.o + c) * out_bytes
+                                        : staging + row * EPI_PITCH + row_off[h] + (8 * q + 2 * (lane % 4)) * out_bytes;
+              uint32_t b0 = static_cast<uint32_t>(acc[4 * jj + 2 * h]);
+              uint32_t b1 = static_cast<uint32_t>(acc[4 * jj + 2 * h + 1]);
+              if (out_dtype != 2) {
+                float y0 = __fmul_rn(__int2float_rn(static_cast<int>(b0)), col_scale[c]);
+                float y1 = second ? __fmul_rn(__int2float_rn(static_cast<int>(b1)), col_scale[c + 1]) : 0.f;
+                if (bias != nullptr) {
+                  y0 = __fadd_rn(y0, col_bias[c]);
+                  if (second) y1 = __fadd_rn(y1, col_bias[c + 1]);
+                }
+                if (out_dtype == 0) {
+                  b0 = __float_as_uint(y0);
+                  b1 = __float_as_uint(y1);
+                } else {
+                  __nv_bfloat162 pair = __floats2bfloat162_rn(y0, y1);
+                  const uint32_t bits = *reinterpret_cast<uint32_t*>(&pair);
+                  b0 = bits & 0xFFFFu;
+                  b1 = bits >> 16;
+                }
+              }
+              stage_pair(dst, out_bytes, b0, b1, second);
+            }
+          }
+          if (flat) continue;
+          named_barrier(1 + wg, 128);
+          const int c0 = n0 + 32 * chunk, rows = min(64, s.m - m_base), w = min(32, col_end - c0);
+          const bool carry_out = c0 + 32 < col_end;  // the next chunk continues these rows
+          if (out_bytes == 2) {
+            store_row_runs<2>(static_cast<char*>(out), s.o, staging, m_base, rows, c0, w, chunk > 0, carry_out,
+                              tid % 128);
+          } else {
+            store_row_runs<4>(static_cast<char*>(out), s.o, staging, m_base, rows, c0, w, chunk > 0, carry_out,
+                              tid % 128);
+          }
+        }
+        if (flat) {
+          named_barrier(1 + wg, 128);
+          const long long start = static_cast<long long>(m_base) * s.o * out_bytes;
+          const int nbytes = max(min(64, s.m - m_base), 0) * s.o * out_bytes;
+          if (out_bytes == 2) {
+            store_flat<2>(static_cast<char*>(out), start, nbytes, staging, tid % 128);
+          } else {
+            store_flat<4>(static_cast<char*>(out), start, nbytes, staging, tid % 128);
+          }
+        }
+        continue;
+      }
 #pragma unroll
       for (int chunk = 0; chunk < (BN / 8 + 3) / 4; ++chunk) {
         named_barrier(1 + wg, 128);  // the previous chunk's rows have left
@@ -560,7 +842,7 @@ __global__ void __launch_bounds__(THREADS, Ring<BN>::BLOCKS) int8_conv_wgmma_ker
         const int per_row = 2 * out_bytes;  // 16-byte pieces in a row of 32 columns
         for (int piece = tid % 128; piece < 64 * per_row; piece += 128) {
           const int r = piece / per_row, part = piece - r * per_row;
-          const int m = mt * BM + wg * 64 + r;
+          const int m = m_base + r;
           const int col = n0 + 32 * chunk + part * (16 / out_bytes);
           if (m < s.m && col < col_end) {
             const uint4 v = ld_shared16(staging + r * EPI_PITCH + 16 * part);
@@ -575,11 +857,11 @@ __global__ void __launch_bounds__(THREADS, Ring<BN>::BLOCKS) int8_conv_wgmma_ker
 
 constexpr int MAX_DEVICES = 64;
 
-template <int BN>
-int launch_wgmma(const void* x, const void* wp, const void* s_x, const void* w_scale, const void* bias, int bias_bf16,
-                 void* out, int out_dtype, const ConvShape& s, cudaStream_t stream) {
+template <int BN, bool kRuns>
+int launch_instance(const void* x, const void* wp, const void* s_x, const void* w_scale, const void* bias,
+                    int bias_bf16, void* out, int out_dtype, const ConvShape& s, cudaStream_t stream) {
   constexpr int smem_bytes = Ring<BN>::SMEM;
-  auto* kernel = int8_conv_wgmma_kernel<BN>;
+  auto* kernel = int8_conv_wgmma_kernel<BN, kRuns>;
   // per device: blocks of this kernel an SM holds at once (0 until the device's shared
   // memory limit for the kernel is raised), and its SMs
   static int resident[MAX_DEVICES];
@@ -605,6 +887,16 @@ int launch_wgmma(const void* x, const void* wp, const void* s_x, const void* w_s
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int BN>
+int launch_wgmma(const void* x, const void* wp, const void* s_x, const void* w_scale, const void* bias, int bias_bf16,
+                 void* out, int out_dtype, const ConvShape& s, cudaStream_t stream) {
+  const int out_bytes = out_dtype == 1 ? 2 : 4;  // y's rows whole 16-byte pieces, or runs
+  if (s.o * out_bytes % 16 == 0) {
+    return launch_instance<BN, false>(x, wp, s_x, w_scale, bias, bias_bf16, out, out_dtype, s, stream);
+  }
+  return launch_instance<BN, true>(x, wp, s_x, w_scale, bias, bias_bf16, out, out_dtype, s, stream);
+}
+
 int dispatch(int bn, const void* x, const void* wp, const void* s_x, const void* w_scale, const void* bias,
              int bias_bf16, void* out, int out_dtype, const ConvShape& s, cudaStream_t stream) {
   switch (bn) {
@@ -618,17 +910,36 @@ int dispatch(int bn, const void* x, const void* wp, const void* s_x, const void*
   }
 }
 
+template <typename T>
+int launch_quantize_pitched(const T* x, const float* s_x, int8_t* q, long long pieces, int c, int vec,
+                            unsigned int grid, cudaStream_t stream) {
+  const unsigned n = static_cast<unsigned>(pieces), chunks = static_cast<unsigned>((c + 15) / 16);
+  switch (vec) {
+    case 16: int8_quantize_pitched_kernel<T, 16><<<grid, 256, 0, stream>>>(x, s_x, q, n, c, chunks); break;
+    case 8: int8_quantize_pitched_kernel<T, 8><<<grid, 256, 0, stream>>>(x, s_x, q, n, c, chunks); break;
+    case 4: int8_quantize_pitched_kernel<T, 4><<<grid, 256, 0, stream>>>(x, s_x, q, n, c, chunks); break;
+    default:
+      if constexpr (sizeof(T) == 2) {
+        int8_quantize_pitched_kernel<T, 2><<<grid, 256, 0, stream>>>(x, s_x, q, n, c, chunks);
+        break;
+      }
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" const char* holocron_cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// x: int8 NHWC; wp: the packed (ceil(O / bn) * bn, k_pad) weights; bn: the column tile, one of 48, 64, 96,
-// 128, 192, 256. out_dtype: 0 = float32, 1 = bfloat16 (both with the epilogue),
-// 2 = raw int32 accumulator. Requires C % 16 == 0, O % 8 == 0, k_pad = KH*KW*C rounded
-// up to a multiple of 128, and x and wp 16-byte aligned. Returns cudaGetLastError()
-// after the launch.
+// x: int8 NHWC at pixel pitch c (a multiple of 16: the activation's channels rounded
+// up, zero beyond them); wp: the packed (ceil(O / bn) * bn, k_pad) weights over that
+// pitch; bn: the column tile, one of 48, 64, 96, 128, 192, 256. out_dtype: 0 = float32,
+// 1 = bfloat16 (both with the epilogue), 2 = raw int32 accumulator. Requires k_pad =
+// KH*KW*c rounded up to a multiple of 128, and x and wp 16-byte aligned. Returns
+// cudaGetLastError() after the launch.
 extern "C" int int8_conv_wgmma_forward(const void* x, const void* wp, const void* s_x, const void* w_scale,
                                        const void* bias, int bias_bf16, void* out, int out_dtype, int n, int h,
                                        int w_in, int c, int o, int kh, int kw, int sh, int sw, int ph, int pw, int dh,
@@ -639,28 +950,42 @@ extern "C" int int8_conv_wgmma_forward(const void* x, const void* wp, const void
   if (m + BM > 0x7FFFFFFFLL || static_cast<long long>(n + 1) * h * w_in * c > 0x7FFFFFFFLL)
     return static_cast<int>(cudaErrorInvalidValue);
   const ConvShape s{h, w_in, c, o, kh, kw, sh, sw, ph, pw, dh, dw, oh, ow, static_cast<int>(m), kh * kw * c, k_pad};
-  if (out_dtype < 0 || out_dtype > 2 || c % 16 != 0 || o % 8 != 0 || k_pad != (s.k + BK - 1) / BK * BK ||
+  if (out_dtype < 0 || out_dtype > 2 || c % 16 != 0 || o < 1 || k_pad != (s.k + BK - 1) / BK * BK ||
       reinterpret_cast<uintptr_t>(x) % 16 != 0 || reinterpret_cast<uintptr_t>(wp) % 16 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if (s.m == 0) return 0;
   return dispatch(bn, x, wp, s_x, w_scale, bias, bias_bf16, out, out_dtype, s, static_cast<cudaStream_t>(stream));
 }
 
-// q = clip(round_half_even(float(x) / *s_x), -127, 127) over n elements; x float32
-// (x_bf16 = 0) or bfloat16, 16-byte aligned. Returns cudaGetLastError() after the launch.
-extern "C" int int8_quantize_forward(const void* x, const void* s_x, void* q, int x_bf16, long long n, void* stream) {
-  if (reinterpret_cast<uintptr_t>(x) % 16 != 0 || reinterpret_cast<uintptr_t>(q) % 16 != 0)
+// q = clip(round_half_even(float(x) / *s_x), -127, 127) over `rows` rows of c elements
+// (NHWC pixels); x float32 (x_bf16 = 0) or bfloat16, contiguous. q is written at a row
+// pitch of c rounded up to 16, zero beyond c. x and q 16-byte aligned. Returns
+// cudaGetLastError() after the launch.
+extern "C" int int8_quantize_forward(const void* x, const void* s_x, void* q, int x_bf16, long long rows, int c,
+                                     void* stream) {
+  if (reinterpret_cast<uintptr_t>(x) % 16 != 0 || reinterpret_cast<uintptr_t>(q) % 16 != 0 || rows < 0 || c < 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (n == 0) return 0;
-  const long long blocks = (n / 16 + 255) / 256;
-  const unsigned int grid = static_cast<unsigned int>(blocks < 1 ? 1 : (blocks > 8 * 132 * 16 ? 8 * 132 * 16 : blocks));
+  const long long pieces = rows * ((c + 15) / 16);
+  if (pieces == 0) return 0;
+  const long long blocks = (pieces + 255) / 256;
+  const unsigned int grid = static_cast<unsigned int>(blocks > 8 * 132 * 16 ? 8 * 132 * 16 : blocks);
   cudaStream_t cu_stream = static_cast<cudaStream_t>(stream);
   const auto* sx = static_cast<const float*>(s_x);
   auto* out = static_cast<int8_t*>(q);
-  if (x_bf16) {
-    int8_quantize_kernel<__nv_bfloat16><<<grid, 256, 0, cu_stream>>>(static_cast<const __nv_bfloat16*>(x), sx, out, n);
-  } else {
-    int8_quantize_kernel<float><<<grid, 256, 0, cu_stream>>>(static_cast<const float*>(x), sx, out, n);
+  if (c % 16 == 0) {
+    if (x_bf16) {
+      int8_quantize_kernel<__nv_bfloat16><<<grid, 256, 0, cu_stream>>>(static_cast<const __nv_bfloat16*>(x), sx, out,
+                                                                      pieces);
+    } else {
+      int8_quantize_kernel<float><<<grid, 256, 0, cu_stream>>>(static_cast<const float*>(x), sx, out, pieces);
+    }
+    return static_cast<int>(cudaGetLastError());
   }
-  return static_cast<int>(cudaGetLastError());
+  if (pieces > 0x7FFFFFFFLL) return static_cast<int>(cudaErrorInvalidValue);  // 32-bit piece indices
+  const int row_bytes = c * (x_bf16 ? 2 : 4);
+  const int vec = row_bytes % 16 == 0 ? 16 : row_bytes % 8 == 0 ? 8 : row_bytes % 4 == 0 ? 4 : 2;
+  if (x_bf16) {
+    return launch_quantize_pitched(static_cast<const __nv_bfloat16*>(x), sx, out, pieces, c, vec, grid, cu_stream);
+  }
+  return launch_quantize_pitched(static_cast<const float*>(x), sx, out, pieces, c, vec, grid, cu_stream);
 }

@@ -1,7 +1,6 @@
 // int8 x int8 -> int32 2D convolution with the float requantize epilogue: the general
-// route, for shapes the Hopper route of int8_conv.cu does not take (C % 16 != 0 or
-// O % 8 != 0, e.g. C = 3, rexnet's odd widths) and for every grouped conv. Built for
-// sm_90a; its instructions are Ampere's.
+// route, for every grouped conv (the ungrouped ones take the Hopper route of
+// int8_conv.cu). Built for sm_90a; its instructions are Ampere's.
 //
 // Replaces, like int8_conv.cu, the int8 convolution of
 // holocron_tpu/quant.py:_quantized_conv (quant.py:259-274), which the JAX package
@@ -10,8 +9,9 @@
 //   acc[n,oy,ox,o] = sum_{r,s,c} x[n, oy*sh - ph + r*dh, ox*sw - pw + s*dw, c] * w[r,s,c,o]
 //   y = float(acc) * (s_x * w_scale[o]) + bias[o]        (quant.py:270-273's order)
 //
-// x is int8 NHWC, w is int8 HWIO, acc is int32 (exact), y is stored as float32 or
-// bfloat16; out_dtype 2 stores the raw int32 accumulator instead.
+// x is int8 NHWC at a pixel pitch P (its channels rounded up to whole 16-byte copies,
+// as int8_quantize writes it), w is int8 HWIO, acc is int32 (exact), y is stored as
+// float32 or bfloat16; out_dtype 2 stores the raw int32 accumulator instead.
 //
 // Grouped convs (feature_group_count = G, quant.py:267): x has G * C channels, w is
 // (KH, KW, C, G * O), and group g maps channels g*C .. g*C + C - 1 of x to columns
@@ -31,12 +31,12 @@
 //
 // Staging is what bounds a simple form of this kernel (a first version that loaded
 // A word by word and B byte by byte ran no faster on the tensor cores than with
-// dp4a). So, on the fast path (C % 16 == 0, O % 4 == 0, aligned operands): A is
-// gathered as one 16-byte load of 16 channels of one pixel per thread and row, the
-// filter tap is tracked incrementally
-// instead of divided out, and B is read as 4-byte runs of 4 output channels from 4
-// reduction rows, transposed in registers with byte permutes. Other shapes take
-// byte-wise loads into the same layout.
+// dp4a). So, on the fast path (C % 16 == 0, O % 4 == 0 a group, aligned operands;
+// resnext101's stage-4 convs): A is gathered as one 16-byte load of 16 channels of one
+// pixel per thread and row, the filter tap is tracked incrementally instead of divided
+// out, and B is read as 4-byte runs of 4 output channels from 4 reduction rows,
+// transposed in registers with byte permutes. Other grouped widths take byte-wise
+// loads into the same layout.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -59,7 +59,7 @@ constexpr int B_LD = BN + 8;
 
 struct ConvShape {
   int h, w, c, o;  // c, o: input and output channels of one group
-  int cs, os;      // pixel pitch of x (G * c) and row pitch of w and y (G * o)
+  int cs, os;      // pixel pitch of x (>= G * c) and row pitch of w and y (G * o)
   int kh, kw, sh, sw, ph, pw, dh, dw;
   int oh, ow;
   long long m;  // N * OH * OW
@@ -344,20 +344,22 @@ extern "C" const char* holocron_cuda_error_string(int err) {
 }
 
 // c and o are the channels of the whole conv (x's C, w's and y's O), groups divides
-// both. out_dtype: 0 = float32, 1 = bfloat16 (both with the epilogue), 2 = raw int32
-// accumulator. fast requires C / groups % 16 == 0, O / groups % 4 == 0, x 16-byte
-// aligned and w 4-byte aligned. Returns cudaGetLastError() after the launch.
+// both; pitch is x's pixel pitch (>= c). out_dtype: 0 = float32, 1 = bfloat16 (both
+// with the epilogue), 2 = raw int32 accumulator. fast requires C / groups % 16 == 0,
+// O / groups % 4 == 0, pitch % 16 == 0, x 16-byte aligned and w 4-byte aligned.
+// Returns cudaGetLastError() after the launch.
 extern "C" int int8_conv_forward(const void* x, const void* w, const void* s_x, const void* w_scale,
                                  const void* bias, int bias_bf16, void* out, int out_dtype, int n, int h,
                                  int w_in, int c, int o, int kh, int kw, int sh, int sw, int ph, int pw,
-                                 int dh, int dw, int oh, int ow, int groups, int fast, void* stream) {
-  if (out_dtype < 0 || out_dtype > 2 || groups < 1 || groups > 65535 || c % groups != 0 || o % groups != 0)
+                                 int dh, int dw, int oh, int ow, int groups, int pitch, int fast, void* stream) {
+  if (out_dtype < 0 || out_dtype > 2 || groups < 1 || groups > 65535 || c % groups != 0 || o % groups != 0 ||
+      pitch < c)
     return static_cast<int>(cudaErrorInvalidValue);
   const int cg = c / groups, og = o / groups;
-  const ConvShape s{h, w_in, cg, og, c, o, kh, kw, sh, sw, ph, pw, dh, dw, oh, ow,
+  const ConvShape s{h, w_in, cg, og, pitch, o, kh, kw, sh, sw, ph, pw, dh, dw, oh, ow,
                     static_cast<long long>(n) * oh * ow, kh * kw * cg};
   if (s.m == 0 || s.o == 0) return 0;
-  if (fast && (cg % 16 != 0 || og % 4 != 0 || reinterpret_cast<uintptr_t>(x) % 16 != 0 ||
+  if (fast && (cg % 16 != 0 || og % 4 != 0 || pitch % 16 != 0 || reinterpret_cast<uintptr_t>(x) % 16 != 0 ||
                reinterpret_cast<uintptr_t>(w) % 4 != 0))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t cu_stream = static_cast<cudaStream_t>(stream);

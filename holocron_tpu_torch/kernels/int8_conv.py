@@ -3,22 +3,27 @@ which the JAX package leaves to XLA: activation quantization, then int8 x int8 -
 convolution with the float requantize epilogue.
 
 Layouts are the JAX package's: NHWC activations and int8 HWIO weights; the result is
-NHWC. On CUDA tensors the wrappers launch one of two routes, chosen by shape in
-:func:`conv_route`:
+NHWC. A quantized activation ``x_q`` keeps its logical shape ``(..., C)`` but lies at a
+pixel pitch of :func:`channel_pitch` ``(C)``, C rounded up to whole 16-byte copies, with
+channels C .. pitch - 1 zero: the view ``x_q[..., :C]`` of a ``(..., pitch)`` buffer,
+the buffer itself where C % 16 == 0. On CUDA tensors the wrappers launch one of two
+routes, chosen by shape in :func:`conv_route`:
 
-- ``"wgmma"`` (``csrc/int8_conv.cu``, counter ``int8_conv``): C % 16 == 0 and
-  O % 8 == 0, every int8 layer of repvgg_a0. It reads the weights packed once per layer
-  by :func:`pack_weights`; its quantization prologue has the counter ``int8_quantize``.
+- ``"wgmma"`` (``csrc/int8_conv.cu``, counter ``int8_conv``): every ungrouped conv. It
+  reads x_q at its pitch and the weights packed once per layer over the same pitch by
+  :func:`pack_weights`, so the reduction runs over KH * KW * pitch and the zeros add
+  nothing; its quantization prologue has the counter ``int8_quantize``.
 - ``"general"`` (``csrc/int8_conv_general.cu``, counter ``int8_conv_general``): every
-  other shape (C = 3, byte-wise channel counts) and every grouped conv, one GEMM a
-  group.
+  grouped conv, one GEMM a group.
 
-On CPU tensors they compute the plain versions: :func:`quantize_activation_plain`, and a
-float64 convolution over the integer-valued tensors, which is exact (every partial sum
-is an integer far below 2**53), followed by the same epilogue in float32.
+On CPU tensors they compute the plain versions: :func:`quantize_activation_plain` (the
+same pitched layout), and a float64 convolution over the integer-valued tensors, which
+is exact (every partial sum is an integer far below 2**53), followed by the same
+epilogue in float32.
 """
 
 import ctypes
+import functools
 from typing import Optional, Tuple, Union
 
 import torch
@@ -31,12 +36,15 @@ __all__ = [
     "KERNEL_GENERAL",
     "KERNEL_QUANTIZE",
     "STEP_K",
+    "TILE_M",
     "TILE_N",
+    "channel_pitch",
     "conv_route",
     "int8_conv",
     "int8_conv_acc",
     "int8_conv_acc_plain",
     "int8_conv_plain",
+    "launch_tile_n",
     "pack_weights",
     "quantize_activation",
     "quantize_activation_plain",
@@ -47,13 +55,14 @@ __all__ = [
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _CONV_ARGS = [_P, _P, _P, _P, _P, _I, _P, _I] + [_I] * 15
 KERNEL = Kernel("int8_conv", "int8_conv_wgmma_forward", _CONV_ARGS + [_I, _I, _P])
-KERNEL_GENERAL = Kernel("int8_conv_general", "int8_conv_forward", _CONV_ARGS + [_I, _I, _P])
-KERNEL_QUANTIZE = Kernel("int8_conv", "int8_quantize_forward", [_P, _P, _P, _I, ctypes.c_longlong, _P])
+KERNEL_GENERAL = Kernel("int8_conv_general", "int8_conv_forward", _CONV_ARGS + [_I] * 3 + [_P])
+KERNEL_QUANTIZE = Kernel("int8_conv", "int8_quantize_forward", [_P, _P, _P, _I, ctypes.c_longlong, _I, _P])
 _OUT_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int32: 2}
 QINT_MAX = 127.0
 
-# wgmma column tiles the kernel is built for, and its reduction step in bytes
+# wgmma column tiles the kernel is built for, its rows a tile, and its reduction step in bytes
 TILE_N = (48, 64, 96, 128, 192, 256)
+TILE_M = 128
 STEP_K = 128
 
 IntPair = Union[int, Tuple[int, int]]
@@ -63,12 +72,18 @@ def _pair(v: IntPair) -> Tuple[int, int]:
     return (v, v) if isinstance(v, int) else (int(v[0]), int(v[1]))
 
 
+def channel_pitch(c: int) -> int:
+    """The pixel pitch of a quantized activation of ``c`` channels: ``c`` rounded up to
+    whole 16-byte copies."""
+    return -(-c // 16) * 16
+
+
 def conv_route(c: int, o: int, groups: int = 1) -> str:
     """The route a CUDA int8 conv with ``c`` input channels a group, ``o`` output
-    channels and ``groups`` groups takes: ``"wgmma"`` for an ungrouped conv where
-    16-channel copies and even column pairs fit (C % 16 == 0, O % 8 == 0), else
-    ``"general"``."""
-    return "wgmma" if groups == 1 and c % 16 == 0 and o % 8 == 0 else "general"
+    channels and ``groups`` groups takes: ``"wgmma"`` for every ungrouped conv (any C,
+    read at its 16-byte pitch; any O, under a masked epilogue), ``"general"`` for a
+    grouped one."""
+    return "wgmma" if groups == 1 else "general"
 
 
 def tile_n(o: int) -> int:
@@ -77,13 +92,31 @@ def tile_n(o: int) -> int:
     return next((n for n in TILE_N if n >= o), TILE_N[-1])
 
 
+@functools.lru_cache(maxsize=None)
+def _sm_count(device_index: int) -> int:
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
+def launch_tile_n(o: int, m: int, sms: int) -> int:
+    """The column tile the wgmma route launches with at M = ``m`` output pixels on a
+    card of ``sms`` SMs: :func:`tile_n`, except that a layer with fewer 256-wide tiles
+    than SMs (an SE excitation, M = the batch) takes 64-wide ones, which spread its
+    epilogue over more SMs; the packed rows (whole 256-wide tiles) hold them too."""
+    bn = tile_n(o)
+    return 64 if o > TILE_N[-1] and -(-m // TILE_M) * -(-o // bn) < sms else bn
+
+
 def pack_weights(w_q: torch.Tensor) -> torch.Tensor:
-    """HWIO int8 weights as the wgmma route reads them: an (O_pad, K_pad) K-major matrix,
-    row o holding ``w_q[r, s, c, o]`` at ``(r * KW + s) * C + c``, zero beyond O (whole
-    column tiles) and K (whole 128-byte steps)."""
+    """HWIO int8 weights as the wgmma route reads them: an (O_pad, K_pad) K-major matrix
+    over the activation's pitch ``P = channel_pitch(C)``, row o holding
+    ``w_q[r, s, c, o]`` at ``(r * KW + s) * P + c``, zero at channels C .. P - 1 of each
+    tap, beyond O (whole column tiles) and beyond K (whole 128-byte steps). Where
+    C % 16 == 0, P = C."""
     kh, kw, c, o = w_q.shape
-    packed = w_q.new_zeros(_packed_shape(kh, kw, c, o))
-    packed[:o, : kh * kw * c] = w_q.permute(3, 0, 1, 2).reshape(o, kh * kw * c)
+    pitch = channel_pitch(c)
+    packed = w_q.new_zeros(_packed_shape(kh, kw, pitch, o))
+    taps = packed[:o, : kh * kw * pitch].view(o, kh * kw, pitch)
+    taps[:, :, :c] = w_q.permute(3, 0, 1, 2).reshape(o, kh * kw, c)
     return packed
 
 
@@ -107,15 +140,23 @@ def _geometry(x_q: torch.Tensor, w_q: torch.Tensor, stride: IntPair, padding: In
     return (sh, sw), (ph, pw), (dh, dw), oh, ow
 
 
+def _pitched_view(q: torch.Tensor, c: int) -> torch.Tensor:
+    return q if q.shape[-1] == c else q[..., :c]
+
+
 def quantize_activation_plain(x: torch.Tensor, s_x: torch.Tensor) -> torch.Tensor:
-    """``clip(round(x / s_x), -127, 127)`` as int8 (``quant.py:237-244``); torch.round
+    """``clip(round(x / s_x), -127, 127)`` as int8 (``quant.py:237-244``) at the pitched
+    layout (:func:`channel_pitch` of the last dimension, zero beyond it); torch.round
     rounds half to even, as jnp.round does."""
-    return torch.round(x.float() / s_x).clamp_(-QINT_MAX, QINT_MAX).to(torch.int8)
+    q = torch.round(x.float() / s_x).clamp_(-QINT_MAX, QINT_MAX).to(torch.int8)
+    c = q.shape[-1]
+    return _pitched_view(F.pad(q, (0, channel_pitch(c) - c)), c)
 
 
 def quantize_activation(x: torch.Tensor, s_x: torch.Tensor) -> torch.Tensor:
     """:func:`quantize_activation_plain`, by the ``int8_quantize`` kernel for a CUDA
-    ``x`` (float32 or bfloat16, any shape; the result is contiguous in ``x``'s shape)."""
+    ``x`` (float32 or bfloat16, any shape; its last dimension is the channels, the
+    result lies at their pitch)."""
     if x.device.type == "cpu":
         return quantize_activation_plain(x, s_x)
     if x.dtype not in (torch.float32, torch.bfloat16):
@@ -125,11 +166,25 @@ def quantize_activation(x: torch.Tensor, s_x: torch.Tensor) -> torch.Tensor:
     x = x.contiguous()
     if x.data_ptr() % 16:
         x = x.clone()
-    q = torch.empty(x.shape, dtype=torch.int8, device=x.device)
+    c = x.shape[-1]
+    q = torch.empty((*x.shape[:-1], channel_pitch(c)), dtype=torch.int8, device=x.device)
     with torch.cuda.device(x.device):
-        KERNEL_QUANTIZE(x.data_ptr(), s_x.data_ptr(), q.data_ptr(), int(x.dtype == torch.bfloat16), x.numel(),
+        KERNEL_QUANTIZE(x.data_ptr(), s_x.data_ptr(), q.data_ptr(), int(x.dtype == torch.bfloat16), x.numel() // c, c,
                         torch.cuda.current_stream().cuda_stream)
-    return q
+    return _pitched_view(q, c)
+
+
+def _at_pitch(x: torch.Tensor) -> torch.Tensor:
+    """The NHWC int8 ``x`` at its pitch, as :func:`quantize_activation` lays it out: ``x``
+    itself when it lies so (16-byte aligned), else a padded copy of a contiguous ``x``;
+    raises for any other layout."""
+    n, h, w, c = x.shape
+    pitch = channel_pitch(c)
+    if x.stride() == (h * w * pitch, w * pitch, pitch, 1) and x.data_ptr() % 16 == 0:
+        return x
+    if not x.is_contiguous():
+        raise ValueError("x_q must be contiguous NHWC or at its channel pitch, as quantize_activation lays it out")
+    return _pitched_view(F.pad(x, (0, pitch - c)), c)
 
 
 def int8_conv_acc_plain(
@@ -177,9 +232,11 @@ def _launch(x, w_q, w_packed, s_x, w_scale, bias, stride, padding, dilation, out
     operands = [x, w_q] + ([] if out_dtype == torch.int32 else [s_x, w_scale]) + ([] if bias is None else [bias])
     if dev.type != "cuda" or any(t.device != dev for t in operands):
         raise ValueError("all operands of the int8 conv must lie on one CUDA device")
-    if not (x.is_contiguous() and w_q.is_contiguous()):
-        raise ValueError("x_q (NHWC) and w_q (HWIO) must be contiguous")
+    if not w_q.is_contiguous():
+        raise ValueError("w_q (HWIO) must be contiguous")
+    x = _at_pitch(x)
     n, h, w, c = x.shape
+    pitch = x.stride(2)
     kh, kw, _, o = w_q.shape
     s_ptr = ws_ptr = b_ptr = None
     bias_bf16 = 0
@@ -198,29 +255,28 @@ def _launch(x, w_q, w_packed, s_x, w_scale, bias, stride, padding, dilation, out
         b_ptr = None if bias is None else bias.data_ptr()
         bias_bf16 = int(bias is not None and bias.dtype == torch.bfloat16)
     out = torch.empty((n, oh, ow, o), dtype=out_dtype, device=dev)
-    geometry = (n, h, w, c, o, kh, kw, sh, sw, ph, pw, dh, dw, oh, ow)
-    route = conv_route(w_q.shape[2], o, groups)
+    geometry = (sh, sw, ph, pw, dh, dw, oh, ow)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        if route == "wgmma":
+        if conv_route(w_q.shape[2], o, groups) == "wgmma":
             if w_packed is None:
                 w_packed = pack_weights(w_q)
             if (w_packed.device != dev or w_packed.dtype != torch.int8 or not w_packed.is_contiguous()
-                    or tuple(w_packed.shape) != _packed_shape(kh, kw, c, o)):
+                    or tuple(w_packed.shape) != _packed_shape(kh, kw, pitch, o)):
                 raise ValueError(f"w_packed ({tuple(w_packed.shape)}, {w_packed.device}) is not pack_weights(w_q)")
-            if x.data_ptr() % 16:
-                x = x.clone()
+            # the kernel reads x at its pitch: the reduction runs over the pitch's channels
+            bn = launch_tile_n(o, n * oh * ow, _sm_count(torch.cuda.current_device()))
             KERNEL(x.data_ptr(), w_packed.data_ptr(), s_ptr, ws_ptr, b_ptr, bias_bf16, out.data_ptr(),
-                   _OUT_CODES[out_dtype], *geometry, tile_n(o), w_packed.shape[1], stream)
+                   _OUT_CODES[out_dtype], n, h, w, pitch, o, kh, kw, *geometry, bn, w_packed.shape[1], stream)
         else:
             # the general kernel's fast staging path takes 16-channel runs of x and 4-channel
-            # runs of w, in each group
+            # runs of w, in each group; else byte-wise staging
             cg, og = c // groups, o // groups
-            fast = int(cg % 16 == 0 and og % 4 == 0 and x.data_ptr() % 16 == 0 and w_q.data_ptr() % 4 == 0)
+            fast = int(cg % 16 == 0 and og % 4 == 0 and w_q.data_ptr() % 4 == 0)
             if groups > 65535:
                 raise ValueError(f"the general route takes at most 65535 groups, got {groups}")
             KERNEL_GENERAL(x.data_ptr(), w_q.data_ptr(), s_ptr, ws_ptr, b_ptr, bias_bf16, out.data_ptr(),
-                           _OUT_CODES[out_dtype], *geometry, groups, fast, stream)
+                           _OUT_CODES[out_dtype], n, h, w, c, o, kh, kw, *geometry, groups, pitch, fast, stream)
     return out
 
 
@@ -233,9 +289,9 @@ def int8_conv_acc(
     w_packed: Optional[torch.Tensor] = None,
     groups: int = 1,
 ) -> torch.Tensor:
-    """The int32 accumulator of the int8 conv, NHWC (no epilogue). ``w_packed``:
-    :func:`pack_weights` of ``w_q``, made here when the wgmma route needs it and it is
-    not given."""
+    """The int32 accumulator of the int8 conv, NHWC (no epilogue). ``x_q`` as
+    :func:`int8_conv` takes it; ``w_packed``: :func:`pack_weights` of ``w_q``, made here
+    when the wgmma route needs it and it is not given."""
     if x_q.device.type == "cpu" and w_q.device.type == "cpu":
         return int8_conv_acc_plain(x_q, w_q, stride, padding, dilation, groups)
     return _launch(x_q, w_q, w_packed, None, None, None, stride, padding, dilation, torch.int32, groups)
@@ -262,7 +318,9 @@ def int8_conv(
     """``float(conv(x_q, w_q)) * (s_x * w_scale) + bias`` in ``out_dtype``, NHWC.
 
     Args:
-        x_q: int8 ``(N, H, W, C)``; w_q: int8 ``(KH, KW, C / groups, O)``
+        x_q: int8 ``(N, H, W, C)`` at its channel pitch, as :func:`quantize_activation`
+            lays it out, or contiguous (then padded to its pitch here, a layout copy
+            where C % 16 != 0); w_q: int8 ``(KH, KW, C / groups, O)``
         s_x: float32 scalar tensor, the activation scale (abs-max / 127)
         w_scale: float32 ``(O,)``, the per-output-channel weight scales
         bias: optional ``(O,)``, float32 or bfloat16

@@ -9,7 +9,8 @@
   the CPU.
 - **Compute**: quantization, the int8 x int8 -> int32 conv and its epilogue
   ``acc * (s_x * w_scale) + bias`` run in :func:`.kernels.int8_conv.quantized_conv` (two
-  CUDA launches a layer on the card, with weights packed once per layer).
+  CUDA launches a layer on the card; the quantized activation lies at a 16-byte channel
+  pitch, and the weights of every ungrouped conv are packed once per layer over it).
 
 :func:`quantize_model` copies a model and swaps each selected ``nn.Conv2d`` for a
 :class:`QuantizedConv2d`; architecture code has no quantized variant. The same convs
@@ -26,7 +27,7 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
-from .kernels.int8_conv import conv_route, pack_weights, quantize_activation, quantized_conv
+from .kernels.int8_conv import pack_weights, quantize_activation, quantized_conv
 
 __all__ = [
     "QINT_MAX",
@@ -132,10 +133,10 @@ class QuantizedConv2d(nn.Module):
     ``w_scale`` and ``act_scale`` belong to the int8 arithmetic and stay float32 when
     the module's float remainder (the bias) is cast, e.g. by ``.to(torch.bfloat16)``.
     ``act_scale`` is None for a per-call (dynamic) activation scale. ``kernel_packed``
-    is ``kernel_q`` as the wgmma route reads it (``pack_weights``), None for shapes of
-    the general route (grouped convs among them); a non-persistent buffer, remade when
-    the module moves, so the ``state_dict`` holds ``kernel_q`` (HWIO, ``(KH, KW,
-    C / groups, O)``) alone.
+    is ``kernel_q`` as the wgmma route reads it (``pack_weights``, over the activation's
+    16-byte channel pitch) for every ungrouped conv, None for a grouped one (the general
+    route reads ``kernel_q``); a non-persistent buffer, remade when the module moves,
+    so the ``state_dict`` holds ``kernel_q`` (HWIO, ``(KH, KW, C / groups, O)``) alone.
     """
 
     def __init__(
@@ -155,8 +156,7 @@ class QuantizedConv2d(nn.Module):
         self.bias = None if conv.bias is None else nn.Parameter(conv.bias.detach().clone(), requires_grad=False)
 
     def _packed(self) -> Optional[torch.Tensor]:
-        _, _, c, o = self.kernel_q.shape
-        return pack_weights(self.kernel_q) if conv_route(c, o, self.groups) == "wgmma" else None
+        return pack_weights(self.kernel_q) if self.groups == 1 else None
 
     def _apply(self, fn, recurse=True):
         scales = {"w_scale": self.w_scale, "act_scale": self.act_scale}

@@ -47,8 +47,9 @@ def test_packed_weights_unpack_to_kernel_q(kh, kw, c, o):
 
 def test_route_by_shape():
     """repvgg_a0's int8 convs all take the wgmma route with the layer's whole O as its
-    tile (256-wide tiles for 1280); channel counts the 16-byte copies or the column
-    pairs do not fit take the general route."""
+    tile (256-wide tiles for 1280); so does every other ungrouped conv (C read at its
+    16-byte pitch, O under a masked epilogue), and only grouped convs take the general
+    route."""
     model = repvgg_a0(num_classes=10, generator=torch.Generator().manual_seed(0), device="cpu").reparametrize()
     qm = quant.quantize_model(model, arch="repvgg_a0")
     seen = {}
@@ -60,11 +61,14 @@ def test_route_by_shape():
             assert m.kernel_packed is not None and torch.equal(m.kernel_packed, K.pack_weights(m.kernel_q))
     assert seen == REPVGG_A0_INT8
     assert {o: K.tile_n(o) for o in (48, 96, 192, 1280)} == {48: 48, 96: 96, 192: 192, 1280: 256}
-    # byte-wise shapes (tests/test_torch_kernels_cuda.py) and the stem's C = 3
+    # shapes that took byte-wise staging on the general route before the padded pitch
+    # (tests/test_torch_kernels_cuda.py) and the stem's C = 3
     for c, o in ((12, 8), (3, 5), (16, 70), (3, 48), (8, 16), (24, 32)):
-        assert K.conv_route(c, o) == "general", (c, o)
+        assert K.conv_route(c, o) == "wgmma", (c, o)
     for c, o in ((16, 24), (48, 72), (32, 8), (16, 16), (256, 256)):
         assert K.conv_route(c, o) == "wgmma", (c, o)
+    for c, o, groups in ((64, 2048, 32), (12, 8, 2), (16, 16, 4)):
+        assert K.conv_route(c, o, groups) == "general", (c, o, groups)
 
 
 def test_quantized_conv2d_packed_buffer_is_not_state():
@@ -83,8 +87,12 @@ def test_quantized_conv2d_packed_buffer_is_not_state():
     other["kernel_q"] = torch.randint(-127, 128, (3, 3, 16, 24), generator=g, dtype=torch.int8)
     m.load_state_dict(other)
     assert torch.equal(m.kernel_packed, K.pack_weights(other["kernel_q"]))
-    small = quant.QuantizedConv2d(torch.nn.Conv2d(3, 8, 3), torch.zeros(3, 3, 3, 8, dtype=torch.int8), torch.ones(8))
-    assert small.kernel_packed is None  # the general route reads kernel_q itself
+    small = quant.QuantizedConv2d(torch.nn.Conv2d(3, 8, 3), torch.ones(3, 3, 3, 8, dtype=torch.int8), torch.ones(8))
+    assert torch.equal(small.kernel_packed, K.pack_weights(small.kernel_q))  # C = 3 over a 16-byte pitch
+    assert small.kernel_packed.shape == (48, 256) and int(small.kernel_packed.sum()) == 3 * 3 * 3 * 8
+    grouped = quant.QuantizedConv2d(torch.nn.Conv2d(8, 8, 3, groups=2), torch.zeros(3, 3, 4, 8, dtype=torch.int8),
+                                    torch.ones(8))
+    assert grouped.kernel_packed is None  # the general route reads kernel_q itself
 
 
 def test_quantize_activation_equals_jax_on_ties_and_clip():

@@ -101,19 +101,19 @@ def test_involution_forward_wrappers_refuse_what_they_do_not_take(cuda):
 @pytest.mark.parametrize(
     "n,h,w,c,o,ksize,stride,padding,dilation",
     [
-        (2, 9, 10, 16, 24, 3, 1, 1, 1),    # fast staging, ragged M and O tiles
-        (2, 9, 10, 48, 72, 3, 2, 1, 1),    # fast, stride 2, C not a multiple of the 64-wide step
-        (1, 11, 11, 32, 8, 3, 1, 2, 2),    # fast, dilation 2
-        (2, 8, 8, 16, 16, 1, 2, 0, 1),     # fast, 1x1 stride 2, K below one step
-        (1, 11, 11, 12, 8, 3, 1, 2, 2),    # byte-wise (C % 16 != 0), dilation 2
-        (2, 7, 7, 3, 5, 3, 1, 1, 1),       # byte-wise, C = 3 and O % 4 != 0
-        (2, 9, 10, 16, 70, 3, 2, 1, 1),    # byte-wise (O % 4 != 0), O across two column tiles
+        (2, 9, 10, 16, 24, 3, 1, 1, 1),    # ragged M and O tiles
+        (2, 9, 10, 48, 72, 3, 2, 1, 1),    # stride 2, C not a multiple of the 128-byte step
+        (1, 11, 11, 32, 8, 3, 1, 2, 2),    # dilation 2
+        (2, 8, 8, 16, 16, 1, 2, 0, 1),     # 1x1 stride 2, K below one step
+        (1, 11, 11, 12, 8, 3, 1, 2, 2),    # C % 16 != 0 (a contiguous x_q padded to its pitch), dilation 2
+        (2, 7, 7, 3, 5, 3, 1, 1, 1),       # C = 3, odd O: the masked epilogue
+        (2, 9, 10, 16, 70, 3, 2, 1, 1),    # O % 8 != 0 in a 96-wide tile
         (1, 14, 14, 192, 192, 3, 1, 1, 1),  # repvgg_a0 stage-3 conv
     ],
 )
 def test_int8_conv_kernel_matches_plain(cuda, n, h, w, c, o, ksize, stride, padding, dilation):
     """int32 accumulator exact; float32 output within one float32 ulp and bf16 output
-    within one bf16 ulp of the plain epilogue."""
+    within one bf16 ulp of the plain epilogue, from a contiguous int8 x_q."""
     gen = torch.Generator(device=cuda).manual_seed(1)
     x_q = torch.randint(-127, 128, (n, h, w, c), generator=gen, device=cuda, dtype=torch.int8)
     w_q = torch.randint(-127, 128, (ksize, ksize, c, o), generator=gen, device=cuda, dtype=torch.int8)
@@ -133,9 +133,16 @@ def test_int8_conv_kernel_matches_plain(cuda, n, h, w, c, o, ksize, stride, padd
             assert bool(((got - ref).abs() <= ref.abs() * ulp).all())
 
 
+def _pad_of(x_q):
+    """Channels C .. pitch - 1 of a quantized activation, which lies at its pitch."""
+    pitch = Q.channel_pitch(x_q.shape[-1])
+    assert x_q.stride()[-2:] == (pitch, 1)
+    return x_q.as_strided((*x_q.shape[:-1], pitch), x_q.stride())[..., x_q.shape[-1]:]
+
+
 def _int8_route_matches_plain(cuda, x, w_q, stride, padding, dilation, seed, groups=1, expected_route="wgmma"):
     """quantize + conv on the card against quantize_activation_plain + the plain conv:
-    quantized activations equal, int32 accumulator equal, float32 within one float32
+    quantized activations equal (their pitch's pad zero), int32 accumulator equal, float32 within one float32
     ulp and bf16 within one bf16 ulp, with and without bias; conv_route picks
     ``expected_route``, and the quantization counter and that route's counter advance
     once each, the other route's not at all."""
@@ -148,6 +155,7 @@ def _int8_route_matches_plain(cuda, x, w_q, stride, padding, dilation, seed, gro
     packed = Q.pack_weights(w_q) if route == "wgmma" else None
     x_q = Q.quantize_activation(x, s_x)
     assert torch.equal(x_q, Q.quantize_activation_plain(x, s_x))
+    assert not bool(_pad_of(x_q).any())
     acc = int8_conv_acc(x_q, w_q, stride, padding, dilation, w_packed=packed, groups=groups)
     assert torch.equal(acc, int8_conv_acc_plain(x_q, w_q, stride, padding, dilation, groups).contiguous())
     for bias in (None, torch.randn(o, generator=gen, device=cuda)):
@@ -204,24 +212,105 @@ def test_int8_route_at_resnet50_geometries(cuda, n, hw, c, o, ksize, stride, pad
 @pytest.mark.parametrize(
     "n,hw,c,o,ksize,stride,padding",
     [
-        (2, 112, 96, 27, 1, 1, 0),    # rexnet1_0x's first int8 conv: odd O, C % 16 == 0 with O % 4 != 0
-        (2, 56, 162, 38, 1, 1, 0),    # C % 16 != 0, O % 4 != 0: byte-wise staging
+        (2, 112, 96, 27, 1, 1, 0),    # rexnet1_0x's first int8 conv: odd O in one 48-wide tile, one flat run
+        (2, 56, 162, 38, 1, 1, 0),    # C % 16 != 0 (pitch 176), O % 8 != 0
         (8, 1, 228, 19, 1, 1, 0),     # an SE squeeze on its 1 x 1 input: M = 8, odd O
-        (8, 1, 75, 906, 1, 1, 0),     # an SE excite: odd C, O across fifteen column tiles
-        (2, 28, 72, 432, 1, 1, 0),    # an expand: byte-wise C, O % 8 == 0 but C % 16 != 0
-        (2, 7, 1044, 185, 1, 1, 0),   # the last projection: odd O, C % 16 == 4
+        (8, 1, 75, 906, 1, 1, 0),     # an SE excite: odd C, O across four 256-wide column tiles
+        (2, 28, 72, 432, 1, 1, 0),    # an expand: C % 16 != 0, O % 8 == 0 (whole 16-byte rows)
+        (2, 14, 106, 636, 1, 1, 0),   # an expand with O % 8 == 4: rows 8-byte aligned in bf16
+        (2, 7, 1044, 185, 1, 1, 0),   # the last projection: odd O over six 32-column chunks, C % 16 == 4
         (2, 7, 185, 1280, 1, 1, 0),   # the penultimate conv: odd C
-        (3, 5, 768, 140, 1, 1, 0),    # C % 16 == 0 and O % 4 == 0: the fast staging path, ragged M
+        (3, 5, 768, 140, 1, 1, 0),    # C % 16 == 0, O % 8 == 4, ragged M
     ],
 )
-def test_int8_general_route_at_rexnet1_0x_geometries(cuda, n, hw, c, o, ksize, stride, padding):
-    """rexnet1_0x's general-route geometries (about 41 of its 44 int8 convs), at small
-    batches: odd output widths (the epilogue's column pairs), channel counts that are
-    not whole 16-byte runs and 1 x 1 spatial inputs (the M tail)."""
+def test_int8_route_at_rexnet1_0x_geometries(cuda, n, hw, c, o, ksize, stride, padding):
+    """rexnet1_0x's int8 geometries, all on the wgmma route, at small batches: odd
+    output widths (the masked epilogue), channel counts that are not whole 16-byte runs
+    (the padded pitch) and 1 x 1 spatial inputs (the M tail)."""
     gen = torch.Generator(device=cuda).manual_seed(13)
     x = torch.randn(n, hw, hw, c, generator=gen, device=cuda).to(torch.bfloat16)
     w_q = torch.randint(-127, 128, (ksize, ksize, c, o), generator=gen, device=cuda, dtype=torch.int8)
-    _int8_route_matches_plain(cuda, x, w_q, stride, padding, 1, 14, expected_route="general")
+    _int8_route_matches_plain(cuda, x, w_q, stride, padding, 1, 14)
+
+
+def _wgmma_case_is_exact(cuda, n, h, w, c, o, ksize, stride, padding, seed):
+    """quantize + wgmma conv against the plain versions, bit for bit: the quantized
+    activation and its zero pad, the int32 accumulator, and float32 and bf16 outputs
+    with no bias and with a float32 and a bf16 one (the epilogue's roundings are the
+    plain version's, in its order)."""
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    x = torch.randn(n, h, w, c, generator=gen, device=cuda).to(torch.bfloat16)
+    w_q = torch.randint(-127, 128, (ksize, ksize, c, o), generator=gen, device=cuda, dtype=torch.int8)
+    assert Q.conv_route(c, o) == "wgmma"
+    s_x = x.float().abs().amax() / 127
+    w_scale = torch.rand(o, generator=gen, device=cuda) / 127
+    packed = Q.pack_weights(w_q)
+    x_q = Q.quantize_activation(x, s_x)
+    assert torch.equal(x_q, Q.quantize_activation_plain(x, s_x)) and not bool(_pad_of(x_q).any())
+    before = INT8_KERNEL.launches
+    acc = int8_conv_acc(x_q, w_q, stride, padding, w_packed=packed)
+    torch.cuda.synchronize()
+    assert INT8_KERNEL.launches == before + 1
+    assert acc.dtype == torch.int32 and torch.equal(acc, int8_conv_acc_plain(x_q, w_q, stride, padding))
+    bias = torch.randn(o, generator=gen, device=cuda)
+    for b in (None, bias, bias.to(torch.bfloat16)):
+        for dtype in (torch.float32, torch.bfloat16):
+            got = int8_conv(x_q, w_q, s_x, w_scale, b, stride, padding, out_dtype=dtype, w_packed=packed)
+            ref = int8_conv_plain(x_q, w_q, s_x, w_scale, b, stride, padding, out_dtype=dtype)
+            assert got.dtype == dtype and torch.equal(got, ref), (dtype, None if b is None else b.dtype)
+
+
+@pytest.mark.parametrize("o", [*range(249, 257), *range(257, 265)])
+@pytest.mark.parametrize("n,h,w", [(1, 11, 25), (2, 66, 67)])
+def test_int8_wgmma_masked_epilogue_at_every_o_residue(cuda, o, n, h, w):
+    """Every O % 8 residue on both sides of a 256-wide column tile (one tile up to 256,
+    a second one past it). M = 275 (two row tiles and a tail of 19 rows): past 256
+    columns, fewer 256-wide tiles than SMs, so 64-wide ones; M = 8,844: 256-wide ones."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    expected = 64 if o > 256 and -(-n * h * w // 128) * 2 < sms else Q.tile_n(o)
+    assert Q.launch_tile_n(o, n * h * w, sms) == expected
+    _wgmma_case_is_exact(cuda, n, h, w, 32, o, 1, 1, 0, 20 + o)
+
+
+@pytest.mark.parametrize("c", [16 * (r % 3) + r for r in range(1, 16)])
+def test_int8_wgmma_padded_pitch_at_every_c_residue(cuda, c):
+    """Every C % 16 residue: x_q at its padded pitch, the weights packed over it; O = 40 + C
+    takes every O % 8 residue alongside."""
+    _wgmma_case_is_exact(cuda, 2, 9, 7, c, 40 + c, 1, 1, 0, 40 + c)
+
+
+@pytest.mark.parametrize(
+    "n,h,w,c,o,ksize,stride,padding",
+    [
+        (2, 9, 10, 21, 27, 3, 1, 1),   # 3x3, odd C: the pitch's pad at every tap
+        (2, 9, 10, 45, 70, 3, 2, 1),   # 3x3 stride 2, odd C
+        (8, 1, 1, 228, 19, 1, 1, 0),   # M = 8 (an SE squeeze at batch 8)
+        (256, 1, 1, 840, 70, 1, 1, 0),  # M = 256 (the SE squeeze at batch 256)
+        (256, 1, 1, 70, 840, 1, 1, 0),  # M = 256, O = 840 (the SE excite)
+        (3, 7, 7, 96, 27, 1, 1, 0),    # M = 147: one full tile and a tail of 19 rows, flat runs
+        (1, 13, 13, 162, 185, 1, 1, 0),  # M = 169, O = 185: runs a row, odd O in a 192-wide tile
+    ],
+)
+def test_int8_wgmma_taps_strides_and_m_tails(cuda, n, h, w, c, o, ksize, stride, padding):
+    _wgmma_case_is_exact(cuda, n, h, w, c, o, ksize, stride, padding, 60 + c)
+
+
+@pytest.mark.parametrize("c", [1, 3, 8, 12, 16, 20, 24, 27, 33, 48, 185])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_int8_quantize_writes_the_pitch(cuda, c, dtype):
+    """The quantization kernel at C of each load width (2-, 4-, 8- and 16-byte aligned
+    rows in bf16, 4 to 16 in float32): equal to the plain version, the view lying at
+    ``channel_pitch(C)`` and its pad zero; at C % 16 == 0 the contiguous buffer."""
+    gen = torch.Generator(device=cuda).manual_seed(c)
+    x = (4 * torch.randn(3, 5, 7, c, generator=gen, device=cuda)).to(dtype)
+    s_x = torch.tensor(0.05, device=cuda)
+    before = Q.KERNEL_QUANTIZE.launches
+    x_q = Q.quantize_activation(x, s_x)
+    torch.cuda.synchronize()
+    assert Q.KERNEL_QUANTIZE.launches == before + 1
+    assert torch.equal(x_q, Q.quantize_activation_plain(x, s_x))
+    assert not bool(_pad_of(x_q).any())
+    assert x_q.is_contiguous() == (c % 16 == 0)
 
 
 @pytest.mark.parametrize(
@@ -244,11 +333,11 @@ def test_int8_grouped_general_route(cuda, n, hw, c, o, groups, stride):
     _int8_route_matches_plain(cuda, x, w_q, stride, 1, 1, 16, groups, expected_route="general")
 
 
-def test_int8_rexnet_takes_both_routes(cuda):
-    """A small int8 ReXNet (``min_in_channels=16``) on the card: each int8 layer
-    launches the quantization kernel once a forward, and the route conv_route picks
-    for it once; its logits agree with the CPU's plain int8 form within 1e-3 of their
-    largest magnitude (as the ResNet's below)."""
+def test_int8_rexnet_takes_only_the_wgmma_route(cuda):
+    """A small int8 ReXNet (``min_in_channels=16``, odd widths) on the card: each int8
+    layer launches the quantization kernel and the wgmma conv once a forward, the
+    general route never; its logits agree with the CPU's plain int8 form within 1e-3 of
+    their largest magnitude (as the ResNet's below)."""
     import copy
 
     from holocron_tpu_torch import quant
@@ -259,8 +348,8 @@ def test_int8_rexnet_takes_both_routes(cuda):
     x = torch.randn(4, 3, 32, 32, generator=gen)
     qm = quant.quantize_model(model, calibration_batches=[x], min_in_channels=16)
     layers = [m for m in qm.modules() if isinstance(m, quant.QuantizedConv2d)]
-    wgmma = sum(Q.conv_route(m.kernel_q.shape[2], m.kernel_q.shape[3], m.groups) == "wgmma" for m in layers)
-    assert 0 < wgmma < len(layers)
+    assert layers and all(m.groups == 1 and m.kernel_packed is not None for m in layers)
+    assert any(m.kernel_q.shape[2] % 16 or m.kernel_q.shape[3] % 8 for m in layers)
     with torch.no_grad():
         ref = qm(x)
         qm_card = copy.deepcopy(qm).to(cuda)
@@ -268,7 +357,7 @@ def test_int8_rexnet_takes_both_routes(cuda):
         out = qm_card(x.to(cuda).contiguous(memory_format=torch.channels_last))
         torch.cuda.synchronize()
     assert (INT8_KERNEL.launches, Q.KERNEL_QUANTIZE.launches, Q.KERNEL_GENERAL.launches) == (
-        before[0] + wgmma, before[1] + len(layers), before[2] + len(layers) - wgmma)
+        before[0] + len(layers), before[1] + len(layers), before[2])
     torch.testing.assert_close(out.cpu(), ref, rtol=0, atol=1e-3 * float(ref.abs().max()))
 
 
@@ -323,7 +412,7 @@ def test_int8_quantize_ties_and_clip(cuda, dtype):
     """Exactly on the ties (k + 0.5) * s_x (s_x a power of two, so the division is
     exact), one ulp either side, at and beyond +-127 * s_x, zeros; and near the ties of
     a scale that is not a power of two: equal to the plain version, with a ragged tail
-    (the length is not a multiple of 16)."""
+    (the length is not a multiple of 16: one row whose pitch ends in zeros)."""
     s = torch.tensor(2.0**-5, device=cuda)
     k = torch.arange(-140, 141, device=cuda, dtype=torch.float32)
     ties = (k + 0.5) * s

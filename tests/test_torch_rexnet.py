@@ -157,9 +157,9 @@ def test_rexnet_partial_residual():
 def test_quantize_model_selects_the_convs_jax_selects_on_rexnet1_0x():
     """Full width, the default ``min_in_channels=64`` (rexnet has no policy entry): the
     same convs as the JAX package's ``quantize_model``, compared by their int8 kernels
-    on the same weights; depthwise convs stay float. Most take the general route
-    (odd or byte-wise widths), three the wgmma route (the expand at 128 -> 768 and the
-    SE pair 768 <-> 64)."""
+    on the same weights; depthwise convs stay float. Every one takes the wgmma route,
+    the odd and byte-wise widths too (the padded channel pitch and the masked
+    epilogue)."""
     assert quant.selection_policy("rexnet1_0x") is None
     x = np.zeros((1, 32, 32, 3), np.float32)
     jm = Model(jax_rexnet.ReXNet(1, 1)).init(x.shape, key=jax.random.key(0))
@@ -173,9 +173,8 @@ def test_quantize_model_selects_the_convs_jax_selects_on_rexnet1_0x():
     assert ours == theirs and len(ours) == len(layers) == len(jq.qparams)
     assert all(m.groups == 1 for m in layers)
     routes = [conv_route(m.kernel_q.shape[2], m.kernel_q.shape[3]) for m in layers]
-    assert routes.count("wgmma") == 3
-    assert {tuple(m.kernel_q.shape[2:]) for m in layers if conv_route(*m.kernel_q.shape[2:]) == "wgmma"} == {
-        (128, 768), (768, 64), (64, 768)}
+    assert routes.count("wgmma") == len(layers) == 44
+    assert all(m.kernel_packed is not None for m in layers)
     depthwise = [m for m in pq.modules() if type(m) is torch.nn.Conv2d and m.groups > 1]
     assert depthwise and all(m.groups == m.in_channels for m in depthwise)
 
