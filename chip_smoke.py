@@ -59,7 +59,24 @@ Phases, each printing one JSON line to stdout:
    DropBlock, space-to-depth and pools, attention, the lambda layer, NormConv2d,
    SlimConv2d) and each box op, forward and backward at small shapes, against the
    same on the CPU with the same weights and random draw.
-12. ``checks``: each kernel against its plain PyTorch version on the card at the shapes
+12. ``bench``: ``python -m holocron_tpu_torch.bench``'s protocol (``bench.py:72-175``
+   of the JAX package: BN adapted, ``reparametrize()``, bf16 and the gated
+   selective-int8 form timed through the captured deploy forward at batch 256) on
+   repvgg_a0 twice and rexnet1_0x once, each run's JSON line printed; the two
+   repvgg_a0 gates must read the same.
+13. ``deploy_graph``: ``models.core.deploy_forward`` (one CUDA graph a batch bucket,
+   1/2/4/8) in four forms, repvgg_a0 bf16 and int8 (logits) and the service's
+   rexnet1_0x float32 and int8 with float32 output (uint8 in, softmax inside): each
+   bucket's replay equal to the eager forward bit for bit; each capture holding the
+   quantization and the conv once an int8 layer; batch-8 latency, graph against eager
+   (CUDA events and wall time). (After the checks, a ``deploy_graph_profile`` line:
+   kernel time, idle share and the int8 kernels a replay, from ``torch.profiler``.)
+14. ``service``: ``holocron_tpu_torch.api``'s stdlib server on 127.0.0.1 with
+   rexnet1_0x on the card, float32 and under ``HOLOCRON_QUANTIZE=force``: ``GET
+   /status``, the repository's JPEG asset posted, a non-image body (400), and
+   ``bench_serving``'s closed loop at concurrency 1, 4, 16 and 64 (p50/p90/p99, req/s,
+   mean device batch); every request a graph replay.
+15. ``checks``: each kernel against its plain PyTorch version on the card at the shapes
    the paths gave it, with its time, its plain version's time, the time of one PyTorch
    call computing the same function where there is one (``torch.cdist`` for add2d), and
    its bound: the larger of the bytes it must move over 3.35 TB/s and the operations it
@@ -80,8 +97,10 @@ Phases, each printing one JSON line to stdout:
    time).
 
 Each kernel's launch counter is set to 0 just before the path that runs it and read
-just after; a kernel that its path never launched fails the run. Then come the
-``kernels`` line (the int8 entries over the three serving paths), the card's name and power
+just after; a kernel that its path never launched fails the run (a graph replay makes
+no call that a counter sees: the profiler counts the kernels of the replays). Then come
+the ``kernels`` line (the int8 entries over the serving, bench, deploy-graph and service
+paths), the card's name and power
 limit as ``nvidia-smi`` reports them, and last ``{"ok": true, "device": {...}}``. Each
 phase's wall time goes to stderr. Float32 checks run with TF32 off
 (``torch.backends.cudnn.allow_tf32`` and ``torch.backends.cuda.matmul.allow_tf32``).
@@ -151,20 +170,6 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def naturalistic_batch(gen, batch: int, size: int, device):
-    """``bench.py:58-69``: bilinear-upsampled noise plus a per-image colour cast,
-    standardized per image, channels_last."""
-    import torch
-    from torch.nn import functional as F
-
-    coarse = torch.randn(batch, 3, size // 8, size // 8, generator=gen, device=device)
-    img = F.interpolate(coarse, size=(size, size), mode="bilinear", align_corners=False)
-    img = img + 0.5 * torch.randn(batch, 3, 1, 1, generator=gen, device=device)
-    mean = img.mean(dim=(1, 2, 3), keepdim=True)
-    std = img.std(dim=(1, 2, 3), keepdim=True, unbiased=False)
-    return ((img - mean) / (std + 1e-6)).contiguous(memory_format=torch.channels_last)
-
-
 def reset_counts() -> None:
     from holocron_tpu_torch.kernels import KERNELS
 
@@ -201,6 +206,7 @@ def phase_serving(device, arch: str = "repvgg_a0", int8_layers: int = 26, wgmma_
     import torch
 
     from holocron_tpu_torch import models
+    from holocron_tpu_torch.bench import naturalistic_batch
     from holocron_tpu_torch.kernels import KERNELS
     from holocron_tpu_torch.kernels.int8_conv import conv_route
     from holocron_tpu_torch.quant import QuantizedConv2d, measure_agreement, quantize_model
@@ -310,10 +316,14 @@ def phase_serving_profile(qm, model_bf16, x, r8, phase: str = "serving_profile")
                              for form, fn in (("int8", qm), ("bf16", model_bf16)) for xb in (x, r8)}})
 
 
-def profile_forward(fn, x, steps: int = 5, top: int = 10) -> dict:
+def profile_forward(fn, x, steps: int = 5, top: int = 10, count: tuple = ()) -> dict:
     """``torch.profiler`` over ``steps`` forwards after warm-up: host wall ms (inflated
     by the profiler itself), summed kernel ms, idle share (1 - kernel / wall) and
-    launches per forward, and the kernels that take the most device time."""
+    launches per forward, and the kernels that take the most device time; ``counts``:
+    for each name in ``count``, the launches a forward of the kernels whose name holds
+    it (a CUDA graph's replay included: the profiler sees the kernels a graph runs). The
+    profiler may miss a few kernels late in a long run (on an H100: 3 of 130, 17 of 220
+    int8 kernels over 5 replays): its counts are a lower bound."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -333,7 +343,261 @@ def profile_forward(fn, x, steps: int = 5, top: int = 10) -> dict:
     kernel_ms = sum(e.device_time_total for e in kernels) / 1e3 / steps
     return {"wall_ms": wall_ms, "kernel_ms": kernel_ms, "idle": 1 - kernel_ms / wall_ms,
             "kernel_launches": sum(e.count for e in kernels) / steps,
+            "counts": {name: sum(e.count for e in kernels if name in e.key) / steps for name in count},
             "top": [[e.key[:90], e.device_time_total / 1e3 / steps, e.count / steps] for e in kernels[:top]]}
+
+
+INT8_KERNEL_NAMES = ("int8_conv_wgmma_kernel", "int8_quantize")  # the kernels' names in a profile
+PROFILED_STEPS = 5  # the forwards phase_deploy_graph_profile profiles a form
+
+
+def int8_launches() -> dict:
+    """The int8 kernels' launch counters (calls from Python: a graph replay makes none)."""
+    from holocron_tpu_torch.kernels import KERNELS
+
+    return {"int8_conv": KERNELS["int8_conv"].launches, "int8_quantize": KERNELS["int8_quantize"].launches,
+            "int8_conv_general": KERNELS["int8_conv_general"].launches}
+
+
+def phase_bench(device) -> dict:
+    """``python -m holocron_tpu_torch.bench``'s protocol (``bench.run``, batch 256, 224
+    px) on repvgg_a0 twice and on rexnet1_0x once; prints each run's JSON line. Fails
+    if the int8 form failed in a run, or if the two repvgg_a0 gates read differently
+    (their weights and gate come from one seed with deterministic cuDNN)."""
+    from holocron_tpu_torch import bench
+
+    reset_counts()
+    runs = []
+    for arch in ("repvgg_a0", "repvgg_a0", "rexnet1_0x"):
+        r = bench.run(arch, device=device)
+        if r["int8_error"] is not None:
+            fail(f"bench {arch}: the int8 form failed:\n{r['int8_error']}")
+        line = {k: r[k] for k in ("metric", "value", "unit", "vs_baseline")}
+        print(json.dumps(line), flush=True)
+        runs.append({"arch": arch, **line, "bf16_img_per_s": r["bf16_img_per_s"],
+                     "int8_img_per_s": r["int8_img_per_s"], **r["agreement"]})
+    if runs[0]["top1_agreement"] != runs[1]["top1_agreement"] or runs[0]["max_prob_drift"] != runs[1]["max_prob_drift"]:
+        fail(f"bench: the two repvgg_a0 gates differ: {runs[0]} against {runs[1]}")
+    launches = int8_launches()
+    if not launches["int8_conv"] or not launches["int8_quantize"]:
+        fail(f"bench: the int8 forms launched no int8 kernel ({launches})")
+    emit({"phase": "bench", "runs": runs, "launches": launches})
+    return launches
+
+
+def _service_form(device, arch: str, quantize):
+    """The model the service builds for ``arch`` on the card (float32, reparametrized
+    where it can be, int8 with per-call scales when ``quantize`` is "force")."""
+    from holocron_tpu_torch.api import config, vision
+
+    config.ARCH, config.DEVICE, config.QUANTIZE = arch, str(device), quantize
+    return vision.load_model()
+
+
+def phase_deploy_graph(device, qm, model_bf16, buckets=(1, 2, 4, 8), size: int = 224, iters: int = 50) -> tuple:
+    """``models.core.deploy_forward`` against the eager forward in four forms: repvgg_a0
+    in bf16 and int8 (the serving phase's models; normalized NCHW in, logits out) and
+    rexnet1_0x in float32 and int8 with float32 output (the service's models, per-call
+    activation scales; uint8 NHWC in, probabilities out). Building it must launch each
+    int8 kernel once an int8 layer in each warm-up forward and each bucket's capture: a
+    graph holds, and each replay runs, the quantization and the conv once an int8
+    layer. At each bucket, and at a batch of 3 padded to 4, the replay's output must
+    equal the eager forward's on the same (padded) input bit for bit. At batch 8: the
+    device time a call from CUDA events and the wall time a call (host clock,
+    synchronized), for the graph and the eager forward. Returns each form's record,
+    forwards, model and batch-8 input for :func:`phase_deploy_graph_profile` and
+    :func:`check_int8_service`, which run once the timed phases are done, and the int8
+    kernels' launches the counters saw (warm-ups, captures and eager forwards)."""
+    import functools
+
+    import torch
+
+    from holocron_tpu_torch.models.core import WARMUP, deploy_forward, softmax_forward
+    from holocron_tpu_torch.models.presets import IMAGENETTE
+    from holocron_tpu_torch.quant import QuantizedConv2d
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 20)
+    mean_std = (IMAGENETTE.mean, IMAGENETTE.std)
+    mean, std = (torch.tensor(v, device=device).reshape(1, 3, 1, 1) for v in mean_std)
+    forms = (("repvgg_a0", "bf16", lambda: model_bf16, False), ("repvgg_a0", "int8", lambda: qm, False),
+             ("rexnet1_0x", "float32", lambda: _service_form(device, "rexnet1_0x", False), True),
+             ("rexnet1_0x", "int8_f32", lambda: _service_form(device, "rexnet1_0x", "force"), True))
+    reset_counts()
+    out = []
+    for arch, form, build, u8 in forms:
+        model = build()
+        n_int8 = sum(isinstance(m, QuantizedConv2d) for m in model.modules())
+        eager = functools.partial(softmax_forward, model, mean=mean, std=std) if u8 else model
+        before = int8_launches()
+        graph = deploy_forward(model, buckets, size, mean_std if u8 else None)
+        captured = {k: v - before[k] for k, v in int8_launches().items()}
+        expected = (WARMUP + 1) * len(buckets) * n_int8
+        if captured != {"int8_conv": expected, "int8_quantize": expected, "int8_conv_general": 0}:
+            fail(f"deploy_graph {arch} {form}: building the graphs launched {captured}, expected {expected} "
+                 "of each int8 kernel")
+        replay = graph
+
+        def batch_of(n):
+            if u8:
+                return torch.randint(0, 256, (n, size, size, 3), generator=gen, device=device, dtype=torch.uint8)
+            return torch.randn(n, 3, size, size, generator=gen, device=device).to(torch.bfloat16).contiguous(
+                memory_format=torch.channels_last)
+
+        record = {"model": arch, "form": form, "batch": 8, "buckets": list(buckets), "int8_convs": n_int8,
+                  "capture_int8_launches": captured}
+        with torch.no_grad():
+            for n in (*buckets, 3):
+                xb = batch_of(n)
+                got = replay(xb).clone()
+                pad = next(b for b in buckets if b >= n) - n  # the graph pads with the last sample
+                want = eager(torch.cat([xb, xb[-1:].expand(pad, *xb.shape[1:])]))[:n]
+                if not torch.equal(got, want):
+                    fail(f"deploy_graph {arch} {form}: the replay at batch {n} differs from the eager forward "
+                         f"(max {float((got.float() - want.float()).abs().max())})")
+            x8 = batch_of(8)
+            for name, fn in (("graph", replay), ("eager", eager)):
+                device_ms = cuda_ms(lambda: fn(x8), iters)
+                t0 = time.perf_counter()
+                for _ in range(iters):
+                    fn(x8)
+                    torch.cuda.synchronize()
+                record[name] = {"device_ms": device_ms, "wall_ms": (time.perf_counter() - t0) * 1e3 / iters}
+        record["eager_over_graph_wall"] = record["eager"]["wall_ms"] / record["graph"]["wall_ms"]
+        emit({"phase": "deploy_graph", **record})
+        out.append({"record": record, "fns": {"graph": replay, "eager": eager}, "model": model, "u8": u8, "x8": x8})
+    torch.cuda.synchronize()
+    return out, int8_launches()
+
+
+def phase_deploy_graph_profile(forms: list) -> dict:
+    """``torch.profiler`` over the batch-8 graph replays and eager forwards of
+    :func:`phase_deploy_graph`'s forms (after the timed phases: once the profiler has
+    run, the host launches more slowly; first of the profiles: a long run's later
+    profiles lose kernel records, on an H100 some or all of a profile's): kernel ms and
+    launches a forward, the idle share 1 - kernel ms / the unprofiled wall ms, and the
+    int8 kernels the profiler saw a forward, which must be some and at most one
+    quantization and one conv an int8 layer in a replay as in the eager forward (the
+    exact count a replay runs is held where the graphs are built). A profile that
+    recorded no kernel is taken again, at most three times (``profiles``). Returns the
+    int8 launches the counters saw (the eager forwards) and, apart, the int8 kernels the
+    profiler saw in the replays: a lower bound of what they ran, as it drops records."""
+    reset_counts()
+    seen = {"int8_conv": 0, "int8_quantize": 0, "int8_conv_general": 0}
+    for form in forms:
+        record, n_int8 = form["record"], form["record"]["int8_convs"]
+        line = {"phase": "deploy_graph_profile", "model": record["model"], "form": record["form"], "batch": 8}
+        for name, fn in form["fns"].items():
+            for attempt in range(1, 4):  # a profile that recorded no kernel at all lost its records
+                prof = profile_forward(fn, form["x8"], steps=PROFILED_STEPS, count=INT8_KERNEL_NAMES)
+                if prof["kernel_launches"]:
+                    break
+            per = prof["counts"].values()
+            if any(not (0 < v <= n_int8) for v in per) if n_int8 else any(per):
+                fail(f"deploy_graph {record['model']} {record['form']} {name}: the profiler saw int8 kernels "
+                     f"{prof['counts']} a forward, expected some and at most {n_int8} of each")
+            line[name] = {"kernel_ms": prof["kernel_ms"], "kernel_launches": prof["kernel_launches"],
+                          "idle": 1 - prof["kernel_ms"] / record[name]["wall_ms"], "int8_per_forward": prof["counts"],
+                          "profiled_wall_ms": prof["wall_ms"], "profiles": attempt, "top": prof["top"][:5]}
+            if name == "graph":
+                for key, kernel in zip(("int8_conv", "int8_quantize"), INT8_KERNEL_NAMES):
+                    seen[key] += round(prof["counts"][kernel] * PROFILED_STEPS)
+        emit(line)
+    return int8_launches(), seen
+
+
+def _request(port: int, method: str, path: str, body: bytes = None) -> tuple:
+    """One request to the service on its own connection: status, JSON body, headers."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    try:
+        conn.request(method, path, body=body)
+        resp = conn.getresponse()
+        return resp.status, json.loads(resp.read()), dict(resp.getheaders())
+    finally:
+        conn.close()
+
+
+def phase_service(device, requests: int = 100, concurrency=(1, 4, 16, 64)) -> dict:
+    """The classification service (``holocron_tpu_torch.api``) on the card, in a thread
+    on 127.0.0.1, rexnet1_0x (the API's default), in its float32 form and under
+    ``HOLOCRON_QUANTIZE=force``. For each form: the model loaded and every bucket
+    captured (``vision.get_batcher``), ``GET /status``, the JPEG asset posted (200, a
+    label of the model's classes, the ``X-*`` stage headers), a non-image body (400),
+    ``requests / 2`` sequential requests (the stage attribution: decode, queue, device
+    call, the rest of the host's time), then ``bench_serving``'s closed loop at each
+    concurrency with about ``requests`` timed requests (at least ``MIN_PER_CLIENT`` a
+    client), every one of which must be answered 200. The int8 kernels must have been launched by the captures alone (the
+    quantization and the conv once an int8 layer in each of the warm-up forwards and the
+    capture of each of the 4 buckets) and by no request: every request replays a graph,
+    which runs the kernels its capture recorded. Names the JPEG decoder that served."""
+    import importlib.util
+    import threading
+
+    from holocron_tpu_torch import bench_serving
+    from holocron_tpu_torch.api import main as api_main
+    from holocron_tpu_torch.api import config, vision
+    from holocron_tpu_torch.models.core import WARMUP
+    from holocron_tpu_torch.quant import QuantizedConv2d
+    from holocron_tpu_torch.utils.data import native_available
+
+    decoder = "native" if native_available() else "PIL" if importlib.util.find_spec("PIL") else None
+    if decoder is None:
+        fail("service: no JPEG decoder (neither g++ with libjpeg nor PIL) on this machine")
+    payload = bench_serving.ASSET.read_bytes()
+    config.ARCH, config.DEVICE = "rexnet1_0x", str(device)
+    srv = api_main.serve("127.0.0.1", 0)
+    port = srv.server_address[1]
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    total = {"int8_conv": 0, "int8_quantize": 0, "int8_conv_general": 0}
+    try:
+        for form, quantize in (("float32", False), ("int8", "force")):
+            vision.reset()
+            config.QUANTIZE = quantize
+            reset_counts()
+            t0 = time.perf_counter()
+            vision.get_batcher()
+            setup_s = time.perf_counter() - t0
+            n_int8 = sum(isinstance(m, QuantizedConv2d) for m in vision.get_model().modules())
+            if n_int8 != (44 if quantize else 0):
+                fail(f"service {form}: {n_int8} int8 convs")
+            captured = int8_launches()
+            expected = (WARMUP + 1) * 4 * n_int8  # the warm-ups and the capture of each of the 4 buckets
+            if captured != {"int8_conv": expected, "int8_quantize": expected, "int8_conv_general": 0}:
+                fail(f"service {form}: the captures launched {captured}, expected {expected} of each int8 kernel")
+            s_code, s_body, _ = _request(port, "GET", "/status")
+            if s_code != 200 or s_body.get("status") != "ok":
+                fail(f"service {form}: GET /status answered {s_code} {s_body}")
+            c_code, c_body, c_headers = _request(port, "POST", "/classification", payload)
+            if (c_code != 200 or c_body.get("value") not in vision.CLASSES or not 0 <= c_body.get("confidence", -1) <= 1
+                    or any(h not in c_headers for h in ("X-Decode-Ms", "X-Queue-Ms", "X-Infer-Ms", "X-Batch-Size"))):
+                fail(f"service {form}: POST of the JPEG answered {c_code} {c_body} {c_headers}")
+            b_code, _, _ = _request(port, "POST", "/classification", b"not an image")
+            if b_code != 400:
+                fail(f"service {form}: a non-image body answered {b_code}, expected 400")
+            sequential = bench_serving.sequential(port, payload, requests // 2)
+            rows = []
+            for k in concurrency:
+                row = bench_serving.closed_loop(port, payload, k, bench_serving.per_client(requests, k))
+                if row["n"] != k * bench_serving.per_client(requests, k):
+                    fail(f"service {form}: {row['n']} answers at concurrency {k}")
+                rows.append(row)
+            launches = int8_launches()
+            if launches != captured:
+                fail(f"service {form}: requests launched int8 kernels from Python ({launches} against the "
+                     f"captures' {captured}): they ran eagerly, not as graph replays")
+            for key, v in launches.items():
+                total[key] += v
+            emit({"phase": "service", "model": "rexnet1_0x", "form": form, "decoder": decoder, "cudnn_tf32": False,
+                  "setup_s": setup_s, "int8_convs": n_int8, "answer": c_body, "sequential": sequential,
+                  "closed_loop": rows,
+                  "launches": launches})
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        vision.reset()
+    return total
 
 
 def phase_involution(device, iters: int = 20):
@@ -706,6 +970,53 @@ def check_int8(device, qm, model_bf16, x, model: str = "repvgg_a0", iters: int =
     return {**record, "rows": rows}
 
 
+def check_int8_service(device, forms: list, batches=(8, 1)) -> dict:
+    """The int8 kernels at the shapes the service's int8 form gives them (float32
+    activations, per-call scales, rexnet1_0x's widths): each ``QuantizedConv2d`` input
+    of :func:`phase_deploy_graph`'s uint8-in int8 form, hooked in its eager forward at
+    each of ``batches``, held against the plain versions (``_int8_case_holds``) with the
+    scale that layer computed for that call."""
+    import torch
+
+    from holocron_tpu_torch.kernels import int8_conv as K
+    from holocron_tpu_torch.quant import QuantizedConv2d
+
+    form = next(f for f in forms if f["u8"] and f["record"]["int8_convs"])
+    model, eager, size = form["model"], form["fns"]["eager"], form["x8"].shape[1]
+    layers = [(name, m) for name, m in model.named_modules() if isinstance(m, QuantizedConv2d)]
+    gen = torch.Generator(device=device).manual_seed(SEED + 21)
+    cases = []
+
+    def capture(name, module):
+        def hook(_, args):
+            cases.append((name, module, args[0], module.activation_scale(args[0])))
+
+        return hook
+
+    handles = [m.register_forward_pre_hook(capture(name, m)) for name, m in layers]
+    try:
+        with torch.no_grad():
+            for b in batches:
+                eager(torch.randint(0, 256, (b, size, size, 3), generator=gen, device=device, dtype=torch.uint8))
+    finally:
+        for hd in handles:
+            hd.remove()
+    if len(cases) != len(layers) * len(batches) or any(x.dtype != torch.float32 for _, _, x, _ in cases):
+        fail(f"int8 service check: hooked {len(cases)} float32 inputs, expected {len(layers) * len(batches)}")
+    max_err = {"wgmma": 0.0, "general": 0.0}
+    for name, m, xin, s_x in cases:
+        route = K.conv_route(m.kernel_q.shape[2], m.kernel_q.shape[3], m.groups)
+        _int8_case_holds(f"{form['record']['model']} {form['record']['form']} {name} batch {xin.shape[0]}", route,
+                         xin.permute(0, 2, 3, 1), s_x, m.kernel_q, m.kernel_packed, m.w_scale, m.bias, m.stride,
+                         m.padding, m.dilation, m.groups, max_err)
+    torch.cuda.synchronize()
+    record = {"kernel": "int8_conv", "model": form["record"]["model"], "form": form["record"]["form"],
+              "input_dtype": "float32", "batches": list(batches), "cases": len(cases),
+              "channels": sorted({int(x.shape[1]) for _, _, x, _ in cases}), "max_abs_err_bf16": max_err}
+    emit({"phase": "check_int8_service", **record})
+    return record
+
+
 def check_int8_grouped(device, batch: int = 256, iters: int = 20) -> list:
     """The grouped general route at resnext101_32x8d's stage-4 3x3 conv (32 groups of
     64 channels, 2048 -> 2048, pad 1): the 7 x 7 stride-1 conv and the stride-2 first
@@ -931,6 +1242,7 @@ def phase_resnet_zoo(device, batch: int = 32, size: int = 224, num_classes: int 
     import torch
 
     from holocron_tpu_torch import models
+    from holocron_tpu_torch.bench import naturalistic_batch
 
     gen = torch.Generator(device=device).manual_seed(SEED + 10)
     x = naturalistic_batch(gen, batch, size, device)
@@ -1333,11 +1645,15 @@ def check_add2d(device, l: int = 12544, d: int = 576, o: int = 128, iters: int =
     return records
 
 
-def int8_entries(launches: list, records: list, grouped: list) -> list:
-    """The ``kernels`` line's entries of the int8 kernels, over the serving paths
-    (repvgg_a0's, resnet50's and rexnet1_0x's): launches summed over the paths' runs;
+def int8_entries(launches: list, replays_seen: dict, records: list, grouped: list) -> list:
+    """The ``kernels`` line's entries of the int8 kernels: launches the counters saw,
+    summed over the paths' runs (the three serving paths, the bench, the captured
+    deploy forward's warm-ups, captures and eager forwards, and the service's captures);
+    apart from them, ``replay_launches_seen``: the launches ``torch.profiler`` saw in
+    graph replays, a lower bound (it drops records; a replay makes no call a counter
+    sees);
     the wgmma conv's and the quantization's times and bounds summed over one batch-256
-    forward of each model (each geometry times its count of layers; each conv's bound
+    forward of each serving model (each geometry times its count of layers; each conv's bound
     counts the int8 x it reads). No path runs the general route (0 launches): its times
     are those of the grouped check (``grouped``: resnext101_32x8d's two stage-4 convs,
     summed). ``library_ms`` is None: ``torch._int_mm`` computes only the 1x1 stride-1
@@ -1356,8 +1672,9 @@ def int8_entries(launches: list, records: list, grouped: list) -> list:
 
     def entry(name, source, ms, plain_ms, bound_ms, bound_by, max_abs_err):
         return {"name": name, "route": "cuda", "source": src + source, "replaces": "holocron_tpu/quant.py:259",
-                "launches": sum(run[name] for run in launches), "max_abs_err": max_abs_err, "ms": ms,
-                "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+                "launches": sum(run[name] for run in launches), "replay_launches_seen": replays_seen[name],
+                "max_abs_err": max_abs_err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                "bound_by": bound_by, "library_ms": None}
 
     quantize = entry("int8_quantize", "int8_conv.cu", total("quantize_ms"), total("quantize_plain_ms"),
                      total("quantize_bound_ms"), "bytes", 0.0)
@@ -1403,14 +1720,19 @@ def main() -> int:
     add2d_launches = timed(phase_add2d, device)
     timed(phase_resnet_zoo, device)
     timed(phase_nn_catalog, device)
+    bench_launches = timed(phase_bench, device)
+    graph_forms, graph_launches = timed(phase_deploy_graph, device, qm, model_bf16)
+    service_launches = timed(phase_service, device)
     inv = timed(check_involution, device)
     inv_bwd = timed(check_involution_bwd, device)
     add = timed(check_add2d, device)
     i8 = timed(check_int8, device, qm, model_bf16, x)
     i8_resnet = timed(check_int8, device, rqm, rmodel_bf16, rx, "resnet50")
     i8_rexnet = timed(check_int8, device, xqm, xmodel_bf16, xx, "rexnet1_0x")
+    timed(check_int8_service, device, graph_forms)
     emit({"phase": "rexnet_int8_by_kind", **rexnet_int8_by_kind(i8_rexnet["rows"])})
     grouped = timed(check_int8_grouped, device)
+    profile_launches, replays_seen = timed(phase_deploy_graph_profile, graph_forms)
     timed(phase_serving_profile, qm, model_bf16, x, r8)
     timed(phase_serving_profile, rqm, rmodel_bf16, rx, rr8, "resnet_serving_profile")
     timed(phase_serving_profile, xqm, xmodel_bf16, xx, xr8, "rexnet_serving_profile")
@@ -1432,7 +1754,8 @@ def main() -> int:
               add["add2d_fwd"]["max_abs_err"]),
         *(entry(name, add_src, "holocron_tpu/kernels/add2d.py:82", add2d_launches[name], add[name],
                 add[name]["max_abs_err"]) for name in ("add2d_bwd_dp", "add2d_bwd_dw")),
-        *int8_entries([serving_launches, resnet_launches, rexnet_launches], [i8, i8_resnet, i8_rexnet], grouped),
+        *int8_entries([serving_launches, resnet_launches, rexnet_launches, bench_launches, graph_launches,
+                       service_launches, profile_launches], replays_seen, [i8, i8_resnet, i8_rexnet], grouped),
     ]})
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

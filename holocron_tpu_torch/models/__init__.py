@@ -1,2 +1,2 @@
-from . import checkpoints, classification, layers, presets, utils
+from . import checkpoints, classification, core, layers, presets, utils
 from .classification import *  # noqa: F403

@@ -39,6 +39,7 @@ __all__ = [
     "quantize_activation",
     "quantize_conv_params",
     "quantize_model",
+    "recommended_quantization",
     "selection_policy",
 ]
 
@@ -63,6 +64,19 @@ QUANT_POLICY: Dict[str, Dict] = {
 }
 _SELECTION_FIELDS = ("min_in_channels", "quantize_strided")
 
+# The int8 form's speed against bf16 on the card, kept apart from QUANT_POLICY (whose
+# fields are the JAX file's, and the JAX file's speeds are TPU figures): int8 img/s over
+# bf16 img/s of `HOLOCRON_INT8_AGREEMENT=0 python -m holocron_tpu_torch.bench --arch
+# <arch>` (batch 256, 224 px, both forms timed through the captured deploy forward) on an
+# NVIDIA H100 80GB HBM3 at 700.00 W: repvgg_a0 49,069 / 37,596, resnet50 10,571 /
+# 13,054, rexnet1_0x 17,613 / 17,934 img/s (PERF.md, section 6). `recommended` is
+# int8_speedup >= 1.05, the JAX policy's rule (scripts/gen_quant_policy.py:91).
+INT8_VERDICTS: Dict[str, Dict] = {
+    "repvgg_a0": {"int8_speedup": 1.305, "recommended": True},
+    "resnet50": {"int8_speedup": 0.81, "recommended": False},
+    "rexnet1_0x": {"int8_speedup": 0.982, "recommended": False},
+}
+
 
 def selection_policy(arch: str) -> Optional[Dict]:
     """The fields of the per-arch policy that select which convs are int8, or None when
@@ -70,6 +84,14 @@ def selection_policy(arch: str) -> Optional[Dict]:
     rewrite of the same convs, not a selection.)"""
     entry = QUANT_POLICY.get(arch)
     return None if entry is None else {k: entry[k] for k in _SELECTION_FIELDS if k in entry}
+
+
+def recommended_quantization(arch: str) -> Optional[Dict]:
+    """The measured int8-against-bf16 verdict for ``arch`` on the card,
+    ``{"int8_speedup": float, "recommended": bool}``, or None where it was not measured
+    (``holocron_tpu/quant.py:56-67``); the service then serves the float form."""
+    verdict = INT8_VERDICTS.get(arch)
+    return None if verdict is None else dict(verdict)
 
 
 def _is_quantizable_conv(module: nn.Module) -> bool:
@@ -171,11 +193,15 @@ class QuantizedConv2d(nn.Module):
         super()._load_from_state_dict(*args, **kwargs)
         self.kernel_packed = self._packed()  # kernel_q may have changed in place
 
+    def activation_scale(self, x: torch.Tensor) -> torch.Tensor:
+        """The scale ``x`` is quantized with: the calibrated one, or else ``x``'s own,
+        computed on its device (a graph capture takes no host sync)."""
+        if self.act_scale is not None:
+            return self.act_scale
+        return x.detach().abs().amax().float().clamp_min(1e-12) * _INV_QINT_MAX
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.act_scale is None:
-            s_x = x.detach().abs().amax().float().clamp_min(1e-12) * _INV_QINT_MAX
-        else:
-            s_x = self.act_scale
+        s_x = self.activation_scale(x)
         # NHWC: a free view when x is channels_last, as on the card
         y = quantized_conv(
             x.permute(0, 2, 3, 1), s_x, self.kernel_q, self.w_scale, self.bias,

@@ -701,3 +701,79 @@ def test_new_kernels_refuse_what_they_do_not_take(cuda):
     kern = torch.zeros(1, 2, 2, 9 * 2, device=cuda)
     with pytest.raises(ValueError):
         V.involution_bwd_dxp(xp, kern, torch.zeros(1, 2, 2, 3, device=cuda), 3, 2)
+
+
+@pytest.mark.parametrize("form", ["float", "int8"])
+@pytest.mark.parametrize("u8", [False, True], ids=["logits", "uint8_softmax"])
+def test_deploy_forward_graph_equals_eager(cuda, form, u8):
+    """``deploy_forward``'s CUDA graph replays equal the eager forward bit for bit at
+    each bucket and at a batch of 3 (padded to 4 with its last sample), in the float
+    and the int8 form (per-call activation scales, float32 output), for the bench's
+    NCHW input and the service's uint8 input with softmax, after the memory freed
+    since the capture was overwritten; the int8 kernels launch in the warm-ups and the
+    captures, and a replay launches none from Python."""
+    from holocron_tpu_torch import quant
+    from holocron_tpu_torch.models import RepVGG
+    from holocron_tpu_torch.models.core import WARMUP, deploy_forward, softmax_forward
+    from holocron_tpu_torch.models.presets import IMAGENETTE
+
+    gen = torch.Generator().manual_seed(21)
+    model = RepVGG([1, 1], [16, 32], 1.0, 1.0, generator=gen, device="cpu").eval().reparametrize()
+    model = model.to(cuda).to(memory_format=torch.channels_last)
+    if form == "int8":
+        model = quant.quantize_model(model, min_in_channels=16)
+    mean_std = (IMAGENETTE.mean, IMAGENETTE.std) if u8 else None
+    buckets, size = (1, 2, 4, 8), 32
+    before = (INT8_KERNEL.launches, Q.KERNEL_QUANTIZE.launches)
+    graph = deploy_forward(model, buckets, size, mean_std)
+    layers = sum(isinstance(m, quant.QuantizedConv2d) for m in model.modules())
+    captured = (INT8_KERNEL.launches - before[0], Q.KERNEL_QUANTIZE.launches - before[1])
+    assert captured == ((WARMUP + 1) * len(buckets) * layers,) * 2  # the warm-ups and the capture a bucket
+    # memory freed since the capture, filled with NaN: the graphs read none of it (the
+    # forward holds its mean and std, as the model's weights)
+    junk = [torch.full((1, 3, 1, 1), float("nan"), device=cuda) for _ in range(256)]
+    if u8:
+        mean, std = (torch.tensor(v, device=cuda).reshape(1, 3, 1, 1) for v in mean_std)
+        eager = lambda x: softmax_forward(model, x, mean, std)  # noqa: E731
+    else:
+        eager = model
+    dgen = torch.Generator(device=cuda).manual_seed(22)
+    for n in (1, 2, 3, 4, 8):
+        if u8:
+            x = torch.randint(0, 256, (n, size, size, 3), generator=dgen, device=cuda, dtype=torch.uint8)
+        else:
+            x = torch.randn(n, 3, size, size, generator=dgen, device=cuda).contiguous(memory_format=torch.channels_last)
+        launches = (INT8_KERNEL.launches, Q.KERNEL_QUANTIZE.launches)
+        got = graph(x).clone()
+        assert (INT8_KERNEL.launches, Q.KERNEL_QUANTIZE.launches) == launches
+        pad = 4 - n if n == 3 else 0
+        with torch.no_grad():
+            want = eager(torch.cat([x, x[-1:].expand(pad, *x.shape[1:])]))[:n]
+        torch.cuda.synchronize()
+        assert got.shape == want.shape and torch.equal(got, want), n
+    with pytest.raises(ValueError):
+        graph(x[:1].expand(9, *x.shape[1:]))
+    del junk
+
+
+def test_micro_batcher_works_on_its_own_stream_on_the_card(cuda):
+    """The service's batcher given ``device="cuda"`` (no index, as HOLOCRON_DEVICE's
+    default reads) runs its model calls on that device and on a stream of its own."""
+    import numpy as np
+
+    from holocron_tpu_torch.api.batcher import MicroBatcher
+
+    seen = []
+
+    def infer(batch):
+        stream = torch.cuda.current_stream()
+        seen.append((torch.cuda.current_device(), stream != torch.cuda.default_stream()))
+        return torch.from_numpy(batch).to("cuda").mul(2).cpu().numpy()
+
+    b = MicroBatcher(infer, max_batch=2, max_wait_ms=1, device="cuda")
+    try:
+        out = b.submit(np.ones((2, 3), np.float32))
+    finally:
+        b.close()
+    assert seen == [(torch.cuda.current_device(), True)]
+    assert out["batch_size"] == 1 and (out["probs"] == 2).all()

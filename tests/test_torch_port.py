@@ -30,8 +30,10 @@ ROOT = Path(__file__).resolve().parents[1]
 
 
 def test_port_imports_no_jax():
-    """Every module of the package, and chip_smoke.py, imports with jax, flax, optax and
-    the JAX package made unimportable."""
+    """Every module of the package (the service, the benches and the captured forward
+    among them), and chip_smoke.py, imports with jax, flax, optax and the JAX package
+    made unimportable, and imports neither PIL nor fastapi (each is imported where it
+    is used)."""
     code = (
         "import sys, pkgutil, importlib\n"
         "for name in ('jax', 'jaxlib', 'flax', 'optax', 'holocron_tpu'):\n"
@@ -43,6 +45,10 @@ def test_port_imports_no_jax():
         "assert not any(sys.modules[m] is not None for m in sys.modules\n"
         "               if m.startswith('holocron_tpu.') or m == 'holocron_tpu')\n"
         "assert 'holocron_tpu_torch.ops.boxes' in sys.modules and 'holocron_tpu_torch.nn.modules.loss' in sys.modules\n"
+        "assert all(m in sys.modules for m in ('holocron_tpu_torch.bench', 'holocron_tpu_torch.bench_serving',\n"
+        "    'holocron_tpu_torch.models.core', 'holocron_tpu_torch.api.main', 'holocron_tpu_torch.api.vision',\n"
+        "    'holocron_tpu_torch.api.batcher', 'holocron_tpu_torch.utils.data._native'))\n"
+        "assert 'PIL' not in sys.modules and 'fastapi' not in sys.modules\n"
         "print('ok')\n"
     )
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120)
