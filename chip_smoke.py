@@ -76,7 +76,24 @@ Phases, each printing one JSON line to stdout:
    /status``, the repository's JPEG asset posted, a non-image body (400), and
    ``bench_serving``'s closed loop at concurrency 1, 4, 16 and 64 (p50/p90/p99, req/s,
    mean device batch); every request a graph replay.
-15. ``checks``: each kernel against its plain PyTorch version on the card at the shapes
+15. ``darknet_zoo`` (after ``resnet_zoo``): the same forwards of darknet24, darknet19,
+   darknet53, cspdarknet53 and cspdarknet53_mish (224 px, batch 32), each parameter
+   count held against the JAX package's at 10 classes. ``darknet_serving`` (after
+   ``rexnet_serving``): the serving path for darknet53, BN kept: 49 ``wgmma`` convs.
+16. ``detection_serving`` (after ``service``): yolov4 at 608 px, 80 classes, bf16 and
+   selective int8 (102 ``wgmma`` convs, the three prediction convs 255 wide) at batch
+   8 and 32, eager and through ``deploy_forward``'s graphs: the raw forward,
+   ``post_process`` alone and both together (ms, img/s, idle share; the replays' boxes,
+   scores, labels and keep masks equal to eager, bit for bit), the NMS pass alone; the
+   box-F1 int8 gate (``scripts/quant_accuracy.py``'s threshold ladder, then
+   ``measure_agreement_detection``) on 2 batches of 8, which fails on no detection;
+   each int8 conv's batch-8 input against the plain versions; yolov1 at 448 px and
+   yolov2 at 416 px in bf16. ``detection_training``: the detection reference's trainer
+   (amp, TAdam, onecycle, ``max_boxes`` 50) on yolov2 at 416 px (an epoch of 4 batches of
+   8 through ``fit_n_epochs``, ``evaluate()``, the four losses, finite gradients with
+   padded target slots, ms a step, peak memory, kernels a step) and yolov4 at 608 px
+   (2 timed steps).
+17. ``checks``: each kernel against its plain PyTorch version on the card at the shapes
    the paths gave it, with its time, its plain version's time, the time of one PyTorch
    call computing the same function where there is one (``torch.cdist`` for add2d), and
    its bound: the larger of the bytes it must move over 3.35 TB/s and the operations it
@@ -84,7 +101,8 @@ Phases, each printing one JSON line to stdout:
    backward (tiled and general) are checked and timed at the path's shape. The int8
    routes are checked (bit-exact quantization, also on inputs on its ties and beyond
    its clip; exact accumulator; outputs within one ulp) at each int8 layer geometry of
-   repvgg_a0 (nine), resnet50 (22) and rexnet1_0x (44) at batch 8 and 32, checked again
+   repvgg_a0 (nine), resnet50 (22), rexnet1_0x (44) and darknet53 (13) at batch 8 and
+   32, checked again
    and timed at each at batch 256 (``check_int8_geometry`` lines, device time from CUDA
    graphs): quantize + conv, each kernel, cuDNN's bf16 conv of the layer, the plain
    version, ``torch._int_mm`` on the same int8 operands for each 1x1 stride-1
@@ -99,8 +117,9 @@ Phases, each printing one JSON line to stdout:
 Each kernel's launch counter is set to 0 just before the path that runs it and read
 just after; a kernel that its path never launched fails the run (a graph replay makes
 no call that a counter sees: the profiler counts the kernels of the replays). Then come
-the ``kernels`` line (the int8 entries over the serving, bench, deploy-graph and service
-paths), the card's name and power
+the ``kernels`` line (the int8 entries over the serving, bench, deploy-graph, service and
+detection-serving paths; their times summed over the repvgg_a0, resnet50 and rexnet1_0x
+geometries), the card's name and power
 limit as ``nvidia-smi`` reports them, and last ``{"ok": true, "device": {...}}``. Each
 phase's wall time goes to stderr. Float32 checks run with TF32 off
 (``torch.backends.cudnn.allow_tf32`` and ``torch.backends.cuda.matmul.allow_tf32``).
@@ -293,6 +312,7 @@ def phase_serving(device, arch: str = "repvgg_a0", int8_layers: int = 26, wgmma_
         "int8_convs": n_int8,
         "int8_convs_wgmma": n_wgmma,
         "int8_convs_general": n_int8 - n_wgmma,
+        "int8_geometries": int8_geometries(qm),
         "convs": n_convs,
         "top1_agreement": agreement["top1_agreement"],
         "max_prob_drift": agreement["max_prob_drift"],
@@ -302,6 +322,7 @@ def phase_serving(device, arch: str = "repvgg_a0", int8_layers: int = 26, wgmma_
         "best_form": "selective-int8" if served and int8_ms < bf16_ms else "bf16",
         "bf16_img_per_s": batch / (bf16_ms / 1e3),
         "int8_img_per_s": batch / (int8_ms / 1e3),
+        "int8_over_bf16": bf16_ms / int8_ms,
         "bf16_batch8_ms": bf16_b8_ms,
         "int8_batch8_ms": int8_b8_ms,
         "launches": launches,
@@ -669,28 +690,37 @@ def check_involution(device, iters: int = 20) -> dict:
     return records
 
 
-def graph_ms(fn, iters: int = 20, replays: int = 3) -> float:
-    """Mean device time of ``fn`` in ms: ``iters`` calls captured in one CUDA graph,
-    replayed ``replays`` times between CUDA events, so that host time spent in the
-    wrappers between launches does not count."""
+def captured(fn, iters: int = 1, warmup: int = 1):
+    """``iters`` calls of ``fn`` captured in one CUDA graph, after ``warmup`` calls on a
+    side stream (first-launch set-up outside the capture); returns the graph's replay."""
     import torch
 
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):  # warm-up (first-launch set-up) outside the capture
-        for _ in range(3):
+    with torch.cuda.stream(side):
+        for _ in range(warmup):
             fn()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
         for _ in range(iters):
             fn()
-    graph.replay()
+    return graph.replay
+
+
+def graph_ms(fn, iters: int = 20, replays: int = 3) -> float:
+    """Mean device time of ``fn`` in ms: ``iters`` calls captured in one CUDA graph,
+    replayed ``replays`` times between CUDA events, so that host time spent in the
+    wrappers between launches does not count."""
+    import torch
+
+    replay = captured(fn, iters, warmup=3)
+    replay()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
     start.record()
     for _ in range(replays):
-        graph.replay()
+        replay()
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / (iters * replays)
@@ -1645,10 +1675,388 @@ def check_add2d(device, l: int = 12544, d: int = 576, o: int = 128, iters: int =
     return records
 
 
+DARKNETS = (("darknet24", 22413386), ("darknet19", 19827626), ("darknet53", 40595178),
+            ("cspdarknet53", 26627434), ("cspdarknet53_mish", 26627434))
+
+
+def phase_darknet_zoo(device, batch: int = 32, size: int = 224, num_classes: int = 10, iters: int = 10) -> None:
+    """One eval forward of each darknet at full width, in float32 and bf16, as
+    ``phase_resnet_zoo`` (channels_last, default BN statistics, random weights from the
+    seed, cuDNN's heuristics): each model's parameter count at 10 classes must equal
+    ``tests/test_models_classification.py:144-147``'s, its logits must be finite."""
+    import torch
+
+    from holocron_tpu_torch import models
+    from holocron_tpu_torch.bench import naturalistic_batch
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 30)
+    x = naturalistic_batch(gen, batch, size, device)
+    x16 = x.to(torch.bfloat16)
+    rows = {}
+    benchmark, torch.backends.cudnn.benchmark = torch.backends.cudnn.benchmark, False
+    try:
+        for arch, expected in DARKNETS:
+            model = getattr(models, arch)(num_classes=num_classes, generator=torch.Generator().manual_seed(SEED),
+                                          device=device)
+            params = sum(p.numel() for p in model.parameters())
+            if params != expected:
+                fail(f"{arch}: {params} parameters, expected {expected}")
+            model = model.to(memory_format=torch.channels_last).eval()
+            with torch.no_grad():
+                ref = model(x)
+                check_logits(ref, batch, num_classes, f"{arch} float32")
+                model = model.to(torch.bfloat16)
+                out = model(x16)
+                check_logits(out, batch, num_classes, f"{arch} bf16")
+                ms = cuda_ms(lambda: model(x16), iters)
+            rows[arch] = {"params": params, "bf16_vs_f32_max_abs": float((out.float() - ref).abs().max()),
+                          "logit_absmax_f32": float(ref.abs().max()),
+                          "bf16_top1_vs_f32": float((out.argmax(-1) == ref.argmax(-1)).float().mean()),
+                          "bf16_ms": ms, "bf16_img_per_s": batch / (ms / 1e3)}
+            del model, ref, out
+    finally:
+        torch.backends.cudnn.benchmark = benchmark
+    torch.cuda.synchronize()
+    emit({"phase": "darknet_zoo", "image_size": size, "batch": batch, "models": rows})
+
+
+def int8_geometries(qm) -> list:
+    """The distinct int8 conv geometries of a quantized model, each with its count of
+    layers: ``[C, O, kernel, stride, route, layers]``."""
+    from holocron_tpu_torch.kernels.int8_conv import conv_route
+    from holocron_tpu_torch.quant import QuantizedConv2d
+
+    geoms = {}
+    for m in qm.modules():
+        if isinstance(m, QuantizedConv2d):
+            kh, _, c, o = m.kernel_q.shape
+            key = (c, o, kh, m.stride[0], conv_route(c, o, m.groups))
+            geoms[key] = geoms.get(key, 0) + 1
+    return [[*k, n] for k, n in sorted(geoms.items())]
+
+
+def _yolov4_for_serving(device, num_classes: int, size: int, gen):
+    """yolov4 as ``detection_serving`` serves it: 608 px, ``pretrained_backbone=False``,
+    random weights from the seed, the three zero-initialized prediction convs drawn
+    He-normal from the seed too (at zero every box, score and objectness is the same
+    and the int8 gate compares nothing), BN statistics adapted in train mode on 4
+    naturalistic batches of 8 (the raw forward: the detector's train-mode call needs
+    ground truth), then eval, channels_last."""
+    import torch
+
+    from holocron_tpu_torch.bench import naturalistic_batch
+    from holocron_tpu_torch.models import detection
+    from holocron_tpu_torch.nn.init import kaiming_normal_
+
+    weights = torch.Generator().manual_seed(SEED)
+    model = detection.yolov4(pretrained_backbone=False, num_classes=num_classes, generator=weights, device="cpu")
+    with torch.no_grad():
+        for conv in model.head.pred_convs():
+            kaiming_normal_(conv.weight, generator=weights)
+    model = model.to(device=device, memory_format=torch.channels_last)
+    model.train()
+    with torch.no_grad():
+        for _ in range(4):
+            model.raw(naturalistic_batch(gen, 8, size, device))
+    return model.eval()
+
+
+def detection_ladder(raw_ref: list, raw_q: list, nms_thresh: float, score_thresh: float) -> tuple:
+    """``scripts/quant_accuracy.py:215-294``'s protocol on cached raw outputs of both
+    forms: walk the thresholds (objectness, score) (0.5, the model's score threshold) ->
+    (0.25, 0.01) -> (0.1, 1e-3) -> (0, the rank threshold that lets about 2 boxes an image
+    pass in the reference form) until the reference form gives at least 0.5 detections
+    an image, with the same thresholds for both forms; then returns both forms'
+    detection lists, batch by batch, and the rung taken."""
+    import numpy as np
+    import torch
+
+    from holocron_tpu_torch.models.detection import detections_to_list, post_process
+
+    scores = torch.cat([(s.float().amax(-1) * o.float()).flatten() for _, o, s in raw_ref])
+    per_image = raw_ref[0][1].shape[1]
+    rank_t = float(np.quantile(scores.cpu().numpy(), max(0.0, 1.0 - 2.0 / per_image)))
+
+    def dets(raw, obj_t, score_t):
+        return [detections_to_list(post_process(*(t.float() for t in r), nms_thresh, score_t, obj_thresh=obj_t))
+                for r in raw]
+
+    for obj_t, score_t in ((0.5, score_thresh), (0.25, 0.01), (0.1, 1e-3), (0.0, rank_t)):
+        ref = dets(raw_ref, obj_t, score_t)
+        if np.mean([len(d["boxes"]) for batch in ref for d in batch]) >= 0.5:
+            break
+    return ref, dets(raw_q, obj_t, score_t), {"obj_thresh": obj_t, "score_thresh": score_t}
+
+
+def phase_detection_serving(device, size: int = 608, num_classes: int = 80, batches=(8, 32), iters: int = 10) -> tuple:
+    """yolov4 served at full width (608 px, 80 classes; its anchors are normalized to
+    608): bf16 and selective int8 (calibrated on a batch of 8 in float32, float
+    remainder in bf16; post-processing in float32) at batch 8 and 32, eager and through
+    ``deploy_forward``'s graphs: the raw forward, ``post_process`` alone (its graph
+    captured on the raw outputs) and both together; device ms from CUDA events, wall
+    ms a synchronized call, img/s; at batch 8 the NMS pass (``greedy_keep``) alone and
+    the idle share of the graph and eager forms (``torch.profiler``). Each replay's
+    boxes, scores, labels and keep masks must equal the eager ones bit for bit. The
+    box-F1 gate (:func:`detection_ladder`, then ``measure_agreement_detection`` at
+    ``score_thresh=0.0``) on 2 held-out naturalistic batches of 8; a gate read on no
+    detection fails. Then each int8 conv's input at batch 8, hooked in the eager int8
+    forward, is held against the plain versions (``_int8_case_holds``), the 255-wide
+    prediction convs among them. Last, yolov1 at 448 px and yolov2 at 416 px (20
+    classes, bf16, batch 8, eager): raw forward + ``post_process`` ms, outputs finite.
+    Returns the int8 kernels' launches the counters saw (eager forwards, warm-ups,
+    captures)."""
+    import functools
+
+    import torch
+
+    from holocron_tpu_torch.bench import naturalistic_batch
+    from holocron_tpu_torch.kernels import int8_conv as K
+    from holocron_tpu_torch.models import detection
+    from holocron_tpu_torch.models.core import deploy_forward
+    from holocron_tpu_torch.models.detection import post_process
+    from holocron_tpu_torch.models.detection._utils import greedy_keep
+    from holocron_tpu_torch.quant import QuantizedConv2d, measure_agreement_detection, quantize_model
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 31)
+    model = _yolov4_for_serving(device, num_classes, size, gen)
+    nms, score_t = model.rpn_nms_thresh, model.box_score_thresh
+    model_bf16 = copy.deepcopy(model).to(torch.bfloat16)
+    calib = naturalistic_batch(gen, 8, size, device)
+    qm = quantize_model(model, calibration_batches=[calib], arch="yolov4").to(torch.bfloat16)
+    n_int8 = sum(isinstance(m, QuantizedConv2d) for m in qm.modules())
+    geoms = int8_geometries(qm)
+    if n_int8 != 102 or any(g[4] != "wgmma" for g in geoms) or not any(g[1] == 255 for g in geoms):
+        fail(f"yolov4: {n_int8} int8 convs at {geoms}; expected 102 on wgmma, the prediction convs 255 wide")
+    xs = {b: naturalistic_batch(gen, b, size, device).to(torch.bfloat16) for b in batches}
+    candidates = 3 * sum((size // s) ** 2 for s in (8, 16, 32))  # 22,743 at 608 px
+    torch.cuda.synchronize()
+
+    def full(fwd, x):
+        return post_process(*(t.float() for t in fwd(x)), nms, score_t)
+
+    forms = {"bf16": model_bf16, "int8": qm}
+    reset_counts()
+    records, graphs = {}, {}
+    with torch.no_grad():
+        for name, m in forms.items():
+            for b, x in xs.items():
+                raw = m.raw(x)
+                if not all(bool(torch.isfinite(t).all()) for t in raw) or raw[0].shape[:2] != (b, candidates):
+                    fail(f"yolov4 {name}: raw outputs not finite or of shape {raw[0].shape}")
+            graphs[name] = {"raw": deploy_forward(m, batches, size, forward=m.raw),
+                            "full": deploy_forward(m, batches, size, forward=functools.partial(full, m.raw))}
+        for name, m in forms.items():
+            rec = {}
+            for b, x in xs.items():
+                eager_raw = m.raw(x)
+                eager = post_process(*(t.float() for t in eager_raw), nms, score_t)
+                got = {k: v.clone() for k, v in graphs[name]["full"](x).items()}
+                for key in ("boxes", "scores", "labels", "keep"):
+                    if not torch.equal(got[key], eager[key]):
+                        fail(f"yolov4 {name} batch {b}: the replay's {key} differ from the eager forward's")
+                raw32 = tuple(t.float() for t in eager_raw)
+                calls = {"raw": (lambda: m.raw(x), lambda: graphs[name]["raw"](x)),
+                         "post_process": (lambda: post_process(*raw32, nms, score_t),
+                                          captured(lambda: post_process(*raw32, nms, score_t))),
+                         "raw_post_process": (lambda: full(m.raw, x), lambda: graphs[name]["full"](x))}
+                row = {"kept": int(eager["keep"].sum())}
+                for what, (eager_fn, graph_fn) in calls.items():
+                    for mode, fn in (("eager", eager_fn), ("graph", graph_fn)):
+                        device_ms = cuda_ms(fn, iters)
+                        t0 = time.perf_counter()
+                        for _ in range(iters):
+                            fn()
+                            torch.cuda.synchronize()
+                        row[f"{what}_{mode}"] = {"device_ms": device_ms,
+                                                  "wall_ms": (time.perf_counter() - t0) * 1e3 / iters}
+                row["img_per_s_graph"] = b / (row["raw_post_process_graph"]["device_ms"] / 1e3)
+                row["img_per_s_raw_graph"] = b / (row["raw_graph"]["device_ms"] / 1e3)
+                if b == batches[0]:
+                    k = min(1024, raw32[0].shape[1])
+                    boxes = eager["boxes"]
+                    valid = torch.ones(boxes.shape[:2], dtype=torch.bool, device=device)
+                    row["nms_pass_graph_ms"] = graph_ms(lambda: greedy_keep(boxes, valid, nms), iters=1,
+                                                        replays=iters)
+                    row["nms_candidates"] = k
+                    row["post_process_share_graph"] = (row["post_process_graph"]["device_ms"]
+                                                       / row["raw_post_process_graph"]["device_ms"])
+                    row["nms_share_of_post_process"] = row["nms_pass_graph_ms"] / row["post_process_graph"]["device_ms"]
+                    for mode, fn in (("graph", graphs[name]["full"]), ("eager", functools.partial(full, m.raw))):
+                        prof = profile_forward(fn, x, steps=3, top=5)
+                        row[f"profile_{mode}"] = {"kernel_ms": prof["kernel_ms"], "kernel_launches":
+                                                  prof["kernel_launches"], "idle": 1 - prof["kernel_ms"] /
+                                                  row["raw_post_process_" + mode]["wall_ms"], "top": prof["top"]}
+                rec[f"batch{b}"] = row
+            records[name] = rec
+
+        # the box-F1 gate on 2 held-out batches of 8
+        held = [naturalistic_batch(gen, 8, size, device).to(torch.bfloat16) for _ in range(2)]
+        raw_ref = [model_bf16.raw(x) for x in held]
+        raw_q = [qm.raw(x) for x in held]
+        dets_ref, dets_q, rung = detection_ladder(raw_ref, raw_q, nms, score_t)
+        ref_iter, q_iter = iter(dets_ref), iter(dets_q)
+        gate = measure_agreement_detection(lambda _: next(ref_iter), lambda _: next(q_iter), held, score_thresh=0.0)
+        if not gate["dets_per_image_ref"] > 0:
+            fail(f"yolov4 int8 gate read on no detection: {gate}")
+
+        # every int8 conv's input at batch 8 against the plain versions
+        cases = []
+        hooks = [m.register_forward_pre_hook(lambda mod, args, n=n: cases.append((n, mod, args[0])))
+                 for n, m in qm.named_modules() if isinstance(m, QuantizedConv2d)]
+        try:
+            qm.raw(xs[batches[0]])
+        finally:
+            for h in hooks:
+                h.remove()
+        torch.cuda.synchronize()
+        launches = int8_launches()  # the path's; the checks below launch more
+        if not launches["int8_conv"] or not launches["int8_quantize"] or launches["int8_conv_general"]:
+            fail(f"yolov4 int8: the path launched {launches}, expected the wgmma conv and the quantization")
+        max_err = {"wgmma": 0.0, "general": 0.0}
+        for n, m, xin in cases:
+            _int8_case_holds(f"yolov4 {n}", K.conv_route(m.kernel_q.shape[2], m.kernel_q.shape[3], m.groups),
+                             xin.permute(0, 2, 3, 1), m.activation_scale(xin), m.kernel_q, m.kernel_packed,
+                             m.w_scale, m.bias, m.stride, m.padding, m.dilation, m.groups, max_err)
+        if len(cases) != n_int8:
+            fail(f"yolov4 int8 check: hooked {len(cases)} inputs, expected {n_int8}")
+
+        others = {}
+        for arch, osize, kwargs in (("yolov1", 448, {"input_shape": (3, 448, 448)}), ("yolov2", 416, {})):
+            m = getattr(detection, arch)(pretrained_backbone=False, num_classes=20, generator=torch.Generator()
+                                         .manual_seed(SEED), device=device, **kwargs)
+            m = m.to(memory_format=torch.channels_last).eval().to(torch.bfloat16)
+            x = naturalistic_batch(gen, 8, osize, device).to(torch.bfloat16)
+            out = full(m.raw, x)
+            raw = m.raw(x)
+            if not all(bool(torch.isfinite(t).all()) for t in raw):
+                fail(f"{arch}: raw outputs not finite")
+            others[arch] = {"image_size": osize, "candidates": int(raw[0].shape[1]), "kept_b8": int(out["keep"].sum()),
+                            "raw_post_process_eager_ms": cuda_ms(lambda: full(m.raw, x), iters),
+                            "raw_eager_ms": cuda_ms(lambda: m.raw(x), iters)}
+            del m
+    torch.cuda.synchronize()
+    last = f"batch{batches[-1]}"
+    emit({"phase": "detection_serving", "model": "yolov4", "image_size": size, "num_classes": num_classes,
+          "int8_convs": n_int8, "int8_geometries": geoms, "forms": records,
+          "int8_over_bf16_raw_graph": (records["int8"][last]["img_per_s_raw_graph"]
+                                       / records["bf16"][last]["img_per_s_raw_graph"]),
+          "gate": {**gate, **rung},
+          "int8_checked_layers": len(cases), "int8_max_abs_err_bf16": max_err["wgmma"], "others": others,
+          "launches": launches})
+    return launches
+
+
+def _synthetic_detection_batches(gen, rng, count: int, batch: int, size: int, num_classes: int, device,
+                                 max_boxes: int = 50, padded: bool = True):
+    """Random uint8 NCHW images (channels_last, made on the device from a seed) and 1 to
+    6 boxes an image from a numpy seed (relative xyxy, as ``tests/test_models_detection.py``'s
+    ``_make_targets``), padded to ``max_boxes`` on the host, or as the list of dicts the
+    evaluation takes."""
+    import numpy as np
+    import torch
+
+    from holocron_tpu_torch.models.detection import pad_targets
+
+    out = []
+    for _ in range(count):
+        x = torch.randint(0, 256, (batch, 3, size, size), generator=gen, device=device, dtype=torch.uint8)
+        gts = []
+        for _ in range(batch):
+            n = int(rng.integers(1, 7))
+            boxes = rng.random((n, 4), dtype=np.float32)
+            boxes[:, :2] *= boxes[:, 2:]
+            gts.append({"boxes": boxes, "labels": rng.integers(0, num_classes, size=(n,))})
+        out.append((x.contiguous(memory_format=torch.channels_last), pad_targets(gts, max_boxes) if padded else gts))
+    return out
+
+
+def _detection_trainer(device, arch: str, train, val, size: int, num_classes: int):
+    """The detection reference's trainer (``references/detection/train.py:178-213``):
+    ``pretrained_backbone=False``, amp, TAdam (no weight decay), ImageNet ``input_norm``
+    on the uint8 batches."""
+    import torch
+
+    from holocron_tpu_torch.models import detection
+    from holocron_tpu_torch.optim import TAdam
+    from holocron_tpu_torch.trainer import DetectionTrainer
+
+    kwargs = {"input_shape": (3, size, size)} if arch == "yolov1" else {}
+    model = getattr(detection, arch)(pretrained_backbone=False, num_classes=num_classes,
+                                     generator=torch.Generator().manual_seed(SEED), device=device, **kwargs)
+    model = model.to(memory_format=torch.channels_last)
+    return DetectionTrainer(model, train, val, None, TAdam, device=device, amp=True, input_norm=IMAGENET,
+                            output_file=str(ROOT / "holocron_tpu_torch" / "_build" / "smoke_detection.pt"))
+
+
+def _losses_and_grads(trainer, x, target) -> tuple:
+    """The four losses of one train-mode forward (amp, as the step) and whether every
+    parameter's gradient of their sum is finite; the parameters are not updated."""
+    import torch
+
+    trainer.model.train()
+    losses = trainer._call_model(trainer._input_prep(x), trainer.model.pad(target, trainer.device))
+    params = [p for p in trainer.model.parameters() if p.requires_grad]
+    grads = torch.autograd.grad(sum(v.float() for v in losses.values()), params, allow_unused=True)
+    finite = all(g is None or bool(torch.isfinite(g).all()) for g in grads)
+    return {k: float(v.detach()) for k, v in losses.items()}, finite
+
+
+def phase_detection_training(device, batch: int = 8, steps: int = 4) -> None:
+    """yolov2 at 416 px (20 classes) in the detection reference's trainer: an epoch of
+    4 synthetic batches through ``fit_n_epochs`` (onecycle, lr 1e-4), which ends with
+    ``evaluate()`` on one batch; the four losses of a step and the finiteness of every
+    gradient with padded target slots; ms a step from CUDA events over ``steps`` steps
+    after 2, peak memory, the kernels a step (``Trainer.profile``). Then yolov4 at 608
+    px (80 classes) for 2 timed steps: ms a step, peak memory, losses and gradients
+    finite (the CIoU path with padded slots). Fails on a loss or gradient that is not
+    finite."""
+    import numpy as np
+    import torch
+
+    rows = {}
+    for arch, size, num_classes, n_steps in (("yolov2", 416, 20, steps), ("yolov4", 608, 80, 2)):
+        gen = torch.Generator(device=device).manual_seed(SEED + 32)
+        rng = np.random.default_rng(SEED)
+        train = _synthetic_detection_batches(gen, rng, 4, batch, size, num_classes, device)
+        val = _synthetic_detection_batches(gen, rng, 1, batch, size, num_classes, device, padded=False)
+        trainer = _detection_trainer(device, arch, train, val, size, num_classes)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        row = {"image_size": size, "batch": batch, "num_classes": num_classes, "amp": True, "optimizer": "TAdam",
+               "max_boxes": 50, "padded_slots": int((~train[0][1]["mask"]).sum())}
+        if arch == "yolov2":
+            evaluated = []
+            trainer.on_epoch_end = evaluated.append
+            trainer.fit_n_epochs(1, 1e-4)
+            row["eval"] = evaluated[0]
+            if trainer._opt.param_groups[0]["count"] != len(train):
+                fail(f"{arch} training: {trainer._opt.param_groups[0]['count']} updates, expected {len(train)}")
+        else:
+            trainer._reset_opt(1e-4)
+        losses, finite = _losses_and_grads(trainer, *train[0])
+        if not finite or not all(map(math.isfinite, losses.values())):
+            fail(f"{arch} training: losses {losses}, gradients finite: {finite}")
+        row["losses"], row["grads_finite"] = losses, finite
+        row["train_step_ms"] = time_train_steps(trainer, train, n_steps)
+        row["peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        if not all(bool(torch.isfinite(p).all()) for p in trainer.model.parameters()):
+            fail(f"{arch} training: parameters not finite after the steps")
+        if arch == "yolov2":
+            prof = summarize_profile(trainer.profile(num_steps=2), 2)
+            row["kernel_launches_per_step"] = prof["kernel_launches"]
+            row["profile"] = {k: prof[k] for k in ("host_ms", "kernel_ms", "idle", "top")}
+        rows[arch] = row
+        del trainer, train, val
+        torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    emit({"phase": "detection_training", "models": rows})
+
+
 def int8_entries(launches: list, replays_seen: dict, records: list, grouped: list) -> list:
     """The ``kernels`` line's entries of the int8 kernels: launches the counters saw,
-    summed over the paths' runs (the three serving paths, the bench, the captured
-    deploy forward's warm-ups, captures and eager forwards, and the service's captures);
+    summed over the paths' runs (the four classification serving paths, the bench, the
+    captured deploy forward's warm-ups, captures and eager forwards, the service's
+    captures, and yolov4's eager forwards, warm-ups and captures in ``detection_serving``);
     apart from them, ``replay_launches_seen``: the launches ``torch.profiler`` saw in
     graph replays, a lower bound (it drops records; a replay makes no call a counter
     sees);
@@ -1712,6 +2120,7 @@ def main() -> int:
     qm, model_bf16, x, r8, serving_launches = timed(phase_serving, device)
     rqm, rmodel_bf16, rx, rr8, resnet_launches = timed(phase_serving, device, "resnet50", 52, 52, "resnet_serving")
     xqm, xmodel_bf16, xx, xr8, rexnet_launches = timed(phase_serving, device, "rexnet1_0x", 44, 44, "rexnet_serving")
+    dqm, dmodel_bf16, dx, _, darknet_launches = timed(phase_serving, device, "darknet53", 49, 49, "darknet_serving")
     inv_launches = timed(phase_involution, device)
     timed(phase_training, device)
     timed(phase_arch_training, device)
@@ -1719,16 +2128,20 @@ def main() -> int:
     inv_train = timed(phase_involution_train, device)
     add2d_launches = timed(phase_add2d, device)
     timed(phase_resnet_zoo, device)
+    timed(phase_darknet_zoo, device)
     timed(phase_nn_catalog, device)
     bench_launches = timed(phase_bench, device)
     graph_forms, graph_launches = timed(phase_deploy_graph, device, qm, model_bf16)
     service_launches = timed(phase_service, device)
+    detection_launches = timed(phase_detection_serving, device)
+    timed(phase_detection_training, device)
     inv = timed(check_involution, device)
     inv_bwd = timed(check_involution_bwd, device)
     add = timed(check_add2d, device)
     i8 = timed(check_int8, device, qm, model_bf16, x)
     i8_resnet = timed(check_int8, device, rqm, rmodel_bf16, rx, "resnet50")
     i8_rexnet = timed(check_int8, device, xqm, xmodel_bf16, xx, "rexnet1_0x")
+    timed(check_int8, device, dqm, dmodel_bf16, dx, "darknet53")
     timed(check_int8_service, device, graph_forms)
     emit({"phase": "rexnet_int8_by_kind", **rexnet_int8_by_kind(i8_rexnet["rows"])})
     grouped = timed(check_int8_grouped, device)
@@ -1754,8 +2167,9 @@ def main() -> int:
               add["add2d_fwd"]["max_abs_err"]),
         *(entry(name, add_src, "holocron_tpu/kernels/add2d.py:82", add2d_launches[name], add[name],
                 add[name]["max_abs_err"]) for name in ("add2d_bwd_dp", "add2d_bwd_dw")),
-        *int8_entries([serving_launches, resnet_launches, rexnet_launches, bench_launches, graph_launches,
-                       service_launches, profile_launches], replays_seen, [i8, i8_resnet, i8_rexnet], grouped),
+        *int8_entries([serving_launches, resnet_launches, rexnet_launches, darknet_launches, bench_launches,
+                       graph_launches, service_launches, detection_launches, profile_launches], replays_seen,
+                      [i8, i8_resnet, i8_rexnet], grouped),
     ]})
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

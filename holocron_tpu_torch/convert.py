@@ -10,21 +10,29 @@ of arrays (numpy, or anything ``np.asarray`` takes), ``{"params": ..., "batch_st
 - frozen batch norm: ``scale/bias/mean/var``, all statistics, -> the same four buffers
 """
 
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Sequence, Union
 
 import numpy as np
 import torch
 from torch import nn
 
+from .models.classification.darknet import DarknetBodyV1, DarknetV1
+from .models.classification.darknetv2 import DarknetBodyV2, DarknetV2
+from .models.classification.darknetv3 import DarknetBodyV3, DarknetV3, ResBlock
+from .models.classification.darknetv4 import DarknetV4
 from .models.classification.res2net import ScaleConv2d
 from .models.classification.resnet import ResNet
 from .models.classification.rexnet import ReXNet, SEBlock
 from .models.classification.sknet import SKConv2d
 from .models.classification.tridentnet import TridentConv2d
+from .models.detection import YOLOv1, YOLOv2, YOLOv4
+from .models.layers import FrozenBatchNorm2d
 from .nn.modules.conv import PyConv2d
 
 __all__ = [
     "add2d_state_dict",
+    "darknet_state_dict",
+    "detection_state_dict",
     "involution_state_dict",
     "nn_state_dict",
     "repvgg_state_dict",
@@ -244,4 +252,104 @@ def nn_state_dict(variables: Mapping, module: nn.Module) -> Dict[str, torch.Tens
             sd[name] = _conv(params["R"])
         else:
             sd[name] = _t(params[name])
+    return sd
+
+
+Names = Sequence[Union[str, Sequence[str]]]
+
+
+def _layers_at(sd: Dict[str, torch.Tensor], variables: Mapping, prefix: str, seq: nn.Sequential,
+               names: Names) -> None:
+    """The convs of ``seq`` in order, each from the JAX path of ``names`` in turn: a conv
+    block (``path/conv``, and ``path/bn`` for the norm after it), a bare conv (``path``
+    holds the kernel), or, for a :class:`ResBlock`, a pair of paths for its two blocks."""
+    params = variables["params"]
+    todo = iter(names)
+    for off, m in enumerate(seq):
+        if isinstance(m, ResBlock):
+            _layers_at(sd, variables, f"{prefix}.{off}.conv", m.conv, next(todo))
+        elif isinstance(m, nn.Conv2d):
+            path = next(todo)
+            if "kernel" in _node(params, path):
+                _conv_at(sd, f"{prefix}.{off}", _node(params, path))
+                continue
+            _conv_at(sd, f"{prefix}.{off}", _node(params, f"{path}/conv"))
+            if off + 1 < len(seq) and isinstance(seq[off + 1], (nn.BatchNorm2d, FrozenBatchNorm2d)):
+                _norm_at(sd, f"{prefix}.{off + 1}", variables, f"{path}/bn")
+    if next(todo, None) is not None:
+        raise ValueError(f"{prefix}: more JAX paths than convs")
+
+
+def _darknet_body(sd: Dict[str, torch.Tensor], variables: Mapping, body: nn.Module, src: str, dest: str) -> None:
+    """The keys of a darknet body (v1 to v4) under ``src`` from the JAX body at ``dest``."""
+    _layers_at(sd, variables, f"{src}.stem", body.stem, [f"{dest}/stem"])
+    if isinstance(body, (DarknetBodyV1, DarknetBodyV2)):
+        for i, group in enumerate(body.layers):
+            convs = sum(isinstance(m, nn.Conv2d) for m in group)
+            _layers_at(sd, variables, f"{src}.layers.{i}", group, [f"{dest}/layer_{i}_{j}" for j in range(convs)])
+    elif isinstance(body, DarknetBodyV3):
+        for i, stage in enumerate(body.layers):
+            blocks = [m for m in stage if isinstance(m, ResBlock)]
+            names = [f"{dest}/layer_{i}_conv"] + [
+                [f"{dest}/layer_{i}_block_{b}/conv_0", f"{dest}/layer_{i}_block_{b}/conv_1"]
+                for b in range(len(blocks))]
+            _layers_at(sd, variables, f"{src}.layers.{i}", stage, names)
+    else:
+        for i, stage in enumerate(body.stages):
+            d, t = f"{dest}/stage_{i}", f"{src}.stages.{i}"
+            blocks = sum(isinstance(m, ResBlock) for m in stage.main)
+            _layers_at(sd, variables, f"{t}.base_layer", stage.base_layer, [f"{d}/base_0", f"{d}/base_1"])
+            _layers_at(sd, variables, f"{t}.main", stage.main,
+                       [*([f"{d}/main_{b}/conv_0", f"{d}/main_{b}/conv_1"] for b in range(blocks)), f"{d}/main_conv"])
+            _layers_at(sd, variables, f"{t}.transition", stage.transition, [f"{d}/transition"])
+
+
+def darknet_state_dict(variables: Mapping,
+                       model: Union[DarknetV1, DarknetV2, DarknetV3, DarknetV4]) -> Dict[str, torch.Tensor]:
+    """State dict of a darknet classifier (:class:`DarknetV1` to :class:`DarknetV4`) from
+    the JAX one's variables; the inverse of ``_convert_darknetv1`` to ``v4``
+    (``holocron_tpu/models/_torch_convert.py:244-324``, ``:394-413``). The keys of each
+    conv block come from ``model``'s layers (a ``drop_layer`` shifts the offsets)."""
+    sd: Dict[str, torch.Tensor] = {}
+    _darknet_body(sd, variables, model.features, "features", "features")
+    if isinstance(model, DarknetV2):
+        _conv_at(sd, "classifier", _node(variables["params"], "classifier"))
+    else:
+        sd["classifier.weight"] = _dense(variables["params"]["classifier"]["kernel"])
+        sd["classifier.bias"] = _t(variables["params"]["classifier"]["bias"])
+    return sd
+
+
+def detection_state_dict(variables: Mapping, model: Union[YOLOv1, YOLOv2, YOLOv4]) -> Dict[str, torch.Tensor]:
+    """State dict of a detector (:class:`YOLOv1`, :class:`YOLOv2`, :class:`YOLOv4`) from
+    the JAX one's variables, heads included. The JAX package converts the backbones only
+    (``_torch_convert.py:416-438``), so the mapping of the rest is the port's own: each
+    JAX ``ConvSequence`` of the neck and head to the conv and norm of the port's block in
+    the same place; YOLOv1's dense layers ``classifier_0`` and ``classifier_1`` to
+    ``classifier.1`` and ``classifier.4`` (both flatten in NHWC order)."""
+    params = variables["params"]
+    sd: Dict[str, torch.Tensor] = {}
+    _darknet_body(sd, variables, model.backbone, "backbone", "backbone")
+    if isinstance(model, YOLOv1):
+        _layers_at(sd, variables, "block4", model.block4, [f"block4_{k}" for k in range(4)])
+        for k, off in ((0, 1), (1, 4)):
+            sd[f"classifier.{off}.weight"] = _dense(params[f"classifier_{k}"]["kernel"])
+            sd[f"classifier.{off}.bias"] = _t(params[f"classifier_{k}"]["bias"])
+    elif isinstance(model, YOLOv2):
+        _layers_at(sd, variables, "block5", model.block5, ["block5_0", "block5_1"])
+        _layers_at(sd, variables, "passthrough_layer", model.passthrough_layer, ["passthrough"])
+        _layers_at(sd, variables, "block6", model.block6, ["block6"])
+        _conv_at(sd, "head", params["head"])
+    else:
+        _layers_at(sd, variables, "neck.fpn", model.neck.fpn, [f"neck/fpn_{k}" for k in range(6)])
+        for pan in ("pan1", "pan2"):
+            block = getattr(model.neck, pan)
+            _layers_at(sd, variables, f"neck.{pan}.conv1", block.conv1, [f"neck/{pan}/conv1"])
+            _layers_at(sd, variables, f"neck.{pan}.conv2", block.conv2, [f"neck/{pan}/conv2"])
+            _layers_at(sd, variables, f"neck.{pan}.convs", block.convs, [f"neck/{pan}/convs_{k}" for k in range(5)])
+        head = model.head
+        for name, names in (("head1", ["head1_0", "head1_1"]), ("pre_head2", ["pre_head2"]),
+                            ("head2_1", [f"head2_1_{k}" for k in range(5)]), ("head2_2", ["head2_2_0", "head2_2_1"]),
+                            ("pre_head3", ["pre_head3"]), ("head3", [f"head3_{k}" for k in range(7)])):
+            _layers_at(sd, variables, f"head.{name}", getattr(head, name), [f"head/{n}" for n in names])
     return sd

@@ -12,7 +12,7 @@ for a rexnet1_0x forward).
 
 import contextlib
 import functools
-from typing import Callable, Iterator, Optional, Sequence, Tuple
+from typing import Callable, Dict, Iterator, List, Optional, Sequence, Tuple, Union
 
 import torch
 from torch import nn
@@ -20,6 +20,7 @@ from torch import nn
 __all__ = ["WARMUP", "cudnn_settings", "deploy_forward", "softmax_forward"]
 
 MeanStd = Tuple[Sequence[float], Sequence[float]]
+Outputs = Union[torch.Tensor, Tuple, List, Dict[str, torch.Tensor]]
 WARMUP = 2  # eager forwards a bucket before its capture
 
 
@@ -62,16 +63,21 @@ def deploy_forward(
     buckets: Sequence[int],
     image_size: int = 224,
     mean_std: Optional[MeanStd] = None,
-) -> Callable[[torch.Tensor], torch.Tensor]:
+    forward: Optional[Callable[[torch.Tensor], Outputs]] = None,
+) -> Callable[[torch.Tensor], Outputs]:
     """Returns the forward of ``model`` (eval or deploy form, already reparametrized or
     quantized; its forward is taken as it is) for batches of up to ``max(buckets)``.
 
-    Two forms:
+    Three forms:
 
     - ``mean_std=(mean, std)``: uint8 NHWC ``(N, image_size, image_size, 3)`` images in,
       probabilities out (:func:`softmax_forward`, the service's form);
     - ``mean_std=None``: normalized NCHW ``(N, 3, image_size, image_size)`` input in the
-      model's dtype, logits out (the headline bench's form).
+      model's dtype, logits out (the headline bench's form);
+    - ``forward``: the same input, and whatever ``forward`` (a function of the model, on
+      its device, with no host sync: e.g. a detector's raw forward followed by
+      ``post_process``) returns, a tensor or a tuple, list or dict of tensors whose first
+      dimension is the batch.
 
     It runs where the model's parameters lie. On the card each bucket is captured once as a CUDA graph after :data:`WARMUP` forwards on a side stream (cuDNN's
     autotuning runs there, never inside a capture), so the graph runs the kernels, and
@@ -79,8 +85,8 @@ def deploy_forward(
     the smallest bucket that holds it with copies of its last sample (which leaves a
     per-batch dynamic activation scale unchanged), copies it into the bucket's static
     input on the current stream, replays the graph and returns the first N rows of the
-    bucket's static output: valid until the next call, so copy it out (``.cpu()``)
-    before calling again. One caller at a time. The returned forward holds the model
+    bucket's static output (or outputs): valid until the next call, so copy it out
+    (``.cpu()``) before calling again. One caller at a time. The returned forward holds the model
     and the mean and std it normalizes with: a graph reads them where they lay at
     capture. A failed capture raises; nothing falls back to running eagerly. For a
     model on the CPU the same function runs eagerly on each call (the entry points,
@@ -94,7 +100,7 @@ def deploy_forward(
     if device.type not in ("cuda", "cpu"):
         raise ValueError(f"the model's parameters lie on {device}, neither a CUDA device nor the CPU")
     if mean_std is None:
-        fn = model
+        fn = model if forward is None else forward
         shape = (3, image_size, image_size)
     else:
         mean, std = (torch.tensor(v, dtype=torch.float32, device=device).reshape(1, -1, 1, 1) for v in mean_std)
@@ -149,4 +155,13 @@ class _CapturedForward:
         if n < b:
             static[n:].copy_(static[n - 1 : n].expand(b - n, *shape))
         self.graphs[b].replay()
-        return self.outputs[b][:n]
+        return _first_rows(self.outputs[b], n)
+
+
+def _first_rows(out: Outputs, n: int) -> Outputs:
+    """The first ``n`` rows of each tensor of ``out``."""
+    if isinstance(out, torch.Tensor):
+        return out[:n]
+    if isinstance(out, dict):
+        return {k: _first_rows(v, n) for k, v in out.items()}
+    return type(out)(_first_rows(v, n) for v in out)

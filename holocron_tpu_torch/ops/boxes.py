@@ -1,5 +1,6 @@
 """Pairwise box geometry (``holocron_tpu/ops/boxes.py``): IoU, GIoU, DIoU and CIoU on
-``(M, 4)`` and ``(N, 4)`` ``xyxy`` boxes, as ``(M, N)`` matrices."""
+``(M, 4)`` and ``(N, 4)`` ``xyxy`` boxes, as ``(M, N)`` matrices; leading batch
+dimensions, ``(..., M, 4)`` and ``(..., N, 4)``, give ``(..., M, N)``."""
 
 import math
 
@@ -21,7 +22,7 @@ def _check_boxes(*box_sets: torch.Tensor) -> None:
     """Refuses boxes whose corners are swapped (``boxes.py:20-29``). It reads the values
     back to the host, as the JAX package does outside ``jit``."""
     for boxes in box_sets:
-        if bool((boxes[:, 2:] < boxes[:, :2]).any()):
+        if bool((boxes[..., 2:] < boxes[..., :2]).any()):
             raise AssertionError("Incorrect coordinate format")
 
 
@@ -32,17 +33,17 @@ def _clip0(t: torch.Tensor) -> torch.Tensor:
 
 
 def box_area(boxes: torch.Tensor) -> torch.Tensor:
-    """The area of ``xyxy`` boxes: ``(N, 4) -> (N,)``."""
-    return (boxes[:, 2] - boxes[:, 0]) * (boxes[:, 3] - boxes[:, 1])
+    """The area of ``xyxy`` boxes: ``(..., N, 4) -> (..., N)``."""
+    return (boxes[..., 2] - boxes[..., 0]) * (boxes[..., 3] - boxes[..., 1])
 
 
 def _box_iou(boxes1: torch.Tensor, boxes2: torch.Tensor):
     area1, area2 = box_area(boxes1), box_area(boxes2)
-    lt = torch.maximum(boxes1[:, None, :2], boxes2[None, :, :2])
-    rb = torch.minimum(boxes1[:, None, 2:], boxes2[None, :, 2:])
+    lt = torch.maximum(boxes1[..., :, None, :2], boxes2[..., None, :, :2])
+    rb = torch.minimum(boxes1[..., :, None, 2:], boxes2[..., None, :, 2:])
     wh = _clip0(rb - lt)
     inter = wh[..., 0] * wh[..., 1]
-    union = area1[:, None] + area2[None, :] - inter
+    union = area1[..., :, None] + area2[..., None, :] - inter
     return inter / union, union
 
 
@@ -56,8 +57,8 @@ def box_giou(boxes1: torch.Tensor, boxes2: torch.Tensor) -> torch.Tensor:
     ``boxes.py:53-65``): ``IoU - |C - A u B| / |C|``, C the smallest enclosing box."""
     _check_boxes(boxes1, boxes2)
     iou, union = _box_iou(boxes1, boxes2)
-    lt = torch.minimum(boxes1[:, None, :2], boxes2[None, :, :2])
-    rb = torch.maximum(boxes1[:, None, 2:], boxes2[None, :, 2:])
+    lt = torch.minimum(boxes1[..., :, None, :2], boxes2[..., None, :, :2])
+    rb = torch.maximum(boxes1[..., :, None, 2:], boxes2[..., None, :, 2:])
     wh = _clip0(rb - lt)
     area = wh[..., 0] * wh[..., 1]
     return iou - (area - union) / area
@@ -66,11 +67,11 @@ def box_giou(boxes1: torch.Tensor, boxes2: torch.Tensor) -> torch.Tensor:
 def iou_penalty(boxes1: torch.Tensor, boxes2: torch.Tensor) -> torch.Tensor:
     """The DIoU penalty ``rho^2(centers) / c^2``, c the enclosing box's diagonal
     (``boxes.py:68-79``)."""
-    cw = torch.maximum(boxes1[:, None, 2], boxes2[None, :, 2]) - torch.minimum(boxes1[:, None, 0], boxes2[None, :, 0])
-    ch = torch.maximum(boxes1[:, None, 3], boxes2[None, :, 3]) - torch.minimum(boxes1[:, None, 1], boxes2[None, :, 1])
+    cw = torch.maximum(boxes1[..., :, None, 2], boxes2[..., None, :, 2]) - torch.minimum(boxes1[..., :, None, 0], boxes2[..., None, :, 0])
+    ch = torch.maximum(boxes1[..., :, None, 3], boxes2[..., None, :, 3]) - torch.minimum(boxes1[..., :, None, 1], boxes2[..., None, :, 1])
     c2 = cw**2 + ch**2
-    dx = (boxes1[:, 0] + boxes1[:, 2])[:, None] - (boxes2[:, 0] + boxes2[:, 2])[None, :]
-    dy = (boxes1[:, 1] + boxes1[:, 3])[:, None] - (boxes2[:, 1] + boxes2[:, 3])[None, :]
+    dx = (boxes1[..., 0] + boxes1[..., 2])[..., :, None] - (boxes2[..., 0] + boxes2[..., 2])[..., None, :]
+    dy = (boxes1[..., 1] + boxes1[..., 3])[..., :, None] - (boxes2[..., 1] + boxes2[..., 3])[..., None, :]
     return (dx**2 + dy**2) / 4.0 / c2
 
 
@@ -83,16 +84,16 @@ def diou_loss(boxes1: torch.Tensor, boxes2: torch.Tensor) -> torch.Tensor:
 def aspect_ratio(boxes: torch.Tensor) -> torch.Tensor:
     """``atan(w / h)`` a box (``boxes.py:91-104``), the height held at least 1e-12 in
     magnitude with its sign, so that a flat box gives no NaN to a gradient."""
-    h = boxes[:, 3] - boxes[:, 1]
+    h = boxes[..., 3] - boxes[..., 1]
     tiny = torch.where(h < 0, torch.full_like(h, -1e-12), torch.full_like(h, 1e-12))
     h_safe = torch.where(h.abs() < 1e-12, tiny, h)
-    return torch.atan((boxes[:, 2] - boxes[:, 0]) / h_safe)
+    return torch.atan((boxes[..., 2] - boxes[..., 0]) / h_safe)
 
 
 def aspect_ratio_consistency(boxes1: torch.Tensor, boxes2: torch.Tensor) -> torch.Tensor:
     """CIoU's ``v``: ``(4 / pi^2) * (atan(w1 / h1) - atan(w2 / h2))^2``
     (``boxes.py:107-113``)."""
-    v = aspect_ratio(boxes1)[:, None] - aspect_ratio(boxes2)[None, :]
+    v = aspect_ratio(boxes1)[..., :, None] - aspect_ratio(boxes2)[..., None, :]
     return (4.0 / math.pi**2) * v**2
 
 

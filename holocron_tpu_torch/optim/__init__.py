@@ -2,5 +2,6 @@
 
 from . import schedules
 from .lamb import LAMB
+from .tadam import TAdam
 
-__all__ = ["LAMB", "schedules"]
+__all__ = ["LAMB", "TAdam", "schedules"]

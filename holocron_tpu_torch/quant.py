@@ -23,6 +23,7 @@ of that file were measured on a TPU and are not copied.
 import copy
 from typing import Callable, Dict, Iterable, List, Optional, Sequence
 
+import numpy as np
 import torch
 from torch import nn
 from torch.nn import functional as F
@@ -36,6 +37,7 @@ __all__ = [
     "QuantizedModel",
     "calibrate",
     "measure_agreement",
+    "measure_agreement_detection",
     "quantize_activation",
     "quantize_conv_params",
     "quantize_model",
@@ -66,15 +68,20 @@ _SELECTION_FIELDS = ("min_in_channels", "quantize_strided")
 
 # The int8 form's speed against bf16 on the card, kept apart from QUANT_POLICY (whose
 # fields are the JAX file's, and the JAX file's speeds are TPU figures): int8 img/s over
-# bf16 img/s of `HOLOCRON_INT8_AGREEMENT=0 python -m holocron_tpu_torch.bench --arch
-# <arch>` (batch 256, 224 px, both forms timed through the captured deploy forward) on an
-# NVIDIA H100 80GB HBM3 at 700.00 W: repvgg_a0 49,069 / 37,596, resnet50 10,571 /
-# 13,054, rexnet1_0x 17,613 / 17,934 img/s (PERF.md, section 6). `recommended` is
+# bf16 img/s on an NVIDIA H100 80GB HBM3 at 700.00 W (PERF.md, section 6). repvgg_a0,
+# resnet50, rexnet1_0x: `HOLOCRON_INT8_AGREEMENT=0 python -m holocron_tpu_torch.bench
+# --arch <arch>` (batch 256, 224 px, both forms timed through the captured deploy
+# forward): 49,069 / 37,596, 10,571 / 13,054, 17,613 / 17,934 img/s. darknet53:
+# chip_smoke.py's darknet_serving (batch 256, 224 px, eager, CUDA events): 11,370 /
+# 12,772. yolov4: chip_smoke.py's detection_serving (batch 32, 608 px, the raw forward
+# through the captured deploy forward, CUDA events): 868 / 991. `recommended` is
 # int8_speedup >= 1.05, the JAX policy's rule (scripts/gen_quant_policy.py:91).
 INT8_VERDICTS: Dict[str, Dict] = {
     "repvgg_a0": {"int8_speedup": 1.305, "recommended": True},
     "resnet50": {"int8_speedup": 0.81, "recommended": False},
     "rexnet1_0x": {"int8_speedup": 0.982, "recommended": False},
+    "darknet53": {"int8_speedup": 0.89, "recommended": False},
+    "yolov4": {"int8_speedup": 0.876, "recommended": False},
 }
 
 
@@ -226,8 +233,13 @@ class QuantizedModel(nn.Module):
             absmax = None if act_scales is None else act_scales.get(path)
             setattr(modules[parent_path], name, QuantizedConv2d(modules[path], rec["kernel_q"], rec["w_scale"], absmax))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.model(x)
+    def forward(self, *args, **kwargs):
+        return self.model(*args, **kwargs)
+
+    def raw(self, x: torch.Tensor):
+        """A detector's raw forward (``DetectionModel.raw``) with the int8 convs: the
+        function that is quantized, where post-processing stays float."""
+        return self.model.raw(x)
 
 
 @torch.no_grad()
@@ -246,6 +258,75 @@ def measure_agreement(
         total += int(x.shape[0])
         drift = max(drift, float((p_ref - p_q).abs().max()))
     return {"top1_agreement": agree / max(total, 1), "max_prob_drift": drift}
+
+
+def _xyxy_iou(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    lt = np.maximum(a[:, None, :2], b[None, :, :2])
+    rb = np.minimum(a[:, None, 2:], b[None, :, 2:])
+    wh = np.clip(rb - lt, 0, None)
+    inter = wh[..., 0] * wh[..., 1]
+    area_a = np.prod(np.clip(a[:, 2:] - a[:, :2], 0, None), -1)
+    area_b = np.prod(np.clip(b[:, 2:] - b[:, :2], 0, None), -1)
+    return inter / np.maximum(area_a[:, None] + area_b[None, :] - inter, 1e-9)
+
+
+def measure_agreement_detection(
+    ref_fwd: Callable, quant_fwd: Callable, batches: Iterable, iou_thresh: float = 0.5, score_thresh: float = 0.25
+) -> Dict[str, float]:
+    """The box-level gate between a detector's reference form and its quantized form
+    (``quant.py:455-532``, term for term, in numpy on the host).
+
+    ``ref_fwd`` and ``quant_fwd`` return the per-image lists of ``{boxes, scores,
+    labels}`` dicts a detector's eval forward gives. The detections scoring at least
+    ``score_thresh`` are matched greedily (same label, IoU >= ``iou_thresh``, by
+    descending reference score), the reference's taken as pseudo ground truth. Returns
+    the precision, recall and F1 of the quantized detections against the reference's,
+    the mean IoU of the matched pairs, and the detections an image of each form
+    (``dets_per_image_ref``, ``dets_per_image_quant``), which show an agreement of 1.0
+    on no boxes at all for what it is (then every score is 1.0: vacuous).
+    """
+    tp = fp = fn = 0
+    n_ref = n_quant = n_images = 0
+    matched_iou_sum = 0.0
+    for x in batches:
+        for det_ref, det_q in zip(ref_fwd(x), quant_fwd(x)):
+            keep_r = np.asarray(det_ref["scores"]) >= score_thresh
+            keep_q = np.asarray(det_q["scores"]) >= score_thresh
+            boxes_r = np.asarray(det_ref["boxes"], dtype=np.float64)[keep_r]
+            boxes_q = np.asarray(det_q["boxes"], dtype=np.float64)[keep_q]
+            labels_r = np.asarray(det_ref["labels"])[keep_r]
+            labels_q = np.asarray(det_q["labels"])[keep_q]
+            order = np.argsort(-np.asarray(det_ref["scores"], dtype=np.float64)[keep_r])
+            iou = _xyxy_iou(boxes_r, boxes_q) if len(boxes_r) and len(boxes_q) else None
+            taken = np.zeros(len(boxes_q), dtype=bool)
+            matched = 0
+            for i in order:
+                if iou is None:
+                    break
+                cand = iou[i] * (labels_q == labels_r[i]) * ~taken
+                j = int(cand.argmax()) if cand.size else -1
+                if j >= 0 and cand[j] >= iou_thresh:
+                    taken[j] = True
+                    matched += 1
+                    matched_iou_sum += float(cand[j])
+            tp += matched
+            fn += len(boxes_r) - matched
+            fp += len(boxes_q) - matched
+            n_ref += len(boxes_r)
+            n_quant += len(boxes_q)
+            n_images += 1
+    counts = {"dets_per_image_ref": n_ref / max(n_images, 1), "dets_per_image_quant": n_quant / max(n_images, 1)}
+    if tp + fp + fn == 0:
+        return {"det_precision": 1.0, "det_recall": 1.0, "det_f1": 1.0, "mean_matched_iou": 1.0, **counts}
+    precision = tp / max(tp + fp, 1)
+    recall = tp / max(tp + fn, 1)
+    return {
+        "det_precision": precision,
+        "det_recall": recall,
+        "det_f1": 2 * precision * recall / max(precision + recall, 1e-9),
+        "mean_matched_iou": matched_iou_sum / max(tp, 1),
+        **counts,
+    }
 
 
 def quantize_model(

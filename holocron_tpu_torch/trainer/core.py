@@ -184,33 +184,47 @@ class Trainer:
     # ------------------------------------------------------------------
     # the train step
     # ------------------------------------------------------------------
-    def _input_prep(self, x: torch.Tensor) -> torch.Tensor:
-        """uint8 batches normalized on the device, then the amp cast (``core.py:431-446``)."""
+    def _normalize(self, x: torch.Tensor) -> torch.Tensor:
+        """The batch on the device, a uint8 one normalized by ``input_norm``."""
         x = x.to(self.device, non_blocking=True)
         if self.input_norm is not None and x.dtype == torch.uint8:
             mean, std = self.input_norm
             x = (x.float() / 255.0 - mean) / std
+        return x
+
+    def _input_prep(self, x: torch.Tensor) -> torch.Tensor:
+        """uint8 batches normalized on the device, then the amp cast (``core.py:431-446``)."""
+        x = self._normalize(x)
         return x.to(torch.bfloat16) if self.amp else x
 
-    def _forward(self, x: torch.Tensor) -> torch.Tensor:
-        """The model on a prepared input, with bf16 parameters under amp, logits in
-        float32."""
+    def _call_model(self, *args: Any) -> Any:
+        """The model on prepared arguments, with bf16 parameters under amp."""
         if not self.amp:
-            return self.model(x).float()
+            return self.model(*args)
         params = {
             # batch norm takes its affine parameters in float32: bf16 values, f32 dtype
             name: p.to(torch.bfloat16).float() if name in self._norm_names else p.to(torch.bfloat16)
             for name, p in self.model.named_parameters()
         }
-        return functional_call(self.model, params, (x,)).float()
+        return functional_call(self.model, params, args)
+
+    def _forward(self, x: torch.Tensor) -> torch.Tensor:
+        """The model on a prepared input, with bf16 parameters under amp, logits in
+        float32."""
+        return self._call_model(x).float()
+
+    def _loss(self, x: torch.Tensor, target) -> torch.Tensor:
+        """The step's loss on a batch: ``criterion(logits, target)``, the part of the
+        step that differs by task (``core.py:448-461``)."""
+        target = target.to(self.device, non_blocking=True) if isinstance(target, torch.Tensor) else target
+        return self.criterion(self._forward(self._input_prep(x)), target)
 
     def _run_step_async(self, x: torch.Tensor, target) -> torch.Tensor:
         """One train step; returns the loss on the device, without reading it back."""
         self.model.train()
-        target = target.to(self.device, non_blocking=True) if isinstance(target, torch.Tensor) else target
         frozen_stats = [(m.running_mean.clone(), m.running_var.clone()) for m in self._frozen_bn]
         with record_function("train_step.forward"):
-            loss = self.criterion(self._forward(self._input_prep(x)), target)
+            loss = self._loss(x, target)
         names, params = zip(*self.model.named_parameters())
         with record_function("train_step.backward"):
             grads = torch.autograd.grad(loss, params, allow_unused=True)

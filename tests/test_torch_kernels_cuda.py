@@ -777,3 +777,75 @@ def test_micro_batcher_works_on_its_own_stream_on_the_card(cuda):
         b.close()
     assert seen == [(torch.cuda.current_device(), True)]
     assert out["batch_size"] == 1 and (out["probs"] == 2).all()
+
+
+def _raw_detections(device, n: int = 2, k: int = 3000, num_classes: int = 5, seed: int = 31):
+    """Random raw detector outputs on ``device``: overlapping boxes, objectness around
+    the 0.5 gate, and scores with ties (a few values only)."""
+    gen = torch.Generator().manual_seed(seed)
+    boxes = torch.rand(n, k, 4, generator=gen) * 0.8
+    boxes[..., 2:] = boxes[..., :2] + torch.rand(n, k, 2, generator=gen) * 0.2 + 0.01
+    b_o = torch.rand(n, k, generator=gen) * 0.6 + 0.4
+    b_scores = torch.randint(1, 4, (n, k, num_classes), generator=gen).float() / 4
+    return boxes.to(device), b_o.to(device), b_scores.to(device)
+
+
+def test_post_process_on_the_card_equals_the_cpu(cuda):
+    """``post_process`` (stable sort, the top 1024 of 3,000 candidates, the greedy NMS
+    pass) on the card gives the CPU's boxes, scores, labels and keep masks on the same
+    arrays, ties included."""
+    from holocron_tpu_torch.models.detection import post_process
+
+    raw = _raw_detections(cuda)
+    got = post_process(*raw, 0.5, 0.05)
+    want = post_process(*(t.cpu() for t in raw), 0.5, 0.05)
+    torch.cuda.synchronize()
+    for key in ("boxes", "scores", "labels", "keep"):
+        assert torch.equal(got[key].cpu(), want[key]), key
+    assert 0 < int(want["keep"].sum()) < want["keep"].numel()
+
+
+def test_yolov4_forward_and_post_process_graph_equals_eager(cuda):
+    """yolov4 (a narrow layout, 3 classes, 128 px, random prediction convs), its raw
+    forward and ``post_process`` captured together by ``deploy_forward`` at buckets 2
+    and 4: each replay's boxes, scores, labels and keep masks equal the eager forward's
+    bit for bit, at a full bucket and at a batch of 3 padded to 4."""
+    from holocron_tpu_torch.models import detection
+    from holocron_tpu_torch.models.core import deploy_forward
+    from holocron_tpu_torch.models.detection import post_process
+
+    gen = torch.Generator().manual_seed(32)
+    model = detection.YOLOv4([(8, 1), (16, 2), (32, 1), (64, 1), (64, 1)], num_classes=3, generator=gen,
+                             device="cpu")
+    with torch.no_grad():
+        for conv in model.head.pred_convs():
+            conv.weight.normal_(0, 0.05, generator=gen)
+    model = model.to(cuda).to(memory_format=torch.channels_last).eval()
+
+    def full(x):
+        return post_process(*(t.float() for t in model.raw(x)), 0.5, 0.05, obj_thresh=0.3)
+
+    graph = deploy_forward(model, (2, 4), 128, forward=full)
+    dgen = torch.Generator(device=cuda).manual_seed(33)
+    for n in (4, 3):
+        x = torch.randn(n, 3, 128, 128, generator=dgen, device=cuda).contiguous(memory_format=torch.channels_last)
+        got = {k: v.clone() for k, v in graph(x).items()}
+        with torch.no_grad():
+            want = full(torch.cat([x, x[-1:].expand(4 - n, *x.shape[1:])]))
+        torch.cuda.synchronize()
+        for key in ("boxes", "scores", "labels", "keep"):
+            assert torch.equal(got[key], want[key][:n]), (n, key)
+        assert int(got["keep"].sum()) > 0
+
+
+@pytest.mark.parametrize("o", [255, 125], ids=["yolov4_pred", "yolov2_head"])
+@pytest.mark.parametrize("c,hw", [(256, 76), (1024, 13)])
+def test_int8_route_at_detector_prediction_widths(cuda, o, c, hw):
+    """The detectors' prediction convs on the wgmma route: 1x1 convs to 255 (yolov4,
+    3 x (5 + 80)) and 125 (yolov2, 5 x (5 + 20)) outputs, from 256 channels at 76 x 76
+    and 1,024 at 13 x 13: exact accumulators, outputs within an ulp of the plain
+    epilogue."""
+    gen = torch.Generator(device=cuda).manual_seed(34)
+    x = torch.randn(2, hw, hw, c, generator=gen, device=cuda).to(torch.bfloat16)
+    w_q = torch.randint(-127, 128, (1, 1, c, o), generator=gen, device=cuda, dtype=torch.int8)
+    _int8_route_matches_plain(cuda, x, w_q, 1, 0, 1, 35)

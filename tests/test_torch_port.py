@@ -30,8 +30,9 @@ ROOT = Path(__file__).resolve().parents[1]
 
 
 def test_port_imports_no_jax():
-    """Every module of the package (the service, the benches and the captured forward
-    among them), and chip_smoke.py, imports with jax, flax, optax and the JAX package
+    """Every module of the package (the service, the benches, the captured forward, the
+    darknets, the detectors, TAdam and the detection trainer among them), and
+    chip_smoke.py, imports with jax, flax, optax and the JAX package
     made unimportable, and imports neither PIL nor fastapi (each is imported where it
     is used)."""
     code = (
@@ -48,6 +49,12 @@ def test_port_imports_no_jax():
         "assert all(m in sys.modules for m in ('holocron_tpu_torch.bench', 'holocron_tpu_torch.bench_serving',\n"
         "    'holocron_tpu_torch.models.core', 'holocron_tpu_torch.api.main', 'holocron_tpu_torch.api.vision',\n"
         "    'holocron_tpu_torch.api.batcher', 'holocron_tpu_torch.utils.data._native'))\n"
+        "assert all(m in sys.modules for m in ('holocron_tpu_torch.models.classification.darknet',\n"
+        "    'holocron_tpu_torch.models.classification.darknetv2', 'holocron_tpu_torch.models.classification.darknetv3',\n"
+        "    'holocron_tpu_torch.models.classification.darknetv4', 'holocron_tpu_torch.models.detection._utils',\n"
+        "    'holocron_tpu_torch.models.detection.yolo', 'holocron_tpu_torch.models.detection.yolov2',\n"
+        "    'holocron_tpu_torch.models.detection.yolov4', 'holocron_tpu_torch.optim.tadam',\n"
+        "    'holocron_tpu_torch.trainer.detection'))\n"
         "assert 'PIL' not in sys.modules and 'fastapi' not in sys.modules\n"
         "print('ok')\n"
     )
