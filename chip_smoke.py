@@ -93,7 +93,20 @@ Phases, each printing one JSON line to stdout:
    8 through ``fit_n_epochs``, ``evaluate()``, the four losses, finite gradients with
    padded target slots, ms a step, peak memory, kernels a step) and yolov4 at 608 px
    (2 timed steps).
-17. ``checks``: each kernel against its plain PyTorch version on the card at the shapes
+17. ``segmentation_zoo`` (after ``detection_training``): an f32 and a bf16 forward of each
+   of the eight segmentation factories (unet, unetp, unetpp, unet3p, unet2,
+   unet_tvvgg11, unet_tvresnet34, unet_rexnet13) at full width, 256 px, 21 classes,
+   batch 32: logits ``(32, 21, 256, 256)``, finite, bf16 ms. ``segmentation_serving``:
+   unet3p (the segmentation CLI's default) at 256 px, BN adapted on 4 naturalistic
+   batches, bf16 and selective int8 (33 ``wgmma`` convs: 320- and 1024-wide inputs,
+   biased convs without BN, a 21-wide head) at batch 8 and 32, eager and through
+   ``deploy_forward``'s graphs (every replay bit-equal to eager), the pixel-agreement
+   gate (pixel agreement and mean mask IoU against bf16) on 2 held-out batches of 32,
+   the batch-32 forwards profiled. ``segmentation_training``: the segmentation CLI's
+   ``main()`` in-process (unet3p, batch 16, 256 px, amp, AdamP, onecycle, an epoch of 4
+   batches and ``evaluate()``), then ms a step and peak memory in bf16 and in float32,
+   kernels a step and the idle share.
+18. ``checks``: each kernel against its plain PyTorch version on the card at the shapes
    the paths gave it, with its time, its plain version's time, the time of one PyTorch
    call computing the same function where there is one (``torch.cdist`` for add2d), and
    its bound: the larger of the bytes it must move over 3.35 TB/s and the operations it
@@ -101,8 +114,8 @@ Phases, each printing one JSON line to stdout:
    backward (tiled and general) are checked and timed at the path's shape. The int8
    routes are checked (bit-exact quantization, also on inputs on its ties and beyond
    its clip; exact accumulator; outputs within one ulp) at each int8 layer geometry of
-   repvgg_a0 (nine), resnet50 (22), rexnet1_0x (44) and darknet53 (13) at batch 8 and
-   32, checked again
+   repvgg_a0 (nine), resnet50 (22), rexnet1_0x (44), darknet53 (13) and unet3p (30, at
+   its path's batch of 32) at batch 8 and 32, checked again
    and timed at each at batch 256 (``check_int8_geometry`` lines, device time from CUDA
    graphs): quantize + conv, each kernel, cuDNN's bf16 conv of the layer, the plain
    version, ``torch._int_mm`` on the same int8 operands for each 1x1 stride-1
@@ -117,9 +130,9 @@ Phases, each printing one JSON line to stdout:
 Each kernel's launch counter is set to 0 just before the path that runs it and read
 just after; a kernel that its path never launched fails the run (a graph replay makes
 no call that a counter sees: the profiler counts the kernels of the replays). Then come
-the ``kernels`` line (the int8 entries over the serving, bench, deploy-graph, service and
-detection-serving paths; their times summed over the repvgg_a0, resnet50 and rexnet1_0x
-geometries), the card's name and power
+the ``kernels`` line (the int8 entries over the serving, bench, deploy-graph, service,
+detection-serving and segmentation-serving paths; their times summed over the
+repvgg_a0, resnet50 and rexnet1_0x geometries), the card's name and power
 limit as ``nvidia-smi`` reports them, and last ``{"ok": true, "device": {...}}``. Each
 phase's wall time goes to stderr. Float32 checks run with TF32 off
 (``torch.backends.cudnn.allow_tf32`` and ``torch.backends.cuda.matmul.allow_tf32``).
@@ -938,9 +951,8 @@ def check_int8(device, qm, model_bf16, x, model: str = "repvgg_a0", iters: int =
 
     handles = [m.register_forward_pre_hook(capture(name)) for name, m in layers]
     with torch.no_grad():
-        qm(x[:8])
-        qm(x[:32])
-        qm(x)
+        for b in sorted({8, 32, x.shape[0]}):
+            qm(x[:b])
     for hd in handles:
         hd.remove()
     if sum(g["count"] for g in geometries.values()) != len(layers):
@@ -2052,11 +2064,248 @@ def phase_detection_training(device, batch: int = 8, steps: int = 4) -> None:
     emit({"phase": "detection_training", "models": rows})
 
 
+SEGMENTATION_ZOO = ("unet", "unetp", "unetpp", "unet3p", "unet2", "unet_tvvgg11", "unet_tvresnet34", "unet_rexnet13")
+
+
+def phase_segmentation_zoo(device, batch: int = 32, size: int = 256, num_classes: int = 21, iters: int = 5) -> None:
+    """One eval forward of each of the eight segmentation factories at full width
+    (``scripts/bench_zoo.py:12,37-40``'s 256 px and batch 32; 21 classes, default BN
+    statistics, random weights from the seed), in float32 and bf16, channels_last:
+    logits of shape ``(batch, 21, 256, 256)`` and finite, bf16 against float32, bf16 ms
+    a forward (CUDA events). cuDNN's heuristics pick the algorithms (``cudnn.benchmark``
+    off, as in ``phase_resnet_zoo``)."""
+    import torch
+
+    from holocron_tpu_torch.bench import naturalistic_batch
+    from holocron_tpu_torch.models import segmentation
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 40)
+    x = naturalistic_batch(gen, batch, size, device)
+    x16 = x.to(torch.bfloat16)
+    rows = {}
+    benchmark, torch.backends.cudnn.benchmark = torch.backends.cudnn.benchmark, False
+    try:
+        for arch in SEGMENTATION_ZOO:
+            model = getattr(segmentation, arch)(num_classes=num_classes, generator=torch.Generator().manual_seed(SEED),
+                                                device=device)
+            model = model.to(memory_format=torch.channels_last).eval()
+            with torch.no_grad():
+                ref = model(x)
+                check_masks(ref, batch, num_classes, size, f"{arch} float32")
+                model = model.to(torch.bfloat16)
+                out = model(x16)
+                check_masks(out, batch, num_classes, size, f"{arch} bf16")
+                ms = cuda_ms(lambda: model(x16), iters, warmup=1)
+            rows[arch] = {"params": sum(p.numel() for p in model.parameters()),
+                          "bf16_vs_f32_max_abs": float((out.float() - ref).abs().max()),
+                          "logit_absmax_f32": float(ref.abs().max()),
+                          "bf16_pixels_vs_f32": float((out.argmax(1) == ref.argmax(1)).float().mean()),
+                          "bf16_ms": ms, "bf16_img_per_s": batch / (ms / 1e3)}
+            del model, ref, out
+            torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.benchmark = benchmark
+    torch.cuda.synchronize()
+    emit({"phase": "segmentation_zoo", "image_size": size, "batch": batch, "num_classes": num_classes,
+          "models": rows})
+
+
+def check_masks(out, batch: int, num_classes: int, size: int, what: str) -> None:
+    import torch
+
+    if tuple(out.shape) != (batch, num_classes, size, size) or not bool(torch.isfinite(out).all()):
+        fail(f"{what}: expected finite logits of shape {(batch, num_classes, size, size)}, got {tuple(out.shape)}")
+
+
+UNET3P_INT8 = 33  # unet3p's convs of 64 input channels or more: all but the 3-channel stem
+
+
+def phase_segmentation_serving(device, size: int = 256, num_classes: int = 21, batches=(8, 32),
+                               iters: int = 10) -> tuple:
+    """unet3p served at full width (256 px, 21 classes, the segmentation CLI's
+    defaults): BN statistics adapted in train mode on 4 naturalistic batches of 32, then
+    bf16 and selective int8 (calibrated on a batch of 32 in float32, float remainder in
+    bf16): 33 int8 convs, every one on the ``wgmma`` route (the 320- and 1024-wide
+    inputs, the biased ``FSAggreg`` convs, the 21-wide head), pinned as
+    ``phase_serving`` pins its splits, each launching the quantization and the conv once
+    an eager forward. Each form at batch 8 and 32, eager and through ``deploy_forward``'s
+    graphs: device ms a call (CUDA events), wall ms a synchronized call, img/s; every
+    replay equal to the eager forward bit for bit. The int8 gate
+    (``measure_agreement_segmentation``: pixel agreement and mean mask IoU against bf16)
+    on 2 held-out batches of 32. ``torch.profiler`` over the batch-32 forward of each
+    form, graph and eager: kernel ms, launches, idle share, top kernels. Returns the
+    int8 model, the bf16 model and the batch-32 input for :func:`check_int8`, and the
+    int8 kernels' launches the counters saw (eager forwards, warm-ups and captures)."""
+    import torch
+
+    from holocron_tpu_torch.bench import naturalistic_batch
+    from holocron_tpu_torch.kernels.int8_conv import conv_route
+    from holocron_tpu_torch.models import segmentation
+    from holocron_tpu_torch.models.core import deploy_forward
+    from holocron_tpu_torch.quant import QuantizedConv2d, measure_agreement_segmentation, quantize_model
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 41)
+    model = segmentation.unet3p(num_classes=num_classes, generator=torch.Generator().manual_seed(SEED), device=device)
+    model = model.to(memory_format=torch.channels_last)
+    model.train()
+    with torch.no_grad():
+        for _ in range(4):
+            model(naturalistic_batch(gen, batches[-1], size, device))
+    model.eval()
+    model_bf16 = copy.deepcopy(model).to(torch.bfloat16)
+    calib = naturalistic_batch(gen, batches[-1], size, device)
+    qm = quantize_model(model, calibration_batches=[calib], arch="unet3p").to(torch.bfloat16)
+    layers = [m for m in qm.modules() if isinstance(m, QuantizedConv2d)]
+    geoms = int8_geometries(qm)
+    routes = [conv_route(m.kernel_q.shape[2], m.kernel_q.shape[3], m.groups) for m in layers]
+    if (len(layers) != UNET3P_INT8 or routes.count("wgmma") != UNET3P_INT8
+            or not any(g[1] == num_classes for g in geoms) or not any(m.bias is not None for m in layers)):
+        fail(f"unet3p: {len(layers)} int8 convs at {geoms}, routes {set(routes)}; expected {UNET3P_INT8} on wgmma, "
+             f"a {num_classes}-wide head and biased convs among them")
+    xs = {b: naturalistic_batch(gen, b, size, device).to(torch.bfloat16) for b in batches}
+    held = [naturalistic_batch(gen, batches[-1], size, device).to(torch.bfloat16) for _ in range(2)]
+    del calib
+    torch.cuda.synchronize()
+
+    forms = {"bf16": model_bf16, "int8": qm}
+    reset_counts()
+    records, graphs = {}, {}
+    with torch.no_grad():
+        for name, m in forms.items():
+            for b, x in xs.items():
+                check_masks(m(x), b, num_classes, size, f"unet3p {name} batch {b}")
+        eager_launches = int8_launches()
+        expected = len(batches) * UNET3P_INT8
+        if eager_launches != {"int8_conv": expected, "int8_quantize": expected, "int8_conv_general": 0}:
+            fail(f"unet3p int8: the eager forwards launched {eager_launches}, expected {expected} of each")
+        for name, m in forms.items():
+            graphs[name] = deploy_forward(m, batches, size)
+            rec = {}
+            for b, x in xs.items():
+                eager = m(x)
+                if not torch.equal(graphs[name](x), eager):
+                    fail(f"unet3p {name} batch {b}: the replay differs from the eager forward")
+                row = {}
+                for mode, fn in (("eager", lambda: m(x)), ("graph", lambda: graphs[name](x))):
+                    device_ms = cuda_ms(fn, iters)
+                    t0 = time.perf_counter()
+                    for _ in range(iters):
+                        fn()
+                        torch.cuda.synchronize()
+                    row[mode] = {"device_ms": device_ms, "wall_ms": (time.perf_counter() - t0) * 1e3 / iters,
+                                 "img_per_s": b / (device_ms / 1e3)}
+                rec[f"batch{b}"] = row
+            records[name] = rec
+        launches = int8_launches()
+        if not launches["int8_conv"] or not launches["int8_quantize"] or launches["int8_conv_general"]:
+            fail(f"unet3p int8: the path launched {launches}, expected the wgmma conv and the quantization")
+        gate = measure_agreement_segmentation(model_bf16, qm, held)
+        x32 = xs[batches[-1]]
+        profiles = {f"{name}_{mode}": profile_forward(fn, x32, steps=3, top=8)
+                    for name in forms for mode, fn in (("graph", graphs[name]), ("eager", forms[name]))}
+    torch.cuda.synchronize()
+    last = f"batch{batches[-1]}"
+    emit({"phase": "segmentation_serving", "model": "unet3p", "image_size": size, "num_classes": num_classes,
+          "params": sum(p.numel() for p in model.parameters()), "int8_convs": len(layers),
+          "int8_geometries": geoms, "forms": records,
+          "int8_over_bf16_graph": (records["bf16"][last]["graph"]["device_ms"]
+                                   / records["int8"][last]["graph"]["device_ms"]),
+          "gate": gate, "profiles": profiles, "launches": launches})
+    del graphs
+    return qm, model_bf16, x32, launches
+
+
+def phase_segmentation_training(device, size: int = 256, batch: int = 16, num_classes: int = 21,
+                                timed_steps: int = 4) -> None:
+    """The segmentation CLI's ``main()`` in this process, on the card:
+    ``fake --arch unet3p -b 16 --crop-size 256 --fake-samples 64 --epochs 1 --amp`` (AdamP,
+    onecycle, cross-entropy ignoring 255; an epoch of 4 batches from spawned loader
+    workers, then ``evaluate()``), its output on stderr: every step's loss and the
+    evaluation must be finite, 4 updates applied. Then, in the CLI's trainer, ms a
+    train step over a steady window of ``timed_steps`` (CUDA events) on batches made on
+    the device (a fifth of the pixels 255), with bf16 compute (``--amp``) and in the
+    CLI's float32 default (cuDNN's heuristics, no autotuning), each with its peak
+    memory; and the kernels a step and the idle share from ``Trainer.profile``."""
+    import contextlib
+
+    import torch
+
+    from holocron_tpu_torch.bench import naturalistic_batch
+    from holocron_tpu_torch.references.segmentation import train
+    from holocron_tpu_torch.trainer import SegmentationTrainer
+
+    ckpt = ROOT / "holocron_tpu_torch" / "_build" / "smoke_segmentation.pt"
+    args = train.parse_args(["fake", "--arch", "unet3p", "-b", str(batch), "--crop-size", str(size),
+                             "--fake-samples", "64", "--epochs", "1", "--amp", "--num-classes", str(num_classes),
+                             "--device", str(device), "--output-file", str(ckpt)])
+    losses, evaluated = [], []
+    step, evaluate = SegmentationTrainer._run_step_async, SegmentationTrainer.evaluate
+
+    def recorded_step(self, x, target):
+        losses.append(step(self, x, target))
+        return losses[-1]
+
+    def recorded_eval(self, *a, **kw):
+        evaluated.append(evaluate(self, *a, **kw))
+        return evaluated[-1]
+
+    SegmentationTrainer._run_step_async, SegmentationTrainer.evaluate = recorded_step, recorded_eval
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(sys.stderr):
+            trainer = train.main(args)
+    finally:
+        SegmentationTrainer._run_step_async, SegmentationTrainer.evaluate = step, evaluate
+        ckpt.unlink(missing_ok=True)
+    cli_s = time.perf_counter() - t0
+    losses = [float(v) for v in losses]
+    steps = 64 // batch
+    if (len(losses) != steps or not all(map(math.isfinite, losses)) or len(evaluated) != 1
+            or not all(map(math.isfinite, evaluated[0].values())) or trainer._opt.param_groups[0]["count"] != steps):
+        fail(f"segmentation training: losses {losses}, evaluate {evaluated}, "
+             f"{trainer._opt.param_groups[0]['count']} updates; expected {steps} finite losses and updates")
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 42)
+    batches = []
+    for _ in range(2):
+        target = torch.randint(0, num_classes, (batch, size, size), generator=gen, device=device)
+        target[torch.rand(target.shape, generator=gen, device=device) < 0.2] = 255
+        batches.append((naturalistic_batch(gen, batch, size, device), target))
+    windows = {}
+    benchmark = torch.backends.cudnn.benchmark
+    try:
+        for amp in (True, False):
+            # the float32 convs take cuDNN's heuristics: autotuning every forward and
+            # backward shape of unet3p in float32 without TF32 took about 9 minutes on
+            # the H100
+            torch.backends.cudnn.benchmark = benchmark and amp
+            trainer.amp = amp
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            ms = time_train_steps(trainer, batches, timed_steps)
+            windows["bf16" if amp else "float32"] = {"train_step_ms": ms, "train_img_per_s": batch / (ms / 1e3),
+                                                     "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30}
+    finally:
+        torch.backends.cudnn.benchmark = benchmark
+    trainer.amp = True
+    trainer.train_loader, trainer.val_loader = batches, None  # the CLI's loaders stop their workers
+    prof = summarize_profile(trainer.profile(num_steps=2), 2)
+    if not all(bool(torch.isfinite(p).all()) for p in trainer.model.parameters()):
+        fail("segmentation training: parameters not finite after the steps")
+    torch.cuda.synchronize()
+    emit({"phase": "segmentation_training", "model": "unet3p", "image_size": size, "batch": batch,
+          "num_classes": num_classes, "optimizer": "AdamP", "sched": "onecycle", "cli_seconds": cli_s,
+          "losses": losses, "eval": evaluated[0], "steps": windows,
+          "kernel_launches_per_step": prof["kernel_launches"],
+          "profile": {k: prof[k] for k in ("host_ms", "kernel_ms", "idle", "top")}})
+
+
 def int8_entries(launches: list, replays_seen: dict, records: list, grouped: list) -> list:
     """The ``kernels`` line's entries of the int8 kernels: launches the counters saw,
     summed over the paths' runs (the four classification serving paths, the bench, the
     captured deploy forward's warm-ups, captures and eager forwards, the service's
-    captures, and yolov4's eager forwards, warm-ups and captures in ``detection_serving``);
+    captures, yolov4's eager forwards, warm-ups and captures in ``detection_serving``, and
+    unet3p's in ``segmentation_serving``);
     apart from them, ``replay_launches_seen``: the launches ``torch.profiler`` saw in
     graph replays, a lower bound (it drops records; a replay makes no call a counter
     sees);
@@ -2135,6 +2384,9 @@ def main() -> int:
     service_launches = timed(phase_service, device)
     detection_launches = timed(phase_detection_serving, device)
     timed(phase_detection_training, device)
+    timed(phase_segmentation_zoo, device)
+    sqm, smodel_bf16, sx, segmentation_launches = timed(phase_segmentation_serving, device)
+    timed(phase_segmentation_training, device)
     inv = timed(check_involution, device)
     inv_bwd = timed(check_involution_bwd, device)
     add = timed(check_add2d, device)
@@ -2142,6 +2394,8 @@ def main() -> int:
     i8_resnet = timed(check_int8, device, rqm, rmodel_bf16, rx, "resnet50")
     i8_rexnet = timed(check_int8, device, xqm, xmodel_bf16, xx, "rexnet1_0x")
     timed(check_int8, device, dqm, dmodel_bf16, dx, "darknet53")
+    timed(check_int8, device, sqm, smodel_bf16, sx, "unet3p")
+    del sqm, smodel_bf16, sx
     timed(check_int8_service, device, graph_forms)
     emit({"phase": "rexnet_int8_by_kind", **rexnet_int8_by_kind(i8_rexnet["rows"])})
     grouped = timed(check_int8_grouped, device)
@@ -2168,7 +2422,8 @@ def main() -> int:
         *(entry(name, add_src, "holocron_tpu/kernels/add2d.py:82", add2d_launches[name], add[name],
                 add[name]["max_abs_err"]) for name in ("add2d_bwd_dp", "add2d_bwd_dw")),
         *int8_entries([serving_launches, resnet_launches, rexnet_launches, darknet_launches, bench_launches,
-                       graph_launches, service_launches, detection_launches, profile_launches], replays_seen,
+                       graph_launches, service_launches, detection_launches, segmentation_launches,
+                       profile_launches], replays_seen,
                       [i8, i8_resnet, i8_rexnet], grouped),
     ]})
     card = subprocess.run(

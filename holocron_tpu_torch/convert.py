@@ -27,6 +27,9 @@ from .models.classification.sknet import SKConv2d
 from .models.classification.tridentnet import TridentConv2d
 from .models.detection import YOLOv1, YOLOv2, YOLOv4
 from .models.layers import FrozenBatchNorm2d
+from .models.segmentation import (DynamicUNet, ReXNetFeatures, ResNet34Features, UNet, UNet3p, UNetBackbone, UpPath,
+                                  VGG11Features)
+from .models.segmentation.unetpp import _NestedUNet
 from .nn.modules.conv import PyConv2d
 
 __all__ = [
@@ -38,6 +41,7 @@ __all__ = [
     "repvgg_state_dict",
     "resnet_state_dict",
     "rexnet_state_dict",
+    "segmentation_state_dict",
 ]
 
 
@@ -188,40 +192,46 @@ def resnet_state_dict(variables: Mapping, model: ResNet) -> Dict[str, torch.Tens
     return sd
 
 
+def _conv_norm(sd: Dict[str, torch.Tensor], variables: Mapping, conv_key: str, norm_key: str, path: str) -> None:
+    """A JAX ``ConvSequence``'s conv and norm at ``path`` as the port's two layers."""
+    _conv_at(sd, conv_key, _node(variables["params"], f"{path}/conv"))
+    _norm_at(sd, norm_key, variables, f"{path}/bn")
+
+
+def _rexblock(sd: Dict[str, torch.Tensor], variables: Mapping, t: str, d: str, block: nn.Module) -> None:
+    """A :class:`ReXBlock`'s ``conv`` layers at ``t`` from the JAX block at ``d``: its
+    ``expand`` (conv, norm, act; when it expands), ``dw`` (conv, norm), ``se``
+    (``.conv.0``/``.1`` fc1's conv and norm, ``.conv.3`` fc2's conv), the activation and
+    ``project`` (conv, norm)."""
+    names = ["expand", "dw"] if block.t != 1 else ["dw"]
+    off = 0
+    for name in names:
+        _conv_norm(sd, variables, f"{t}.{off}", f"{t}.{off + 1}", f"{d}/{name}")
+        off += 3 if name == "expand" else 2
+    if isinstance(block.conv[off], SEBlock):
+        _conv_norm(sd, variables, f"{t}.{off}.conv.0", f"{t}.{off}.conv.1", f"{d}/se/fc1")
+        _conv_at(sd, f"{t}.{off}.conv.3", _node(variables["params"], f"{d}/se/fc2/conv"))
+        off += 1
+    _conv_norm(sd, variables, f"{t}.{off + 1}", f"{t}.{off + 2}", f"{d}/project")
+
+
 def rexnet_state_dict(variables: Mapping, model: ReXNet) -> Dict[str, torch.Tensor]:
     """State dict of a :class:`~holocron_tpu_torch.models.ReXNet` from the JAX
     ``ReXNet``'s variables; the inverse of ``_convert_rexnet``
     (``holocron_tpu/models/_torch_convert.py:197-242``).
 
     ``features.0``/``.1`` are the stem's conv and norm; each block ``features.{3 + i}``
-    holds, in ``conv``, the JAX block ``block_{i}``'s ``expand`` (conv, norm, act; when
-    it expands), ``dw`` (conv, norm), ``se`` (``conv.0``/``.1`` fc1's conv and norm,
-    ``conv.3`` fc2's conv), the activation and ``project`` (conv, norm); then the
-    penultimate conv and norm and ``head.1``.
+    holds, in ``conv``, the JAX block ``block_{i}``'s layers (:func:`_rexblock`); then
+    the penultimate conv and norm and ``head.1``.
     """
     params = variables["params"]
     sd: Dict[str, torch.Tensor] = {}
-
-    def conv_norm(conv_key: str, norm_key: str, path: str) -> None:
-        _conv_at(sd, conv_key, _node(params, f"{path}/conv"))
-        _norm_at(sd, norm_key, variables, f"{path}/bn")
-
-    conv_norm("features.0", "features.1", "stem")
+    _conv_norm(sd, variables, "features.0", "features.1", "stem")
     blocks = model.features[3:-3]
     for i, block in enumerate(blocks):
-        t, d = f"features.{3 + i}.conv", f"block_{i}"
-        names = ["expand", "dw"] if block.t != 1 else ["dw"]
-        off = 0
-        for name in names:
-            conv_norm(f"{t}.{off}", f"{t}.{off + 1}", f"{d}/{name}")
-            off += 3 if name == "expand" else 2
-        if isinstance(block.conv[off], SEBlock):
-            conv_norm(f"{t}.{off}.conv.0", f"{t}.{off}.conv.1", f"{d}/se/fc1")
-            _conv_at(sd, f"{t}.{off}.conv.3", _node(params, f"{d}/se/fc2/conv"))
-            off += 1
-        conv_norm(f"{t}.{off + 1}", f"{t}.{off + 2}", f"{d}/project")
+        _rexblock(sd, variables, f"features.{3 + i}.conv", f"block_{i}", block)
     pen = 3 + len(blocks)
-    conv_norm(f"features.{pen}", f"features.{pen + 1}", "penultimate")
+    _conv_norm(sd, variables, f"features.{pen}", f"features.{pen + 1}", "penultimate")
     sd["head.1.weight"] = _dense(params["head"]["kernel"])
     sd["head.1.bias"] = _t(params["head"]["bias"])
     return sd
@@ -352,4 +362,92 @@ def detection_state_dict(variables: Mapping, model: Union[YOLOv1, YOLOv2, YOLOv4
                             ("head2_1", [f"head2_1_{k}" for k in range(5)]), ("head2_2", ["head2_2_0", "head2_2_1"]),
                             ("pre_head3", ["pre_head3"]), ("head3", [f"head3_{k}" for k in range(7)])):
             _layers_at(sd, variables, f"head.{name}", getattr(head, name), [f"head/{n}" for n in names])
+    return sd
+
+
+def _up_path(sd: Dict[str, torch.Tensor], variables: Mapping, t: str, d: str, up: UpPath) -> None:
+    """An :class:`UpPath` at ``t`` from the JAX one at ``d``: the two conv blocks, and a
+    transposed conv's kernel flipped in both spatial axes (flax's ``ConvTranspose``
+    does not flip it, torch's ``conv_transpose2d`` does), HWIO -> ``(I, O, kh, kw)``."""
+    _layers_at(sd, variables, f"{t}.block", up.block, [f"{d}/conv_0", f"{d}/conv_1"])
+    if isinstance(up.upsample, nn.ConvTranspose2d):
+        node = _node(variables["params"], f"{d}/upconv")
+        kernel = np.asarray(node["kernel"], dtype=np.float32)[::-1, ::-1].transpose(2, 3, 0, 1)
+        sd[f"{t}.upsample.weight"] = torch.from_numpy(np.ascontiguousarray(kernel))
+        sd[f"{t}.upsample.bias"] = _t(node["bias"])
+
+
+def _encoder(sd: Dict[str, torch.Tensor], variables: Mapping, encoder: nn.Module) -> None:
+    """A DynamicUNet's encoder from the JAX one at ``encoder``."""
+    if isinstance(encoder, UNetBackbone):
+        for i, down in enumerate(encoder):
+            _layers_at(sd, variables, f"encoder.{i}", down, [f"encoder/encoder_{i}/conv_0", f"encoder/encoder_{i}/conv_1"])
+    elif isinstance(encoder, VGG11Features):
+        convs = [n for n in _node(variables["params"], "encoder") if n.startswith("conv_")]
+        _layers_at(sd, variables, "encoder", encoder,
+                   [f"encoder/{n}" for n in sorted(convs, key=lambda n: tuple(map(int, n.split("_")[1:])))])
+    elif isinstance(encoder, ResNet34Features):
+        _conv_norm(sd, variables, "encoder.0", "encoder.1", "encoder/stem_0")
+        for i, stage in enumerate(list(encoder)[4:]):
+            for j, block in enumerate(stage):
+                t, d = f"encoder.{4 + i}.{j}", f"encoder/layer_{i}_{j}"
+                _conv_norm(sd, variables, f"{t}.conv.0", f"{t}.conv.1", f"{d}/conv_0")
+                _conv_norm(sd, variables, f"{t}.conv.3", f"{t}.conv.4", f"{d}/conv_1")
+                if block.downsample is not None:
+                    _conv_norm(sd, variables, f"{t}.downsample.0", f"{t}.downsample.1", f"{d}/downsample/proj")
+    elif isinstance(encoder, ReXNetFeatures):
+        _conv_norm(sd, variables, "encoder.0", "encoder.1", "encoder/stem")
+        for i, block in enumerate(list(encoder)[3:]):
+            _rexblock(sd, variables, f"encoder.{3 + i}.conv", f"encoder/block_{i}", block)
+    else:
+        raise NotImplementedError(f"no conversion for a DynamicUNet over {type(encoder).__name__}")
+
+
+def segmentation_state_dict(
+    variables: Mapping, model: Union[UNet, _NestedUNet, UNet3p, DynamicUNet]
+) -> Dict[str, torch.Tensor]:
+    """State dict of a segmentation model (:class:`UNet`, ``UNetp``, ``UNetpp``,
+    :class:`UNet3p`, :class:`DynamicUNet` over any of its four encoders) from the JAX
+    one's variables. The DynamicUNet's keys are original Holocron's, those that
+    ``_convert_dynamic_unet`` reads (``holocron_tpu/models/_torch_convert.py:452-490``:
+    ``bridge.0`` the bridge's norm, ``decoder.{k}.upsample``, ``.bn`` and ``.block``,
+    ``upsample``, ``classifier``), with the encoder's in its classifier's order; the
+    other families' mapping is the port's own (each JAX ``ConvSequence`` to the conv and
+    norm of the port's block in the same place)."""
+    params = variables["params"]
+    sd: Dict[str, torch.Tensor] = {}
+    if isinstance(model, DynamicUNet):
+        _encoder(sd, variables, model.encoder)
+        _norm_at(sd, "bridge.0", variables, "bridge_bn")
+        _layers_at(sd, variables, "bridge", model.bridge, ["bridge_0", "bridge_1"])
+        for k, block in enumerate(model.decoder):
+            d = f"decoder_{k}"
+            _layers_at(sd, variables, f"decoder.{k}.upsample", block.upsample, [f"{d}/up_conv"])
+            _norm_at(sd, f"decoder.{k}.bn", variables, f"{d}/bn")
+            _layers_at(sd, variables, f"decoder.{k}.block", block.block, [f"{d}/conv_0", f"{d}/conv_1"])
+        if model.upsample is not None:
+            _layers_at(sd, variables, "upsample", model.upsample, ["final_up_conv"])
+    else:
+        for i, down in enumerate(model.encoder):
+            _layers_at(sd, variables, f"encoder.{i}", down, [f"encoder_{i}/conv_0", f"encoder_{i}/conv_1"])
+        if isinstance(model, UNet3p):
+            for row, block in enumerate(model.decoder):
+                d = f"decoder_{row}"
+                for k, seq in enumerate(block.downsamples):
+                    _layers_at(sd, variables, f"decoder.{row}.downsamples.{k}", seq, [f"{d}/down_{k}"])
+                if isinstance(block.skip, nn.Conv2d):
+                    _conv_at(sd, f"decoder.{row}.skip", params[d]["skip"])
+                for k, seq in enumerate(block.upsamples):
+                    _layers_at(sd, variables, f"decoder.{row}.upsamples.{k}", seq, [f"{d}/up_{k}"])
+                _layers_at(sd, variables, f"decoder.{row}.block", block.block, [f"{d}/block"])
+        else:
+            _layers_at(sd, variables, "bridge", model.bridge, ["bridge_0", "bridge_1"])
+            if isinstance(model, UNet):
+                for k, up in enumerate(model.decoder):
+                    _up_path(sd, variables, f"decoder.{k}", f"decoder_{k}", up)
+            else:
+                for i, level in enumerate(model.decoder):
+                    for j, up in enumerate(level):
+                        _up_path(sd, variables, f"decoder.{i}.{j}", f"decoder_{i}_{j}", up)
+    _conv_at(sd, "classifier", params["classifier"])
     return sd

@@ -69,6 +69,8 @@
 //   once per filter tap and makes the producer's loads synchronous; it measured 8-14x
 //   slower (PERF.md).
 
+#include <algorithm>
+
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -939,22 +941,39 @@ extern "C" const char* holocron_cuda_error_string(int err) {
 // pitch; bn: the column tile, one of 48, 64, 96, 128, 192, 256. out_dtype: 0 = float32,
 // 1 = bfloat16 (both with the epilogue), 2 = raw int32 accumulator. Requires k_pad =
 // KH*KW*c rounded up to a multiple of 128, and x and wp 16-byte aligned. Returns
-// cudaGetLastError() after the launch.
+// cudaGetLastError() after the last launch.
+//
+// The kernel's index arithmetic is 32-bit (64-bit division is slow): a launch's M and
+// its x elements (with one image of margin, for rows past M) stay below 2^31. A batch
+// beyond that runs as launches of equal runs of whole images (x and y advance an image
+// at a time, and no output pixel reads another image), one image of margin included;
+// a single image beyond it is refused.
 extern "C" int int8_conv_wgmma_forward(const void* x, const void* wp, const void* s_x, const void* w_scale,
                                        const void* bias, int bias_bf16, void* out, int out_dtype, int n, int h,
                                        int w_in, int c, int o, int kh, int kw, int sh, int sw, int ph, int pw, int dh,
                                        int dw, int oh, int ow, int bn, int k_pad, void* stream) {
-  const long long m = static_cast<long long>(n) * oh * ow;
-  // index arithmetic in 32 bits (64-bit division is slow): M and x's elements (with one
-  // image of margin, for rows past M) below 2^31
-  if (m + BM > 0x7FFFFFFFLL || static_cast<long long>(n + 1) * h * w_in * c > 0x7FFFFFFFLL)
+  const long long x_image = static_cast<long long>(h) * w_in * c, m_image = static_cast<long long>(oh) * ow;
+  if (n < 0 || 2 * x_image > 0x7FFFFFFFLL || m_image + BM > 0x7FFFFFFFLL)
     return static_cast<int>(cudaErrorInvalidValue);
-  const ConvShape s{h, w_in, c, o, kh, kw, sh, sw, ph, pw, dh, dw, oh, ow, static_cast<int>(m), kh * kw * c, k_pad};
+  const long long fit =
+      std::min(0x7FFFFFFFLL / std::max(x_image, 1LL) - 1, (0x7FFFFFFFLL - BM) / std::max(m_image, 1LL));
+  const long long launches = n == 0 ? 1 : (n + fit - 1) / fit;
+  const int per = static_cast<int>((n + launches - 1) / launches);  // images a launch
+  const ConvShape s{h, w_in, c, o, kh, kw, sh, sw, ph, pw, dh, dw, oh, ow, static_cast<int>(per * m_image),
+                    kh * kw * c, k_pad};
   if (out_dtype < 0 || out_dtype > 2 || c % 16 != 0 || o < 1 || k_pad != (s.k + BK - 1) / BK * BK ||
       reinterpret_cast<uintptr_t>(x) % 16 != 0 || reinterpret_cast<uintptr_t>(wp) % 16 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (s.m == 0) return 0;
-  return dispatch(bn, x, wp, s_x, w_scale, bias, bias_bf16, out, out_dtype, s, static_cast<cudaStream_t>(stream));
+  const long long y_image = m_image * o * (out_dtype == 1 ? 2 : 4);  // bytes of an output image
+  int err = 0;
+  for (int i0 = 0; i0 < n && err == 0; i0 += per) {
+    ConvShape run = s;
+    run.m = static_cast<int>(std::min(per, n - i0) * m_image);
+    if (run.m == 0) continue;
+    err = dispatch(bn, static_cast<const int8_t*>(x) + i0 * x_image, wp, s_x, w_scale, bias, bias_bf16,
+                   static_cast<char*>(out) + i0 * y_image, out_dtype, run, static_cast<cudaStream_t>(stream));
+  }
+  return err;
 }
 
 // q = clip(round_half_even(float(x) / *s_x), -127, 127) over `rows` rows of c elements

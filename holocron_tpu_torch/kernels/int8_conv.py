@@ -12,7 +12,9 @@ routes, chosen by shape in :func:`conv_route`:
 - ``"wgmma"`` (``csrc/int8_conv.cu``, counter ``int8_conv``): every ungrouped conv. It
   reads x_q at its pitch and the weights packed once per layer over the same pitch by
   :func:`pack_weights`, so the reduction runs over KH * KW * pitch and the zeros add
-  nothing; its quantization prologue has the counter ``int8_quantize``.
+  nothing; its quantization prologue has the counter ``int8_quantize``. Its indices are
+  32-bit: a batch whose x reaches 2^31 elements (with an image of margin) runs as
+  several launches of whole images within the one call, which counts once.
 - ``"general"`` (``csrc/int8_conv_general.cu``, counter ``int8_conv_general``): every
   grouped conv, one GEMM a group.
 

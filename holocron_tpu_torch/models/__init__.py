@@ -1,2 +1,2 @@
-from . import checkpoints, classification, core, detection, layers, presets, utils
+from . import checkpoints, classification, core, detection, layers, presets, segmentation, utils
 from .classification import *  # noqa: F403

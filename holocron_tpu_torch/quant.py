@@ -38,6 +38,7 @@ __all__ = [
     "calibrate",
     "measure_agreement",
     "measure_agreement_detection",
+    "measure_agreement_segmentation",
     "quantize_activation",
     "quantize_conv_params",
     "quantize_model",
@@ -74,14 +75,17 @@ _SELECTION_FIELDS = ("min_in_channels", "quantize_strided")
 # forward): 49,069 / 37,596, 10,571 / 13,054, 17,613 / 17,934 img/s. darknet53:
 # chip_smoke.py's darknet_serving (batch 256, 224 px, eager, CUDA events): 11,370 /
 # 12,772. yolov4: chip_smoke.py's detection_serving (batch 32, 608 px, the raw forward
-# through the captured deploy forward, CUDA events): 868 / 991. `recommended` is
-# int8_speedup >= 1.05, the JAX policy's rule (scripts/gen_quant_policy.py:91).
+# through the captured deploy forward, CUDA events): 868 / 991. unet3p: chip_smoke.py's
+# segmentation_serving (batch 32, 256 px, 21 classes, through the captured deploy
+# forward, CUDA events): 85.49 / 85.78 ms a call. `recommended` is int8_speedup >= 1.05,
+# the JAX policy's rule (scripts/gen_quant_policy.py:91).
 INT8_VERDICTS: Dict[str, Dict] = {
     "repvgg_a0": {"int8_speedup": 1.305, "recommended": True},
     "resnet50": {"int8_speedup": 0.81, "recommended": False},
     "rexnet1_0x": {"int8_speedup": 0.982, "recommended": False},
     "darknet53": {"int8_speedup": 0.89, "recommended": False},
     "yolov4": {"int8_speedup": 0.876, "recommended": False},
+    "unet3p": {"int8_speedup": 1.003, "recommended": False},
 }
 
 
@@ -258,6 +262,38 @@ def measure_agreement(
         total += int(x.shape[0])
         drift = max(drift, float((p_ref - p_q).abs().max()))
     return {"top1_agreement": agree / max(total, 1), "max_prob_drift": drift}
+
+
+@torch.no_grad()
+def measure_agreement_segmentation(
+    ref_fwd: Callable, quant_fwd: Callable, batches: Iterable[torch.Tensor]
+) -> Dict[str, float]:
+    """The dense gate between a segmentation model's reference form and its quantized
+    form (``quant.py:410-450``), on NCHW logits ``(B, C, H, W)``: the fraction of pixels
+    whose argmax class agrees, and the mean over the classes present in either argmax
+    mask of their IoU, the reference's mask taken as ground truth. Counts accumulate on
+    the device and are read once; NaN for both where ``batches`` is empty (no evidence),
+    a mean IoU of 1.0 where no class is present."""
+    agree = total = inter = union = None
+    for x in batches:
+        l_ref, l_q = ref_fwd(x), quant_fwd(x)
+        num_classes = l_ref.shape[1]
+        m_ref, m_q = l_ref.argmax(1).flatten(), l_q.argmax(1).flatten()
+        same = m_ref == m_q
+        # per class: pixels where both masks hold it, and pixels of it in each mask
+        # (``bincount``'s extra bin takes the disagreeing pixels)
+        both = torch.bincount(torch.where(same, m_ref, num_classes), minlength=num_classes + 1)[:num_classes]
+        either = torch.bincount(m_ref, minlength=num_classes) + torch.bincount(m_q, minlength=num_classes) - both
+        n = same.sum()
+        agree, inter, union = (n, both, either) if agree is None else (agree + n, inter + both, union + either)
+        total = (0 if total is None else total) + m_ref.numel()
+    if agree is None:
+        return {"pixel_agreement": float("nan"), "mean_mask_iou": float("nan")}
+    counts = torch.cat([agree.reshape(1), inter, union]).cpu().numpy()
+    agree, (inter, union) = int(counts[0]), counts[1:].reshape(2, -1)
+    present = union > 0
+    ious = inter[present] / union[present]
+    return {"pixel_agreement": agree / max(total, 1), "mean_mask_iou": float(ious.mean()) if ious.size else 1.0}
 
 
 def _xyxy_iou(a: np.ndarray, b: np.ndarray) -> np.ndarray:

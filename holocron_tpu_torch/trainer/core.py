@@ -341,6 +341,36 @@ class Trainer:
             if self.on_epoch_end is not None:
                 self.on_epoch_end(eval_metrics)
 
+    def find_lr(
+        self,
+        freeze_until: Optional[str] = None,
+        start_lr: float = 1e-7,
+        end_lr: float = 1,
+        norm_weight_decay: Optional[float] = None,
+        num_it: int = 100,
+    ) -> None:
+        """The exponential learning-rate sweep (``core.py:612-642``): step ``k`` trains
+        at ``start_lr * gamma ** k`` (the optimizer's 0-based count), ``gamma`` taking
+        ``num_it`` steps from ``start_lr`` to ``end_lr``; stops at the first non-finite
+        loss (raises if it is the first). Leaves ``lr_recorder`` and ``loss_recorder``,
+        of equal length."""
+        if hasattr(self.train_loader, "__len__") and num_it > len(self.train_loader):
+            raise ValueError("the value of `num_it` needs to be lower than the number of available batches")
+        gamma = (end_lr / start_lr) ** (1 / (num_it - 1))
+        self._reset_opt(lambda count: start_lr * gamma**count, norm_weight_decay, freeze_until)
+        self.lr_recorder = [start_lr * gamma**idx for idx in range(num_it)]
+        self.loss_recorder: List[float] = []
+        for batch_idx, (x, target) in enumerate(self.train_loader):
+            batch_loss = self._run_step(x, target)
+            if math.isnan(batch_loss) or math.isinf(batch_loss):
+                if batch_idx == 0:
+                    raise ValueError("loss value is NaN or inf.")
+                break
+            self.loss_recorder.append(batch_loss)
+            if batch_idx + 1 == num_it:
+                break
+        self.lr_recorder = self.lr_recorder[: len(self.loss_recorder)]
+
     def check_setup(
         self,
         freeze_until: Optional[str] = None,

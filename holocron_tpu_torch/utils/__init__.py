@@ -1,5 +1,5 @@
-"""Host-side utilities (``holocron_tpu/utils``): so far the native JPEG decoder the
-service uses."""
+"""Host-side utilities (``holocron_tpu/utils``): the reference CLIs' datasets and the
+native JPEG decoder the service uses."""
 
 from . import data
 

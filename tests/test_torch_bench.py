@@ -97,11 +97,11 @@ def test_recommended_quantization_reads_the_card_verdicts():
     """The archs the card measured have verdicts (recommended at >= 1.05x, the JAX
     policy's rule); any other returns None. The verdicts are a table of their own, not
     fields of QUANT_POLICY (the JAX file's copy)."""
-    archs = ("repvgg_a0", "resnet50", "rexnet1_0x", "darknet53", "yolov4")
+    archs = ("repvgg_a0", "resnet50", "rexnet1_0x", "darknet53", "yolov4", "unet3p")
     verdicts = {arch: quant.recommended_quantization(arch) for arch in archs}
     assert all(set(v) == {"int8_speedup", "recommended"} for v in verdicts.values())
     assert all(v["recommended"] == (v["int8_speedup"] >= 1.05) for v in verdicts.values())
-    assert [v["recommended"] for v in verdicts.values()] == [True, False, False, False, False]
+    assert [v["recommended"] for v in verdicts.values()] == [True, False, False, False, False, False]
     for arch in ("rexnet1_3x", "resnet18", "mobileone_s0", "yolov2"):
         assert quant.recommended_quantization(arch) is None
     assert not any("int8_speedup" in e or "recommended" in e for e in quant.QUANT_POLICY.values())

@@ -849,3 +849,115 @@ def test_int8_route_at_detector_prediction_widths(cuda, o, c, hw):
     x = torch.randn(2, hw, hw, c, generator=gen, device=cuda).to(torch.bfloat16)
     w_q = torch.randint(-127, 128, (1, 1, c, o), generator=gen, device=cuda, dtype=torch.int8)
     _int8_route_matches_plain(cuda, x, w_q, 1, 0, 1, 35)
+
+
+@pytest.mark.parametrize(
+    "n,hw,c,o,ksize",
+    [
+        (2, 64, 320, 320, 3),   # a UNet3+ decoder row's block: 5 x 64 channels
+        (2, 16, 1024, 64, 3),   # the bottom encoder feature's projection (before its upsampling)
+        (2, 64, 320, 21, 1),    # the 1x1 head to 21 classes: the masked epilogue
+        (2, 32, 512, 64, 3),    # a skip's projection, biased, no norm after it
+    ],
+)
+def test_int8_route_at_unet3p_geometries(cuda, n, hw, c, o, ksize):
+    """unet3p's new int8 geometries on the wgmma route (with and without bias), batch 2:
+    exact accumulators, outputs within an ulp of the plain epilogue."""
+    gen = torch.Generator(device=cuda).manual_seed(36)
+    x = torch.randn(n, hw, hw, c, generator=gen, device=cuda).to(torch.bfloat16)
+    w_q = torch.randint(-127, 128, (ksize, ksize, c, o), generator=gen, device=cuda, dtype=torch.int8)
+    _int8_route_matches_plain(cuda, x, w_q, 1, ksize // 2, 1, 37)
+
+
+def test_int8_wgmma_runs_a_batch_beyond_32_bit_indices_in_runs_of_images(cuda):
+    """unet3p's batch-32 row-0 projection of the bottom feature: x_q of 32 x 256 x 256 x
+    1024 = 2^31 elements, beyond the kernel's 32-bit indices, runs in one call (one count)
+    as launches of whole images: its accumulator equals the two halves' (each under the
+    bound, one launch), and the last image's equals the plain version's. A single image
+    beyond the bound is refused."""
+    gen = torch.Generator(device=cuda).manual_seed(38)
+    x_q = torch.randint(-127, 128, (32, 256, 256, 1024), generator=gen, device=cuda, dtype=torch.int8)
+    w_q = torch.randint(-127, 128, (3, 3, 1024, 64), generator=gen, device=cuda, dtype=torch.int8)
+    packed = Q.pack_weights(w_q)
+    before = INT8_KERNEL.launches
+    acc = int8_conv_acc(x_q, w_q, 1, 1, 1, w_packed=packed)
+    torch.cuda.synchronize()
+    assert INT8_KERNEL.launches == before + 1
+    for half in (slice(0, 16), slice(16, 32)):
+        assert torch.equal(acc[half], int8_conv_acc(x_q[half], w_q, 1, 1, 1, w_packed=packed))
+    assert torch.equal(acc[31:], int8_conv_acc_plain(x_q[31:], w_q, 1, 1, 1))
+    del x_q, acc
+    big = torch.zeros(1, 1024, 1024, 1040, dtype=torch.int8, device=cuda)
+    w1 = torch.zeros(1, 1, 1040, 16, dtype=torch.int8, device=cuda)
+    before = INT8_KERNEL.launches
+    with pytest.raises(RuntimeError, match="int8_conv_wgmma_forward"):
+        int8_conv_acc(big, w1, 1, 0, 1)
+    assert INT8_KERNEL.launches == before
+
+
+def _small_unet(arch: str):
+    from holocron_tpu_torch.models import segmentation
+
+    kwargs = {"num_classes": 21, "generator": torch.Generator().manual_seed(39), "device": "cpu"}
+    if arch == "unet3p":
+        return segmentation.UNet3p((8, 16, 32, 64, 128), **kwargs)
+    if arch == "unet-transposed-conv":
+        return segmentation.UNet((8, 16, 32, 64), bilinear_upsampling=False, **kwargs)
+    return segmentation.unet_rexnet13(**kwargs)
+
+
+@pytest.mark.parametrize("arch", ["unet3p", "unet-transposed-conv", "unet_rexnet13"])
+def test_segmentation_forward_on_the_card_equals_the_cpu(cuda, arch):
+    """Narrow UNet3+ and UNet (its transposed conv) at 32 px and the full unet_rexnet13
+    (pixel shuffles, the UBlocks' nearest shrink at 40 px), float32 eval logits on the
+    card (channels_last, TF32 off) within 1e-4 of the CPU's largest magnitude."""
+    model = _small_unet(arch).eval()
+    size = 40 if arch == "unet_rexnet13" else 32
+    x = torch.randn(2, 3, size, size, generator=torch.Generator().manual_seed(40))
+    with torch.no_grad():
+        ref = model(x)
+        card = model.to(cuda).to(memory_format=torch.channels_last)
+        out = card(x.to(cuda).contiguous(memory_format=torch.channels_last))
+    torch.cuda.synchronize()
+    assert out.shape == ref.shape == (2, 21, size, size)
+    torch.testing.assert_close(out.cpu(), ref, rtol=0, atol=1e-4 * float(ref.abs().max()))
+
+
+def test_segmentation_evaluate_on_the_card_equals_the_cpu(cuda):
+    """``SegmentationTrainer.evaluate`` on given logits (an identity model; 21 classes,
+    255 in a fifth of the targets): the card's confusion matrix gives the CPU's metrics
+    exactly, and its val loss within 1e-5."""
+    from holocron_tpu_torch.nn.functional import cross_entropy
+    from holocron_tpu_torch.trainer import SegmentationTrainer
+
+    gen = torch.Generator().manual_seed(41)
+    batches = []
+    for _ in range(3):
+        target = torch.randint(0, 21, (4, 32, 32), generator=gen)
+        target[torch.rand(target.shape, generator=gen) < 0.2] = 255
+        batches.append((torch.randn(4, 21, 32, 32, generator=gen), target))
+
+    def criterion(out, tgt):
+        return cross_entropy(out.permute(0, 2, 3, 1), tgt, ignore_index=255)
+
+    metrics = {dev: SegmentationTrainer(torch.nn.Identity(), None, batches, criterion, None, device=dev,
+                                        num_classes=21).evaluate() for dev in ("cpu", cuda)}
+    assert metrics["cpu"]["acc_global"] == metrics[cuda]["acc_global"]
+    assert metrics["cpu"]["mean_iou"] == metrics[cuda]["mean_iou"]
+    assert abs(metrics["cpu"]["val_loss"] - metrics[cuda]["val_loss"]) <= 1e-5 * metrics["cpu"]["val_loss"]
+
+
+def test_upsample_beyond_32_bit_indices_runs_in_runs_of_images(cuda):
+    """unet3p's bottom feature at batch 32 (1024 channels, 16 x 16) upsampled 16x in
+    bf16 channels_last: 2^31 output elements, beyond torch's bilinear kernel, run in two
+    runs of 16 images, equal to each half upsampled alone."""
+    import importlib
+
+    unet = importlib.import_module("holocron_tpu_torch.models.segmentation.unet")
+    gen = torch.Generator(device=cuda).manual_seed(42)
+    x = torch.randn(32, 1024, 16, 16, generator=gen, device=cuda).to(torch.bfloat16)
+    x = x.contiguous(memory_format=torch.channels_last)
+    out = unet.upsample2d(x, 16)
+    assert out.shape == (32, 1024, 256, 256) and out.is_contiguous(memory_format=torch.channels_last)
+    for half in (slice(0, 16), slice(16, 32)):
+        assert torch.equal(out[half], unet.upsample2d(x[half], 16))

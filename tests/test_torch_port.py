@@ -31,7 +31,8 @@ ROOT = Path(__file__).resolve().parents[1]
 
 def test_port_imports_no_jax():
     """Every module of the package (the service, the benches, the captured forward, the
-    darknets, the detectors, TAdam and the detection trainer among them), and
+    darknets, the detectors, TAdam, the detection trainer, the segmentation models,
+    trainer, optimizers, data, transforms and CLI among them), and
     chip_smoke.py, imports with jax, flax, optax and the JAX package
     made unimportable, and imports neither PIL nor fastapi (each is imported where it
     is used)."""
@@ -55,6 +56,12 @@ def test_port_imports_no_jax():
         "    'holocron_tpu_torch.models.detection.yolo', 'holocron_tpu_torch.models.detection.yolov2',\n"
         "    'holocron_tpu_torch.models.detection.yolov4', 'holocron_tpu_torch.optim.tadam',\n"
         "    'holocron_tpu_torch.trainer.detection'))\n"
+        "assert all(m in sys.modules for m in ('holocron_tpu_torch.models.segmentation.unet',\n"
+        "    'holocron_tpu_torch.models.segmentation.encoders', 'holocron_tpu_torch.models.segmentation.unetpp',\n"
+        "    'holocron_tpu_torch.models.segmentation.unet3p', 'holocron_tpu_torch.trainer.segmentation',\n"
+        "    'holocron_tpu_torch.optim.adamp', 'holocron_tpu_torch.optim.adabelief',\n"
+        "    'holocron_tpu_torch.utils.data.loader', 'holocron_tpu_torch.transforms.interpolation',\n"
+        "    'holocron_tpu_torch.references.segmentation.train'))\n"
         "assert 'PIL' not in sys.modules and 'fastapi' not in sys.modules\n"
         "print('ok')\n"
     )
