@@ -106,7 +106,24 @@ Phases, each printing one JSON line to stdout:
    ``main()`` in-process (unet3p, batch 16, 256 px, amp, AdamP, onecycle, an epoch of 4
    batches and ``evaluate()``), then ms a step and peak memory in bf16 and in float32,
    kernels a step and the idle share.
-18. ``checks``: each kernel against its plain PyTorch version on the card at the shapes
+18. ``mobileone_serving`` and ``convnext_serving`` (after ``segmentation_training``):
+   the serving path for mobileone_s1 (BN adapted, reparametrized: 21 ``wgmma`` 1x1
+   convs; its depthwise convs stay bf16) and for convnext_tiny (every LayerScale drawn
+   from a seeded normal of std 0.1 first, said in the line: at its 1e-6 init the gate
+   would see the stem, the downsamples and the head alone; 39 ``wgmma`` convs, 36 1x1
+   and the three 2x2 stride-2 downsamples), each followed by a ``*_serving_graphs``
+   line: bf16 and int8 at batch 8 and 256 through ``deploy_forward``'s graphs, every
+   replay equal to eager bit for bit (last, ``mobileone_serving_profile`` and
+   ``convnext_serving_profile`` lines: the forwards' kernels, ConvNeXt's by kind).
+   ``classification_zoo_more``: an f32 and a bf16
+   forward of mobileone_s0-s3 (train form and reparametrized, the drift) and
+   convnext_atto-xl at batch 32. ``classification_cli``: the classification CLI's
+   ``main()`` on an Imagenette-shaped folder it writes (convnext_tiny, Adan, amp, the
+   default recipe, one epoch, then ``--test-only --resume``) and on ``fake``
+   (mobileone_s1, LARS): the decode route, ms a step, the loader's wait, peak memory.
+   ``optim_zoo``: 4 steps of mobileone_s1 (batch 64, amp) under LARS, RaLars, Adan,
+   AdEMAMix, Lookahead and Scout (around AdamP), no optimizer step reading the device.
+19. ``checks``: each kernel against its plain PyTorch version on the card at the shapes
    the paths gave it, with its time, its plain version's time, the time of one PyTorch
    call computing the same function where there is one (``torch.cdist`` for add2d), and
    its bound: the larger of the bytes it must move over 3.35 TB/s and the operations it
@@ -114,8 +131,10 @@ Phases, each printing one JSON line to stdout:
    backward (tiled and general) are checked and timed at the path's shape. The int8
    routes are checked (bit-exact quantization, also on inputs on its ties and beyond
    its clip; exact accumulator; outputs within one ulp) at each int8 layer geometry of
-   repvgg_a0 (nine), resnet50 (22), rexnet1_0x (44), darknet53 (13) and unet3p (30, at
-   its path's batch of 32) at batch 8 and 32, checked again
+   repvgg_a0 (nine), resnet50 (22), rexnet1_0x (44), darknet53 (13), unet3p (30, at
+   its path's batch of 32), mobileone_s1 (7) and convnext_tiny (11) at batch 8 and 32
+   (an ``int8_sums_by_kernel`` line after each of the last two: the 1x1 and 2x2
+   stride-2 layers' sums against cuDNN bf16 and ``torch._int_mm``), checked again
    and timed at each at batch 256 (``check_int8_geometry`` lines, device time from CUDA
    graphs): quantize + conv, each kernel, cuDNN's bf16 conv of the layer, the plain
    version, ``torch._int_mm`` on the same int8 operands for each 1x1 stride-1
@@ -141,6 +160,7 @@ directory that holds this script without the package.
 """
 
 import copy
+import io
 import json
 import math
 import subprocess
@@ -228,13 +248,17 @@ def phase_build() -> None:
 
 
 def phase_serving(device, arch: str = "repvgg_a0", int8_layers: int = 26, wgmma_layers: int = 26,
-                  phase: str = "serving", batch: int = 256, size: int = 224, num_classes: int = 10, iters: int = 30):
-    """The serving path of ``arch``; a model with ``reparametrize`` (RepVGG) is folded
-    into its deploy form, one without (ResNet, ReXNet) is served with BN after each
-    conv, as the JAX package serves it. Fails unless ``int8_layers`` convs are int8,
-    ``wgmma_layers`` of them on the ``wgmma`` route and the rest on the general route,
-    and unless each int8 conv launched the route ``conv_route`` picks for it once a
-    forward. The int8 requests run whether or not the gate passes."""
+                  phase: str = "serving", batch: int = 256, size: int = 224, num_classes: int = 10, iters: int = 30,
+                  prepare=None):
+    """The serving path of ``arch``; a model with ``reparametrize`` (RepVGG, MobileOne)
+    is folded into its deploy form, one without (ResNet, ReXNet, ConvNeXt) is served
+    with BN after each conv, as the JAX package serves it. ``prepare(model, generator)``,
+    where given, sets weights the seed's initialization leaves degenerate, before
+    anything else; its docstring goes into the line as ``prepared``. Fails unless
+    ``int8_layers`` convs are int8, ``wgmma_layers`` of them on the ``wgmma`` route and
+    the rest on the general route, and unless each int8 conv launched the route
+    ``conv_route`` picks for it once a forward. The int8 requests run whether or not
+    the gate passes."""
     import torch
 
     from holocron_tpu_torch import models
@@ -247,6 +271,8 @@ def phase_serving(device, arch: str = "repvgg_a0", int8_layers: int = 26, wgmma_
     model = getattr(models, arch)(num_classes=num_classes, generator=torch.Generator().manual_seed(SEED),
                                   device=device)
     model = model.to(memory_format=torch.channels_last)
+    if prepare is not None:
+        prepare(model, gen)
 
     # BN statistics adapted to the input distribution before folding (bench.py:123-124)
     model.train()
@@ -317,6 +343,7 @@ def phase_serving(device, arch: str = "repvgg_a0", int8_layers: int = 26, wgmma_
         "model": arch,
         "image_size": size,
         "batch": batch,
+        **({"prepared": " ".join(prepare.__doc__.split())} if prepare is not None else {}),
         **reparam,
         "bf16_vs_f32_max_abs": bf16_vs_f32,
         "bf16_top1_vs_f32": bf16_top1_vs_f32,
@@ -2300,12 +2327,421 @@ def phase_segmentation_training(device, size: int = 256, batch: int = 16, num_cl
           "profile": {k: prof[k] for k in ("host_ms", "kernel_ms", "idle", "top")}})
 
 
+MORE_ZOO = ("mobileone_s0", "mobileone_s1", "mobileone_s2", "mobileone_s3", "convnext_atto", "convnext_femto",
+            "convnext_pico", "convnext_nano", "convnext_tiny", "convnext_small", "convnext_base", "convnext_large",
+            "convnext_xl")
+
+
+def adapt_bn(model, gen, batches: int, batch: int, size: int, device) -> None:
+    """BN statistics adapted to the naturalistic input in train mode (``bench.py:123-124``),
+    then eval mode."""
+    import torch
+
+    from holocron_tpu_torch.bench import naturalistic_batch
+
+    model.train()
+    with torch.no_grad():
+        for _ in range(batches):
+            model(naturalistic_batch(gen, batch, size, device))
+    model.eval()
+
+
+def phase_classification_zoo_more(device, batch: int = 32, size: int = 224, num_classes: int = 10,
+                                  iters: int = 5) -> None:
+    """An f32 and a bf16 eval forward of mobileone_s0-s3 and convnext_atto-xl at full
+    width, 224 px, batch 32 (channels_last, random weights from the seed, cuDNN's
+    heuristics as in ``resnet_zoo``): ms a forward of each, bf16 top-1 against f32.
+    MobileOne in both forms: BN adapted on 4 naturalistic batches, the train form
+    timed, then ``reparametrize()`` (the drift of the deploy form against the train
+    form in float32, under 1e-3 of the logits' scale) and the deploy form timed."""
+    import torch
+
+    from holocron_tpu_torch import models
+    from holocron_tpu_torch.bench import naturalistic_batch
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 50)
+    x = naturalistic_batch(gen, batch, size, device)
+    x16 = x.to(torch.bfloat16)
+    rows = {}
+    benchmark, torch.backends.cudnn.benchmark = torch.backends.cudnn.benchmark, False
+    try:
+        for arch in MORE_ZOO:
+            model = getattr(models, arch)(num_classes=num_classes, generator=torch.Generator().manual_seed(SEED),
+                                          device=device).to(memory_format=torch.channels_last).eval()
+            row = {"params": sum(p.numel() for p in model.parameters())}
+            forms = ["eval"]
+            if hasattr(model, "reparametrize"):
+                adapt_bn(model, gen, 4, batch, size, device)
+                forms = ["train_form", "deploy_form"]
+            with torch.no_grad():
+                for form in forms:
+                    if form == "deploy_form":
+                        model.reparametrize()
+                        model = model.to(memory_format=torch.channels_last)
+                    ref = model(x)
+                    check_logits(ref, batch, num_classes, f"{arch} {form} float32")
+                    if form == "train_form":
+                        train_ref = ref
+                    elif form == "deploy_form":
+                        drift = float((train_ref - ref).abs().max())
+                        scale = max(1.0, float(train_ref.abs().max()))
+                        if drift > 1e-3 * scale:
+                            fail(f"{arch}: reparametrization drift {drift} > 1e-3 * {scale}")
+                        row["reparam_drift_f32"] = drift
+                    f32_ms = cuda_ms(lambda: model(x), iters)
+                    model16 = copy.deepcopy(model).to(torch.bfloat16)
+                    out = model16(x16)
+                    check_logits(out, batch, num_classes, f"{arch} {form} bf16")
+                    bf16_ms = cuda_ms(lambda: model16(x16), iters)
+                    row[form] = {"f32_ms": f32_ms, "bf16_ms": bf16_ms, "bf16_img_per_s": batch / (bf16_ms / 1e3),
+                                 "bf16_vs_f32_max_abs": float((out.float() - ref).abs().max()),
+                                 "logit_absmax_f32": float(ref.abs().max()),
+                                 "bf16_top1_vs_f32": float((out.argmax(-1) == ref.argmax(-1)).float().mean())}
+                    del model16, out
+            rows[arch] = row
+            del model
+            torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.benchmark = benchmark
+    torch.cuda.synchronize()
+    emit({"phase": "classification_zoo_more", "image_size": size, "batch": batch, "models": rows})
+
+
+def draw_layer_scales(model, gen) -> None:
+    """Every LayerScale weight drawn from a normal of std 0.1 (seeded): at its 1e-6
+    initialization each ConvNeXt block adds about 1e-6 of its branch, and the int8 gate
+    would measure the stem, the downsamples and the head alone."""
+    import torch
+
+    from holocron_tpu_torch.models.classification.convnext import LayerScale
+
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, LayerScale):
+                m.weight.copy_(torch.randn(m.weight.shape, generator=gen, device=m.weight.device) * 0.1)
+
+
+def phase_serving_graphs(device, arch: str, qm, model_bf16, x, r8, phase: str, iters: int = 20) -> dict:
+    """The bf16 and int8 forms of a served model through ``deploy_forward``'s CUDA graphs
+    at batch 8 and 256: each replay equal to the eager forward bit for bit, and device
+    ms a call (CUDA events) eager against graph. Returns the int8 kernels' launches the
+    counters saw (eager forwards, warm-ups and captures)."""
+    import torch
+
+    from holocron_tpu_torch.models.core import deploy_forward
+
+    size = x.shape[-1]
+    reset_counts()
+    rows = {}
+    with torch.no_grad():
+        for name, m in (("bf16", model_bf16), ("int8", qm)):
+            graph = deploy_forward(m, (r8.shape[0], x.shape[0]), size)
+            for xb in (r8, x):
+                eager = m(xb)
+                if not torch.equal(graph(xb), eager):
+                    fail(f"{arch} {name} batch {xb.shape[0]}: the replay differs from the eager forward")
+                rows[f"{name}_b{xb.shape[0]}"] = {"eager_ms": cuda_ms(lambda: m(xb), iters),
+                                                  "graph_ms": cuda_ms(lambda: graph(xb), iters)}
+            del graph
+    torch.cuda.synchronize()
+    launches = int8_launches()
+    if not launches["int8_conv"] or not launches["int8_quantize"] or launches["int8_conv_general"]:
+        fail(f"{arch} graphs: the int8 path launched {launches}, expected the wgmma conv and the quantization")
+    b = x.shape[0]
+    emit({"phase": phase, "model": arch, "image_size": size, "replays_equal_eager": True, "forms": rows,
+          "int8_over_bf16_graph": rows[f"bf16_b{b}"]["graph_ms"] / rows[f"int8_b{b}"]["graph_ms"],
+          "launches": launches})
+    return launches
+
+
+def int8_sums_by_kernel(rows: list, model: str) -> dict:
+    """A served model's ``check_int8_geometry`` rows summed over its layers (each
+    geometry times its count of layers) by kernel shape: ``1x1`` and, where there are
+    any, ``2x2_s2``; ``int_mm_ms`` is None where a row has no such time."""
+    keys = ("route_ms", "conv_ms", "quantize_ms", "cudnn_bf16_ms", "int_mm_ms", "bound_ms")
+    out = {}
+    for row in rows:
+        kh, _, _, _ = row["w_hwio"]
+        kind = f"{kh}x{kh}" + (f"_s{row['stride'][0]}" if row["stride"][0] != 1 else "")
+        rec = out.setdefault(kind, {"layers": 0, **dict.fromkeys(keys, 0.0)})
+        rec["layers"] += row["count"]
+        for k in keys:
+            rec[k] = None if rec[k] is None or row.get(k) is None else rec[k] + row["count"] * row[k]
+    return {"model": model, **out}
+
+
+def convnext_profile(qm, model_bf16, x) -> dict:
+    """The batch-256 forwards under ``torch.profiler``, each form's device time of its
+    12 costliest kernels split by kind: the LayerNorms, the GELUs, cuDNN's depthwise
+    7x7 convs (``conv2d_c1_k1``), the int8 kernels, the other convs and GEMMs, and the
+    rest (elementwise: the convs' bias adds, LayerScale, the residual adds)."""
+    prof = {form: profile_forward(fn, x, steps=3, top=12) for form, fn in (("bf16", model_bf16), ("int8", qm))}
+    for rec in prof.values():
+        kinds = dict.fromkeys(("layer_norm", "gelu", "depthwise", "int8", "conv_or_gemm", "other"), 0.0)
+        for name, ms, _ in rec["top"]:
+            low = name.lower()
+            kind = ("layer_norm" if "layer_norm" in low else "gelu" if "gelu" in low
+                    else "depthwise" if "conv2d_c1_k1" in low else "int8" if "int8" in low
+                    else "conv_or_gemm" if any(k in low for k in ("conv", "gemm", "nvjet", "xmma", "cutlass"))
+                    else "other")
+            kinds[kind] += ms
+        rec["top12_by_kind_ms"] = kinds
+    return prof
+
+
+def _write_image_folder(root, classes: int = 10, per_class: int = 8, pngs: int = 3, val_per_class: int = 4) -> None:
+    """An Imagenette-shaped folder of random-noise images around 300 x 250, JPEG, with
+    ``pngs`` PNGs in the training split, from the seed."""
+    import numpy as np
+    from PIL import Image
+
+    rng = np.random.default_rng(SEED + 60)
+    for split, count in (("train", per_class), ("val", val_per_class)):
+        for c in range(classes):
+            folder = root / split / f"n{c:08d}"
+            folder.mkdir(parents=True)
+            for i in range(count):
+                h, w = int(rng.integers(220, 280)), int(rng.integers(270, 330))
+                coarse = rng.integers(0, 256, (h // 16 + 1, w // 16 + 1, 3), dtype=np.uint8)
+                img = Image.fromarray(coarse).resize((w, h), Image.BILINEAR)
+                if split == "train" and c < pngs and i == 0:
+                    img.save(folder / f"{i}.png")
+                else:
+                    img.save(folder / f"{i}.jpg", quality=90)
+
+
+def _cli_run(argv: list, what: str) -> dict:
+    """The classification CLI's ``main()`` in this process on the card, its output on
+    stderr: each train step's loss (on the device, read after the run), CUDA events
+    around each step, the host time spent waiting on the loader before each step (from
+    the end of one step's launch to the start of the next), the evaluations and the
+    peak memory."""
+    import contextlib
+
+    import torch
+
+    from holocron_tpu_torch.references.classification import train
+    from holocron_tpu_torch.trainer import ClassificationTrainer
+
+    losses, events, waits, evaluated = [], [], [], []
+    step, evaluate = ClassificationTrainer._run_step_async, ClassificationTrainer.evaluate
+    last = [None]
+
+    def recorded_step(self, x, target):
+        t0 = time.perf_counter()
+        if last[0] is not None:
+            waits.append(t0 - last[0])
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        losses.append(step(self, x, target))
+        end.record()
+        events.append((start, end))
+        last[0] = time.perf_counter()
+        return losses[-1]
+
+    def recorded_eval(self, *a, **kw):
+        evaluated.append(evaluate(self, *a, **kw))
+        return evaluated[-1]
+
+    ClassificationTrainer._run_step_async, ClassificationTrainer.evaluate = recorded_step, recorded_eval
+    output = io.StringIO()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(output):
+            trainer = train.main(train.parse_args(argv))
+    finally:
+        ClassificationTrainer._run_step_async, ClassificationTrainer.evaluate = step, evaluate
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    print(output.getvalue(), file=sys.stderr)
+    if any(not loss.is_cuda for loss in losses) or any(p.device.type != "cuda" for p in trainer.model.parameters()):
+        fail(f"{what}: the model or the step left the card")
+    losses = [float(v) for v in losses]
+    if not all(map(math.isfinite, losses)) or len(evaluated) != 1 or not all(map(math.isfinite, evaluated[0].values())):
+        fail(f"{what}: losses {losses}, evaluate {evaluated}; expected finite losses and one finite evaluation")
+    return {"trainer": trainer, "losses": losses, "eval": evaluated[0], "cli_seconds": seconds,
+            "step_ms_after_first": [s.elapsed_time(e) for s, e in events[1:]],
+            "loader_wait_ms_after_first": [w * 1e3 for w in waits], "stdout": output.getvalue(),
+            "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30}
+
+
+def phase_classification_cli(device, workers: int = 8) -> None:
+    """The classification CLI's ``main()`` run in this process on the card, twice.
+
+    (a) On an Imagenette-shaped folder written to a temporary directory (10 classes, 8
+    images a class around 300 x 250 for training, 3 of them PNG, and 4 a class for
+    evaluation): ``--arch convnext_tiny --opt adan --amp -b 32 --random-erase 0.1
+    --epochs 1``, the default crop (176), Mixup (0.2) and label smoothing (0.1), ``-j
+    8`` spawned loader workers: an epoch of 2 steps and the evaluation, then
+    ``--test-only --resume`` on the checkpoint it wrote, whose evaluation must agree
+    with the first (the same accuracies, the loss within 1e-3 relative). The decode
+    route the CLI printed (native or PIL: PIL wherever a PNG is in the folder, and on a
+    machine without libjpeg), ms of the second step (CUDA events), the host's wait on
+    the loader before it and its share of the two, peak memory, and a steady window of
+    4 steps of the CLI's trainer on 176 px batches made on the device.
+    (b) ``fake --arch mobileone_s1 --opt lars -b 32 --fake-samples 128`` at the default
+    176 px: 4 steps and the evaluation.
+
+    Every loss finite and on the card, the model on the card, one evaluation a run."""
+    import tempfile
+
+    import torch
+
+    from holocron_tpu_torch.bench import naturalistic_batch
+
+    records = {}
+    with tempfile.TemporaryDirectory(prefix="holocron_cli_") as tmp:
+        root = Path(tmp) / "imagenette"
+        _write_image_folder(root)
+        ckpt = Path(tmp) / "convnext_tiny.pt"
+        argv = [str(root), "--arch", "convnext_tiny", "--opt", "adan", "--amp", "-b", "32", "--random-erase", "0.1",
+                "--epochs", "1", "-j", str(workers), "--device", str(device), "--output-file", str(ckpt)]
+        run = _cli_run(argv, "classification_cli (a)")
+        route = "native" if "native decoder" in run["stdout"] else "PIL" if "Decoding with PIL" in run["stdout"] else None
+        if route is None or not ckpt.exists() or len(run["losses"]) != 2:
+            fail(f"classification_cli (a): {len(run['losses'])} steps, expected 2; a decode route printed and a "
+                 f"checkpoint written ({run['stdout'][-400:]})")
+        resumed = _cli_run([*argv, "--test-only", "--resume", str(ckpt)], "classification_cli (a) --test-only")
+        again, first = resumed["eval"], run["eval"]
+        if (again["acc1"], again["acc5"]) != (first["acc1"], first["acc5"]) \
+                or abs(again["val_loss"] - first["val_loss"]) > 1e-3 * abs(first["val_loss"]):
+            fail(f"classification_cli (a): --test-only --resume evaluated {again}, the run {first}")
+        gen = torch.Generator(device=device).manual_seed(SEED + 61)
+        batches = [(naturalistic_batch(gen, 32, 176, device),
+                    torch.softmax(torch.randn(32, 10, generator=gen, device=device), -1)) for _ in range(2)]
+        torch.cuda.reset_peak_memory_stats()
+        window_ms = time_train_steps(run["trainer"], batches, 4)
+        wait, busy = sum(run["loader_wait_ms_after_first"]), sum(run["step_ms_after_first"])
+        records["a"] = {"model": "convnext_tiny", "optimizer": "Adan", "decode_route": route, "batch": 32,
+                        "image_size": 176, "losses": run["losses"], "eval": first, "resumed_eval": again,
+                        "cli_seconds": run["cli_seconds"], "test_only_seconds": resumed["cli_seconds"],
+                        "step_ms_after_first": run["step_ms_after_first"],
+                        "loader_wait_ms_after_first": run["loader_wait_ms_after_first"],
+                        "loader_share_after_first": wait / (wait + busy) if wait + busy else None,
+                        "peak_memory_gib": run["peak_memory_gib"], "window_step_ms": window_ms,
+                        "window_img_per_s": 32 / (window_ms / 1e3),
+                        "window_peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30}
+        del run, resumed
+        torch.cuda.empty_cache()
+        run = _cli_run(["fake", "--arch", "mobileone_s1", "--opt", "lars", "-b", "32", "--fake-samples", "128",
+                        "--epochs", "1", "-j", str(workers), "--device", str(device),
+                        "--output-file", str(Path(tmp) / "mobileone_s1.pt")], "classification_cli (b)")
+        if len(run["losses"]) != 4:
+            fail(f"classification_cli (b): {len(run['losses'])} steps, expected 4")
+        records["b"] = {"model": "mobileone_s1", "optimizer": "LARS", "data": "fake", "batch": 32, "image_size": 176,
+                        "losses": run["losses"], "eval": run["eval"], "cli_seconds": run["cli_seconds"],
+                        "step_ms_after_first": run["step_ms_after_first"],
+                        "loader_wait_ms_after_first": run["loader_wait_ms_after_first"],
+                        "peak_memory_gib": run["peak_memory_gib"]}
+        del run
+    torch.cuda.empty_cache()
+    emit({"phase": "classification_cli", "workers": workers, **records})
+
+
+OPTIM_ZOO = ("lars", "ralars", "adan", "ademamix", "lookahead_adamp", "scout_adamp")
+
+
+def phase_optim_zoo(device, batch: int = 64, size: int = 224, num_classes: int = 10, steps: int = 4) -> None:
+    """4 train steps of mobileone_s1 (batch 64, 224 px, amp, label-smoothed
+    cross-entropy) under each of LARS (momentum 0.9), RaLars, Adan, AdEMAMix, and
+    Lookahead and Scout around AdamP (sync every 2 steps, so each syncs twice), each on
+    a fresh model from the seed: finite losses, ms a step (CUDA events over the last 3),
+    the kernels one step launches and those of the optimizer's step alone
+    (``torch.profiler``, one step after the timed ones), and no optimizer step reading
+    the device (``torch.cuda.set_sync_debug_mode("error")`` around each)."""
+    import functools
+
+    import torch
+
+    from holocron_tpu_torch import optim
+
+    factories = {
+        "lars": functools.partial(optim.LARS, momentum=0.9),
+        "ralars": optim.RaLars,
+        "adan": optim.Adan,
+        "ademamix": optim.AdEMAMix,
+        "lookahead_adamp": lambda groups, lr: optim.Lookahead(optim.AdamP(groups, lr), sync_period=2),
+        "scout_adamp": lambda groups, lr: optim.Scout(optim.AdamP(groups, lr), sync_period=2),
+    }
+    gen = torch.Generator(device=device).manual_seed(SEED + 70)
+    batches = [(naturalistic_batch_u8(gen, batch, size, device),
+                torch.randint(0, num_classes, (batch,), generator=gen, device=device)) for _ in range(2)]
+    rows = {}
+    for name in OPTIM_ZOO:
+        trainer = make_trainer(device, batches, None, num_classes, "mobileone_s1")
+        trainer.optimizer, trainer.skip_nan_loss, trainer.gradient_acc, trainer.grad_clip = factories[name], False, 1, None
+        trainer._reset_opt(1e-3)
+        opt_step = trainer._opt.step
+
+        def checked_step(closure=None, opt_step=opt_step):
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return opt_step(closure)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+
+        trainer._opt.step = checked_step
+        losses, events = [], []
+        for i in range(steps):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            losses.append(trainer._run_step_async(*batches[i % 2]))
+            end.record()
+            events.append((start, end))
+        torch.cuda.synchronize()
+        losses = [float(v) for v in losses]
+        if not all(map(math.isfinite, losses)):
+            fail(f"optim_zoo {name}: losses {losses}")
+        step_kernels = _kernel_launches(lambda: trainer._run_step_async(*batches[0]))
+        params = [p for group in trainer._opt.param_groups for p in group["params"]]
+        for p in params:
+            p.grad = torch.zeros_like(p)
+        opt_kernels = _kernel_launches(trainer._opt.step)
+        for p in params:
+            p.grad = None
+        rows[name] = {"losses": losses, "step_ms": sum(s.elapsed_time(e) for s, e in events[1:]) / (steps - 1),
+                      "kernel_launches_per_step": step_kernels, "optimizer_step_kernel_launches": opt_kernels,
+                      "parameters": len(params)}
+        del trainer
+        torch.cuda.empty_cache()
+    emit({"phase": "optim_zoo", "model": "mobileone_s1", "batch": batch, "image_size": size, "amp": True,
+          "steps": steps, "sync_debug_mode_in_step": "error", "optimizers": rows})
+
+
+def _kernel_launches(fn) -> int:
+    """The CUDA kernels one call of ``fn`` launches, from ``torch.profiler``."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False) and not e.key.startswith("train_step."))
+
+
+def naturalistic_batch_u8(gen, batch: int, size: int, device):
+    """A naturalistic batch as uint8 images (the trainer normalizes them with
+    ``input_norm``)."""
+    import torch
+
+    from holocron_tpu_torch.bench import naturalistic_batch
+
+    x = naturalistic_batch(gen, batch, size, device)
+    return (x * 40 + 128).clamp(0, 255).to(torch.uint8).contiguous(memory_format=torch.channels_last)
+
+
 def int8_entries(launches: list, replays_seen: dict, records: list, grouped: list) -> list:
     """The ``kernels`` line's entries of the int8 kernels: launches the counters saw,
     summed over the paths' runs (the four classification serving paths, the bench, the
     captured deploy forward's warm-ups, captures and eager forwards, the service's
-    captures, yolov4's eager forwards, warm-ups and captures in ``detection_serving``, and
-    unet3p's in ``segmentation_serving``);
+    captures, yolov4's eager forwards, warm-ups and captures in ``detection_serving``,
+    unet3p's in ``segmentation_serving``, and mobileone_s1's and convnext_tiny's eager
+    forwards, warm-ups and captures in their serving phases);
     apart from them, ``replay_launches_seen``: the launches ``torch.profiler`` saw in
     graph replays, a lower bound (it drops records; a replay makes no call a counter
     sees);
@@ -2387,6 +2823,17 @@ def main() -> int:
     timed(phase_segmentation_zoo, device)
     sqm, smodel_bf16, sx, segmentation_launches = timed(phase_segmentation_serving, device)
     timed(phase_segmentation_training, device)
+    mqm, mmodel_bf16, mx, mr8, mobileone_launches = timed(phase_serving, device, "mobileone_s1", 21, 21,
+                                                          "mobileone_serving")
+    mobileone_graph_launches = timed(phase_serving_graphs, device, "mobileone_s1", mqm, mmodel_bf16, mx, mr8,
+                                     "mobileone_serving_graphs")
+    cqm, cmodel_bf16, cx, cr8, convnext_launches = timed(phase_serving, device, "convnext_tiny", 39, 39,
+                                                         "convnext_serving", prepare=draw_layer_scales)
+    convnext_graph_launches = timed(phase_serving_graphs, device, "convnext_tiny", cqm, cmodel_bf16, cx, cr8,
+                                    "convnext_serving_graphs")
+    timed(phase_classification_zoo_more, device)
+    timed(phase_classification_cli, device)
+    timed(phase_optim_zoo, device)
     inv = timed(check_involution, device)
     inv_bwd = timed(check_involution_bwd, device)
     add = timed(check_add2d, device)
@@ -2396,6 +2843,9 @@ def main() -> int:
     timed(check_int8, device, dqm, dmodel_bf16, dx, "darknet53")
     timed(check_int8, device, sqm, smodel_bf16, sx, "unet3p")
     del sqm, smodel_bf16, sx
+    for qmodel, bf16, xb, arch in ((mqm, mmodel_bf16, mx, "mobileone_s1"), (cqm, cmodel_bf16, cx, "convnext_tiny")):
+        emit({"phase": "int8_sums_by_kernel", **int8_sums_by_kernel(timed(check_int8, device, qmodel, bf16, xb,
+                                                                           arch)["rows"], arch)})
     timed(check_int8_service, device, graph_forms)
     emit({"phase": "rexnet_int8_by_kind", **rexnet_int8_by_kind(i8_rexnet["rows"])})
     grouped = timed(check_int8_grouped, device)
@@ -2403,6 +2853,8 @@ def main() -> int:
     timed(phase_serving_profile, qm, model_bf16, x, r8)
     timed(phase_serving_profile, rqm, rmodel_bf16, rx, rr8, "resnet_serving_profile")
     timed(phase_serving_profile, xqm, xmodel_bf16, xx, xr8, "rexnet_serving_profile")
+    timed(phase_serving_profile, mqm, mmodel_bf16, mx, mr8, "mobileone_serving_profile")
+    emit({"phase": "convnext_serving_profile", "batch": cx.shape[0], **timed(convnext_profile, cqm, cmodel_bf16, cx)})
 
     def entry(name, source, replaces, launches, record, max_abs_err):
         keys = ("ms", "plain_ms", "bound_ms", "bound_by")
@@ -2423,6 +2875,7 @@ def main() -> int:
                 add[name]["max_abs_err"]) for name in ("add2d_bwd_dp", "add2d_bwd_dw")),
         *int8_entries([serving_launches, resnet_launches, rexnet_launches, darknet_launches, bench_launches,
                        graph_launches, service_launches, detection_launches, segmentation_launches,
+                       mobileone_launches, mobileone_graph_launches, convnext_launches, convnext_graph_launches,
                        profile_launches], replays_seen,
                       [i8, i8_resnet, i8_rexnet], grouped),
     ]})

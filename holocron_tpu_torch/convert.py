@@ -16,10 +16,12 @@ import numpy as np
 import torch
 from torch import nn
 
+from .models.classification.convnext import ConvNeXt
 from .models.classification.darknet import DarknetBodyV1, DarknetV1
 from .models.classification.darknetv2 import DarknetBodyV2, DarknetV2
 from .models.classification.darknetv3 import DarknetBodyV3, DarknetV3, ResBlock
 from .models.classification.darknetv4 import DarknetV4
+from .models.classification.mobileone import MobileOne
 from .models.classification.res2net import ScaleConv2d
 from .models.classification.resnet import ResNet
 from .models.classification.rexnet import ReXNet, SEBlock
@@ -34,9 +36,11 @@ from .nn.modules.conv import PyConv2d
 
 __all__ = [
     "add2d_state_dict",
+    "convnext_state_dict",
     "darknet_state_dict",
     "detection_state_dict",
     "involution_state_dict",
+    "mobileone_state_dict",
     "nn_state_dict",
     "repvgg_state_dict",
     "resnet_state_dict",
@@ -232,6 +236,84 @@ def rexnet_state_dict(variables: Mapping, model: ReXNet) -> Dict[str, torch.Tens
         _rexblock(sd, variables, f"features.{3 + i}.conv", f"block_{i}", block)
     pen = 3 + len(blocks)
     _conv_norm(sd, variables, f"features.{pen}", f"features.{pen + 1}", "penultimate")
+    sd["head.1.weight"] = _dense(params["head"]["kernel"])
+    sd["head.1.bias"] = _t(params["head"]["bias"])
+    return sd
+
+
+def _branches(sd: Dict[str, torch.Tensor], variables: Mapping, t: str, d: str) -> None:
+    """A MobileOne depthwise or pointwise block at ``t`` from the JAX block at ``d``: its
+    deploy form (``rep``, the conv at ``.0``), or its branches in order, the identity
+    BN (``bn``, where there is one), the 1x1 depthwise branch (``conv_s_*``, depthwise
+    blocks only), then ``conv_{i}_*``."""
+    params = _node(variables["params"], d)
+    if "rep" in params:
+        _conv_at(sd, f"{t}.0", params["rep"])
+        return
+    idx = 0
+    if "bn" in params:
+        _norm_at(sd, f"{t}.0", variables, f"{d}/bn")
+        idx = 1
+    names = ["conv_s"] if "conv_s_conv" in params else []
+    names += sorted((k[: -len("_conv")] for k in params if k.startswith("conv_") and k.endswith("_conv")
+                     and k != "conv_s_conv"), key=lambda k: int(k.split("_")[1]))
+    for off, name in enumerate(names):
+        _conv_norm_flat(sd, variables, f"{t}.{idx + off}", f"{d}/{name}")
+
+
+def _conv_norm_flat(sd: Dict[str, torch.Tensor], variables: Mapping, t: str, d: str) -> None:
+    """A conv+BN branch whose JAX layers are the siblings ``{d}_conv`` and ``{d}_bn``."""
+    _conv_at(sd, f"{t}.0", _node(variables["params"], f"{d}_conv"))
+    _norm_at(sd, f"{t}.1", variables, f"{d}_bn")
+
+
+def mobileone_state_dict(variables: Mapping, model: MobileOne) -> Dict[str, torch.Tensor]:
+    """State dict of a :class:`~holocron_tpu_torch.models.MobileOne` from the JAX
+    ``MobileOne``'s variables, in train or deploy form (``reparametrize``); the inverse
+    of ``_convert_mobileone`` (``holocron_tpu/models/_torch_convert.py:325-357``), which
+    reads the train form's keys back. Block ``features_0`` is ``features.0`` and
+    ``features_{s + 1}_{j}`` is ``features.{s + 1}.{j}``; each block's depthwise part at
+    ``.0`` and pointwise part at ``.2`` (:func:`_branches`); then ``head``."""
+    sd: Dict[str, torch.Tensor] = {}
+    blocks = [("features.0", "features_0")] + [(f"features.{s + 1}.{j}", f"features_{s + 1}_{j}")
+                                               for s, nb in enumerate(model.num_blocks) for j in range(nb)]
+    for t, d in blocks:
+        _branches(sd, variables, f"{t}.0", f"{d}/depth")
+        _branches(sd, variables, f"{t}.2", f"{d}/point")
+    head = variables["params"]["head"]
+    sd["head.weight"] = _dense(head["kernel"])
+    sd["head.bias"] = _t(head["bias"])
+    return sd
+
+
+def convnext_state_dict(variables: Mapping, model: ConvNeXt) -> Dict[str, torch.Tensor]:
+    """State dict of a :class:`~holocron_tpu_torch.models.ConvNeXt` from the JAX
+    ``ConvNeXt``'s variables; the inverse of ``_convert_convnext``
+    (``holocron_tpu/models/_torch_convert.py:360-390``). A flax LayerNorm's ``scale`` and
+    ``bias`` are the norm's ``weight`` and ``bias``; a depthwise kernel ``(kh, kw, 1, C)``
+    becomes ``(C, 1, kh, kw)``; ``LayerScale.weight`` is copied as it is."""
+    params = variables["params"]
+    sd: Dict[str, torch.Tensor] = {}
+
+    def norm(prefix: str, node: Mapping) -> None:
+        sd[f"{prefix}.weight"] = _t(node["scale"])
+        sd[f"{prefix}.bias"] = _t(node["bias"])
+
+    _conv_at(sd, "features.0", params["stem_conv"])
+    norm("features.1", params["stem_norm"])
+    out_planes = model.planes[1:] + model.planes[-1:]
+    for s, nb in enumerate(model.num_blocks):
+        for j in range(nb):
+            t, block = f"features.{2 + s}.{j}.conv", params[f"stage_{s}_block_{j}"]
+            _conv_at(sd, f"{t}.0", block["dwconv"])
+            norm(f"{t}.1", block["norm"])
+            _conv_at(sd, f"{t}.2", block["pwconv1"])
+            _conv_at(sd, f"{t}.4", block["pwconv2"])
+            sd[f"{t}.5.weight"] = _t(block["layer_scale"]["weight"])
+        if model.planes[s] != out_planes[s]:
+            norm(f"features.{2 + s}.{nb}.0", params[f"stage_{s}_down_norm"])
+            _conv_at(sd, f"features.{2 + s}.{nb}.1", params[f"stage_{s}_down_conv"])
+    norm("head.0", params["head_norm"])
     sd["head.1.weight"] = _dense(params["head"]["kernel"])
     sd["head.1.bias"] = _t(params["head"]["bias"])
     return sd

@@ -2,9 +2,10 @@
 
 from typing import Callable, Type, Union
 
+import numpy as np
 import torch
 
-__all__ = ["l2_norm", "lr_at", "safe_local_lr", "scheduled"]
+__all__ = ["bias_correction", "f32_sqrt", "l2_norm", "lr_at", "safe_local_lr", "scheduled"]
 
 LR = Union[float, Callable[[int], float]]
 
@@ -18,6 +19,18 @@ def safe_local_lr(p_norm: torch.Tensor, denom: torch.Tensor) -> torch.Tensor:
     fallback for a degenerate case)."""
     degenerate = (p_norm == 0) | (denom == 0)
     return torch.where(degenerate, torch.ones_like(p_norm), p_norm / torch.where(denom == 0, torch.ones_like(denom), denom))
+
+
+def bias_correction(beta: float, count: int) -> float:
+    """``1 - beta ** count`` in float32, as the JAX package computes it from its int32
+    count (``_common.py:33``): in double it differs in the sixth digit for a beta near
+    1, which a rectification or a division amplifies."""
+    return float(np.float32(1) - np.float32(beta) ** np.float32(count))
+
+
+def f32_sqrt(x: float) -> float:
+    """The float32 square root of ``x`` (a float32 value), as a Python float."""
+    return float(np.sqrt(np.float32(x)))
 
 
 def lr_at(lr: LR, count: int) -> float:

@@ -77,8 +77,11 @@ _SELECTION_FIELDS = ("min_in_channels", "quantize_strided")
 # 12,772. yolov4: chip_smoke.py's detection_serving (batch 32, 608 px, the raw forward
 # through the captured deploy forward, CUDA events): 868 / 991. unet3p: chip_smoke.py's
 # segmentation_serving (batch 32, 256 px, 21 classes, through the captured deploy
-# forward, CUDA events): 85.49 / 85.78 ms a call. `recommended` is int8_speedup >= 1.05,
-# the JAX policy's rule (scripts/gen_quant_policy.py:91).
+# forward, CUDA events): 85.49 / 85.78 ms a call. mobileone_s1 (reparametrized) and
+# convnext_tiny (LayerScale drawn at std 0.1): chip_smoke.py's *_serving_graphs lines
+# (batch 256, 224 px, through the captured deploy forward, CUDA events): 9.250 / 10.100
+# and 29.332 / 31.808 ms a call. `recommended` is int8_speedup >= 1.05, the JAX
+# policy's rule (scripts/gen_quant_policy.py:91).
 INT8_VERDICTS: Dict[str, Dict] = {
     "repvgg_a0": {"int8_speedup": 1.305, "recommended": True},
     "resnet50": {"int8_speedup": 0.81, "recommended": False},
@@ -86,6 +89,8 @@ INT8_VERDICTS: Dict[str, Dict] = {
     "darknet53": {"int8_speedup": 0.89, "recommended": False},
     "yolov4": {"int8_speedup": 0.876, "recommended": False},
     "unet3p": {"int8_speedup": 1.003, "recommended": False},
+    "mobileone_s1": {"int8_speedup": 1.092, "recommended": True},
+    "convnext_tiny": {"int8_speedup": 1.084, "recommended": True},
 }
 
 

@@ -19,8 +19,9 @@ same step eagerly and applies the same update chain by hand, from the inside out
 BN running statistics come from every forward, a skipped step's too (``core.py:496-503``),
 except those of fully frozen BN layers. ``amp`` is the JAX package's bf16 compute, not
 ``torch.autocast``: every parameter and the input are cast to bfloat16 for the forward
-(the normalization parameters to bfloat16 values kept in float32, the dtype in which
-batch norm takes them), the logits are cast to float32 before the loss, and the
+(the batch norms' parameters to bfloat16 values kept in float32, the dtype in which
+batch norm takes them; a LayerNorm's to bfloat16, as the JAX package casts every
+parameter), the logits are cast to float32 before the loss, and the
 gradients land on the float32 parameters.
 """
 
@@ -111,9 +112,13 @@ class Trainer:
         self._opt: Optional[torch.optim.Optimizer] = None
         self._trainable: Dict[str, bool] = {}
         self._frozen_bn: List[nn.Module] = []
-        # amp casts these to bf16 values kept in float32; they are a group of their own
-        # under norm_weight_decay
+        # a group of their own under norm_weight_decay
         self._norm_names = set(split_normalization_params(self.model)[0])
+        # amp casts these to bf16 values kept in float32, the dtype in which batch norm
+        # takes them (a LayerNorm takes its parameters in the input's dtype: bf16)
+        self._f32_norm_names = self._norm_names - {
+            f"{name}.{p}" if name else p for name, m in self.model.named_modules() if isinstance(m, nn.LayerNorm)
+            for p, _ in m.named_parameters(recurse=False)}
         self._acc: List[torch.Tensor] = []
         self._mini_step = 0
         self._notfinite = 0
@@ -203,7 +208,7 @@ class Trainer:
             return self.model(*args)
         params = {
             # batch norm takes its affine parameters in float32: bf16 values, f32 dtype
-            name: p.to(torch.bfloat16).float() if name in self._norm_names else p.to(torch.bfloat16)
+            name: p.to(torch.bfloat16).float() if name in self._f32_norm_names else p.to(torch.bfloat16)
             for name, p in self.model.named_parameters()
         }
         return functional_call(self.model, params, args)

@@ -1,7 +1,13 @@
-"""Data loading (``holocron_tpu/utils/data``): the synthetic dataset and image
-normalization of the reference CLIs, and the native JPEG decoder's binding."""
+"""Data loading (``holocron_tpu/utils/data``): the reference CLIs' datasets, batching and
+Mixup, and the native JPEG decoder's binding."""
 
-from ._native import decode_batch_u8, load_native, native_available
-from .loader import SyntheticDataset, normalize_image
+from ._native import (NativeImageFolder, decode_batch, decode_batch_u8, decode_rrc_batch, load_native,
+                      native_available, native_collate)
+from .cifar import CIFAR10, CIFAR100
+from .collate import Mixup
+from .loader import (EpochDataLoader, ImageFolder, SyntheticDataset, default_collate, normalize_array,
+                     normalize_image)
 
-__all__ = ["SyntheticDataset", "decode_batch_u8", "load_native", "native_available", "normalize_image"]
+__all__ = ["CIFAR10", "CIFAR100", "EpochDataLoader", "ImageFolder", "Mixup", "NativeImageFolder",
+           "SyntheticDataset", "decode_batch", "decode_batch_u8", "decode_rrc_batch", "default_collate",
+           "load_native", "native_available", "native_collate", "normalize_array", "normalize_image"]

@@ -961,3 +961,57 @@ def test_upsample_beyond_32_bit_indices_runs_in_runs_of_images(cuda):
     assert out.shape == (32, 1024, 256, 256) and out.is_contiguous(memory_format=torch.channels_last)
     for half in (slice(0, 16), slice(16, 32)):
         assert torch.equal(out[half], unet.upsample2d(x[half], 16))
+
+
+@pytest.mark.parametrize(
+    "n,hw,c,o,ksize,stride",
+    [
+        (2, 56, 96, 192, 2, 2),     # convnext_tiny's downsamples: 2x2 stride 2, no padding
+        (2, 28, 192, 384, 2, 2),
+        (2, 14, 384, 768, 2, 2),
+        (2, 7, 768, 3072, 1, 1),    # its widest 1x1 pair
+        (2, 7, 3072, 768, 1, 1),
+        (2, 7, 512, 1280, 1, 1),    # mobileone_s1's last pointwise conv
+        (2, 14, 192, 512, 1, 1),    # and its stage-3 entry
+    ],
+)
+def test_int8_route_at_mobileone_and_convnext_geometries(cuda, n, hw, c, o, ksize, stride):
+    """The int8 geometries the MobileOne and ConvNeXt serving paths add, on the wgmma
+    route, batch 2: exact accumulators, outputs within an ulp of the plain epilogue."""
+    gen = torch.Generator(device=cuda).manual_seed(43)
+    x = torch.randn(n, hw, hw, c, generator=gen, device=cuda).to(torch.bfloat16)
+    w_q = torch.randint(-127, 128, (ksize, ksize, c, o), generator=gen, device=cuda, dtype=torch.int8)
+    _int8_route_matches_plain(cuda, x, w_q, stride, 0, 1, 44)
+
+
+@pytest.mark.parametrize("name", ["LARS", "RaLars", "Adan", "AdEMAMix", "Lookahead", "Scout"])
+def test_optimizer_step_reads_nothing_from_the_card(cuda, name):
+    """Three steps of each new optimizer (the wrappers around AdamP, syncing every other
+    step) on card parameters under ``torch.cuda.set_sync_debug_mode("error")``: no step
+    waits on the device; the parameters move and stay finite. Adan with amsgrad and
+    decay, LARS with Nesterov momentum and decay."""
+    from holocron_tpu_torch import optim
+
+    gen = torch.Generator(device=cuda).manual_seed(45)
+    params = [torch.nn.Parameter(torch.randn(s, generator=gen, device=cuda)) for s in ((64, 32), (32,), (5, 3, 3, 3))]
+    build = {
+        "LARS": lambda p: optim.LARS(p, 1e-2, momentum=0.9, weight_decay=1e-4, nesterov=True),
+        "RaLars": lambda p: optim.RaLars(p, 1e-2, weight_decay=1e-4),
+        "Adan": lambda p: optim.Adan(p, 1e-2, weight_decay=1e-2, amsgrad=True),
+        "AdEMAMix": lambda p: optim.AdEMAMix(p, 1e-2, weight_decay=1e-2),
+        "Lookahead": lambda p: optim.Lookahead(optim.AdamP(p, 1e-2), sync_period=2),
+        "Scout": lambda p: optim.Scout(optim.AdamP(p, 1e-2), sync_period=2),
+    }[name]
+    opt = build(params)
+    before = [p.detach().clone() for p in params]
+    for _ in range(3):
+        for p in params:
+            p.grad = torch.randn(p.shape, generator=gen, device=cuda)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            opt.step()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert all(bool(torch.isfinite(p).all()) and not torch.equal(p, b) for p, b in zip(params, before))

@@ -137,6 +137,8 @@ def test_entry_points_default_to_the_card():
         *(lambda arch=arch: getattr(models, arch)() for arch in ("rexnet1_0x", "rexnet1_3x", "rexnet1_5x", "rexnet2_0x",
                                                                  "rexnet2_2x")),
         lambda: resnext101_32x8d(),
+        lambda: models.MobileOne([1, 1, 1, 1], [0.125] * 4),
+        lambda: models.ConvNeXt([1, 1], [8, 16]),
         lambda: nn.FReLU(8),
         lambda: nn.SAM(8),
         lambda: nn.DimAttention(2),
