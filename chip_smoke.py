@@ -123,7 +123,26 @@ Phases, each printing one JSON line to stdout:
    (mobileone_s1, LARS): the decode route, ms a step, the loader's wait, peak memory.
    ``optim_zoo``: 4 steps of mobileone_s1 (batch 64, amp) under LARS, RaLars, Adan,
    AdEMAMix, Lookahead and Scout (around AdamP), no optimizer step reading the device.
-19. ``checks``: each kernel against its plain PyTorch version on the card at the shapes
+19. The tools' phases (after ``optim_zoo``): ``detection_cli``, the detection CLI's
+   ``main()`` at the JAX CLI's defaults (yolov2, darknet19, 20 classes, 416 px, batch 8,
+   TAdam, onecycle) with ``--amp`` and 8 spawned loader workers, on ``fake`` (32 samples,
+   4 steps) and on a folder of JPEGs and PNGs it writes (16 + 8 images), then
+   ``--test-only --resume`` and ``--check-setup``; ``pretrained``, checkpoints written
+   with ``torch.save`` loaded through ``file://`` (rexnet1_0x's logits, darknet19 into
+   yolov2's backbone, a sha256 mismatch); ``remat``, resnet50 at batch 128 under
+   ``remat`` False, True and ``"dots"`` (ms a step, peak memory; the same losses at
+   each step, BN statistics and first update of each parameter); ``binary_trainer``, ``BinaryClassificationTrainer`` on rexnet1_0x
+   with one output and the top-loss collection; ``export``, repvgg_a0 in bf16 and int8
+   (its graph holding the ``holocron_tpu_torch`` int8 ops, which launch the kernels)
+   and yolov2 with its post-processing, exported, saved, loaded and run against eager;
+   ``latency_and_zoo``, ``eval_latency`` on rexnet1_0x (batch 8 and 256, bf16 and int8)
+   and ``bench_zoo`` over one architecture a family. ``profiling`` runs last, after the
+   other profiles: ``utils.profiling.device_op_summary`` against ``profile_forward`` on
+   rexnet1_0x's bf16 forward at batch 256, within 5%, and within 0.85-1.03 of its
+   device time from CUDA events. Every profile is read from the profiler's chrome trace,
+   over a ``record_function`` window between padding calls (late in a long run a
+   session lost about 6 ms of kernel records at its edges).
+20. ``checks``: each kernel against its plain PyTorch version on the card at the shapes
    the paths gave it, with its time, its plain version's time, the time of one PyTorch
    call computing the same function where there is one (``torch.cdist`` for add2d), and
    its bound: the larger of the bytes it must move over 3.35 TB/s and the operations it
@@ -144,13 +163,15 @@ Phases, each printing one JSON line to stdout:
    3x3 conv (32 groups of 64, stride 1 and 2; its 16-byte staging), and checked at two
    odd per-group widths (its byte-wise staging): the only launches of
    ``int8_conv_general``, which no serving path runs (its check fails if it launched no
-   time).
+   time). Last, ``int8_op_dispatch``: the host's time a quantized conv through the
+   ``holocron_tpu_torch`` int8 ops against the same launches made directly, in 10
+   interleaved pairs of loops.
 
 Each kernel's launch counter is set to 0 just before the path that runs it and read
 just after; a kernel that its path never launched fails the run (a graph replay makes
 no call that a counter sees: the profiler counts the kernels of the replays). Then come
 the ``kernels`` line (the int8 entries over the serving, bench, deploy-graph, service,
-detection-serving and segmentation-serving paths; their times summed over the
+detection-serving, segmentation-serving, export and latency paths; their times summed over the
 repvgg_a0, resnet50 and rexnet1_0x geometries), the card's name and power
 limit as ``nvidia-smi`` reports them, and last ``{"ok": true, "device": {...}}``. Each
 phase's wall time goes to stderr. Float32 checks run with TF32 off
@@ -377,35 +398,67 @@ def phase_serving_profile(qm, model_bf16, x, r8, phase: str = "serving_profile")
                              for form, fn in (("int8", qm), ("bf16", model_bf16)) for xb in (x, r8)}})
 
 
-def profile_forward(fn, x, steps: int = 5, top: int = 10, count: tuple = ()) -> dict:
-    """``torch.profiler`` over ``steps`` forwards after warm-up: host wall ms (inflated
-    by the profiler itself), summed kernel ms, idle share (1 - kernel / wall) and
-    launches per forward, and the kernels that take the most device time; ``counts``:
-    for each name in ``count``, the launches a forward of the kernels whose name holds
-    it (a CUDA graph's replay included: the profiler sees the kernels a graph runs). The
-    profiler may miss a few kernels late in a long run (on an H100: 3 of 130, 17 of 220
-    int8 kernels over 5 replays): its counts are a lower bound."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+def profile_forward(fn, x, steps: int = 5, top: int = 10, count: tuple = (), pad: int = 3,
+                    attempts: int = 3) -> dict:
+    """``torch.profiler`` over ``steps`` forwards after warm-up, read from its chrome
+    trace (``utils.profiling.trace_kernels``: a CUDA graph's replayed kernels included):
+    host wall ms (inflated by the profiler itself), summed kernel ms, idle share (1 -
+    kernel / wall) and launches per forward, and the kernels that take the most device
+    time; ``counts``: for each name in ``count``, the launches a forward of the kernels
+    whose name holds it. The counted forwards run inside a ``record_function`` range
+    between ``pad`` forwards on each side, and only the kernels of the launches made in
+    it count: late in a long run the profiler loses about 175 kernel records at a
+    session's edges (on an H100: 7% of rexnet1_0x's kernel time over 5 forwards). A
+    profile that lost a kernel of the range is taken again, at most ``attempts`` times
+    (``profiles``); then it raises ``ValueError``. ``pad_kernels_missing``: the kernels
+    that the padding forwards ran, as many a forward as the window's, less those the
+    trace holds: what the session lost at its edges."""
+    import tempfile
+    from collections import defaultdict
 
-    with torch.no_grad():
-        for _ in range(3):
-            fn(x)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for _ in range(steps):
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from holocron_tpu_torch.utils.profiling import WINDOW, trace_kernels
+
+    for attempt in range(1, attempts + 1):
+        with torch.no_grad():
+            for _ in range(3):
                 fn(x)
             torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3 / steps
-    kernels = sorted((e for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
-                     key=lambda e: -e.device_time_total)
-    kernel_ms = sum(e.device_time_total for e in kernels) / 1e3 / steps
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                for _ in range(pad):
+                    fn(x)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                with record_function(WINDOW):
+                    for _ in range(steps):
+                        fn(x)
+                    torch.cuda.synchronize()
+                wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+                for _ in range(pad):
+                    fn(x)
+                torch.cuda.synchronize()
+        with tempfile.TemporaryDirectory(prefix="holocron_profile_") as tmp:
+            prof.export_chrome_trace(str(Path(tmp) / "trace.json"))
+            try:
+                kernels = trace_kernels(Path(tmp) / "trace.json", window=WINDOW)
+                outside = len(trace_kernels(Path(tmp) / "trace.json")) - len(kernels)
+                break
+            except ValueError:
+                if attempt == attempts:
+                    raise
+    totals, launches = defaultdict(float), defaultdict(int)
+    for name, us in kernels:
+        totals[name] += us
+        launches[name] += 1
+    ranked = sorted(totals, key=lambda k: -totals[k])
+    kernel_ms = sum(totals.values()) / 1e3 / steps
     return {"wall_ms": wall_ms, "kernel_ms": kernel_ms, "idle": 1 - kernel_ms / wall_ms,
-            "kernel_launches": sum(e.count for e in kernels) / steps,
-            "counts": {name: sum(e.count for e in kernels if name in e.key) / steps for name in count},
-            "top": [[e.key[:90], e.device_time_total / 1e3 / steps, e.count / steps] for e in kernels[:top]]}
+            "kernel_launches": len(kernels) / steps, "profiles": attempt,
+            "pad_kernels_missing": 2 * pad * len(kernels) / steps - outside,
+            "counts": {name: sum(n for k, n in launches.items() if name in k) / steps for name in count},
+            "top": [[k[:90], totals[k] / 1e3 / steps, launches[k] / steps] for k in ranked[:top]]}
 
 
 INT8_KERNEL_NAMES = ("int8_conv_wgmma_kernel", "int8_quantize")  # the kernels' names in a profile
@@ -533,32 +586,28 @@ def phase_deploy_graph(device, qm, model_bf16, buckets=(1, 2, 4, 8), size: int =
 def phase_deploy_graph_profile(forms: list) -> dict:
     """``torch.profiler`` over the batch-8 graph replays and eager forwards of
     :func:`phase_deploy_graph`'s forms (after the timed phases: once the profiler has
-    run, the host launches more slowly; first of the profiles: a long run's later
-    profiles lose kernel records, on an H100 some or all of a profile's): kernel ms and
+    run, the host launches more slowly; ``profile_forward`` counts a window between
+    padding forwards and takes a profile that lost a kernel in it again): kernel ms and
     launches a forward, the idle share 1 - kernel ms / the unprofiled wall ms, and the
     int8 kernels the profiler saw a forward, which must be some and at most one
     quantization and one conv an int8 layer in a replay as in the eager forward (the
-    exact count a replay runs is held where the graphs are built). A profile that
-    recorded no kernel is taken again, at most three times (``profiles``). Returns the
-    int8 launches the counters saw (the eager forwards) and, apart, the int8 kernels the
-    profiler saw in the replays: a lower bound of what they ran, as it drops records."""
+    exact count a replay runs is held where the graphs are built). Returns the
+    int8 launches the counters saw (the eager forwards, padding included) and, apart,
+    the int8 kernels the profiler saw in the counted replays."""
     reset_counts()
     seen = {"int8_conv": 0, "int8_quantize": 0, "int8_conv_general": 0}
     for form in forms:
         record, n_int8 = form["record"], form["record"]["int8_convs"]
         line = {"phase": "deploy_graph_profile", "model": record["model"], "form": record["form"], "batch": 8}
         for name, fn in form["fns"].items():
-            for attempt in range(1, 4):  # a profile that recorded no kernel at all lost its records
-                prof = profile_forward(fn, form["x8"], steps=PROFILED_STEPS, count=INT8_KERNEL_NAMES)
-                if prof["kernel_launches"]:
-                    break
+            prof = profile_forward(fn, form["x8"], steps=PROFILED_STEPS, count=INT8_KERNEL_NAMES)
             per = prof["counts"].values()
             if any(not (0 < v <= n_int8) for v in per) if n_int8 else any(per):
                 fail(f"deploy_graph {record['model']} {record['form']} {name}: the profiler saw int8 kernels "
                      f"{prof['counts']} a forward, expected some and at most {n_int8} of each")
             line[name] = {"kernel_ms": prof["kernel_ms"], "kernel_launches": prof["kernel_launches"],
                           "idle": 1 - prof["kernel_ms"] / record[name]["wall_ms"], "int8_per_forward": prof["counts"],
-                          "profiled_wall_ms": prof["wall_ms"], "profiles": attempt, "top": prof["top"][:5]}
+                          "profiled_wall_ms": prof["wall_ms"], "profiles": prof["profiles"], "top": prof["top"][:5]}
             if name == "graph":
                 for key, kernel in zip(("int8_conv", "int8_quantize"), INT8_KERNEL_NAMES):
                     seen[key] += round(prof["counts"][kernel] * PROFILED_STEPS)
@@ -1084,6 +1133,64 @@ def check_int8_service(device, forms: list, batches=(8, 1)) -> dict:
               "channels": sorted({int(x.shape[1]) for _, _, x, _ in cases}), "max_abs_err_bf16": max_err}
     emit({"phase": "check_int8_service", **record})
     return record
+
+
+def check_int8_dispatch(device, pairs: int = 10, calls: int = 2000) -> dict:
+    """The host's cost a call of the ``holocron_tpu_torch`` int8 ops: a quantized conv
+    through the ops (``quantized_conv``: ``int8_quantize`` then ``int8_conv``) against
+    the same two launches made directly (``_quantize_launch`` and ``_launch``, the calls
+    that ``quantize_activation`` and ``int8_conv`` made before the ops), in ``pairs``
+    interleaved pairs of loops of ``calls`` convs each (the ops first in even pairs), on
+    a 1x1 conv of 64 channels over one 8 x 8 image in bf16: its two kernels take less
+    device time than a call takes the host, so a loop's wall time a conv is the host's.
+    The two give the same output. An op call's overhead is half a pair's difference (a
+    conv is two op calls); an eager int8 forward's is that times its op calls
+    (repvgg_a0 52, rexnet1_0x 88)."""
+    import statistics
+
+    import torch
+
+    from holocron_tpu_torch.kernels import int8_conv as K
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 140)
+    c = 64
+    x = torch.randn(1, 8, 8, c, generator=gen, device=device).to(torch.bfloat16)
+    w_q = torch.randint(-127, 128, (1, 1, c, c), generator=gen, device=device, dtype=torch.int8)
+    w_packed = K.pack_weights(w_q)
+    w_scale = torch.rand(c, generator=gen, device=device) / 127 / c
+    bias = torch.randn(c, generator=gen, device=device).to(torch.bfloat16)
+    s_x = (x.float().abs().max() / 127).reshape(1)
+
+    def through_ops():
+        return K.quantized_conv(x, s_x, w_q, w_scale, bias, out_dtype=torch.bfloat16, w_packed=w_packed)
+
+    def direct():
+        x_q = K._pitched_view(K._quantize_launch(x, s_x), c)
+        return K._launch(x_q, w_q, w_packed, s_x, w_scale, bias, 1, 0, 1, torch.bfloat16, 1)
+
+    if not torch.equal(through_ops(), direct()):
+        fail("int8_op_dispatch: the ops' output differs from the direct launches'")
+    for _ in range(200):
+        through_ops()
+        direct()
+    us = {"ops": [], "direct": []}
+    for i in range(pairs):
+        for name in ("ops", "direct") if i % 2 == 0 else ("direct", "ops"):
+            fn = through_ops if name == "ops" else direct
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+            us[name].append((time.perf_counter() - t0) * 1e6 / calls)
+    diffs = [a - b for a, b in zip(us["ops"], us["direct"])]
+    per_call = statistics.median(diffs) / 2
+    line = {"phase": "int8_op_dispatch", "shape": [1, 8, 8, c], "pairs": pairs, "calls": calls,
+            "ops_us_per_conv": us["ops"], "direct_us_per_conv": us["direct"], "diff_us_per_conv": diffs,
+            "op_call_us_median": per_call, "op_call_us_range": [min(diffs) / 2, max(diffs) / 2],
+            "eager_forward_ms": {"repvgg_a0": per_call * 52 / 1e3, "rexnet1_0x": per_call * 88 / 1e3}}
+    emit(line)
+    return line
 
 
 def check_int8_grouped(device, batch: int = 256, iters: int = 20) -> list:
@@ -2510,21 +2617,24 @@ def _write_image_folder(root, classes: int = 10, per_class: int = 8, pngs: int =
                     img.save(folder / f"{i}.jpg", quality=90)
 
 
-def _cli_run(argv: list, what: str) -> dict:
-    """The classification CLI's ``main()`` in this process on the card, its output on
-    stderr: each train step's loss (on the device, read after the run), CUDA events
-    around each step, the host time spent waiting on the loader before each step (from
-    the end of one step's launch to the start of the next), the evaluations and the
-    peak memory."""
+def _cli_run(argv: list, what: str, task: str = "classification") -> dict:
+    """A training CLI's ``main()`` (``task``: classification or detection) in this
+    process on the card, its output on stderr: each train step's loss (on the device,
+    read after the run), CUDA events around each step, the host time spent waiting on
+    the loader before each step (from the end of one step's launch to the start of the
+    next), the evaluations (each value finite where it is a number: a detection error
+    rate with no denominator is None) and the peak memory."""
     import contextlib
+    import importlib
 
     import torch
 
-    from holocron_tpu_torch.references.classification import train
-    from holocron_tpu_torch.trainer import ClassificationTrainer
+    from holocron_tpu_torch import trainer as trainers
 
+    train = importlib.import_module(f"holocron_tpu_torch.references.{task}.train")
+    Trainer = trainers.DetectionTrainer if task == "detection" else trainers.ClassificationTrainer
     losses, events, waits, evaluated = [], [], [], []
-    step, evaluate = ClassificationTrainer._run_step_async, ClassificationTrainer.evaluate
+    step, evaluate = Trainer._run_step_async, Trainer.evaluate
     last = [None]
 
     def recorded_step(self, x, target):
@@ -2543,7 +2653,7 @@ def _cli_run(argv: list, what: str) -> dict:
         evaluated.append(evaluate(self, *a, **kw))
         return evaluated[-1]
 
-    ClassificationTrainer._run_step_async, ClassificationTrainer.evaluate = recorded_step, recorded_eval
+    Trainer._run_step_async, Trainer.evaluate = recorded_step, recorded_eval
     output = io.StringIO()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -2552,14 +2662,15 @@ def _cli_run(argv: list, what: str) -> dict:
         with contextlib.redirect_stdout(output):
             trainer = train.main(train.parse_args(argv))
     finally:
-        ClassificationTrainer._run_step_async, ClassificationTrainer.evaluate = step, evaluate
+        Trainer._run_step_async, Trainer.evaluate = step, evaluate
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     print(output.getvalue(), file=sys.stderr)
     if any(not loss.is_cuda for loss in losses) or any(p.device.type != "cuda" for p in trainer.model.parameters()):
         fail(f"{what}: the model or the step left the card")
     losses = [float(v) for v in losses]
-    if not all(map(math.isfinite, losses)) or len(evaluated) != 1 or not all(map(math.isfinite, evaluated[0].values())):
+    if not all(map(math.isfinite, losses)) or len(evaluated) != 1 \
+            or not all(math.isfinite(v) for v in evaluated[0].values() if v is not None):
         fail(f"{what}: losses {losses}, evaluate {evaluated}; expected finite losses and one finite evaluation")
     return {"trainer": trainer, "losses": losses, "eval": evaluated[0], "cli_seconds": seconds,
             "step_ms_after_first": [s.elapsed_time(e) for s, e in events[1:]],
@@ -2710,6 +2821,390 @@ def phase_optim_zoo(device, batch: int = 64, size: int = 224, num_classes: int =
           "steps": steps, "sync_debug_mode_in_step": "error", "optimizers": rows})
 
 
+def _write_detection_folder(root, train: int = 16, val: int = 8) -> None:
+    """A detection folder (``<root>/{train,val}/{images,labels}``) of random-noise images
+    of sizes around 300 to 500 px, JPEG and PNG, with 1 to 5 relative boxes each in JSON,
+    from the seed."""
+    import numpy as np
+    from PIL import Image
+
+    rng = np.random.default_rng(SEED + 80)
+    for split, count in (("train", train), ("val", val)):
+        (root / split / "images").mkdir(parents=True)
+        (root / split / "labels").mkdir(parents=True)
+        for i in range(count):
+            h, w = int(rng.integers(280, 520)), int(rng.integers(280, 520))
+            coarse = rng.integers(0, 256, (h // 16 + 1, w // 16 + 1, 3), dtype=np.uint8)
+            img = Image.fromarray(coarse).resize((w, h), Image.BILINEAR)
+            img.save(root / split / "images" / (f"{i}.png" if i % 4 == 3 else f"{i}.jpg"), **({} if i % 4 == 3 else {"quality": 90}))
+            n = int(rng.integers(1, 6))
+            boxes = np.sort(rng.random((n, 2, 2)), axis=1).transpose(0, 2, 1).reshape(n, 4)[:, [0, 2, 1, 3]]
+            (root / split / "labels" / f"{i}.json").write_text(
+                json.dumps({"boxes": boxes.tolist(), "labels": rng.integers(0, 20, n).tolist()}))
+
+
+def phase_detection_cli(device, workers: int = 8) -> None:
+    """The detection CLI's ``main()`` in this process on the card at the JAX CLI's
+    defaults (yolov2, darknet19, 20 classes, 416 px, batch 8, 50 boxes a target, TAdam at
+    1e-4 under onecycle) with ``--amp`` and ``-j 8`` spawned loader workers.
+
+    (a) ``fake`` with 32 samples, one epoch: 4 steps and the evaluation on 8. (b) A
+    folder written to a temporary directory (16 training and 8 evaluation images of
+    varied sizes, a quarter PNG, with JSON labels): one epoch of 2 steps and the
+    evaluation, then ``--test-only --resume`` on the checkpoint it wrote, whose printed
+    error rates must be the run's. (c) ``--check-setup`` on ``fake`` (10 steps on one
+    batch, ``-j 0``): the loss must fall. Printed: ms of the steps after the first (CUDA
+    events) and the host's wait on the loader before each, ms a step of the CLI's
+    trainer on device batches (a steady window of 4), peak memory, the evaluations'
+    error rates. Every loss finite and on the card, the model on the card."""
+    import contextlib
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from holocron_tpu_torch.references.detection import train
+
+    common = ["--amp", "-j", str(workers), "--device", str(device), "--epochs", "1"]
+    records = {}
+    with tempfile.TemporaryDirectory(prefix="holocron_det_cli_") as tmp:
+        tmp = Path(tmp)
+        run = _cli_run(["fake", *common, "--output-file", str(tmp / "fake.pt")], "detection_cli (a)", "detection")
+        if len(run["losses"]) != 4:
+            fail(f"detection_cli (a): {len(run['losses'])} steps, expected 4")
+        gen = torch.Generator(device=device).manual_seed(SEED + 81)
+        batches = _synthetic_detection_batches(gen, np.random.default_rng(SEED + 81), 2, 8, 416, 20, device)
+        torch.cuda.reset_peak_memory_stats()
+        window_ms = time_train_steps(run["trainer"], batches, 4)
+        model = run["trainer"].model
+        records["a_fake"] = {
+            "arch": "yolov2", "batch": 8, "image_size": 416, "num_classes": 20, "samples": 32,
+            "losses": run["losses"], "eval": run["eval"], "cli_seconds": run["cli_seconds"],
+            "step_ms_after_first": run["step_ms_after_first"],
+            "loader_wait_ms_after_first": run["loader_wait_ms_after_first"], "peak_memory_gib": run["peak_memory_gib"],
+            "window_step_ms_device_batches": window_ms,
+            "window_peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "backbone_frozen_bn": any(type(m).__name__ == "FrozenBatchNorm2d" for m in model.backbone.modules())}
+        del run, model, batches
+        torch.cuda.empty_cache()
+
+        _write_detection_folder(tmp / "voc")
+        ckpt = tmp / "folder.pt"
+        argv = [str(tmp / "voc"), *common, "--output-file", str(ckpt)]
+        run = _cli_run(argv, "detection_cli (b)", "detection")
+        if len(run["losses"]) != 2 or not ckpt.exists():
+            fail(f"detection_cli (b): {len(run['losses'])} steps, expected 2, and a checkpoint")
+        resumed = _cli_run([*argv, "--test-only", "--resume", str(ckpt)], "detection_cli (b) --test-only", "detection")
+        printed = [line for line in resumed["stdout"].splitlines() if line.startswith("Loc error")]
+        from holocron_tpu_torch.trainer import DetectionTrainer
+
+        if printed != [DetectionTrainer._eval_metrics_str(run["eval"])]:
+            fail(f"detection_cli (b): --test-only --resume evaluated {resumed['eval']} ({printed}), the run "
+                 f"{run['eval']}")
+        records["b_folder"] = {
+            "train_images": 16, "val_images": 8, "losses": run["losses"], "eval": run["eval"],
+            "resumed_eval_printed": printed[0], "cli_seconds": run["cli_seconds"],
+            "test_only_seconds": resumed["cli_seconds"], "step_ms_after_first": run["step_ms_after_first"],
+            "loader_wait_ms_after_first": run["loader_wait_ms_after_first"], "peak_memory_gib": run["peak_memory_gib"]}
+        del run, resumed
+        torch.cuda.empty_cache()
+
+        output = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(output):
+            trainer = train.main(train.parse_args(["fake", "--amp", "-j", "0", "--device", str(device), "--check-setup",
+                                                   "--output-file", str(tmp / "setup.pt")]))
+        seconds = time.perf_counter() - t0
+        print(output.getvalue(), file=sys.stderr)
+        line = next((x for x in output.getvalue().splitlines() if x.startswith("overfit-one-batch losses")), None)
+        if line is None or any(p.device.type != "cuda" for p in trainer.model.parameters()):
+            fail(f"detection_cli (c): no check-setup line, or the model left the card: {output.getvalue()[-400:]}")
+        first, last = (float(v) for v in line.split(":")[1].split("->"))
+        if not (math.isfinite(first) and math.isfinite(last) and last < first):
+            fail(f"detection_cli (c): check-setup losses {first} -> {last}, expected a fall")
+        records["c_check_setup"] = {"steps": 10, "first_loss": first, "last_loss": last, "seconds": seconds}
+        del trainer
+    torch.cuda.empty_cache()
+    emit({"phase": "detection_cli", "workers": workers, **records})
+
+
+def phase_pretrained(device) -> None:
+    """Released-checkpoint loading on the card, from files written here with
+    ``torch.save`` and read through ``file://`` URLs (``$HOLOCRON_CACHE_DIR`` a temporary
+    directory for the phase): a seeded rexnet1_0x built with ``checkpoint=`` (the file's
+    real sha256) gives the saved model's logits bit for bit (deterministic cuDNN); a
+    darknet19 file loads into yolov2's backbone under ``key_filter="features."``, the
+    backbone equal to the file and the rest of the detector as drawn; a wrong sha256
+    leaves ``pretrained_loaded`` False and the drawn weights."""
+    import hashlib
+    import os
+    import tempfile
+
+    import torch
+
+    from holocron_tpu_torch import models
+    from holocron_tpu_torch.models.core import cudnn_settings
+    from holocron_tpu_torch.models.utils import _checkpoint, load_pretrained_params
+
+    saved_env = os.environ.get("HOLOCRON_CACHE_DIR")
+    row = {}
+    with tempfile.TemporaryDirectory(prefix="holocron_pretrained_") as tmp, cudnn_settings(benchmark=False,
+                                                                                          deterministic=True):
+        tmp = Path(tmp)
+        os.environ["HOLOCRON_CACHE_DIR"] = str(tmp / "cache")
+        try:
+            source = models.rexnet1_0x(generator=torch.Generator().manual_seed(SEED + 90), device=device).eval()
+            path = tmp / "rexnet1_0x.pth"
+            torch.save(source.state_dict(), path)
+            digest = hashlib.sha256(path.read_bytes()).hexdigest()
+            ckpt = _checkpoint("rexnet1_0x", path.as_uri(), 0.0, 0.0, digest, path.stat().st_size, 0)
+            t0 = time.perf_counter()
+            loaded = models.rexnet1_0x(checkpoint=ckpt, progress=False, device=device).eval()
+            load_s = time.perf_counter() - t0
+            x = torch.randn(8, 3, 224, 224, generator=torch.Generator(device=device).manual_seed(SEED + 91),
+                            device=device)
+            with torch.no_grad():
+                equal = bool(torch.equal(loaded(x), source(x)))
+            if not loaded.pretrained_loaded or not equal:
+                fail(f"pretrained: rexnet1_0x from its file loaded {loaded.pretrained_loaded}, logits equal {equal}")
+            row["rexnet1_0x"] = {"file_bytes": path.stat().st_size, "load_s": load_s, "logits_equal": equal}
+
+            dark = models.darknet19(generator=torch.Generator().manual_seed(SEED + 92), device="cpu")
+            dark_url = (tmp / "darknet19.pth").as_uri()
+            torch.save(dark.state_dict(), tmp / "darknet19.pth")
+            det = models.yolov2(pretrained_backbone=False, num_classes=20, device=device,
+                                generator=torch.Generator().manual_seed(SEED + 93))
+            drawn = {k: v.clone() for k, v in det.state_dict().items() if not k.startswith("backbone.")}
+            load_pretrained_params(det, dark_url, key_filter="features.", key_replacement=("features.", "backbone."))
+            state = det.state_dict()
+            backbone = all(torch.equal(state[k.replace("features.", "backbone.", 1)], v.to(device))
+                           for k, v in dark.state_dict().items() if k.startswith("features."))
+            rest = all(torch.equal(state[k], v) for k, v in drawn.items())
+            if not (det.pretrained_loaded and backbone and rest):
+                fail(f"pretrained: darknet19 into yolov2's backbone: loaded {det.pretrained_loaded}, backbone equal "
+                     f"{backbone}, the rest as drawn {rest}")
+            row["yolov2_backbone"] = {"keys": sum(k.startswith("features.") for k in dark.state_dict()),
+                                      "backbone_equal": backbone, "rest_as_drawn": rest}
+
+            bad = _checkpoint("rexnet1_0x", path.as_uri(), 0.0, 0.0, "0" * 64, 0, 0)
+            again = models.rexnet1_0x(checkpoint=bad, progress=False, device=device,
+                                      generator=torch.Generator().manual_seed(SEED + 94))
+            ref = models.rexnet1_0x(device=device, generator=torch.Generator().manual_seed(SEED + 94))
+            kept = all(torch.equal(a, b) for a, b in zip(again.state_dict().values(), ref.state_dict().values()))
+            if again.pretrained_loaded or not kept:
+                fail(f"pretrained: a sha256 mismatch loaded {again.pretrained_loaded}, kept the drawn weights {kept}")
+            row["sha256_mismatch"] = {"pretrained_loaded": again.pretrained_loaded, "drawn_weights_kept": kept}
+        finally:
+            if saved_env is None:
+                os.environ.pop("HOLOCRON_CACHE_DIR", None)
+            else:
+                os.environ["HOLOCRON_CACHE_DIR"] = saved_env
+    torch.cuda.empty_cache()
+    emit({"phase": "pretrained", **row})
+
+
+REMAT_MODES = (False, True, "dots")
+
+
+def phase_remat(device, batch: int = 128, size: int = 224, num_classes: int = 10, steps: int = 3) -> None:
+    """resnet50 (batch 128, 224 px, amp, LAMB, the classification reference's step) under
+    ``remat`` False, True and ``"dots"``, a fresh model from the seed each, 3 steps on the
+    same batches: ms a step (CUDA events, after the first), peak memory. Held against
+    ``False`` (bf16 compute, cuDNN free to pick its algorithms): the loss at every step
+    within 1e-3 relative (the first comes from the forward alone, the later ones from
+    the recomputed backward's updates, each 1-8% of the loss), the BN running means
+    after the first step within 1e-3 relative (the recomputation's update undone), and
+    the first update of each parameter within 1e-2 of its norm (the recomputed
+    gradients under autocast)."""
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 100)
+    batches = synthetic_batches(gen, 2, batch, size, num_classes, device)
+    rows, ref = {}, None
+    for mode in REMAT_MODES:
+        trainer = make_trainer(device, batches, None, num_classes, "resnet50", remat=mode)
+        trainer._reset_opt(1e-3)
+        # the parameters before and after the first step, copied to pinned host memory
+        # in stream order: no host sync between the steps, no device memory
+        params = [p for p in trainer.model.parameters() if p.requires_grad]
+        before, after = ([torch.empty(p.shape, dtype=p.dtype, pin_memory=True) for p in params] for _ in range(2))
+        for h, p in zip(before, params):
+            h.copy_(p.detach(), non_blocking=True)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        losses, events = [], []
+        for i in range(steps):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            losses.append(trainer._run_step_async(*batches[i % 2]))
+            end.record()
+            events.append((start, end))
+            if i == 0:
+                stats = [m.running_mean.clone() for m in trainer.model.modules()
+                         if isinstance(m, torch.nn.BatchNorm2d)]
+                for h, p in zip(after, params):
+                    h.copy_(p.detach(), non_blocking=True)
+        torch.cuda.synchronize()
+        update = [a.float() - b.float() for a, b in zip(after, before)]
+        losses = [float(v) for v in losses]
+        if not all(map(math.isfinite, losses)):
+            fail(f"remat {mode}: losses {losses}")
+        if ref is None:
+            ref = (losses, stats, update)
+        loss_rel = max(abs(a - b) / abs(b) for a, b in zip(losses, ref[0]))
+        stat_rel = max(float((a - b).abs().max() / b.abs().max().clamp_min(1e-12)) for a, b in zip(stats, ref[1]))
+        update_rel = max(float((a - b).norm() / b.norm().clamp_min(1e-30)) for a, b in zip(update, ref[2]))
+        if loss_rel > 1e-3 or stat_rel > 1e-3 or update_rel > 1e-2:
+            fail(f"remat {mode}: losses {losses} against {ref[0]}, BN running means off by {stat_rel}, "
+                 f"first updates off by {update_rel} of their norm")
+        rows[str(mode)] = {"losses": losses, "step_ms_after_first": [s.elapsed_time(e) for s, e in events[1:]],
+                           "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
+                           "loss_rel_diff": loss_rel, "bn_running_mean_rel_diff": stat_rel,
+                           "first_update_rel_diff": update_rel}
+        del trainer, params, before, after
+        torch.cuda.empty_cache()
+    emit({"phase": "remat", "model": "resnet50", "batch": batch, "image_size": size, "amp": True,
+          "optimizer": "LAMB", "modes": rows})
+
+
+def phase_binary_trainer(device, batch: int = 128, size: int = 224, steps: int = 4) -> None:
+    """``BinaryClassificationTrainer`` on rexnet1_0x with one output (amp, LAMB,
+    ``BCEWithLogitsLoss``, whose ``reduction`` the top-loss collection sets to "none")
+    over 4 naturalistic batches with 0/1 float targets (batch 128, rexnet_training's
+    shapes, whose convolutions cuDNN has tuned by then): the steps, ``evaluate()`` on 2
+    batches (``val_loss`` and ``acc`` finite), and ``top_losses`` (``plot_top_losses``'s
+    collection, without the plot): 12 samples, highest loss first."""
+    import functools
+
+    import torch
+
+    from holocron_tpu_torch import models
+    from holocron_tpu_torch.bench import naturalistic_batch
+    from holocron_tpu_torch.optim import LAMB
+    from holocron_tpu_torch.trainer import BinaryClassificationTrainer
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 110)
+    data = [(naturalistic_batch(gen, batch, size, device),
+             torch.randint(0, 2, (batch,), generator=gen, device=device).float()) for _ in range(steps + 2)]
+    model = models.rexnet1_0x(num_classes=1, generator=torch.Generator().manual_seed(SEED), device=device)
+    trainer = BinaryClassificationTrainer(model.to(memory_format=torch.channels_last), data[:steps], data[steps:],
+                                          torch.nn.BCEWithLogitsLoss(),
+                                          functools.partial(LAMB, weight_decay=5e-5), device=device, amp=True)
+    trainer._reset_opt(1e-3)
+    losses = [float(trainer._run_step_async(x, y)) for x, y in data[:steps]]
+    metrics = trainer.evaluate()
+    top = trainer.top_losses(IMAGENET[0], IMAGENET[1])
+    if not all(map(math.isfinite, [*losses, *metrics.values()])) or set(metrics) != {"val_loss", "acc"} \
+            or len(top["losses"]) != 12 or not all(top["losses"][:-1] >= top["losses"][1:]):
+        fail(f"binary_trainer: losses {losses}, evaluate {metrics}, top losses {top['losses']}")
+    emit({"phase": "binary_trainer", "model": "rexnet1_0x", "outputs": 1, "batch": batch, "image_size": size,
+          "losses": losses, "eval": metrics, "top_losses": top["losses"].tolist(), "top_probs": top["probs"].tolist(),
+          "top_targets": top["targets"].tolist()})
+    del trainer
+    torch.cuda.empty_cache()
+
+
+def phase_export(device) -> dict:
+    """``python -m holocron_tpu_torch.export``'s ``main()`` on the card: repvgg_a0 at
+    batch 1 and 224 px in bf16 and in int8 (bf16 remainder, per-call scales), and
+    yolov2 at 416 px in float32 with its post-processing; each exported, saved, loaded
+    and run against the eager module (float32 within 1e-5; int8 equal bit for bit; bf16's
+    difference, if any, printed). The int8 graph must hold both ops once a layer (26),
+    and its runs launch the kernels (counted). Printed: export time, graph nodes, file
+    size."""
+    import tempfile
+
+    from holocron_tpu_torch import export
+
+    reset_counts()
+    rows = {}
+    with tempfile.TemporaryDirectory(prefix="holocron_export_") as tmp:
+        for name, argv in (("repvgg_a0_bf16", ["repvgg_a0", "--dtype", "bfloat16"]),
+                           ("repvgg_a0_int8", ["repvgg_a0", "--dtype", "bfloat16", "--quantize"]),
+                           ("yolov2_post_process", ["yolov2", "--size", "416", "--num-classes", "20"])):
+            out = Path(tmp) / f"{name}.pt2"
+            rec = export.main(export.parse_args([*argv, "--device", str(device), "--output", str(out)]))
+            rows[name] = {k: rec[k] for k in ("export_s", "nodes", "custom_ops", "file_bytes", "max_abs_err", "equal",
+                                               "outputs")}
+    ops = rows["repvgg_a0_int8"]["custom_ops"]
+    launches = int8_launches()
+    if set(ops.values()) != {26} or not launches["int8_conv"] or not launches["int8_quantize"]:
+        fail(f"export: the int8 graph holds {ops}, expected 26 of each op; launches {launches}")
+    if not rows["repvgg_a0_int8"]["equal"]:
+        fail(f"export: the loaded int8 program differs from eager by {rows['repvgg_a0_int8']['max_abs_err']}")
+    emit({"phase": "export", "forms": rows, "launches": launches})
+    return launches
+
+
+ZOO_ONE_A_FAMILY = ("repvgg_a0", "mobileone_s0", "rexnet1_0x", "resnet50", "darknet19", "convnext_atto", "unet3p",
+                    "yolov2")
+
+
+def phase_latency_and_zoo(device, zoo_batch: int = 32, it: int = 20) -> dict:
+    """``eval_latency``'s ``main()`` for rexnet1_0x at batch 8 and 256, bf16 and
+    ``--quantize`` (the captured graph; device mean ms, the host's round trip, img/s),
+    then ``bench_zoo``'s ``main()`` over one architecture of each family (repvgg_a0,
+    mobileone_s0, rexnet1_0x, resnet50, darknet19, convnext_atto, unet3p, yolov2; bf16,
+    batch 32, each task's size, ``--it 20``). Fails if a row it asked for is an error
+    row."""
+    from holocron_tpu_torch import bench_zoo, eval_latency
+
+    reset_counts()
+    latency = []
+    for batch in (8, 256):
+        for quantize in (False, True):
+            argv = ["rexnet1_0x", "--batch", str(batch), "--dtype", "bfloat16", "--device", str(device)]
+            latency.append(eval_latency.main(eval_latency.parse_args(argv + (["--quantize"] if quantize else []))))
+    launches = int8_launches()
+    rows = bench_zoo.main(bench_zoo.parse_args(["--tasks", "classification", "segmentation", "detection", "--archs",
+                                                *ZOO_ONE_A_FAMILY, "--batch", str(zoo_batch), "--it", str(it),
+                                                "--device", str(device)]))
+    errors = [r for r in rows if "error" in r]
+    if errors or len(rows) != len(ZOO_ONE_A_FAMILY):
+        fail(f"latency_and_zoo: {len(rows)} rows, errors {errors}")
+    if not launches["int8_conv"] or not launches["int8_quantize"]:
+        fail(f"latency_and_zoo: the int8 runs launched {launches}")
+    emit({"phase": "latency_and_zoo", "eval_latency": latency, "zoo": rows, "launches": launches})
+    return launches
+
+
+def phase_profiling(device, batch: int = 256, size: int = 224) -> None:
+    """``utils.profiling.device_op_summary`` on rexnet1_0x's bf16 eval forward at batch
+    256, against ``profile_forward``'s kernel ms of the same forward (within 5%) and
+    against the forward's device time from CUDA events, unprofiled: kernels run one
+    after another on one stream, so their sum lies within 0.85-1.03 of it (the rest is
+    the gaps between them, and the clock's drift between the readings). The top kernels
+    by device time."""
+    import torch
+
+    from holocron_tpu_torch import models
+    from holocron_tpu_torch.bench import naturalistic_batch
+    from holocron_tpu_torch.utils.profiling import device_op_summary
+
+    model = models.rexnet1_0x(generator=torch.Generator().manual_seed(SEED), device=device).eval()
+    model = model.to(torch.bfloat16).to(memory_format=torch.channels_last)
+    x = naturalistic_batch(torch.Generator(device=device).manual_seed(SEED + 120), batch, size, device)
+    x = x.to(torch.bfloat16)
+    summary = device_op_summary(model, x, iters=20)
+    reference = profile_forward(model, x)
+    with torch.no_grad():
+        event_ms = cuda_ms(lambda: model(x), 20)
+    rel = abs(summary["ms_per_iter"] - reference["kernel_ms"]) / reference["kernel_ms"]
+    share = summary["ms_per_iter"] / event_ms
+    if rel > 0.05 or not 0.85 <= share <= 1.03:
+        fail(f"profiling: device_op_summary {summary['ms_per_iter']} ms against profile_forward "
+             f"{reference['kernel_ms']} ms and CUDA events' {event_ms} ms a forward")
+    top = sorted(summary["ops"].items(), key=lambda kv: -kv[1])[:8]
+    emit({"phase": "profiling", "model": "rexnet1_0x", "batch": batch, "dtype": "bfloat16",
+          "device_op_summary_ms": summary["ms_per_iter"], "wall_ms": summary["wall_ms_per_iter"],
+          "profile_forward_kernel_ms": reference["kernel_ms"], "profile_forward_profiles": reference["profiles"],
+          "profile_forward_pad_kernels_missing": reference["pad_kernels_missing"],
+          "rel_diff": rel, "cuda_event_ms": event_ms, "kernel_share_of_event_ms": share,
+          "top": [[name[:90], us / 20 / 1e3] for name, us in top]})
+    del model
+    torch.cuda.empty_cache()
+
+
 def _kernel_launches(fn) -> int:
     """The CUDA kernels one call of ``fn`` launches, from ``torch.profiler``."""
     import torch
@@ -2740,11 +3235,13 @@ def int8_entries(launches: list, replays_seen: dict, records: list, grouped: lis
     summed over the paths' runs (the four classification serving paths, the bench, the
     captured deploy forward's warm-ups, captures and eager forwards, the service's
     captures, yolov4's eager forwards, warm-ups and captures in ``detection_serving``,
-    unet3p's in ``segmentation_serving``, and mobileone_s1's and convnext_tiny's eager
-    forwards, warm-ups and captures in their serving phases);
+    unet3p's in ``segmentation_serving``, mobileone_s1's and convnext_tiny's eager
+    forwards, warm-ups and captures in their serving phases, the exported int8
+    repvgg_a0's eager and loaded runs in ``export``, and ``eval_latency``'s int8
+    rexnet1_0x in ``latency_and_zoo``);
     apart from them, ``replay_launches_seen``: the launches ``torch.profiler`` saw in
-    graph replays, a lower bound (it drops records; a replay makes no call a counter
-    sees);
+    the counted graph replays of ``deploy_graph_profile`` (a replay makes no call a
+    counter sees);
     the wgmma conv's and the quantization's times and bounds summed over one batch-256
     forward of each serving model (each geometry times its count of layers; each conv's bound
     counts the int8 x it reads). No path runs the general route (0 launches): its times
@@ -2834,6 +3331,12 @@ def main() -> int:
     timed(phase_classification_zoo_more, device)
     timed(phase_classification_cli, device)
     timed(phase_optim_zoo, device)
+    timed(phase_detection_cli, device)
+    timed(phase_pretrained, device)
+    timed(phase_remat, device)
+    timed(phase_binary_trainer, device)
+    export_launches = timed(phase_export, device)
+    latency_launches = timed(phase_latency_and_zoo, device)
     inv = timed(check_involution, device)
     inv_bwd = timed(check_involution_bwd, device)
     add = timed(check_add2d, device)
@@ -2849,12 +3352,14 @@ def main() -> int:
     timed(check_int8_service, device, graph_forms)
     emit({"phase": "rexnet_int8_by_kind", **rexnet_int8_by_kind(i8_rexnet["rows"])})
     grouped = timed(check_int8_grouped, device)
+    timed(check_int8_dispatch, device)
     profile_launches, replays_seen = timed(phase_deploy_graph_profile, graph_forms)
     timed(phase_serving_profile, qm, model_bf16, x, r8)
     timed(phase_serving_profile, rqm, rmodel_bf16, rx, rr8, "resnet_serving_profile")
     timed(phase_serving_profile, xqm, xmodel_bf16, xx, xr8, "rexnet_serving_profile")
     timed(phase_serving_profile, mqm, mmodel_bf16, mx, mr8, "mobileone_serving_profile")
     emit({"phase": "convnext_serving_profile", "batch": cx.shape[0], **timed(convnext_profile, cqm, cmodel_bf16, cx)})
+    timed(phase_profiling, device)
 
     def entry(name, source, replaces, launches, record, max_abs_err):
         keys = ("ms", "plain_ms", "bound_ms", "bound_by")
@@ -2876,7 +3381,7 @@ def main() -> int:
         *int8_entries([serving_launches, resnet_launches, rexnet_launches, darknet_launches, bench_launches,
                        graph_launches, service_launches, detection_launches, segmentation_launches,
                        mobileone_launches, mobileone_graph_launches, convnext_launches, convnext_graph_launches,
-                       profile_launches], replays_seen,
+                       profile_launches, export_launches, latency_launches], replays_seen,
                       [i8, i8_resnet, i8_rexnet], grouped),
     ]})
     card = subprocess.run(

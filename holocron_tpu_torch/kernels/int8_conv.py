@@ -22,6 +22,15 @@ On CPU tensors they compute the plain versions: :func:`quantize_activation_plain
 same pitched layout), and a float64 convolution over the integer-valued tensors, which
 is exact (every partial sum is an integer far below 2**53), followed by the same
 epilogue in float32.
+
+:func:`quantize_activation` and :func:`int8_conv` go through two ``torch.library``
+ops, ``holocron_tpu_torch::int8_quantize`` and ``holocron_tpu_torch::int8_conv``, whose
+CUDA implementations launch the kernels and whose CPU implementations are the plain
+versions. A ctypes call is opaque to ``torch.export``; an op with a fake
+implementation (the output's shape and dtype) is traced as one node, so an exported int8
+model holds the ops and runs the kernels the served model runs. The ops return fresh,
+contiguous tensors: the quantization its whole ``(..., pitch)`` buffer, of which the
+wrapper returns the view.
 """
 
 import ctypes
@@ -146,21 +155,49 @@ def _pitched_view(q: torch.Tensor, c: int) -> torch.Tensor:
     return q if q.shape[-1] == c else q[..., :c]
 
 
+def _quantize_pitched_plain(x: torch.Tensor, s_x: torch.Tensor) -> torch.Tensor:
+    q = torch.round(x.float() / s_x).clamp_(-QINT_MAX, QINT_MAX).to(torch.int8)
+    c = q.shape[-1]
+    return F.pad(q, (0, channel_pitch(c) - c))
+
+
 def quantize_activation_plain(x: torch.Tensor, s_x: torch.Tensor) -> torch.Tensor:
     """``clip(round(x / s_x), -127, 127)`` as int8 (``quant.py:237-244``) at the pitched
     layout (:func:`channel_pitch` of the last dimension, zero beyond it); torch.round
     rounds half to even, as jnp.round does."""
-    q = torch.round(x.float() / s_x).clamp_(-QINT_MAX, QINT_MAX).to(torch.int8)
-    c = q.shape[-1]
-    return _pitched_view(F.pad(q, (0, channel_pitch(c) - c)), c)
+    return _pitched_view(_quantize_pitched_plain(x, s_x), x.shape[-1])
+
+
+# The ops' library: their schemas, a CUDA implementation (the kernel) and a CPU one (the
+# plain version) each, and fake implementations (shape and dtype) for tracing. Defined
+# with ``Library.define`` and ``impl``, not ``custom_op``, whose autograd and dispatch
+# wrappers cost a multiple of the host time of a call (the ops are for inference: no
+# autograd kernel is registered).
+_LIB = torch.library.Library("holocron_tpu_torch", "DEF")
+_LIB.define("int8_quantize(Tensor x, Tensor s_x) -> Tensor")
+_LIB.define("int8_conv(Tensor x_q, Tensor w_q, Tensor s_x, Tensor w_scale, Tensor? bias, int[] stride, "
+            "int[] padding, int[] dilation, int groups, ScalarType out_dtype, Tensor? w_packed) -> Tensor")
+
+
+def _int8_quantize_cpu(x: torch.Tensor, s_x: torch.Tensor) -> torch.Tensor:
+    return _quantize_pitched_plain(x, s_x)
+
+
+@torch.library.register_fake("holocron_tpu_torch::int8_quantize")
+def _int8_quantize_fake(x: torch.Tensor, s_x: torch.Tensor) -> torch.Tensor:
+    return x.new_empty((*x.shape[:-1], channel_pitch(x.shape[-1])), dtype=torch.int8)
 
 
 def quantize_activation(x: torch.Tensor, s_x: torch.Tensor) -> torch.Tensor:
     """:func:`quantize_activation_plain`, by the ``int8_quantize`` kernel for a CUDA
     ``x`` (float32 or bfloat16, any shape; its last dimension is the channels, the
-    result lies at their pitch)."""
-    if x.device.type == "cpu":
-        return quantize_activation_plain(x, s_x)
+    result lies at their pitch), through ``holocron_tpu_torch::int8_quantize``."""
+    return _pitched_view(torch.ops.holocron_tpu_torch.int8_quantize(x, s_x), x.shape[-1])
+
+
+def _quantize_launch(x: torch.Tensor, s_x: torch.Tensor) -> torch.Tensor:
+    """The quantized ``x`` as its whole ``(..., channel_pitch(C))`` buffer: the
+    ``int8_quantize`` kernel on the card."""
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"the quantize kernel takes float32 or bfloat16, got {x.dtype}")
     if s_x.device != x.device or s_x.dtype != torch.float32 or s_x.numel() != 1:
@@ -173,7 +210,7 @@ def quantize_activation(x: torch.Tensor, s_x: torch.Tensor) -> torch.Tensor:
     with torch.cuda.device(x.device):
         KERNEL_QUANTIZE(x.data_ptr(), s_x.data_ptr(), q.data_ptr(), int(x.dtype == torch.bfloat16), x.numel() // c, c,
                         torch.cuda.current_stream().cuda_stream)
-    return _pitched_view(q, c)
+    return q
 
 
 def _at_pitch(x: torch.Tensor) -> torch.Tensor:
@@ -304,6 +341,27 @@ def _check_call(out_dtype: torch.dtype) -> None:
         raise TypeError(f"out_dtype must be float32 or bfloat16, got {out_dtype}")
 
 
+def _int8_conv_cuda(x_q, w_q, s_x, w_scale, bias, stride, padding, dilation, groups, out_dtype, w_packed):
+    """:func:`int8_conv` on the card: the route :func:`conv_route` picks."""
+    return _launch(x_q, w_q, w_packed, s_x, w_scale, bias, stride, padding, dilation, out_dtype, groups)
+
+
+def _int8_conv_cpu(x_q, w_q, s_x, w_scale, bias, stride, padding, dilation, groups, out_dtype, w_packed):
+    return int8_conv_plain(x_q, w_q, s_x, w_scale, bias, stride, padding, dilation, out_dtype, groups).contiguous()
+
+
+@torch.library.register_fake("holocron_tpu_torch::int8_conv")
+def _int8_conv_fake(x_q, w_q, s_x, w_scale, bias, stride, padding, dilation, groups, out_dtype, w_packed):
+    *_, oh, ow = _geometry(x_q, w_q, stride, padding, dilation, groups)
+    return x_q.new_empty((x_q.shape[0], oh, ow, w_q.shape[3]), dtype=out_dtype)
+
+
+_LIB.impl("int8_quantize", _quantize_launch, "CUDA")
+_LIB.impl("int8_quantize", _int8_quantize_cpu, "CPU")
+_LIB.impl("int8_conv", _int8_conv_cuda, "CUDA")
+_LIB.impl("int8_conv", _int8_conv_cpu, "CPU")
+
+
 def int8_conv(
     x_q: torch.Tensor,
     w_q: torch.Tensor,
@@ -332,9 +390,9 @@ def int8_conv(
             it and it is not given
     """
     _check_call(out_dtype)
-    if x_q.device.type == "cpu" and w_q.device.type == "cpu":
-        return int8_conv_plain(x_q, w_q, s_x, w_scale, bias, stride, padding, dilation, out_dtype, groups)
-    return _launch(x_q, w_q, w_packed, s_x, w_scale, bias, stride, padding, dilation, out_dtype, groups)
+    return torch.ops.holocron_tpu_torch.int8_conv(x_q, w_q, s_x, w_scale, bias, list(_pair(stride)),
+                                                  list(_pair(padding)), list(_pair(dilation)), groups, out_dtype,
+                                                  w_packed)
 
 
 def quantized_conv(

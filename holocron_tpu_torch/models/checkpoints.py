@@ -1,11 +1,11 @@
 """Checkpoint metadata (``holocron_tpu/models/checkpoints.py``), as plain data.
 
 The same ``default_cfg`` surface: evaluation results, loading meta, preprocessing and
-training recipe. ``input_shape`` is channel-first ``(C, H, W)``, the port's layout.
-Loading the weights a checkpoint names is not ported yet: the model factories raise on
-``pretrained=True``.
+training recipe. ``input_shape`` is channel-first ``(C, H, W)``, the port's layout. The
+weights a checkpoint names are loaded by :func:`~holocron_tpu_torch.models.utils.load_pretrained_params`.
 """
 
+import logging
 from dataclasses import dataclass
 from enum import Enum
 from typing import Dict, List, Optional, Tuple
@@ -20,6 +20,8 @@ __all__ = [
     "PreProcessing",
     "TrainingRecipe",
 ]
+
+logger = logging.getLogger(__name__)
 
 
 class Interpolation(str, Enum):
@@ -92,3 +94,17 @@ class Checkpoint:
     meta: LoadingMeta
     pre_processing: PreProcessing
     recipe: TrainingRecipe
+
+
+def _handle_legacy_pretrained(
+    pretrained: bool = False,
+    checkpoint: Optional[Checkpoint] = None,
+    default_checkpoint: Optional[Checkpoint] = None,
+) -> Optional[Checkpoint]:
+    """Maps the legacy ``pretrained=True`` flag to the default checkpoint
+    (``checkpoints.py:101-111``): an explicit ``checkpoint`` wins; ``pretrained`` with no
+    default warns and keeps the random initialization."""
+    checkpoint = checkpoint or (default_checkpoint if pretrained else None)
+    if pretrained and checkpoint is None:
+        logger.warning("Invalid model URL, using default initialization.")
+    return checkpoint

@@ -11,15 +11,34 @@ LayerScale, ``features.{2 + s}.{n}.{0,1}`` a stage's closing norm and downsampli
 ``head.0`` / ``head.1`` the head's norm and linear layer.
 """
 
+from enum import Enum
 from typing import Any, Optional, Sequence, Union
 
 import torch
 from torch import nn
 from torch.nn import functional as F
 
-__all__ = ["Bottlenext", "ConvNeXt", "LayerNorm2d", "LayerScale", "StochasticDepth", "convnext_atto",
-           "convnext_base", "convnext_femto", "convnext_large", "convnext_nano", "convnext_pico", "convnext_small",
-           "convnext_tiny", "convnext_xl", "stochastic_depth"]
+from ..checkpoints import Checkpoint
+from ..utils import _checkpoint, _pretrained
+
+__all__ = [
+    "Bottlenext",
+    "ConvNeXt",
+    "ConvNeXt_Atto_Checkpoint",
+    "LayerNorm2d",
+    "LayerScale",
+    "StochasticDepth",
+    "convnext_atto",
+    "convnext_base",
+    "convnext_femto",
+    "convnext_large",
+    "convnext_nano",
+    "convnext_pico",
+    "convnext_small",
+    "convnext_tiny",
+    "convnext_xl",
+    "stochastic_depth",
+]
 
 
 def stochastic_depth(x: torch.Tensor, p: float, training: bool,
@@ -135,52 +154,79 @@ class ConvNeXt(nn.Module):
         return self.head(self.features(x).mean(dim=(2, 3)))
 
 
-def _convnext(num_blocks: Sequence[int], planes: Sequence[int], pretrained: bool, **kwargs: Any) -> ConvNeXt:
-    if pretrained:
-        raise NotImplementedError("pretrained weights are not ported yet; build with pretrained=False")
-    return ConvNeXt(num_blocks, planes, **kwargs)
+def _convnext(num_blocks: Sequence[int], planes: Sequence[int], pretrained: bool, checkpoint: Optional[Checkpoint],
+              progress: bool, default: Optional[Checkpoint], **kwargs: Any) -> ConvNeXt:
+    return _pretrained(ConvNeXt(num_blocks, planes, **kwargs), pretrained, checkpoint, progress, default)
 
 
-def convnext_atto(pretrained: bool = False, **kwargs: Any) -> ConvNeXt:
+class ConvNeXt_Atto_Checkpoint(Enum):
+    IMAGENETTE = _checkpoint(
+        arch="convnext_atto",
+        url="https://github.com/frgfm/Holocron/releases/download/v0.2.1/convnext_atto_224-f38217e7.pth",
+        acc1=0.8759,
+        acc5=0.9832,
+        sha256="f38217e7361060e6fe00e8fa95b0e8774150190eed9e55c812bbd3b6ab378ce9",
+        size=13535258,
+        num_params=3377730,
+        commit="d4a59999179b42fc0d3058ac6b76cc41f49dd56e",
+        train_args=(
+            "./imagenette2-320/ --arch convnext_atto --batch-size 64 --mixup-alpha 0.2 --amp --device 0 --epochs 100"
+            " --lr 1e-3 --label-smoothing 0.1 --random-erase 0.1 --train-crop-size 176 --val-resize-size 232"
+            " --opt adamw --weight-decay 5e-2"
+        ),
+    )
+    DEFAULT = IMAGENETTE
+
+
+def convnext_atto(pretrained: bool = False, checkpoint: Optional[Checkpoint] = None, progress: bool = True,
+                  **kwargs: Any) -> ConvNeXt:
     """ConvNeXt-Atto (``convnext.py:179-182``)."""
-    return _convnext([2, 2, 6, 2], [40, 80, 160, 320], pretrained, **kwargs)
+    return _convnext([2, 2, 6, 2], [40, 80, 160, 320], pretrained, checkpoint, progress, ConvNeXt_Atto_Checkpoint.DEFAULT.value, **kwargs)
 
 
-def convnext_femto(pretrained: bool = False, **kwargs: Any) -> ConvNeXt:
+def convnext_femto(pretrained: bool = False, checkpoint: Optional[Checkpoint] = None, progress: bool = True,
+                   **kwargs: Any) -> ConvNeXt:
     """ConvNeXt-Femto (``convnext.py:185-188``)."""
-    return _convnext([2, 2, 6, 2], [48, 96, 192, 384], pretrained, **kwargs)
+    return _convnext([2, 2, 6, 2], [48, 96, 192, 384], pretrained, checkpoint, progress, None, **kwargs)
 
 
-def convnext_pico(pretrained: bool = False, **kwargs: Any) -> ConvNeXt:
+def convnext_pico(pretrained: bool = False, checkpoint: Optional[Checkpoint] = None, progress: bool = True,
+                  **kwargs: Any) -> ConvNeXt:
     """ConvNeXt-Pico (``convnext.py:191-194``)."""
-    return _convnext([2, 2, 6, 2], [64, 128, 256, 512], pretrained, **kwargs)
+    return _convnext([2, 2, 6, 2], [64, 128, 256, 512], pretrained, checkpoint, progress, None, **kwargs)
 
 
-def convnext_nano(pretrained: bool = False, **kwargs: Any) -> ConvNeXt:
+def convnext_nano(pretrained: bool = False, checkpoint: Optional[Checkpoint] = None, progress: bool = True,
+                  **kwargs: Any) -> ConvNeXt:
     """ConvNeXt-Nano (``convnext.py:197-200``)."""
-    return _convnext([2, 2, 8, 2], [80, 160, 320, 640], pretrained, **kwargs)
+    return _convnext([2, 2, 8, 2], [80, 160, 320, 640], pretrained, checkpoint, progress, None, **kwargs)
 
 
-def convnext_tiny(pretrained: bool = False, **kwargs: Any) -> ConvNeXt:
+def convnext_tiny(pretrained: bool = False, checkpoint: Optional[Checkpoint] = None, progress: bool = True,
+                  **kwargs: Any) -> ConvNeXt:
     """ConvNeXt-T (``convnext.py:203-206``)."""
-    return _convnext([3, 3, 9, 3], [96, 192, 384, 768], pretrained, **kwargs)
+    return _convnext([3, 3, 9, 3], [96, 192, 384, 768], pretrained, checkpoint, progress, None, **kwargs)
 
 
-def convnext_small(pretrained: bool = False, **kwargs: Any) -> ConvNeXt:
+def convnext_small(pretrained: bool = False, checkpoint: Optional[Checkpoint] = None, progress: bool = True,
+                   **kwargs: Any) -> ConvNeXt:
     """ConvNeXt-S (``convnext.py:209-212``)."""
-    return _convnext([3, 3, 27, 3], [96, 192, 384, 768], pretrained, **kwargs)
+    return _convnext([3, 3, 27, 3], [96, 192, 384, 768], pretrained, checkpoint, progress, None, **kwargs)
 
 
-def convnext_base(pretrained: bool = False, **kwargs: Any) -> ConvNeXt:
+def convnext_base(pretrained: bool = False, checkpoint: Optional[Checkpoint] = None, progress: bool = True,
+                  **kwargs: Any) -> ConvNeXt:
     """ConvNeXt-B (``convnext.py:215-218``)."""
-    return _convnext([3, 3, 27, 3], [128, 256, 512, 1024], pretrained, **kwargs)
+    return _convnext([3, 3, 27, 3], [128, 256, 512, 1024], pretrained, checkpoint, progress, None, **kwargs)
 
 
-def convnext_large(pretrained: bool = False, **kwargs: Any) -> ConvNeXt:
+def convnext_large(pretrained: bool = False, checkpoint: Optional[Checkpoint] = None, progress: bool = True,
+                   **kwargs: Any) -> ConvNeXt:
     """ConvNeXt-L (``convnext.py:221-224``)."""
-    return _convnext([3, 3, 27, 3], [192, 384, 768, 1536], pretrained, **kwargs)
+    return _convnext([3, 3, 27, 3], [192, 384, 768, 1536], pretrained, checkpoint, progress, None, **kwargs)
 
 
-def convnext_xl(pretrained: bool = False, **kwargs: Any) -> ConvNeXt:
+def convnext_xl(pretrained: bool = False, checkpoint: Optional[Checkpoint] = None, progress: bool = True,
+                **kwargs: Any) -> ConvNeXt:
     """ConvNeXt-XL (``convnext.py:227-230``)."""
-    return _convnext([3, 3, 27, 3], [256, 512, 1024, 2048], pretrained, **kwargs)
+    return _convnext([3, 3, 27, 3], [256, 512, 1024, 2048], pretrained, checkpoint, progress, None, **kwargs)

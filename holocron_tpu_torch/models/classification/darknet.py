@@ -9,17 +9,27 @@ No norm layers by default (the convs carry biases), LeakyReLU at slope 0.1.
 :func:`~holocron_tpu_torch.models.utils.conv_sequence` layers) and ``classifier``.
 """
 
-from typing import Any, Callable, List, Optional, Sequence, Union
+from typing import Any, Callable, Dict, List, Optional, Sequence, Union
 
 import torch
 from torch import nn
 
 from ...nn.init import kaiming_normal_, lecun_normal_
-from ..utils import conv_sequence
+from ..checkpoints import Checkpoint
+from ..presets import IMAGENETTE
+from ..utils import _pretrained, conv_sequence
 
 __all__ = ["DarknetBodyV1", "DarknetV1", "darknet24"]
 
 NormLayer = Callable[[int], nn.Module]
+# darknet.py:22-29, the input shape channel-first
+default_cfgs: Dict[str, Dict[str, Any]] = {
+    "darknet24": {
+        **IMAGENETTE.__dict__,
+        "input_shape": (3, 224, 224),
+        "url": "https://github.com/frgfm/Holocron/releases/download/v0.1.3/darknet24_224-816d72cb.pt",
+    },
+}
 DARKNET24_LAYOUT = [[192], [128, 256, 256, 512], [*([256, 512] * 4), 512, 1024], [512, 1024] * 2]
 
 
@@ -112,8 +122,8 @@ def init_darknet_weights(model: nn.Module, generator: Optional[torch.Generator])
                 nn.init.zeros_(m.bias)
 
 
-def darknet24(pretrained: bool = False, **kwargs: Any) -> DarknetV1:
+def darknet24(pretrained: bool = False, checkpoint: Optional[Checkpoint] = None, progress: bool = True,
+              **kwargs: Any) -> DarknetV1:
     """Darknet-24 (``darknet.py:110-118``), 22,413,386 parameters at 10 classes."""
-    if pretrained:
-        raise NotImplementedError("pretrained weights are not ported yet; build with pretrained=False")
-    return DarknetV1(DARKNET24_LAYOUT, **kwargs)
+    return _pretrained(DarknetV1(DARKNET24_LAYOUT, **kwargs), pretrained, checkpoint, progress,
+                       default_cfgs["darknet24"])

@@ -9,6 +9,7 @@ that also returns the second-to-last group's features.
 1x1 ``classifier`` conv.
 """
 
+from enum import Enum
 from typing import Any, Callable, List, Optional, Sequence, Tuple, Union
 
 import torch
@@ -16,10 +17,11 @@ from torch import nn
 
 from ...nn.init import lecun_normal_
 from ..layers import BatchNorm2d
-from ..utils import conv_sequence
+from ..checkpoints import Checkpoint
+from ..utils import _checkpoint, _pretrained, conv_sequence
 from .darknet import init_darknet_weights, leaky_relu_01
 
-__all__ = ["DarknetBodyV2", "DarknetV2", "darknet19"]
+__all__ = ["Darknet19_Checkpoint", "DarknetBodyV2", "DarknetV2", "darknet19"]
 
 NormLayer = Callable[[int], nn.Module]
 DARKNET19_LAYOUT = [(64, 0), (128, 1), (256, 1), (512, 2), (1024, 2)]
@@ -108,8 +110,27 @@ class DarknetV2(nn.Module):
         return self.classifier(self.features(x)).mean(dim=(2, 3))
 
 
-def darknet19(pretrained: bool = False, **kwargs: Any) -> DarknetV2:
+class Darknet19_Checkpoint(Enum):
+    IMAGENETTE = _checkpoint(
+        arch="darknet19",
+        url="https://github.com/frgfm/Holocron/releases/download/v0.2.1/darknet19_224-32fd3f97.pth",
+        acc1=0.9386,
+        acc5=0.9936,
+        sha256="32fd3f979586556554652d650c44a59747c7762d81140cadbcd795179a3877ec",
+        size=79387724,
+        num_params=19827626,
+        commit="6e32c5b578711a2ef3731a8f8c61760ed9f03e58",
+        train_args=(
+            "./imagenette2-320/ --arch darknet19 --batch-size 64 --mixup-alpha 0.2 --amp --device 0 --epochs 100"
+            " --lr 1e-3 --label-smoothing 0.1 --random-erase 0.1 --train-crop-size 176 --val-resize-size 232"
+            " --opt adamw --weight-decay 5e-2"
+        ),
+    )
+    DEFAULT = IMAGENETTE
+
+
+def darknet19(pretrained: bool = False, checkpoint: Optional[Checkpoint] = None, progress: bool = True,
+              **kwargs: Any) -> DarknetV2:
     """Darknet-19 (``darknetv2.py:119-124``), 19,827,626 parameters at 10 classes."""
-    if pretrained:
-        raise NotImplementedError("pretrained weights are not ported yet; build with pretrained=False")
-    return DarknetV2(DARKNET19_LAYOUT, **kwargs)
+    return _pretrained(DarknetV2(DARKNET19_LAYOUT, **kwargs), pretrained, checkpoint, progress,
+                       Darknet19_Checkpoint.DEFAULT.value)

@@ -10,6 +10,7 @@ detection necks.
 a block, its convs in ``conv.{offset}``) and ``classifier``.
 """
 
+from enum import Enum
 from typing import Any, Callable, List, Optional, Sequence, Tuple, Union
 
 import torch
@@ -17,10 +18,11 @@ from torch import nn
 
 from ...nn.modules.dropblock import DropBlock2d
 from ..layers import BatchNorm2d
-from ..utils import conv_sequence
+from ..checkpoints import Checkpoint
+from ..utils import _checkpoint, _pretrained, conv_sequence
 from .darknet import init_darknet_weights, leaky_relu_01
 
-__all__ = ["DarknetBodyV3", "DarknetV3", "ResBlock", "darknet53"]
+__all__ = ["Darknet53_Checkpoint", "DarknetBodyV3", "DarknetV3", "ResBlock", "darknet53"]
 
 NormLayer = Callable[[int], nn.Module]
 DARKNET53_LAYOUT = [(64, 1), (128, 2), (256, 8), (512, 8), (1024, 4)]
@@ -131,8 +133,27 @@ class DarknetV3(nn.Module):
         return self.classifier(self.features(x).mean(dim=(2, 3)))
 
 
-def darknet53(pretrained: bool = False, **kwargs: Any) -> DarknetV3:
+class Darknet53_Checkpoint(Enum):
+    IMAGENETTE = _checkpoint(
+        arch="darknet53",
+        url="https://github.com/frgfm/Holocron/releases/download/v0.2.1/darknet53_224-5015f3fd.pth",
+        acc1=0.9417,
+        acc5=0.9957,
+        sha256="5015f3fdf0963342e0c54790127350375ba269d871feed48f8328b2e43cf7819",
+        size=162584273,
+        num_params=40595178,
+        commit="6e32c5b578711a2ef3731a8f8c61760ed9f03e58",
+        train_args=(
+            "./imagenette2-320/ --arch darknet53 --batch-size 64 --mixup-alpha 0.2 --amp --device 0 --epochs 100"
+            " --lr 1e-3 --label-smoothing 0.1 --random-erase 0.1 --train-crop-size 176 --val-resize-size 232"
+            " --opt adamw --weight-decay 5e-2"
+        ),
+    )
+    DEFAULT = IMAGENETTE
+
+
+def darknet53(pretrained: bool = False, checkpoint: Optional[Checkpoint] = None, progress: bool = True,
+              **kwargs: Any) -> DarknetV3:
     """Darknet-53 (``darknetv3.py:155-160``), 40,595,178 parameters at 10 classes."""
-    if pretrained:
-        raise NotImplementedError("pretrained weights are not ported yet; build with pretrained=False")
-    return DarknetV3(DARKNET53_LAYOUT, **kwargs)
+    return _pretrained(DarknetV3(DARKNET53_LAYOUT, **kwargs), pretrained, checkpoint, progress,
+                       Darknet53_Checkpoint.DEFAULT.value)

@@ -12,6 +12,7 @@ each conv block's activation, which shifts the offsets by one a block
 (``_torch_convert.py:291-295``).
 """
 
+from enum import Enum
 from typing import Any, Callable, List, Optional, Sequence, Tuple, Union
 
 import torch
@@ -19,11 +20,13 @@ from torch import nn
 
 from ...nn.modules.dropblock import DropBlock2d
 from ..layers import BatchNorm2d
-from ..utils import conv_sequence
+from ..checkpoints import Checkpoint
+from ..utils import _checkpoint, _pretrained, conv_sequence
 from .darknet import init_darknet_weights
 from .darknetv3 import ResBlock
 
-__all__ = ["CSPStage", "DarknetBodyV4", "DarknetV4", "cspdarknet53", "cspdarknet53_mish"]
+__all__ = ["CSPDarknet53_Checkpoint", "CSPDarknet53_Mish_Checkpoint", "CSPStage", "DarknetBodyV4", "DarknetV4",
+           "cspdarknet53", "cspdarknet53_mish"]
 
 NormLayer = Callable[[int], nn.Module]
 CSPDARKNET53_LAYOUT = [(64, 1), (128, 2), (256, 8), (512, 8), (1024, 4)]
@@ -145,15 +148,55 @@ class DarknetV4(nn.Module):
         return self.classifier(self.features(x).mean(dim=(2, 3)))
 
 
-def cspdarknet53(pretrained: bool = False, **kwargs: Any) -> DarknetV4:
+class CSPDarknet53_Checkpoint(Enum):
+    IMAGENETTE = _checkpoint(
+        arch="cspdarknet53",
+        url="https://github.com/frgfm/Holocron/releases/download/v0.2.1/cspdarknet53_224-7a69463a.pth",
+        acc1=0.9450,
+        acc5=0.9964,
+        sha256="7a69463a4bd445beb6691dfd6ef7378efcf941f75d07d60034106ebedfcb82f8",
+        size=106732575,
+        num_params=26627434,
+        commit="6e32c5b578711a2ef3731a8f8c61760ed9f03e58",
+        train_args=(
+            "./imagenette2-320/ --arch cspdarknet53 --batch-size 64 --mixup-alpha 0.2 --amp --device 0 --epochs 100"
+            " --lr 1e-3 --label-smoothing 0.1 --random-erase 0.1 --train-crop-size 176 --val-resize-size 232"
+            " --opt adamw --weight-decay 5e-2"
+        ),
+    )
+    DEFAULT = IMAGENETTE
+
+
+class CSPDarknet53_Mish_Checkpoint(Enum):
+    IMAGENETTE = _checkpoint(
+        arch="cspdarknet53_mish",
+        url="https://github.com/frgfm/Holocron/releases/download/v0.2.1/cspdarknet53_mish_224-1b660b3c.pth",
+        acc1=0.9465,
+        acc5=0.9969,
+        sha256="1b660b3cb144195100c99ee3b9b863c37a5b5a59619c8de8c588b3d2af954b15",
+        size=106737530,
+        num_params=26627434,
+        commit="6e32c5b578711a2ef3731a8f8c61760ed9f03e58",
+        train_args=(
+            "./imagenette2-320/ --arch cspdarknet53_mish --batch-size 32 --grad-acc 2 --mixup-alpha 0.2 --amp"
+            "  --device 0 --epochs 100 --lr 1e-3 --label-smoothing 0.1 --random-erase 0.1 --train-crop-size 176"
+            " --val-resize-size 232 --opt adamw --weight-decay 5e-2"
+        ),
+    )
+    DEFAULT = IMAGENETTE
+
+
+def cspdarknet53(pretrained: bool = False, checkpoint: Optional[Checkpoint] = None, progress: bool = True,
+                 **kwargs: Any) -> DarknetV4:
     """CSP-Darknet-53 (``darknetv4.py:187-192``), 26,627,434 parameters at 10 classes."""
-    if pretrained:
-        raise NotImplementedError("pretrained weights are not ported yet; build with pretrained=False")
-    return DarknetV4(CSPDARKNET53_LAYOUT, **kwargs)
+    return _pretrained(DarknetV4(CSPDARKNET53_LAYOUT, **kwargs), pretrained, checkpoint, progress,
+                       CSPDarknet53_Checkpoint.DEFAULT.value)
 
 
-def cspdarknet53_mish(pretrained: bool = False, **kwargs: Any) -> DarknetV4:
+def cspdarknet53_mish(pretrained: bool = False, checkpoint: Optional[Checkpoint] = None, progress: bool = True,
+                      **kwargs: Any) -> DarknetV4:
     """CSP-Darknet-53 with Mish and DropBlock (``darknetv4.py:195-202``)."""
     kwargs["act_layer"] = nn.Mish()
     kwargs["drop_layer"] = DropBlock2d
-    return cspdarknet53(pretrained, **kwargs)
+    return _pretrained(DarknetV4(CSPDARKNET53_LAYOUT, **kwargs), pretrained, checkpoint, progress,
+                       CSPDarknet53_Mish_Checkpoint.DEFAULT.value)

@@ -12,6 +12,7 @@ in order (``.{i}`` a BN, or ``.{i}.0`` / ``.{i}.1`` a conv and its BN) or, in de
 form, the one conv at ``.0``; and ``head``.
 """
 
+from enum import Enum
 from typing import Any, Optional, Sequence, Union
 
 import torch
@@ -19,10 +20,23 @@ from torch import nn
 
 from ...nn.init import kaiming_normal_, lecun_normal_
 from ..layers import BatchNorm2d
-from ..utils import fuse_conv_bn
+from ..checkpoints import Checkpoint
+from ..utils import _checkpoint, _pretrained, fuse_conv_bn
 
-__all__ = ["DepthConvBlock", "MobileOne", "MobileOneBlock", "PointConvBlock", "mobileone_s0", "mobileone_s1",
-           "mobileone_s2", "mobileone_s3"]
+__all__ = [
+    "DepthConvBlock",
+    "MobileOne",
+    "MobileOneBlock",
+    "MobileOne_S0_Checkpoint",
+    "MobileOne_S1_Checkpoint",
+    "MobileOne_S2_Checkpoint",
+    "MobileOne_S3_Checkpoint",
+    "PointConvBlock",
+    "mobileone_s0",
+    "mobileone_s1",
+    "mobileone_s2",
+    "mobileone_s3",
+]
 
 
 def _branch(in_channels: int, out_channels: int, kernel_size: int, stride: int, groups: int) -> nn.Sequential:
@@ -199,27 +213,107 @@ class MobileOne(nn.Module):
         return self
 
 
-def _mobileone(width_multipliers: Sequence[float], overparam_factor: int, pretrained: bool, **kwargs: Any) -> MobileOne:
-    if pretrained:
-        raise NotImplementedError("pretrained weights are not ported yet; build with pretrained=False")
-    return MobileOne([2, 8, 10, 1], width_multipliers, overparam_factor, **kwargs)
+def _mobileone(width_multipliers: Sequence[float], overparam_factor: int, pretrained: bool,
+               checkpoint: Optional[Checkpoint], progress: bool, default: Optional[Checkpoint], **kwargs: Any) -> MobileOne:
+    model = MobileOne([2, 8, 10, 1], width_multipliers, overparam_factor, **kwargs)
+    return _pretrained(model, pretrained, checkpoint, progress, default)
 
 
-def mobileone_s0(pretrained: bool = False, **kwargs: Any) -> MobileOne:
+class MobileOne_S0_Checkpoint(Enum):
+    IMAGENETTE = _checkpoint(
+        arch="mobileone_s0",
+        url="https://github.com/frgfm/Holocron/releases/download/v0.2.1/mobileone_s0_224-9ddd1fe9.pth",
+        acc1=0.8808,
+        acc5=0.9883,
+        sha256="9ddd1fe9d6c0a73d3c4d51d3c967a8a27ff5e545705afc557b4d4ac0f34395cb",
+        size=17708169,
+        num_params=4277991,
+        commit="d4a59999179b42fc0d3058ac6b76cc41f49dd56e",
+        train_args=(
+            "./imagenette2-320/ --arch mobileone_s0 --batch-size 64 --mixup-alpha 0.2 --amp --device 0 --epochs 100"
+            " --lr 1e-3 --label-smoothing 0.1 --random-erase 0.1 --train-crop-size 176 --val-resize-size 232"
+            " --opt adamw --weight-decay 5e-2"
+        ),
+    )
+    DEFAULT = IMAGENETTE
+
+
+class MobileOne_S1_Checkpoint(Enum):
+    IMAGENETTE = _checkpoint(
+        arch="mobileone_s1",
+        url="https://github.com/frgfm/Holocron/releases/download/v0.2.1/mobileone_s1_224-d4ec5433.pth",
+        acc1=0.9126,
+        acc5=0.9918,
+        sha256="d4ec5433cff3d55d562b7a35fc0c95568ff8f4591bf822dd3e699535bdff90eb",
+        size=14594817,
+        num_params=3555188,
+        commit="d4a59999179b42fc0d3058ac6b76cc41f49dd56e",
+        train_args=(
+            "./imagenette2-320/ --arch mobileone_s1 --batch-size 64 --mixup-alpha 0.2 --amp --device 0 --epochs 100"
+            " --lr 1e-3 --label-smoothing 0.1 --random-erase 0.1 --train-crop-size 176 --val-resize-size 232"
+            " --opt adamw --weight-decay 5e-2"
+        ),
+    )
+    DEFAULT = IMAGENETTE
+
+
+class MobileOne_S2_Checkpoint(Enum):
+    IMAGENETTE = _checkpoint(
+        arch="mobileone_s2",
+        url="https://github.com/frgfm/Holocron/releases/download/v0.2.1/mobileone_s2_224-b748859c.pth",
+        acc1=0.9131,
+        acc5=0.9921,
+        sha256="b748859c45a636ea22f0f68a3b7e75e5fb6ffb31178a5a3137931a21b4c41697",
+        size=23866479,
+        num_params=5854324,
+        commit="d4a59999179b42fc0d3058ac6b76cc41f49dd56e",
+        train_args=(
+            "./imagenette2-320/ --arch mobileone_s2 --batch-size 64 --mixup-alpha 0.2 --amp --device 0 --epochs 100"
+            " --lr 1e-3 --label-smoothing 0.1 --random-erase 0.1 --train-crop-size 176 --val-resize-size 232"
+            " --opt adamw --weight-decay 5e-2"
+        ),
+    )
+    DEFAULT = IMAGENETTE
+
+
+class MobileOne_S3_Checkpoint(Enum):
+    IMAGENETTE = _checkpoint(
+        arch="mobileone_s3",
+        url="https://github.com/frgfm/Holocron/releases/download/v0.2.1/mobileone_s3_224-7f357baf.pth",
+        acc1=0.9106,
+        acc5=0.9931,
+        sha256="7f357baf0754136b4a02e7aec4129874db93ee462f43588b77def730db0b2bca",
+        size=33080943,
+        num_params=8140276,
+        commit="d4a59999179b42fc0d3058ac6b76cc41f49dd56e",
+        train_args=(
+            "./imagenette2-320/ --arch mobileone_s3 --batch-size 64 --mixup-alpha 0.2 --amp --device 0 --epochs 100"
+            " --lr 1e-3 --label-smoothing 0.1 --random-erase 0.1 --train-crop-size 176 --val-resize-size 232"
+            " --opt adamw --weight-decay 5e-2"
+        ),
+    )
+    DEFAULT = IMAGENETTE
+
+
+def mobileone_s0(pretrained: bool = False, checkpoint: Optional[Checkpoint] = None, progress: bool = True,
+                 **kwargs: Any) -> MobileOne:
     """MobileOne-S0 (``mobileone.py:323-326``)."""
-    return _mobileone([0.75, 1.0, 1.0, 2.0], 4, pretrained, **kwargs)
+    return _mobileone([0.75, 1.0, 1.0, 2.0], 4, pretrained, checkpoint, progress, MobileOne_S0_Checkpoint.DEFAULT.value, **kwargs)
 
 
-def mobileone_s1(pretrained: bool = False, **kwargs: Any) -> MobileOne:
+def mobileone_s1(pretrained: bool = False, checkpoint: Optional[Checkpoint] = None, progress: bool = True,
+                 **kwargs: Any) -> MobileOne:
     """MobileOne-S1 (``mobileone.py:329-332``)."""
-    return _mobileone([1.5, 1.5, 2.0, 2.5], 1, pretrained, **kwargs)
+    return _mobileone([1.5, 1.5, 2.0, 2.5], 1, pretrained, checkpoint, progress, MobileOne_S1_Checkpoint.DEFAULT.value, **kwargs)
 
 
-def mobileone_s2(pretrained: bool = False, **kwargs: Any) -> MobileOne:
+def mobileone_s2(pretrained: bool = False, checkpoint: Optional[Checkpoint] = None, progress: bool = True,
+                 **kwargs: Any) -> MobileOne:
     """MobileOne-S2 (``mobileone.py:335-338``)."""
-    return _mobileone([1.5, 2.0, 2.5, 4.0], 1, pretrained, **kwargs)
+    return _mobileone([1.5, 2.0, 2.5, 4.0], 1, pretrained, checkpoint, progress, MobileOne_S2_Checkpoint.DEFAULT.value, **kwargs)
 
 
-def mobileone_s3(pretrained: bool = False, **kwargs: Any) -> MobileOne:
+def mobileone_s3(pretrained: bool = False, checkpoint: Optional[Checkpoint] = None, progress: bool = True,
+                 **kwargs: Any) -> MobileOne:
     """MobileOne-S3 (``mobileone.py:341-344``)."""
-    return _mobileone([2.0, 2.5, 3.0, 4.0], 1, pretrained, **kwargs)
+    return _mobileone([2.0, 2.5, 3.0, 4.0], 1, pretrained, checkpoint, progress, MobileOne_S3_Checkpoint.DEFAULT.value, **kwargs)

@@ -4,16 +4,24 @@ middle conv is a :class:`~holocron_tpu_torch.nn.PyConv2d` pyramid, in the
 :class:`~.resnet.ResNet` container without the stem's max pool, with a group schedule
 a stage."""
 
-from typing import Any, Callable, Optional, Sequence
+from typing import Any, Callable, Dict, Optional, Sequence
 
 from torch import nn
 
 from ...nn.modules.conv import PyConv2d
+from ..checkpoints import Checkpoint
 from ..layers import BatchNorm2d
+from ..presets import IMAGENETTE
 from ..utils import conv_sequence
 from .resnet import NormLayer, ResNet, _ResBlock, _relu, _resnet
 
 __all__ = ["PyBottleneck", "PyHGBottleneck", "pyconv_resnet50", "pyconvhg_resnet50"]
+
+# pyconv_resnet.py:21-24, the input shape channel-first
+default_cfgs: Dict[str, Dict[str, Any]] = {
+    "pyconv_resnet50": {**IMAGENETTE.__dict__, "input_shape": (3, 224, 224), "url": None},
+    "pyconvhg_resnet50": {**IMAGENETTE.__dict__, "input_shape": (3, 224, 224), "url": None},
+}
 
 
 class PyBottleneck(_ResBlock):
@@ -67,18 +75,22 @@ class PyHGBottleneck(PyBottleneck):
     expansion = 2
 
 
-def _pyconvresnet(block, planes, width_per_group: int, groups, pretrained: bool, **kwargs: Any) -> ResNet:
-    return _resnet(block, [3, 4, 6, 3], planes, pretrained, stem_pool=False, width_per_group=width_per_group,
+def _pyconvresnet(arch: str, block, planes, width_per_group: int, groups, pretrained: bool,
+                  checkpoint: Optional[Checkpoint], progress: bool, **kwargs: Any) -> ResNet:
+    return _resnet(block, [3, 4, 6, 3], planes, pretrained, checkpoint, progress, default_cfgs[arch], stem_pool=False,
+                   width_per_group=width_per_group,
                    block_args=[{"num_levels": len(g), "groups": tuple(g)} for g in groups], **kwargs)
 
 
-def pyconv_resnet50(pretrained: bool = False, **kwargs: Any) -> ResNet:
+def pyconv_resnet50(pretrained: bool = False, checkpoint: Optional[Checkpoint] = None, progress: bool = True,
+                    **kwargs: Any) -> ResNet:
     """PyConvResNet-50 (``pyconv_resnet.py:135-147``)."""
-    return _pyconvresnet(PyBottleneck, [64, 128, 256, 512], 64, [[1, 4, 8, 16], [1, 4, 8], [1, 4], [1]],
-                         pretrained, **kwargs)
+    return _pyconvresnet("pyconv_resnet50", PyBottleneck, [64, 128, 256, 512], 64,
+                         [[1, 4, 8, 16], [1, 4, 8], [1, 4], [1]], pretrained, checkpoint, progress, **kwargs)
 
 
-def pyconvhg_resnet50(pretrained: bool = False, **kwargs: Any) -> ResNet:
+def pyconvhg_resnet50(pretrained: bool = False, checkpoint: Optional[Checkpoint] = None, progress: bool = True,
+                      **kwargs: Any) -> ResNet:
     """PyConvHGResNet-50 (``pyconv_resnet.py:150-162``)."""
-    return _pyconvresnet(PyHGBottleneck, [128, 256, 512, 1024], 2, [[32, 32, 32, 32], [32, 64, 64], [32, 64], [32]],
-                         pretrained, **kwargs)
+    return _pyconvresnet("pyconvhg_resnet50", PyHGBottleneck, [128, 256, 512, 1024], 2,
+                         [[32, 32, 32, 32], [32, 64, 64], [32, 64], [32]], pretrained, checkpoint, progress, **kwargs)

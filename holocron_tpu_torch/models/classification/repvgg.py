@@ -9,6 +9,7 @@ original Holocron does. ``state_dict`` keys follow original Holocron:
 (a biased conv) in deploy form, and ``head.*``.
 """
 
+from enum import Enum
 from typing import Any, Callable, Optional, Sequence, Union
 
 import torch
@@ -17,11 +18,18 @@ from torch.nn import functional as F
 
 from ...nn.init import kaiming_normal_, lecun_normal_
 from ..layers import BatchNorm2d
-from ..utils import fuse_conv_bn
+from ..checkpoints import Checkpoint
+from ..utils import _checkpoint, _pretrained, fuse_conv_bn
 
 __all__ = [
     "RepBlock",
     "RepVGG",
+    "RepVGG_A0_Checkpoint",
+    "RepVGG_A1_Checkpoint",
+    "RepVGG_A2_Checkpoint",
+    "RepVGG_B0_Checkpoint",
+    "RepVGG_B1_Checkpoint",
+    "RepVGG_B2_Checkpoint",
     "repvgg_a0",
     "repvgg_a1",
     "repvgg_a2",
@@ -146,42 +154,163 @@ class RepVGG(nn.Module):
         return self
 
 
-def _repvgg(num_blocks: Sequence[int], a: float, b: float, pretrained: bool, **kwargs: Any) -> RepVGG:
-    if pretrained:
-        raise NotImplementedError("pretrained weights are not ported yet; build with pretrained=False")
-    return RepVGG(num_blocks, [64, 64, 128, 256, 512], a, b, **kwargs)
+def _repvgg(num_blocks: Sequence[int], a: float, b: float, pretrained: bool, checkpoint: Optional[Checkpoint],
+            progress: bool, default: Optional[Checkpoint], **kwargs: Any) -> RepVGG:
+    model = RepVGG(num_blocks, [64, 64, 128, 256, 512], a, b, **kwargs)
+    return _pretrained(model, pretrained, checkpoint, progress, default)
 
 
-def repvgg_a0(pretrained: bool = False, **kwargs: Any) -> RepVGG:
+class RepVGG_A0_Checkpoint(Enum):
+    IMAGENETTE = _checkpoint(
+        arch="repvgg_a0",
+        url="https://github.com/frgfm/Holocron/releases/download/v0.2.1/repvgg_a0_224-d3f54b28.pth",
+        acc1=0.9292,
+        acc5=0.9946,
+        sha256="d3f54b28567fcd7e3e32ffbcffb5bb5c64fd97b7139cba0bfe9ad0bd7765cdaa",
+        size=99183419,
+        num_params=24741642,
+        commit="d4a59999179b42fc0d3058ac6b76cc41f49dd56e",
+        train_args=(
+            "./imagenette2-320/ --arch repvgg_a0 --batch-size 64 --mixup-alpha 0.2 --amp --device 0 --epochs 100"
+            " --lr 1e-3 --label-smoothing 0.1 --random-erase 0.1 --train-crop-size 176 --val-resize-size 232"
+            " --opt adamw --weight-decay 5e-2"
+        ),
+    )
+    DEFAULT = IMAGENETTE
+
+
+class RepVGG_A1_Checkpoint(Enum):
+    IMAGENETTE = _checkpoint(
+        arch="repvgg_a1",
+        url="https://github.com/frgfm/Holocron/releases/download/v0.2.1/repvgg_a1_224-8d3269fb.pth",
+        acc1=0.9378,
+        acc5=0.9918,
+        sha256="8d3269fb5181c0fe75ef617872238135f3002f41e82e5ef7492d62a402ffae50",
+        size=120724868,
+        num_params=30119946,
+        commit="d4a59999179b42fc0d3058ac6b76cc41f49dd56e",
+        train_args=(
+            "./imagenette2-320/ --arch repvgg_a1 --batch-size 64 --mixup-alpha 0.2 --amp --device 0 --epochs 100"
+            " --lr 1e-3 --label-smoothing 0.1 --random-erase 0.1 --train-crop-size 176 --val-resize-size 232"
+            " --opt adamw --weight-decay 5e-2"
+        ),
+    )
+    DEFAULT = IMAGENETTE
+
+
+class RepVGG_A2_Checkpoint(Enum):
+    IMAGENETTE = _checkpoint(
+        arch="repvgg_a2",
+        url="https://github.com/frgfm/Holocron/releases/download/v0.2.1/repvgg_a2_224-cb442207.pth",
+        acc1=0.9363,
+        acc5=0.9939,
+        sha256="cb442207d0c4627e3a16d7a8b4bf5342a182fd924cf4a044ac3a832014e7d4cf",
+        size=194822538,
+        num_params=48629514,
+        commit="d4a59999179b42fc0d3058ac6b76cc41f49dd56e",
+        train_args=(
+            "./imagenette2-320/ --arch repvgg_a2 --batch-size 64 --mixup-alpha 0.2 --amp --device 0 --epochs 100"
+            " --lr 1e-3 --label-smoothing 0.1 --random-erase 0.1 --train-crop-size 176 --val-resize-size 232"
+            " --opt adamw --weight-decay 5e-2"
+        ),
+    )
+    DEFAULT = IMAGENETTE
+
+
+class RepVGG_B0_Checkpoint(Enum):
+    IMAGENETTE = _checkpoint(
+        arch="repvgg_b0",
+        url="https://github.com/frgfm/Holocron/releases/download/v0.2.1/repvgg_b0_224-fdcdd2b7.pth",
+        acc1=0.9269,
+        acc5=0.9921,
+        sha256="fdcdd2b739f19b47572be5a98ec407c08935d02adf1ab0bf90d7bc92c710fe2d",
+        size=127668600,
+        num_params=31845642,
+        commit="d4a59999179b42fc0d3058ac6b76cc41f49dd56e",
+        train_args=(
+            "./imagenette2-320/ --arch repvgg_b0 --batch-size 64 --mixup-alpha 0.2 --amp --device 0 --epochs 100"
+            " --lr 1e-3 --label-smoothing 0.1 --random-erase 0.1 --train-crop-size 176 --val-resize-size 232"
+            " --opt adamw --weight-decay 5e-2"
+        ),
+    )
+    DEFAULT = IMAGENETTE
+
+
+class RepVGG_B1_Checkpoint(Enum):
+    IMAGENETTE = _checkpoint(
+        arch="repvgg_b1",
+        url="https://github.com/frgfm/Holocron/releases/download/v0.2.1/repvgg_b1_224-3e5b28d7.pth",
+        acc1=0.9396,
+        acc5=0.9939,
+        sha256="3e5b28d7803965546efadeb20abb84d8fef765dd08170677467a9c06294224c4",
+        size=403763795,
+        num_params=100829194,
+        commit="d4a59999179b42fc0d3058ac6b76cc41f49dd56e",
+        train_args=(
+            "./imagenette2-320/ --arch repvgg_b1 --batch-size 64 --mixup-alpha 0.2 --amp --device 0 --epochs 100"
+            " --lr 1e-3 --label-smoothing 0.1 --random-erase 0.1 --train-crop-size 176 --val-resize-size 232"
+            " --opt adamw --weight-decay 5e-2"
+        ),
+    )
+    DEFAULT = IMAGENETTE
+
+
+class RepVGG_B2_Checkpoint(Enum):
+    IMAGENETTE = _checkpoint(
+        arch="repvgg_b2",
+        url="https://github.com/frgfm/Holocron/releases/download/v0.2.1/repvgg_b2_224-dc810d88.pth",
+        acc1=0.9414,
+        acc5=0.9957,
+        sha256="dc810d889e8533f3ab24d75d8bf4cec84380abfb3b10ee01009997eab6a35d4b",
+        size=630382163,
+        num_params=157462410,
+        commit="d4a59999179b42fc0d3058ac6b76cc41f49dd56e",
+        train_args=(
+            "./imagenette2-320/ --arch repvgg_b2 --batch-size 32 --grad-acc 2 --mixup-alpha 0.2 --amp --device 0"
+            " --epochs 100 --lr 1e-3 --label-smoothing 0.1 --random-erase 0.1 --train-crop-size 176"
+            " --val-resize-size 232 --opt adamw --weight-decay 5e-2"
+        ),
+    )
+    DEFAULT = IMAGENETTE
+
+
+def repvgg_a0(pretrained: bool = False, checkpoint: Optional[Checkpoint] = None, progress: bool = True,
+              **kwargs: Any) -> RepVGG:
     """RepVGG-A0 (``repvgg.py:368-376``)."""
-    return _repvgg([1, 2, 4, 14, 1], 0.75, 2.5, pretrained, **kwargs)
+    return _repvgg([1, 2, 4, 14, 1], 0.75, 2.5, pretrained, checkpoint, progress, RepVGG_A0_Checkpoint.DEFAULT.value, **kwargs)
 
 
-def repvgg_a1(pretrained: bool = False, **kwargs: Any) -> RepVGG:
+def repvgg_a1(pretrained: bool = False, checkpoint: Optional[Checkpoint] = None, progress: bool = True,
+              **kwargs: Any) -> RepVGG:
     """RepVGG-A1 (``repvgg.py:379-387``)."""
-    return _repvgg([1, 2, 4, 14, 1], 1, 2.5, pretrained, **kwargs)
+    return _repvgg([1, 2, 4, 14, 1], 1, 2.5, pretrained, checkpoint, progress, RepVGG_A1_Checkpoint.DEFAULT.value, **kwargs)
 
 
-def repvgg_a2(pretrained: bool = False, **kwargs: Any) -> RepVGG:
+def repvgg_a2(pretrained: bool = False, checkpoint: Optional[Checkpoint] = None, progress: bool = True,
+              **kwargs: Any) -> RepVGG:
     """RepVGG-A2 (``repvgg.py:390-398``)."""
-    return _repvgg([1, 2, 4, 14, 1], 1.5, 2.75, pretrained, **kwargs)
+    return _repvgg([1, 2, 4, 14, 1], 1.5, 2.75, pretrained, checkpoint, progress, RepVGG_A2_Checkpoint.DEFAULT.value, **kwargs)
 
 
-def repvgg_b0(pretrained: bool = False, **kwargs: Any) -> RepVGG:
+def repvgg_b0(pretrained: bool = False, checkpoint: Optional[Checkpoint] = None, progress: bool = True,
+              **kwargs: Any) -> RepVGG:
     """RepVGG-B0 (``repvgg.py:401-409``)."""
-    return _repvgg([1, 4, 6, 16, 1], 1, 2.5, pretrained, **kwargs)
+    return _repvgg([1, 4, 6, 16, 1], 1, 2.5, pretrained, checkpoint, progress, RepVGG_B0_Checkpoint.DEFAULT.value, **kwargs)
 
 
-def repvgg_b1(pretrained: bool = False, **kwargs: Any) -> RepVGG:
+def repvgg_b1(pretrained: bool = False, checkpoint: Optional[Checkpoint] = None, progress: bool = True,
+              **kwargs: Any) -> RepVGG:
     """RepVGG-B1 (``repvgg.py:412-420``)."""
-    return _repvgg([1, 4, 6, 16, 1], 2, 4, pretrained, **kwargs)
+    return _repvgg([1, 4, 6, 16, 1], 2, 4, pretrained, checkpoint, progress, RepVGG_B1_Checkpoint.DEFAULT.value, **kwargs)
 
 
-def repvgg_b2(pretrained: bool = False, **kwargs: Any) -> RepVGG:
+def repvgg_b2(pretrained: bool = False, checkpoint: Optional[Checkpoint] = None, progress: bool = True,
+              **kwargs: Any) -> RepVGG:
     """RepVGG-B2 (``repvgg.py:423-431``)."""
-    return _repvgg([1, 4, 6, 16, 1], 2.5, 5, pretrained, **kwargs)
+    return _repvgg([1, 4, 6, 16, 1], 2.5, 5, pretrained, checkpoint, progress, RepVGG_B2_Checkpoint.DEFAULT.value, **kwargs)
 
 
-def repvgg_b3(pretrained: bool = False, **kwargs: Any) -> RepVGG:
+def repvgg_b3(pretrained: bool = False, checkpoint: Optional[Checkpoint] = None, progress: bool = True,
+              **kwargs: Any) -> RepVGG:
     """RepVGG-B3 (``repvgg.py:434-442``)."""
-    return _repvgg([1, 4, 6, 16, 1], 3, 5, pretrained, **kwargs)
+    return _repvgg([1, 4, 6, 16, 1], 3, 5, pretrained, checkpoint, progress, None, **kwargs)

@@ -10,6 +10,7 @@ import torch
 from torch import nn
 
 from ..layers import BatchNorm2d, avg_pool2d
+from ..checkpoints import Checkpoint
 from ..utils import conv_sequence
 from .resnet import NormLayer, ResNet, _ResBlock, _release, _relu, _resnet
 
@@ -97,7 +98,9 @@ class Res2Net50_26w_4s_Checkpoint(Enum):
     DEFAULT = IMAGENETTE
 
 
-def res2net50_26w_4s(pretrained: bool = False, **kwargs: Any) -> ResNet:
+def res2net50_26w_4s(pretrained: bool = False, checkpoint: Optional[Checkpoint] = None, progress: bool = True,
+                     **kwargs: Any) -> ResNet:
     """Res2Net-50 26w x 4s (``res2net.py:162-167``)."""
-    return _resnet(Bottle2neck, [3, 4, 6, 3], [64, 128, 256, 512], pretrained, width_per_group=26,
+    return _resnet(Bottle2neck, [3, 4, 6, 3], [64, 128, 256, 512], pretrained, checkpoint, progress,
+                   Res2Net50_26w_4s_Checkpoint.DEFAULT.value, width_per_group=26,
                    block_args={"scale": 4}, **kwargs)

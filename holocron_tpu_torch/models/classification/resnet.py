@@ -20,7 +20,8 @@ from torch import nn
 
 from ...nn.init import kaiming_normal_, lecun_normal_
 from ..layers import AvgPool2d, BatchNorm2d
-from ..utils import _checkpoint, conv_sequence
+from ..checkpoints import Checkpoint
+from ..utils import _checkpoint, _pretrained, conv_sequence
 
 __all__ = [
     "BasicBlock",
@@ -288,10 +289,10 @@ def _init_weights(model: nn.Module, generator: Optional[torch.Generator]) -> Non
 
 
 def _resnet(block: Type[_ResBlock], num_blocks: Sequence[int], planes: Sequence[int], pretrained: bool,
-            **kwargs: Any) -> ResNet:
-    if pretrained:
-        raise NotImplementedError("pretrained weights are not ported yet; build with pretrained=False")
-    return ResNet(block, num_blocks, planes, **kwargs)
+            checkpoint: Optional[Checkpoint], progress: bool, default: Any = None, **kwargs: Any) -> ResNet:
+    """A ResNet container with its ``default_cfg``, and the weights that ``pretrained``
+    (``default``'s) or ``checkpoint`` name (:func:`~holocron_tpu_torch.models.utils._pretrained`)."""
+    return _pretrained(ResNet(block, num_blocks, planes, **kwargs), pretrained, checkpoint, progress, default)
 
 
 _TRAIN_ARGS = (
@@ -341,43 +342,51 @@ class ResNeXt50_32x4d_Checkpoint(Enum):
 _STAGES = [64, 128, 256, 512]
 
 
-def resnet18(pretrained: bool = False, **kwargs: Any) -> ResNet:
+def resnet18(pretrained: bool = False, checkpoint: Optional[Checkpoint] = None, progress: bool = True,
+             **kwargs: Any) -> ResNet:
     """ResNet-18 (``resnet.py:376-379``)."""
-    return _resnet(BasicBlock, [2, 2, 2, 2], _STAGES, pretrained, **kwargs)
+    return _resnet(BasicBlock, [2, 2, 2, 2], _STAGES, pretrained, checkpoint, progress, ResNet18_Checkpoint.DEFAULT.value, **kwargs)
 
 
-def resnet34(pretrained: bool = False, **kwargs: Any) -> ResNet:
+def resnet34(pretrained: bool = False, checkpoint: Optional[Checkpoint] = None, progress: bool = True,
+             **kwargs: Any) -> ResNet:
     """ResNet-34 (``resnet.py:382-385``)."""
-    return _resnet(BasicBlock, [3, 4, 6, 3], _STAGES, pretrained, **kwargs)
+    return _resnet(BasicBlock, [3, 4, 6, 3], _STAGES, pretrained, checkpoint, progress, ResNet34_Checkpoint.DEFAULT.value, **kwargs)
 
 
-def resnet50(pretrained: bool = False, **kwargs: Any) -> ResNet:
+def resnet50(pretrained: bool = False, checkpoint: Optional[Checkpoint] = None, progress: bool = True,
+             **kwargs: Any) -> ResNet:
     """ResNet-50 (``resnet.py:388-391``)."""
-    return _resnet(Bottleneck, [3, 4, 6, 3], _STAGES, pretrained, **kwargs)
+    return _resnet(Bottleneck, [3, 4, 6, 3], _STAGES, pretrained, checkpoint, progress, ResNet50_Checkpoint.DEFAULT.value, **kwargs)
 
 
-def resnet50d(pretrained: bool = False, **kwargs: Any) -> ResNet:
+def resnet50d(pretrained: bool = False, checkpoint: Optional[Checkpoint] = None, progress: bool = True,
+              **kwargs: Any) -> ResNet:
     """ResNet-50D: the deep stem and the average-pool shortcut (``resnet.py:394-406``)."""
-    return _resnet(Bottleneck, [3, 4, 6, 3], _STAGES, pretrained, deep_stem=True, avg_downsample=True, **kwargs)
+    return _resnet(Bottleneck, [3, 4, 6, 3], _STAGES, pretrained, checkpoint, progress, ResNet50D_Checkpoint.DEFAULT.value, deep_stem=True, avg_downsample=True, **kwargs)
 
 
-def resnet101(pretrained: bool = False, **kwargs: Any) -> ResNet:
+def resnet101(pretrained: bool = False, checkpoint: Optional[Checkpoint] = None, progress: bool = True,
+              **kwargs: Any) -> ResNet:
     """ResNet-101 (``resnet.py:409-412``)."""
-    return _resnet(Bottleneck, [3, 4, 23, 3], _STAGES, pretrained, **kwargs)
+    return _resnet(Bottleneck, [3, 4, 23, 3], _STAGES, pretrained, checkpoint, progress, None, **kwargs)
 
 
-def resnet152(pretrained: bool = False, **kwargs: Any) -> ResNet:
+def resnet152(pretrained: bool = False, checkpoint: Optional[Checkpoint] = None, progress: bool = True,
+              **kwargs: Any) -> ResNet:
     """ResNet-152 (``resnet.py:415-418``)."""
-    return _resnet(Bottleneck, [3, 8, 86, 3], _STAGES, pretrained, **kwargs)
+    return _resnet(Bottleneck, [3, 8, 86, 3], _STAGES, pretrained, checkpoint, progress, None, **kwargs)
 
 
-def resnext50_32x4d(pretrained: bool = False, **kwargs: Any) -> ResNet:
+def resnext50_32x4d(pretrained: bool = False, checkpoint: Optional[Checkpoint] = None, progress: bool = True,
+                    **kwargs: Any) -> ResNet:
     """ResNeXt-50 32x4d (``resnet.py:421-429``)."""
     kwargs["width_per_group"] = 4
-    return _resnet(Bottleneck, [3, 4, 6, 3], _STAGES, pretrained, block_args={"groups": 32}, **kwargs)
+    return _resnet(Bottleneck, [3, 4, 6, 3], _STAGES, pretrained, checkpoint, progress, ResNeXt50_32x4d_Checkpoint.DEFAULT.value, block_args={"groups": 32}, **kwargs)
 
 
-def resnext101_32x8d(pretrained: bool = False, **kwargs: Any) -> ResNet:
+def resnext101_32x8d(pretrained: bool = False, checkpoint: Optional[Checkpoint] = None, progress: bool = True,
+                     **kwargs: Any) -> ResNet:
     """ResNeXt-101 32x8d (``resnet.py:432-440``)."""
     kwargs["width_per_group"] = 8
-    return _resnet(Bottleneck, [3, 4, 23, 3], _STAGES, pretrained, block_args={"groups": 32}, **kwargs)
+    return _resnet(Bottleneck, [3, 4, 23, 3], _STAGES, pretrained, checkpoint, progress, None, block_args={"groups": 32}, **kwargs)

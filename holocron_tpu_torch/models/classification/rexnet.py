@@ -19,9 +19,9 @@ from torch import nn
 
 from ...nn.init import kaiming_normal_, lecun_normal_
 from ...nn.modules.downsample import GlobalAvgPool2d
-from ..checkpoints import Dataset
+from ..checkpoints import Checkpoint, Dataset
 from ..layers import BatchNorm2d
-from ..utils import _checkpoint, conv_sequence
+from ..utils import _checkpoint, _pretrained, conv_sequence
 
 __all__ = [
     "ReXBlock",
@@ -182,10 +182,9 @@ def _init_weights(model: ReXNet, generator: Optional[torch.Generator]) -> None:
     nn.init.zeros_(model.head[1].bias)
 
 
-def _rexnet(width_mult: float, depth_mult: float, pretrained: bool, **kwargs: Any) -> ReXNet:
-    if pretrained:
-        raise NotImplementedError("pretrained weights are not ported yet; build with pretrained=False")
-    return ReXNet(width_mult, depth_mult, **kwargs)
+def _rexnet(width_mult: float, depth_mult: float, pretrained: bool, checkpoint: Optional[Checkpoint],
+            progress: bool, default: Optional[Checkpoint], **kwargs: Any) -> ReXNet:
+    return _pretrained(ReXNet(width_mult, depth_mult, **kwargs), pretrained, checkpoint, progress, default)
 
 
 _TRAIN_ARGS = (
@@ -253,26 +252,31 @@ class ReXNet2_2x_Checkpoint(Enum):
     DEFAULT = IMAGENETTE
 
 
-def rexnet1_0x(pretrained: bool = False, **kwargs: Any) -> ReXNet:
+def rexnet1_0x(pretrained: bool = False, checkpoint: Optional[Checkpoint] = None, progress: bool = True,
+               **kwargs: Any) -> ReXNet:
     """ReXNet-1.0x (``rexnet.py:309-312``), the API's default model."""
-    return _rexnet(1, 1, pretrained, **kwargs)
+    return _rexnet(1, 1, pretrained, checkpoint, progress, ReXNet1_0x_Checkpoint.DEFAULT.value, **kwargs)
 
 
-def rexnet1_3x(pretrained: bool = False, **kwargs: Any) -> ReXNet:
+def rexnet1_3x(pretrained: bool = False, checkpoint: Optional[Checkpoint] = None, progress: bool = True,
+               **kwargs: Any) -> ReXNet:
     """ReXNet-1.3x (``rexnet.py:315-318``)."""
-    return _rexnet(1.3, 1, pretrained, **kwargs)
+    return _rexnet(1.3, 1, pretrained, checkpoint, progress, ReXNet1_3x_Checkpoint.DEFAULT.value, **kwargs)
 
 
-def rexnet1_5x(pretrained: bool = False, **kwargs: Any) -> ReXNet:
+def rexnet1_5x(pretrained: bool = False, checkpoint: Optional[Checkpoint] = None, progress: bool = True,
+               **kwargs: Any) -> ReXNet:
     """ReXNet-1.5x (``rexnet.py:321-324``)."""
-    return _rexnet(1.5, 1, pretrained, **kwargs)
+    return _rexnet(1.5, 1, pretrained, checkpoint, progress, ReXNet1_5x_Checkpoint.DEFAULT.value, **kwargs)
 
 
-def rexnet2_0x(pretrained: bool = False, **kwargs: Any) -> ReXNet:
+def rexnet2_0x(pretrained: bool = False, checkpoint: Optional[Checkpoint] = None, progress: bool = True,
+               **kwargs: Any) -> ReXNet:
     """ReXNet-2.0x (``rexnet.py:327-330``)."""
-    return _rexnet(2, 1, pretrained, **kwargs)
+    return _rexnet(2, 1, pretrained, checkpoint, progress, ReXNet2_0x_Checkpoint.DEFAULT.value, **kwargs)
 
 
-def rexnet2_2x(pretrained: bool = False, **kwargs: Any) -> ReXNet:
+def rexnet2_2x(pretrained: bool = False, checkpoint: Optional[Checkpoint] = None, progress: bool = True,
+               **kwargs: Any) -> ReXNet:
     """ReXNet-2.2x (``rexnet.py:333-336``)."""
-    return _rexnet(2.2, 1, pretrained, **kwargs)
+    return _rexnet(2.2, 1, pretrained, checkpoint, progress, ReXNet2_2x_Checkpoint.DEFAULT.value, **kwargs)

@@ -10,6 +10,7 @@ from torch import nn
 
 from ...nn.modules.downsample import GlobalAvgPool2d
 from ..layers import BatchNorm2d
+from ..checkpoints import Checkpoint
 from ..utils import conv_sequence
 from .resnet import NormLayer, ResNet, _ResBlock, _release, _relu, _resnet
 
@@ -114,16 +115,20 @@ class SKNet50_Checkpoint(Enum):
     DEFAULT = IMAGENETTE
 
 
-def sknet50(pretrained: bool = False, **kwargs: Any) -> ResNet:
+def sknet50(pretrained: bool = False, checkpoint: Optional[Checkpoint] = None, progress: bool = True,
+            **kwargs: Any) -> ResNet:
     """SKNet-50 (``sknet.py:185-188``)."""
-    return _resnet(SKBottleneck, [3, 4, 6, 3], [64, 128, 256, 512], pretrained, **kwargs)
+    return _resnet(SKBottleneck, [3, 4, 6, 3], [64, 128, 256, 512], pretrained, checkpoint, progress,
+                   SKNet50_Checkpoint.DEFAULT.value, **kwargs)
 
 
-def sknet101(pretrained: bool = False, **kwargs: Any) -> ResNet:
+def sknet101(pretrained: bool = False, checkpoint: Optional[Checkpoint] = None, progress: bool = True,
+             **kwargs: Any) -> ResNet:
     """SKNet-101 (``sknet.py:191-193``)."""
-    return _resnet(SKBottleneck, [3, 4, 23, 3], [64, 128, 256, 512], pretrained, **kwargs)
+    return _resnet(SKBottleneck, [3, 4, 23, 3], [64, 128, 256, 512], pretrained, checkpoint, progress, **kwargs)
 
 
-def sknet152(pretrained: bool = False, **kwargs: Any) -> ResNet:
+def sknet152(pretrained: bool = False, checkpoint: Optional[Checkpoint] = None, progress: bool = True,
+             **kwargs: Any) -> ResNet:
     """SKNet-152 (``sknet.py:196-198``)."""
-    return _resnet(SKBottleneck, [3, 8, 86, 3], [64, 128, 256, 512], pretrained, **kwargs)
+    return _resnet(SKBottleneck, [3, 8, 86, 3], [64, 128, 256, 512], pretrained, checkpoint, progress, **kwargs)

@@ -5,17 +5,28 @@ kernel a conv (:class:`TridentConv2d`), normalized together over three times the
 width."""
 
 import math
-from typing import Any, Callable, Optional, Tuple, Union
+from typing import Any, Callable, Dict, Optional, Tuple, Union
 
 import torch
 from torch import nn
 from torch.nn import functional as F
 
+from ..checkpoints import Checkpoint
 from ..layers import BatchNorm2d
+from ..presets import IMAGENETTE
 from ..utils import conv_sequence
 from .resnet import NormLayer, ResNet, _ResBlock, _relu, _resnet
 
 __all__ = ["TridentConv2d", "Tridentneck", "tridentnet50"]
+
+# tridentnet.py:23-29, the input shape channel-first
+default_cfgs: Dict[str, Dict[str, Any]] = {
+    "tridentnet50": {
+        **IMAGENETTE.__dict__,
+        "input_shape": (3, 224, 224),
+        "url": "https://github.com/frgfm/Holocron/releases/download/v0.1.2/tridentnet50_224-98b4ce9c.pth",
+    },
+}
 
 
 class TridentConv2d(nn.Module):
@@ -98,6 +109,8 @@ class Tridentneck(_ResBlock):
                          norm_layer)
 
 
-def tridentnet50(pretrained: bool = False, **kwargs: Any) -> ResNet:
+def tridentnet50(pretrained: bool = False, checkpoint: Optional[Checkpoint] = None, progress: bool = True,
+                 **kwargs: Any) -> ResNet:
     """TridentNet-50 (``tridentnet.py:154-156``)."""
-    return _resnet(Tridentneck, [3, 4, 6, 3], [64, 128, 256, 512], pretrained, num_repeats=3, **kwargs)
+    return _resnet(Tridentneck, [3, 4, 6, 3], [64, 128, 256, 512], pretrained, checkpoint, progress,
+                   default_cfgs["tridentnet50"], num_repeats=3, **kwargs)

@@ -13,11 +13,18 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
+from ..checkpoints import Checkpoint
 from ..classification.darknet import DARKNET24_LAYOUT, DarknetBodyV1, init_darknet_weights, leaky_relu_01
-from ..utils import conv_sequence
+from ..classification.darknet import default_cfgs as dark_cfgs
+from ..utils import _configure_legacy, conv_sequence, load_pretrained_params
 from ._utils import box_iou_pairwise, detections_to_list, pad_targets, post_process
 
 __all__ = ["DetectionModel", "YOLOv1", "yolo_v12_losses", "yolov1"]
+
+# yolo.py:25-27
+default_cfgs: Dict[str, Dict[str, Any]] = {
+    "yolov1": {"arch": "YOLOv1", "backbone": dark_cfgs["darknet24"], "url": None},
+}
 
 logger = logging.getLogger(__name__)
 
@@ -152,11 +159,19 @@ class DetectionModel(nn.Module):
                                                self.box_score_thresh))
 
 
-def warn_no_backbone_weights(arch: str) -> None:
-    """``pretrained_backbone=True`` loads nothing: the JAX package warns and keeps the
-    random initialization where the checkpoint cannot be fetched
-    (``holocron_tpu/models/utils.py:267-279``); the port has no checkpoint loading yet."""
-    logger.warning(f"{arch}: pretrained backbone weights are not ported yet, using default initialization.")
+def configure_detector(model: "DetectionModel", cfg: Dict[str, Any], backbone_url: Optional[str], pretrained: bool,
+                       pretrained_backbone: bool, checkpoint: Optional[Checkpoint], progress: bool) -> "DetectionModel":
+    """The detectors' weights (``yolo.py:244-253``, ``yolov2.py:128-137``,
+    ``yolov4.py:349-356``): ``default_cfg`` is ``cfg``; ``checkpoint`` or ``pretrained``
+    (``cfg["url"]``) load the whole detector; otherwise ``pretrained_backbone`` loads
+    the classifier release at ``backbone_url`` into the backbone, its ``features.*``
+    keys as ``backbone.*`` (the key layout of the port's detectors), the head left as it
+    was drawn."""
+    _configure_legacy(model, cfg, pretrained, checkpoint, progress)
+    if pretrained_backbone and not pretrained and checkpoint is None:
+        load_pretrained_params(model, backbone_url, progress, key_filter="features.",
+                               key_replacement=("features.", "backbone."))
+    return model
 
 
 class YOLOv1(DetectionModel):
@@ -246,11 +261,10 @@ class YOLOv1(DetectionModel):
         return pred_xyxy.reshape(b, -1, 4), b_o.reshape(b, -1), b_scores.reshape(b, -1, nc)
 
 
-def yolov1(pretrained: bool = False, pretrained_backbone: bool = True, **kwargs: Any) -> YOLOv1:
-    """YOLOv1 (``yolo.py:256-265``) on the darknet24 layout. ``pretrained_backbone`` only
-    warns: no weights are loaded (:func:`warn_no_backbone_weights`)."""
-    if pretrained:
-        raise NotImplementedError("pretrained weights are not ported yet; build with pretrained=False")
-    if pretrained_backbone:
-        warn_no_backbone_weights("yolov1")
-    return YOLOv1(DARKNET24_LAYOUT, **kwargs)
+def yolov1(pretrained: bool = False, pretrained_backbone: bool = True, checkpoint: Optional[Checkpoint] = None,
+           progress: bool = True, **kwargs: Any) -> YOLOv1:
+    """YOLOv1 (``yolo.py:256-265``) on the darknet24 layout; ``pretrained_backbone`` loads
+    darknet24's release into the backbone (:func:`configure_detector`)."""
+    return configure_detector(YOLOv1(DARKNET24_LAYOUT, **kwargs), default_cfgs["yolov1"],
+                              default_cfgs["yolov1"]["backbone"]["url"], pretrained, pretrained_backbone, checkpoint,
+                              progress)

@@ -11,12 +11,18 @@ from torch import nn
 
 from ...nn.functional import concat_downsample2d
 from ..classification.darknet import init_darknet_weights, leaky_relu_01
-from ..classification.darknetv2 import DARKNET19_LAYOUT, DarknetBodyV2
+from ..checkpoints import Checkpoint
+from ..classification.darknetv2 import DARKNET19_LAYOUT, Darknet19_Checkpoint, DarknetBodyV2
 from ..layers import BatchNorm2d, FrozenBatchNorm2d
 from ..utils import conv_sequence
-from .yolo import DetectionModel, warn_no_backbone_weights, yolo_v12_losses
+from .yolo import DetectionModel, configure_detector, yolo_v12_losses
 
 __all__ = ["YOLOv2", "yolov2"]
+
+# yolov2.py:24-26
+default_cfgs: Dict[str, Dict[str, Any]] = {
+    "yolov2": {"arch": "YOLOv2", "backbone_url": Darknet19_Checkpoint.DEFAULT.value.meta.url, "url": None},
+}
 
 NormLayer = Callable[[int], nn.Module]
 
@@ -112,13 +118,13 @@ class YOLOv2(DetectionModel):
         return pred_xyxy.reshape(b, -1, 4), b_o.reshape(b, -1), b_scores.reshape(b, -1, nc)
 
 
-def yolov2(pretrained: bool = False, pretrained_backbone: bool = True, **kwargs: Any) -> YOLOv2:
+def yolov2(pretrained: bool = False, pretrained_backbone: bool = True, checkpoint: Optional[Checkpoint] = None,
+           progress: bool = True, **kwargs: Any) -> YOLOv2:
     """YOLOv2 (``yolov2.py:140-152``) on the darknet19 layout. ``pretrained_backbone``
     freezes the backbone's normalization (``FrozenBatchNorm2d``, ``yolov2.py:143-145``)
-    and warns that no weights were loaded (:func:`warn_no_backbone_weights`)."""
-    if pretrained:
-        raise NotImplementedError("pretrained weights are not ported yet; build with pretrained=False")
+    and loads darknet19's release into it (:func:`~.yolo.configure_detector`)."""
     if pretrained_backbone:
         kwargs["backbone_norm_layer"] = FrozenBatchNorm2d
-        warn_no_backbone_weights("yolov2")
-    return YOLOv2(DARKNET19_LAYOUT, **kwargs)
+    return configure_detector(YOLOv2(DARKNET19_LAYOUT, **kwargs), default_cfgs["yolov2"],
+                              default_cfgs["yolov2"]["backbone_url"], pretrained, pretrained_backbone, checkpoint,
+                              progress)

@@ -15,13 +15,19 @@ from ...nn.modules.downsample import SPP
 from ...nn.modules.dropblock import DropBlock2d
 from ...ops.boxes import ciou_loss
 from ..classification.darknet import init_darknet_weights
-from ..classification.darknetv4 import CSPDARKNET53_LAYOUT, DarknetBodyV4
+from ..checkpoints import Checkpoint
+from ..classification.darknetv4 import CSPDARKNET53_LAYOUT, CSPDarknet53_Mish_Checkpoint, DarknetBodyV4
 from ..layers import BatchNorm2d, FrozenBatchNorm2d
 from ..utils import conv_sequence
 from ._utils import box_iou_pairwise
-from .yolo import DetectionModel, _image_index, warn_no_backbone_weights
+from .yolo import DetectionModel, _image_index, configure_detector
 
 __all__ = ["Neck", "PAN", "YOLOv4", "YoloLayer", "Yolov4Head", "yolov4"]
+
+# yolov4.py:27-29
+default_cfgs: Dict[str, Dict[str, Any]] = {
+    "yolov4": {"arch": "YOLOv4", "backbone_url": CSPDarknet53_Mish_Checkpoint.DEFAULT.value.meta.url, "url": None},
+}
 
 NormLayer = Callable[[int], nn.Module]
 
@@ -300,13 +306,13 @@ class YOLOv4(DetectionModel):
         return self.head(self.neck(self.backbone(x)), target)
 
 
-def yolov4(pretrained: bool = False, pretrained_backbone: bool = True, **kwargs: Any) -> YOLOv4:
+def yolov4(pretrained: bool = False, pretrained_backbone: bool = True, checkpoint: Optional[Checkpoint] = None,
+           progress: bool = True, **kwargs: Any) -> YOLOv4:
     """YOLOv4 (``yolov4.py:359-370``) on the cspdarknet53 layout. ``pretrained_backbone``
-    freezes the backbone's normalization (``FrozenBatchNorm2d``) and warns that no
-    weights were loaded (:func:`~holocron_tpu_torch.models.detection.yolo.warn_no_backbone_weights`)."""
-    if pretrained:
-        raise NotImplementedError("pretrained weights are not ported yet; build with pretrained=False")
+    freezes the backbone's normalization (``FrozenBatchNorm2d``) and loads
+    cspdarknet53_mish's release into it (:func:`~.yolo.configure_detector`)."""
     if pretrained_backbone:
         kwargs["backbone_norm_layer"] = FrozenBatchNorm2d
-        warn_no_backbone_weights("yolov4")
-    return YOLOv4(CSPDARKNET53_LAYOUT, **kwargs)
+    return configure_detector(YOLOv4(CSPDARKNET53_LAYOUT, **kwargs), default_cfgs["yolov4"],
+                              default_cfgs["yolov4"]["backbone_url"], pretrained, pretrained_backbone, checkpoint,
+                              progress)

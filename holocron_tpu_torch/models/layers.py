@@ -73,7 +73,8 @@ class AvgPool2d(nn.Module):
 class FrozenBatchNorm2d(nn.Module):
     """Batch norm with frozen statistics and affine parameters (``layers.py:107-126``):
     ``weight``, ``bias``, ``running_mean`` and ``running_var`` are buffers, never
-    parameters, so no optimizer touches them; computed in float32 in the JAX package's
+    parameters, so no optimizer touches them (a batch norm's ``num_batches_tracked``
+    is dropped when a state dict loads); computed in float32 in the JAX package's
     order, ``(x - mean) * rsqrt(var + eps) * weight + bias``, returned in x's dtype."""
 
     def __init__(self, num_features: int, eps: float = 1e-5) -> None:
@@ -83,6 +84,12 @@ class FrozenBatchNorm2d(nn.Module):
         self.register_buffer("bias", torch.zeros(num_features))
         self.register_buffer("running_mean", torch.zeros(num_features))
         self.register_buffer("running_var", torch.ones(num_features))
+
+    def _load_from_state_dict(self, state_dict, prefix, *args, **kwargs):
+        # a BatchNorm2d's counter has no use here: a backbone file trained with batch
+        # norm loads into its frozen form (torchvision's FrozenBatchNorm2d does the same)
+        state_dict.pop(prefix + "num_batches_tracked", None)
+        super()._load_from_state_dict(state_dict, prefix, *args, **kwargs)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         def per_channel(t: torch.Tensor) -> torch.Tensor:

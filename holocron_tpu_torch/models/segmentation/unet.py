@@ -14,7 +14,7 @@ infers them while tracing). ``state_dict`` keys follow original Holocron: ``enco
 ``classifier``, the keys ``_convert_dynamic_unet`` reads.
 """
 
-from typing import Any, Callable, List, Optional, Sequence, Union
+from typing import Any, Callable, Dict, List, Optional, Sequence, Union
 
 import torch
 from torch import nn
@@ -22,7 +22,8 @@ from torch.nn import functional as F
 
 from ...nn.init import kaiming_normal_
 from ..layers import BatchNorm2d
-from ..utils import conv_sequence
+from ..checkpoints import Checkpoint
+from ..utils import _pretrained, conv_sequence
 
 __all__ = [
     "DownPath",
@@ -47,6 +48,18 @@ Device = Union[str, torch.device]
 
 UNET_LAYOUT = [64, 128, 256, 512]  # unet's and unet2's (unet.py:23-24)
 REXNET13_BLOCKS = [0, 2, 4, 10, 15]  # the blocks of the rexnet1_3x feature pyramid (unet.py:27-30)
+
+# unet.py:22-32
+default_cfgs: Dict[str, Dict[str, Any]] = {
+    "unet": {"encoder_layout": UNET_LAYOUT, "url": None},
+    "unet2": {"encoder_layout": UNET_LAYOUT, "url": None},
+    "unet_vgg11": {"url": None},
+    "unet_tvresnet34": {"url": None},
+    "unet_rexnet13": {
+        "backbone_blocks": REXNET13_BLOCKS,
+        "url": "https://github.com/frgfm/Holocron/releases/download/v0.1.3/unet_rexnet13_256-38315ff3.pth",
+    },
+}
 
 
 def _relu() -> nn.Module:
@@ -361,54 +374,60 @@ class DynamicUNet(nn.Module):
         return self.classifier(x)
 
 
-def _check_pretrained(pretrained: bool) -> None:
-    if pretrained:
-        raise NotImplementedError("pretrained weights are not ported yet; build with pretrained=False")
+def _pretrained_unet(model: nn.Module, arch: str, pretrained: bool, checkpoint: Optional[Checkpoint],
+                     progress: bool) -> nn.Module:
+    """``default_cfg`` and the weights of ``default_cfgs[arch]["url"]`` (``unet.py:307-325``):
+    only unet_rexnet13 has a URL; the others warn "Invalid model URL" with
+    ``pretrained``."""
+    return _pretrained(model, pretrained, checkpoint, progress, default_cfgs[arch])
 
 
-def unet(pretrained: bool = False, **kwargs: Any) -> UNet:
+def unet(pretrained: bool = False, checkpoint: Optional[Checkpoint] = None, progress: bool = True,
+         **kwargs: Any) -> UNet:
     """U-Net (``unet.py:315-317``)."""
-    _check_pretrained(pretrained)
-    return UNet(UNET_LAYOUT, **kwargs)
+    return _pretrained_unet(UNet(UNET_LAYOUT, **kwargs), "unet", pretrained, checkpoint, progress)
 
 
 def _dynamic_unet(encoder: nn.Module, num_classes: int = 21, **kwargs: Any) -> DynamicUNet:
     return DynamicUNet(encoder, num_classes=num_classes, **kwargs)
 
 
-def unet2(pretrained: bool = False, in_channels: int = 3, **kwargs: Any) -> DynamicUNet:
+def unet2(pretrained: bool = False, checkpoint: Optional[Checkpoint] = None, progress: bool = True,
+          in_channels: int = 3, **kwargs: Any) -> DynamicUNet:
     """U-Net with fastai-style upscaling over the plain encoder (``unet.py:328-331``)."""
-    _check_pretrained(pretrained)
     encoder = UNetBackbone(UNET_LAYOUT, in_channels)
-    return _dynamic_unet(encoder, in_channels=in_channels, **kwargs)
+    return _pretrained_unet(_dynamic_unet(encoder, in_channels=in_channels, **kwargs), "unet2", pretrained,
+                            checkpoint, progress)
 
 
-def unet_tvvgg11(pretrained: bool = False, pretrained_backbone: bool = True, **kwargs: Any) -> DynamicUNet:
+def unet_tvvgg11(pretrained: bool = False, pretrained_backbone: bool = True, checkpoint: Optional[Checkpoint] = None,
+                 progress: bool = True, **kwargs: Any) -> DynamicUNet:
     """DynamicUNet over a VGG-11 encoder (``unet.py:334-336``); ``pretrained_backbone``
     does nothing, as in the JAX package."""
-    _check_pretrained(pretrained)
-    return _dynamic_unet(VGG11Features(kwargs.get("in_channels", 3)), **kwargs)
+    return _pretrained_unet(_dynamic_unet(VGG11Features(kwargs.get("in_channels", 3)), **kwargs), "unet_vgg11",
+                            pretrained, checkpoint, progress)
 
 
-def unet_tvresnet34(pretrained: bool = False, pretrained_backbone: bool = True, **kwargs: Any) -> DynamicUNet:
+def unet_tvresnet34(pretrained: bool = False, pretrained_backbone: bool = True,
+                    checkpoint: Optional[Checkpoint] = None, progress: bool = True, **kwargs: Any) -> DynamicUNet:
     """DynamicUNet over a ResNet-34 encoder with the final upsampling
     (``unet.py:339-344``); ``pretrained_backbone`` does nothing, as in the JAX package."""
     from .encoders import ResNet34Features
 
-    _check_pretrained(pretrained)
     kwargs.setdefault("final_upsampling", True)
-    return _dynamic_unet(ResNet34Features(kwargs.get("in_channels", 3)), **kwargs)
+    return _pretrained_unet(_dynamic_unet(ResNet34Features(kwargs.get("in_channels", 3)), **kwargs),
+                            "unet_tvresnet34", pretrained, checkpoint, progress)
 
 
-def unet_rexnet13(pretrained: bool = False, pretrained_backbone: bool = True, in_channels: int = 3,
-                  **kwargs: Any) -> DynamicUNet:
+def unet_rexnet13(pretrained: bool = False, pretrained_backbone: bool = True, checkpoint: Optional[Checkpoint] = None,
+                  progress: bool = True, in_channels: int = 3, **kwargs: Any) -> DynamicUNet:
     """DynamicUNet over a ReXNet-1.3x encoder, SiLU in the decoder, with the final
     upsampling (``unet.py:347-356``); ``pretrained_backbone`` does nothing, as in the
-    JAX package."""
+    JAX package. ``pretrained`` loads the v0.1.3 release (``unet.py:27-30``)."""
     from .encoders import ReXNetFeatures
 
-    _check_pretrained(pretrained)
     kwargs.setdefault("final_upsampling", True)
     kwargs.setdefault("act_layer", nn.SiLU(inplace=True))
     encoder = ReXNetFeatures(1.3, out_blocks=REXNET13_BLOCKS, in_channels=in_channels)
-    return _dynamic_unet(encoder, in_channels=in_channels, **kwargs)
+    return _pretrained_unet(_dynamic_unet(encoder, in_channels=in_channels, **kwargs), "unet_rexnet13", pretrained,
+                            checkpoint, progress)

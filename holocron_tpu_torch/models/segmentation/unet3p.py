@@ -8,20 +8,22 @@ and the deeper rows bilinear-upsampled to it, each projected to ``layout[0]`` ch
 and ``classifier``.
 """
 
-from typing import Any, Callable, List, Optional, Sequence, Union
+from typing import Any, Callable, Dict, List, Optional, Sequence, Union
 
 import torch
 from torch import nn
 
 from ..layers import BatchNorm2d
-from ..utils import conv_sequence
-from .unet import DownPath, Upsample2d, _check_pretrained, _init_weights, _relu
+from ..checkpoints import Checkpoint
+from ..utils import _pretrained, conv_sequence
+from .unet import DownPath, Upsample2d, _init_weights, _relu
 
 __all__ = ["FSAggreg", "UNet3p", "unet3p"]
 
 NormLayer = Callable[[int], nn.Module]
 
 LAYOUT = [64, 128, 256, 512, 1024]  # unet3p's (unet3p.py:23)
+default_cfgs: Dict[str, Dict[str, Any]] = {"unet3p": {"arch": "UNet3p", "layout": LAYOUT, "url": None}}
 
 
 class FSAggreg(nn.Module):
@@ -111,7 +113,7 @@ class UNet3p(nn.Module):
         return self.classifier(xs[0])
 
 
-def unet3p(pretrained: bool = False, **kwargs: Any) -> UNet3p:
-    """UNet3+ (``unet3p.py:122-124``)."""
-    _check_pretrained(pretrained)
-    return UNet3p(LAYOUT, **kwargs)
+def unet3p(pretrained: bool = False, checkpoint: Optional[Checkpoint] = None, progress: bool = True,
+           **kwargs: Any) -> UNet3p:
+    """UNet3+ (``unet3p.py:114-124``); ``pretrained`` warns: no release has a URL."""
+    return _pretrained(UNet3p(LAYOUT, **kwargs), pretrained, checkpoint, progress, default_cfgs["unet3p"])

@@ -7,18 +7,24 @@ grid over the U-Net's contracting path and bridge, with bilinear upsampling.
 ``decoder_{i}_{j}``) and ``classifier``.
 """
 
-from typing import Any, Callable, List, Optional, Sequence, Union
+from typing import Any, Callable, Dict, List, Optional, Sequence, Union
 
 import torch
 from torch import nn
 
-from .unet import DownPath, UpPath, _check_pretrained, _init_weights, _relu, _two_bridge_convs
+from ..checkpoints import Checkpoint
+from ..utils import _pretrained
+from .unet import DownPath, UpPath, _init_weights, _relu, _two_bridge_convs
 
 __all__ = ["UNetp", "UNetpp", "unetp", "unetpp"]
 
 NormLayer = Callable[[int], nn.Module]
 
 LAYOUT = [64, 128, 256, 512]  # unetp's and unetpp's (unetpp.py:23-24)
+default_cfgs: Dict[str, Dict[str, Any]] = {
+    "unetp": {"arch": "UNetp", "layout": LAYOUT, "url": None},
+    "unetpp": {"arch": "UNetpp", "layout": LAYOUT, "url": None},
+}
 
 
 class _NestedUNet(nn.Module):
@@ -95,13 +101,13 @@ class UNetpp(_NestedUNet):
         return self.classifier(xs.pop()[-1])
 
 
-def unetp(pretrained: bool = False, **kwargs: Any) -> UNetp:
-    """UNet+ (``unetpp.py:112-114``)."""
-    _check_pretrained(pretrained)
-    return UNetp(LAYOUT, **kwargs)
+def unetp(pretrained: bool = False, checkpoint: Optional[Checkpoint] = None, progress: bool = True,
+          **kwargs: Any) -> UNetp:
+    """UNet+ (``unetpp.py:103-114``); ``pretrained`` warns: no release has a URL."""
+    return _pretrained(UNetp(LAYOUT, **kwargs), pretrained, checkpoint, progress, default_cfgs["unetp"])
 
 
-def unetpp(pretrained: bool = False, **kwargs: Any) -> UNetpp:
-    """UNet++ (``unetpp.py:117-119``)."""
-    _check_pretrained(pretrained)
-    return UNetpp(LAYOUT, **kwargs)
+def unetpp(pretrained: bool = False, checkpoint: Optional[Checkpoint] = None, progress: bool = True,
+           **kwargs: Any) -> UNetpp:
+    """UNet++ (``unetpp.py:103-119``); ``pretrained`` warns: no release has a URL."""
+    return _pretrained(UNetpp(LAYOUT, **kwargs), pretrained, checkpoint, progress, default_cfgs["unetpp"])

@@ -264,13 +264,13 @@ def main(args):
     print(f"Decoding with {'the native decoder' if train_collate is not None else 'PIL'}"  # noqa: T201
           if args.data_path != "fake" else "Synthetic data")
 
-    if args.pretrained:
+    model = classification.__dict__[args.arch](pretrained=args.pretrained, num_classes=num_classes, device=device,
+                                               generator=torch.Generator().manual_seed(args.seed))
+    if args.pretrained and not model.pretrained_loaded:
         raise SystemExit(
             "--pretrained was requested but the released weights could not be loaded "
             "(offline or invalid URL) — refusing to continue with random initialization"
         )
-    model = classification.__dict__[args.arch](num_classes=num_classes, device=device,
-                                               generator=torch.Generator().manual_seed(args.seed))
     if device.type == "cuda":
         model = model.to(memory_format=torch.channels_last)
 

@@ -125,6 +125,11 @@ def main(args):
     val_loader = torch.utils.data.DataLoader(val_set, args.batch_size, **loader_kw)
 
     model = segmentation.__dict__[args.arch](pretrained=args.pretrained, num_classes=args.num_classes, device=device)
+    if args.pretrained and not model.pretrained_loaded:
+        raise SystemExit(
+            "--pretrained was requested but the released weights could not be loaded "
+            "(offline or invalid URL) — refusing to continue with random initialization"
+        )
     if device.type == "cuda":
         model = model.to(memory_format=torch.channels_last)
 

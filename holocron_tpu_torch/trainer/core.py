@@ -23,8 +23,18 @@ except those of fully frozen BN layers. ``amp`` is the JAX package's bf16 comput
 batch norm takes them; a LayerNorm's to bfloat16, as the JAX package casts every
 parameter), the logits are cast to float32 before the loss, and the
 gradients land on the float32 parameters.
+
+``remat`` recomputes the forward in the backward (``core.py:474-484``) with
+``torch.utils.checkpoint`` (non-reentrant) over the step's loss: ``True`` / ``"full"``
+keeps nothing of the forward, ``"dots"`` keeps the outputs of convolutions and matrix
+products alone (``jax.checkpoint_policies.dots_saveable``, through
+``create_selective_checkpoint_contexts``). The recomputation updates no batch norm's
+running statistics (they move once a step, as without ``remat``) and draws the same
+random masks: checkpointing restores the global generators, and the explicit
+``generator`` of a module (ConvNeXt's stochastic depth) is replayed too.
 """
 
+import contextlib
 import math
 from collections import deque
 from pathlib import Path
@@ -35,12 +45,75 @@ from torch import nn
 from torch.func import functional_call
 from torch import profiler
 from torch.profiler import record_function
+from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts
 
 from ..optim.schedules import constant_schedule, cosine_decay_schedule, cosine_onecycle_schedule
+from ..utils.data.loader import prefetch
 from ._progress import ProgressBar
 from .utils import freeze_bn, freeze_model, split_normalization_params
 
 __all__ = ["Trainer"]
+
+REMAT_MODES = (False, True, "full", "dots")
+# the ops whose outputs "dots" keeps: what dots_saveable keeps (dot_general and
+# conv_general_dilated), as they reach the dispatcher below autograd
+DOTS_SAVEABLE = (torch.ops.aten.convolution.default, torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+                 torch.ops.aten.bmm.default)
+
+
+def _dots_saveable(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    return CheckpointPolicy.MUST_SAVE if op in DOTS_SAVEABLE else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+@contextlib.contextmanager
+def _entered(*managers):
+    with contextlib.ExitStack() as stack:
+        for m in managers:
+            stack.enter_context(m)
+        yield
+
+
+@contextlib.contextmanager
+def _running_stats_kept(model: nn.Module):
+    """The batch norms' running statistics and counters as they were before the block:
+    the recomputation runs the same train-mode forward, saving the same tensors for the
+    backward, and its second update is undone."""
+    stats = [b for m in model.modules() if isinstance(m, nn.modules.batchnorm._BatchNorm)
+             for b in (m.running_mean, m.running_var, m.num_batches_tracked) if b is not None]
+    saved = [b.clone() for b in stats]
+    try:
+        yield
+    finally:
+        with torch.no_grad():
+            for b, v in zip(stats, saved):
+                b.copy_(v)
+
+
+class _GeneratorReplay:
+    """The explicit generators of a model's modules (a ``generator`` attribute), set
+    back for the recomputation to the states they had when the forward began, and left
+    after it where the forward left them."""
+
+    def __init__(self, model: nn.Module) -> None:
+        self.generators = list({id(g): g for m in model.modules()
+                                if isinstance(g := getattr(m, "generator", None), torch.Generator)}.values())
+        self.start: List[torch.Tensor] = []
+
+    @contextlib.contextmanager
+    def forward(self):
+        self.start = [g.get_state() for g in self.generators]
+        yield
+
+    @contextlib.contextmanager
+    def recompute(self):
+        after = [g.get_state() for g in self.generators]
+        for g, state in zip(self.generators, self.start):
+            g.set_state(state)
+        try:
+            yield
+        finally:
+            for g, state in zip(self.generators, after):
+                g.set_state(state)
 
 
 class Trainer:
@@ -65,6 +138,7 @@ class Trainer:
         on_epoch_end: callback fed each epoch's eval metrics
         input_norm: ``(mean, std)``; uint8 batches are normalized on the device inside
             the step, ``(x / 255 - mean) / std`` per channel; float batches pass as they are
+        remat: ``False``, ``True`` / ``"full"`` or ``"dots"`` (see the module docstring)
     """
 
     def __init__(
@@ -83,7 +157,11 @@ class Trainer:
         gradient_clip: Optional[float] = None,
         on_epoch_end: Optional[Callable[[Dict[str, float]], Any]] = None,
         input_norm: Optional[Tuple[Sequence[float], Sequence[float]]] = None,
+        remat: Union[bool, str] = False,
     ) -> None:
+        if remat not in REMAT_MODES:
+            raise ValueError(f"remat must be False, True/'full', or 'dots', got {remat!r}")
+        self.remat = remat
         self.device = torch.device(device)
         self.model = model.to(self.device)
         self.train_loader = train_loader
@@ -108,6 +186,8 @@ class Trainer:
         self.epoch = 0
         self.min_loss = math.inf
         self.skipped_steps = 0  # updates rejected for non-finite gradients
+        self.lr_recorder: List[float] = []
+        self.loss_recorder: List[float] = []
 
         self._opt: Optional[torch.optim.Optimizer] = None
         self._trainable: Dict[str, bool] = {}
@@ -224,12 +304,29 @@ class Trainer:
         target = target.to(self.device, non_blocking=True) if isinstance(target, torch.Tensor) else target
         return self.criterion(self._forward(self._input_prep(x)), target)
 
+    def _remat_contexts(self):
+        """``checkpoint``'s ``context_fn`` under ``remat``: the forward's and the
+        recomputation's contexts."""
+        generators = _GeneratorReplay(self.model)
+        forward, recompute = [generators.forward()], [generators.recompute(), _running_stats_kept(self.model)]
+        if self.remat == "dots":
+            keep, redo = create_selective_checkpoint_contexts(_dots_saveable)
+            forward.append(keep)
+            recompute.append(redo)
+        return _entered(*forward), _entered(*recompute)
+
+    def _step_loss(self, x: torch.Tensor, target) -> torch.Tensor:
+        """:meth:`_loss`, recomputed in the backward under ``remat``."""
+        if not self.remat:
+            return self._loss(x, target)
+        return checkpoint(self._loss, x, target, use_reentrant=False, context_fn=self._remat_contexts)
+
     def _run_step_async(self, x: torch.Tensor, target) -> torch.Tensor:
         """One train step; returns the loss on the device, without reading it back."""
         self.model.train()
         frozen_stats = [(m.running_mean.clone(), m.running_var.clone()) for m in self._frozen_bn]
         with record_function("train_step.forward"):
-            loss = self._loss(x, target)
+            loss = self._step_loss(x, target)
         names, params = zip(*self.model.named_parameters())
         with record_function("train_step.backward"):
             grads = torch.autograd.grad(loss, params, allow_unused=True)
@@ -274,6 +371,23 @@ class Trainer:
     def _run_step(self, x, target) -> float:
         return float(self._run_step_async(x, target))
 
+    def _place(self, batch: Tuple[Any, Any]) -> Tuple[Any, Any]:
+        """A batch on the device: each CPU tensor of it (the input, a target tensor or a
+        padded target's tensors) pinned and copied with ``non_blocking``, so that the
+        copy overlaps the device's work; other targets (lists of dicts) as they are."""
+
+        def place(t):
+            if isinstance(t, dict):
+                return {k: place(v) for k, v in t.items()}
+            if not isinstance(t, torch.Tensor) or t.device == self.device:
+                return t
+            if self.device.type == "cuda" and t.device.type == "cpu":
+                t = t.pin_memory()
+            return t.to(self.device, non_blocking=True)
+
+        x, target = batch
+        return place(x), place(target)
+
     # ------------------------------------------------------------------
     # training loops
     # ------------------------------------------------------------------
@@ -296,7 +410,9 @@ class Trainer:
             desc=f"epoch {self.epoch + 1}",
         )
         pending: deque = deque()
-        for x, target in self.train_loader:
+        # placed two batches ahead (``core.py:555-559``): their copies to the device run
+        # while it computes the current step
+        for x, target in prefetch(self.train_loader, self._place, size=2):
             pending.append(self._run_step_async(x, target))
             batch_loss = None
             if len(pending) > readback_lag:
@@ -375,6 +491,37 @@ class Trainer:
             if batch_idx + 1 == num_it:
                 break
         self.lr_recorder = self.lr_recorder[: len(self.loss_recorder)]
+
+    def plot_recorder(self, beta: float = 0.95, **kwargs: Any) -> None:
+        """Plots the learning-rate finder's curve (``core.py:644-668``): the losses
+        smoothed by an exponential average with bias correction, the first tenth (at
+        most 10) and the last twentieth (at most 5) left out, against the learning rate
+        on a log scale. ``kwargs`` go to ``plt.show``."""
+        if len(self.lr_recorder) != len(self.loss_recorder) or len(self.lr_recorder) == 0:
+            raise AssertionError("Please run the `lr_find` method first")
+        import matplotlib.pyplot as plt
+        import numpy as np
+
+        smoothed_losses = []
+        avg_loss = 0.0
+        for idx, loss in enumerate(self.loss_recorder):
+            avg_loss = beta * avg_loss + (1 - beta) * loss
+            smoothed_losses.append(avg_loss / (1 - beta ** (idx + 1)))
+        data_slice = slice(
+            min(len(self.loss_recorder) // 10, 10),
+            -min(len(self.loss_recorder) // 20, 5) if len(self.loss_recorder) >= 20 else len(self.loss_recorder),
+        )
+        vals = np.array(smoothed_losses[data_slice])
+        min_idx = vals.argmin()
+        max_val = vals[: min_idx + 1].max()
+        delta = max_val - vals[min_idx]
+        plt.plot(self.lr_recorder[data_slice], smoothed_losses[data_slice])
+        plt.xscale("log")
+        plt.xlabel("Learning Rate")
+        plt.ylabel("Training loss")
+        plt.ylim(vals[min_idx] - 0.1 * delta, max_val + 0.2 * delta)
+        plt.grid(True, linestyle="--", axis="x")
+        plt.show(**kwargs)
 
     def check_setup(
         self,

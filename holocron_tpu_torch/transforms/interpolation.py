@@ -10,13 +10,14 @@ float to an integer truncates).
 """
 
 from enum import Enum
-from typing import Any, Tuple
+from math import sqrt
+from typing import Any, Optional, Tuple
 
 import numpy as np
 import torch
 from torch.nn import functional as F
 
-__all__ = ["Resize", "ResizeMethod"]
+__all__ = ["RandomZoomOut", "Resize", "ResizeMethod"]
 
 
 class ResizeMethod(str, Enum):
@@ -121,3 +122,52 @@ class Resize:
         h_pad, w_pad = self.size[0] - h, self.size[1] - w
         padding = (w_pad // 2, h_pad // 2, w_pad - w_pad // 2, h_pad - h_pad // 2)
         return _pad(img, padding, self.pad_mode)
+
+
+class RandomZoomOut:
+    """Random zoom-out (``interpolation.py:107-149``): the image shrunk to a random share
+    of the largest area that keeps its aspect ratio inside ``size``, then padded with
+    zeros to ``size``. ``scale[0] == 1`` returns the image as it is.
+
+    The share is ``np.random.default_rng(seed)``'s next ``random()`` mapped onto
+    ``scale``, one draw a call, as the JAX package draws it.
+
+    >>> tf = RandomZoomOut((224, 224), scale=(0.3, 1.0))
+    """
+
+    def __init__(
+        self,
+        size: Tuple[int, int],
+        scale: Tuple[float, float] = (0.5, 1.0),
+        interpolation: str = "bilinear",
+        seed: Optional[int] = None,
+        **kwargs: Any,
+    ) -> None:
+        if not isinstance(size, (tuple, list)) or len(size) != 2 or any(s <= 0 for s in size):
+            raise ValueError("size is expected to be a sequence of 2 positive integers")
+        if len(scale) != 2 or scale[0] > scale[1]:
+            raise ValueError("scale is expected to be a couple of floats, the first one being small than the second")
+        self.size = tuple(size)
+        self.scale = tuple(scale)
+        self.interpolation = interpolation
+        self._rng = np.random.default_rng(seed)
+
+    def get_params(self, image) -> Tuple[int, int]:
+        h, w = _get_image_shape(image)
+        scale = (self.scale[1] - self.scale[0]) * float(self._rng.random()) + self.scale[0]
+        aratio = h / w
+        tratio = self.size[0] / self.size[1]
+        max_area = self.size[1] ** 2 * aratio if tratio > aratio else self.size[0] ** 2 / aratio
+        area = max_area * scale
+        w_ = round(sqrt(area / aratio))
+        h_ = round(area / w_)
+        return h_, w_
+
+    def __call__(self, image):
+        if self.scale[0] == 1:
+            return image
+        h, w = self.get_params(image)
+        img = _resize(image, (h, w), self.interpolation)
+        h_delta, w_delta = self.size[0] - h, self.size[1] - w
+        padding = (w_delta // 2, h_delta // 2, w_delta - w_delta // 2, h_delta - h_delta // 2)
+        return _pad(img, padding)

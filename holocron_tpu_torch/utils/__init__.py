@@ -1,7 +1,7 @@
 """Host-side utilities (``holocron_tpu/utils``): the reference CLIs' datasets, the native
-JPEG decoder, and the image-size finder."""
+JPEG decoder, the image-size finder, and device time by operation."""
 
-from . import data
+from . import data, profiling
 from .misc import find_image_size, parallel
 
-__all__ = ["data", "find_image_size", "parallel"]
+__all__ = ["data", "find_image_size", "parallel", "profiling"]

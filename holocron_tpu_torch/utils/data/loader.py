@@ -6,16 +6,37 @@ is torch's, with its behaviour kept (a seeded shuffle, and the collate's ``set_e
 hook called before each epoch).
 """
 
+import itertools
+from collections import deque
 from pathlib import Path
-from typing import Any, Callable, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Iterable, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 __all__ = ["EpochDataLoader", "IMG_EXTENSIONS", "ImageFolder", "SyntheticDataset", "default_collate",
-           "normalize_array", "normalize_image"]
+           "normalize_array", "normalize_image", "prefetch"]
 
 IMG_EXTENSIONS = {".jpg", ".jpeg", ".png", ".bmp", ".webp"}
+
+
+def prefetch(iterable: Iterable, fn: Optional[Callable] = None, size: int = 2) -> Iterator:
+    """The items of ``iterable``, ``fn`` applied ``size`` items ahead of the consumer
+    (``loader.py:21-42``). With ``fn`` an asynchronous copy to the device (the trainer's
+    pinned, ``non_blocking`` placement), the next batches' copies run while the device
+    computes the current one, as ``jax.device_put``'s do in the JAX loop."""
+    it = iter(iterable)
+    queue: deque = deque()
+
+    def enqueue(n: int) -> None:
+        for item in itertools.islice(it, n):
+            queue.append(fn(item) if fn is not None else item)
+
+    enqueue(max(size, 1))
+    while queue:
+        out = queue.popleft()
+        enqueue(1)
+        yield out
 
 
 def normalize_array(img: Any, mean: Sequence[float], std: Sequence[float]) -> np.ndarray:
@@ -67,16 +88,19 @@ class ImageFolder:
         return img, target
 
 
-def default_collate(batch: List[Tuple[Any, Any]]) -> Tuple[torch.Tensor, torch.Tensor]:
+def default_collate(batch: List[Tuple[Any, Any]]) -> Tuple[torch.Tensor, Any]:
     """Stacks ``(image, target)`` samples into an NCHW batch and a target tensor
     (``loader.py:115-120``). CHW tensors are stacked as they are; HWC arrays (or PIL
     images) are stacked in numpy and returned as an NCHW view of the NHWC batch, in the
-    channels-last memory format, without a copy."""
+    channels-last memory format, without a copy. Dict targets (detection's) stay a list
+    of dicts, as in the JAX package."""
     xs, ys = zip(*batch)
     if isinstance(xs[0], torch.Tensor):
         x = torch.stack(xs)
     else:
         x = torch.from_numpy(np.stack([np.asarray(v) for v in xs])).permute(0, 3, 1, 2)
+    if isinstance(ys[0], dict):
+        return x, list(ys)
     return x, torch.from_numpy(np.stack([np.asarray(v) for v in ys]))
 
 

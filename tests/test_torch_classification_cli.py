@@ -9,6 +9,7 @@ the CPU on synthetic data and on a folder of JPEGs and PNGs written here."""
 import importlib.util
 import pickle
 import sys
+import urllib.request
 from pathlib import Path
 
 import jax
@@ -29,6 +30,16 @@ torch.set_num_threads(2)
 
 ROOT = Path(__file__).parent.parent
 MEAN, STD = (0.485, 0.456, 0.406), (0.229, 0.224, 0.225)
+
+
+@pytest.fixture
+def offline(monkeypatch, tmp_path):
+    """No network: fetching a release URL fails as it does offline, into an empty cache."""
+    def refuse(*args, **kwargs):
+        raise OSError("no network in the tests")
+
+    monkeypatch.setattr(urllib.request, "urlopen", refuse)
+    monkeypatch.setenv("HOLOCRON_CACHE_DIR", str(tmp_path))
 
 
 def _jax_cli():
@@ -373,7 +384,7 @@ def test_main_actions(monkeypatch, tmp_path, capsys):
     assert "overfit-one-batch losses" in capsys.readouterr().out
 
 
-def test_main_refuses_what_the_port_does_not_run(tmp_path):
+def test_main_refuses_what_the_port_does_not_run(tmp_path, offline):
     with pytest.raises(SystemExit, match="--pretrained"):
         train.main(train.parse_args(["fake", "--arch", "mobileone_s0", "--pretrained", "--fake-samples", "8",
                                      *COMMON]))

@@ -11,6 +11,8 @@ Tolerances (float32): logits and each body output within 1e-4 of its largest mag
 plus 1e-4 relative (``test_torch_resnet.py``'s).
 """
 
+import urllib.request
+
 import jax
 import numpy as np
 import pytest
@@ -48,6 +50,16 @@ CASES = {
                 lambda: darknetv4.DarknetV4([(8, 1), (16, 2), (32, 1)], num_classes=NUM_CLASSES,
                                             act_layer=torch.nn.Mish(), drop_layer=DropBlock2d, device="cpu")),
 }
+
+
+@pytest.fixture
+def offline(monkeypatch, tmp_path):
+    """No network: fetching a release URL fails as it does offline, into an empty cache."""
+    def refuse(*args, **kwargs):
+        raise OSError("no network in the tests")
+
+    monkeypatch.setattr(urllib.request, "urlopen", refuse)
+    monkeypatch.setenv("HOLOCRON_CACHE_DIR", str(tmp_path))
 
 
 @pytest.fixture(scope="module")
@@ -124,11 +136,11 @@ def test_darknet_body_outputs_match_jax(pair, x):
     [("darknet19", 19827626), ("darknet24", 22413386), ("darknet53", 40595178), ("cspdarknet53", 26627434),
      ("cspdarknet53_mish", 26627434)],
 )
-def test_darknet_param_counts(arch, expected):
+def test_darknet_param_counts(arch, expected, offline):
     """Full width at the factories' default of 10 classes: the counts of
     ``tests/test_models_classification.py:144-147`` (cspdarknet53_mish: cspdarknet53's,
-    its checkpoint's count). ``pretrained=True`` raises."""
+    its checkpoint's count). ``pretrained=True`` offline keeps the drawn weights, with
+    ``pretrained_loaded`` False."""
     pm = getattr(models, arch)(device="meta")
     assert sum(p.numel() for p in pm.parameters()) == expected
-    with pytest.raises(NotImplementedError):
-        getattr(models, arch)(pretrained=True, device="meta")
+    assert not getattr(models, arch)(pretrained=True, device="meta").pretrained_loaded

@@ -19,6 +19,7 @@ same input.
 """
 
 import importlib
+import urllib.request
 
 import flax.linen as flax_nn
 import jax
@@ -59,6 +60,16 @@ ARCHS = {
     "yolov4": (lambda: jyolo["yolov4"].YOLOv4(V4_LAYOUT, num_classes=NUM_CLASSES),
                lambda: detection.YOLOv4(V4_LAYOUT, num_classes=NUM_CLASSES, device="cpu")),
 }
+
+
+@pytest.fixture
+def offline(monkeypatch, tmp_path):
+    """No network: fetching a release URL fails as it does offline, into an empty cache."""
+    def refuse(*args, **kwargs):
+        raise OSError("no network in the tests")
+
+    monkeypatch.setattr(urllib.request, "urlopen", refuse)
+    monkeypatch.setenv("HOLOCRON_CACHE_DIR", str(tmp_path))
 
 
 @pytest.fixture(scope="module")
@@ -196,12 +207,13 @@ def test_int8_detector_matches_jax(detector, x):
 
 
 @pytest.mark.parametrize("arch", ["yolov1", "yolov2", "yolov4"])
-def test_detection_model_contract(arch):
+def test_detection_model_contract(arch, offline):
     """``tests/test_models_detection.py:29-66`` on the port at full width (64 px, 10
     classes): eval detections as lists of numpy dicts, a list of images, train mode
     without a target, finite losses with boxes and with none, out-of-range boxes; and
-    the factories' flags: ``pretrained=True`` raises, ``pretrained_backbone=True``
-    freezes the backbone's BN (v2, v4) and warns."""
+    the factories' flags offline: ``pretrained=True`` keeps the drawn weights,
+    ``pretrained_backbone=True`` freezes the backbone's BN (v2, v4) and, with no file
+    to load, keeps the drawn backbone."""
     num_classes = 10
     kwargs = {"input_shape": (3, 64, 64)} if arch == "yolov1" else {}
     gen = torch.Generator().manual_seed(0)
@@ -222,9 +234,9 @@ def test_detection_model_contract(arch):
         model.train()
         with pytest.raises(ValueError):
             model(x)
-    with pytest.raises(NotImplementedError):
-        getattr(detection, arch)(pretrained=True, device="meta", **kwargs)
+    assert not getattr(detection, arch)(pretrained=True, device="meta", **kwargs).pretrained_loaded
     frozen = getattr(detection, arch)(device="meta", **kwargs)
+    assert not frozen.pretrained_loaded and frozen.default_cfg["url"] is None
     has_frozen = any(isinstance(m, FrozenBatchNorm2d) for m in frozen.backbone.modules())
     assert has_frozen == (arch != "yolov1")
 

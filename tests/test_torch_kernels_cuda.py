@@ -1015,3 +1015,55 @@ def test_optimizer_step_reads_nothing_from_the_card(cuda, name):
             torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
     assert all(bool(torch.isfinite(p).all()) and not torch.equal(p, b) for p, b in zip(params, before))
+
+
+@pytest.mark.parametrize("c,o,ksize,stride,groups", [(48, 48, 3, 1, 1), (20, 40, 1, 1, 1), (64, 96, 3, 2, 1),
+                                                     (128, 128, 3, 1, 2)])
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_int8_custom_ops_launch_the_kernels_and_equal_the_plain_versions(cuda, c, o, ksize, stride, groups,
+                                                                         out_dtype):
+    """``holocron_tpu_torch::int8_quantize`` and ``::int8_conv`` on CUDA tensors run the
+    kernels (each counter moves by one: the conv's route by ``conv_route``) and equal
+    the plain versions: the quantization bit for bit, the int32 accumulator exactly
+    (float32 output bit for bit, bf16 within one ulp of the plain epilogue's float32
+    value, as ``test_int8_conv_*`` hold the wrappers)."""
+    gen = torch.Generator(device=cuda).manual_seed(c + o)
+    x = torch.randn(2, 9, 11, c, generator=gen, device=cuda)
+    s_x = (x.abs().amax() / 127).float().reshape(())
+    w_q = torch.randint(-127, 128, (ksize, ksize, c // groups, o), generator=gen, device=cuda, dtype=torch.int8)
+    scale, bias = torch.rand(o, generator=gen, device=cuda) * 1e-2, torch.randn(o, generator=gen, device=cuda)
+    route = Q.KERNEL if Q.conv_route(c // groups, o, groups) == "wgmma" else Q.KERNEL_GENERAL
+    before = (Q.KERNEL_QUANTIZE.launches, route.launches)
+    q = torch.ops.holocron_tpu_torch.int8_quantize(x, s_x)
+    y = torch.ops.holocron_tpu_torch.int8_conv(q[..., :c], w_q, s_x, scale, bias, [stride] * 2, [ksize // 2] * 2,
+                                               [1, 1], groups, out_dtype, None)
+    torch.cuda.synchronize()
+    assert (Q.KERNEL_QUANTIZE.launches, route.launches) == (before[0] + 1, before[1] + 1)
+    assert q.shape[-1] == Q.channel_pitch(c) and torch.equal(q[..., :c], Q.quantize_activation_plain(x, s_x))
+    assert torch.equal(q[..., c:], torch.zeros_like(q[..., c:]))
+    plain = int8_conv_plain(q[..., :c].cpu(), w_q.cpu(), s_x.cpu(), scale.cpu(), bias.cpu(), stride, ksize // 2, 1,
+                            torch.float32, groups)
+    if out_dtype == torch.float32:
+        assert torch.equal(y.cpu(), plain)
+    else:
+        torch.testing.assert_close(y.float().cpu(), plain, rtol=2**-8, atol=0)
+
+
+def test_exported_int8_program_equals_eager_on_the_card(cuda, tmp_path):
+    """A small RepVGG's selective-int8 form (bf16 remainder, per-call scales) exported,
+    saved and loaded: its graph holds both ops once a layer, its run on the card
+    launches the kernels through them, and its logits equal the eager module's bit for
+    bit."""
+    from holocron_tpu_torch import export, quant
+    from holocron_tpu_torch.models import RepVGG
+
+    model = RepVGG([1, 1], [16, 32], 1.0, 1.0, generator=torch.Generator().manual_seed(31), device="cpu")
+    model = model.eval().reparametrize().to(cuda).to(memory_format=torch.channels_last)
+    qm = quant.quantize_model(model, min_in_channels=16).to(torch.bfloat16).eval()
+    layers = sum(isinstance(m, quant.QuantizedConv2d) for m in qm.modules())
+    x = torch.randn(4, 3, 32, 32, generator=torch.Generator(device=cuda).manual_seed(32), device=cuda)
+    x = x.to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    before = INT8_KERNEL.launches
+    rec = export.export(qm, x, tmp_path / "int8.pt2")
+    assert rec["custom_ops"] == {op: layers for op in export.OPS} and layers == 3
+    assert rec["equal"] and INT8_KERNEL.launches - before == 2 * layers  # the eager run and the loaded one

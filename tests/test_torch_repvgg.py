@@ -4,6 +4,8 @@ The JAX package makes the weights; ``holocron_tpu_torch.convert`` carries them a
 Inputs come from numpy with a fixed seed; the port takes NCHW, JAX NHWC.
 """
 
+import urllib.request
+
 import jax
 import numpy as np
 import pytest
@@ -18,6 +20,16 @@ from holocron_tpu_torch.models import RepVGG, repvgg_a0
 torch.set_num_threads(2)
 
 CFG = ([1, 1], [8, 16], 1.0, 1.0)  # two stages, widths 8 and 16
+
+
+@pytest.fixture
+def offline(monkeypatch, tmp_path):
+    """No network: fetching a release URL fails as it does offline, into an empty cache."""
+    def refuse(*args, **kwargs):
+        raise OSError("no network in the tests")
+
+    monkeypatch.setattr(urllib.request, "urlopen", refuse)
+    monkeypatch.setenv("HOLOCRON_CACHE_DIR", str(tmp_path))
 
 
 def _randomize_bn(variables, rng):
@@ -113,7 +125,7 @@ def test_state_dict_round_trip_through_jax_converter(pair):
         np.testing.assert_array_equal(np.asarray(a), b)
 
 
-def test_repvgg_a0_layout_matches_jax_param_count():
+def test_repvgg_a0_layout_matches_jax_param_count(offline):
     """The full-width factory builds the same number of parameters as the JAX one and
     the state_dict keys the original Holocron layout."""
     pm = repvgg_a0(generator=torch.Generator().manual_seed(0), device="cpu")
@@ -123,8 +135,8 @@ def test_repvgg_a0_layout_matches_jax_param_count():
     assert n_params == sum(int(np.prod(s.shape)) for s in jax.tree.leaves(shapes["params"]))
     keys = pm.state_dict().keys()
     assert "features.3.14.branches.2.running_var" in keys and "head.weight" in keys
-    with pytest.raises(NotImplementedError):
-        repvgg_a0(pretrained=True)
+    offline = repvgg_a0(pretrained=True, device="meta")
+    assert not offline.pretrained_loaded and offline.default_cfg.meta.arch == "repvgg_a0"
 
 
 def test_init_is_seeded():

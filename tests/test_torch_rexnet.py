@@ -27,6 +27,8 @@ exact arithmetic and rounding noise in both packages, so a per-tensor scale does
 apply. The int8 forms: logits within atol 1e-3 and the same top-1.
 """
 
+import urllib.request
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -47,6 +49,16 @@ torch.set_num_threads(2)
 
 NUM_CLASSES = 10
 ARCHS = ("rexnet1_0x", "rexnet1_3x", "rexnet1_5x", "rexnet2_0x", "rexnet2_2x")
+
+
+@pytest.fixture
+def offline(monkeypatch, tmp_path):
+    """No network: fetching a release URL fails as it does offline, into an empty cache."""
+    def refuse(*args, **kwargs):
+        raise OSError("no network in the tests")
+
+    monkeypatch.setattr(urllib.request, "urlopen", refuse)
+    monkeypatch.setenv("HOLOCRON_CACHE_DIR", str(tmp_path))
 
 
 def _pair(width_mult: float, depth_mult: float, seed: int, x: np.ndarray):
@@ -116,7 +128,7 @@ def test_rexnet_matches_jax(width_mult, depth_mult):
 
 
 @pytest.mark.parametrize("arch", ARCHS)
-def test_rexnet_param_counts_match_jax(arch):
+def test_rexnet_param_counts_match_jax(arch, offline):
     """Full-width parameter counts at the JAX package's 1000 classes: rexnet1_0x's
     4,796,186 (its checkpoint's count), the others against ``jax.eval_shape``."""
     pm = getattr(models, arch)(device="cpu")
@@ -126,8 +138,8 @@ def test_rexnet_param_counts_match_jax(arch):
     assert ours == sum(int(np.prod(leaf.shape)) for leaf in jax.tree.leaves(shapes["params"]))
     if arch == "rexnet1_0x":
         assert ours == 4796186 == rexnet.ReXNet1_0x_Checkpoint.DEFAULT.value.meta.num_params
-    with pytest.raises(NotImplementedError):
-        getattr(models, arch)(pretrained=True, device="cpu")
+    offline = getattr(models, arch)(pretrained=True, device="meta")
+    assert not offline.pretrained_loaded and offline.default_cfg.meta.arch == arch
 
 
 def test_rexnet_partial_residual():
