@@ -165,7 +165,21 @@ Phases, each printing one JSON line to stdout:
    ``int8_conv_general``, which no serving path runs (its check fails if it launched no
    time). Last, ``int8_op_dispatch``: the host's time a quantized conv through the
    ``holocron_tpu_torch`` int8 ops against the same launches made directly, in 10
-   interleaved pairs of loops.
+   interleaved pairs of loops. After repvgg_a0's geometries, ``check_int8_s2d``: the
+   ``wgmma`` conv at the four ``s2d_strided`` geometries (2x2 stride-1 over 4C = 192,
+   192, 384, 768 channels, padded on top and left) against its plain version and the
+   stride-2 conv (equal int32 accumulators), timed beside the stride-2 conv and cuDNN's
+   bf16 one (``check_int8_s2d_geometry`` lines).
+21. ``s2d_forms`` (after ``darknet_serving``): repvgg_a0 at 224 px, batch 256, through
+   ``deploy_forward``'s graph in five forms: bf16 plain, ``s2d_stem``, ``s2d_input`` (its
+   batch rearranged by ``space_to_depth_batch``), int8 and int8 with ``s2d_strided``:
+   logits and top-1 agreement against the plain form (float32 within 1e-3 of scale,
+   bf16 top-1 >= 0.95, the two int8 forms equal bit for bit), ms a call.
+22. ``data_parallel`` (after ``binary_trainer``): a world-size-1 NCCL group in this
+   process; the repvgg_a0 trainer (batch 128, amp, LAMB) for 4 steps with the group,
+   with the group and ``shard_opt_state``, and with no group, bit-equal; ms a step of
+   each and the gradient all-reduce's device time a step; then the classification CLI
+   joining NCCL from ``RANK``/``WORLD_SIZE``/``LOCAL_RANK``/``MASTER_*``.
 
 Each kernel's launch counter is set to 0 just before the path that runs it and read
 just after; a kernel that its path never launched fails the run (a graph replay makes
@@ -3010,59 +3024,64 @@ def phase_remat(device, batch: int = 128, size: int = 224, num_classes: int = 10
     """resnet50 (batch 128, 224 px, amp, LAMB, the classification reference's step) under
     ``remat`` False, True and ``"dots"``, a fresh model from the seed each, 3 steps on the
     same batches: ms a step (CUDA events, after the first), peak memory. Held against
-    ``False`` (bf16 compute, cuDNN free to pick its algorithms): the loss at every step
-    within 1e-3 relative (the first comes from the forward alone, the later ones from
-    the recomputed backward's updates, each 1-8% of the loss), the BN running means
-    after the first step within 1e-3 relative (the recomputation's update undone), and
-    the first update of each parameter within 1e-2 of its norm (the recomputed
-    gradients under autocast)."""
+    ``False`` (bf16 compute, under cuDNN's deterministic algorithms: LAMB's first
+    updates follow the gradients' signs, so the last-bit noise of the nondeterministic
+    ones moves the third loss by up to 2.4e-3 between runs of one mode): the loss at
+    every step within 1e-3 relative (the first comes from the forward alone, the later
+    ones from the recomputed backward's updates, each 1-8% of the loss), the BN running
+    means after the first step within 1e-3 relative (the recomputation's update
+    undone), and the first update of each parameter within 1e-2 of its norm (the
+    recomputed gradients under autocast)."""
     import torch
+
+    from holocron_tpu_torch.models.core import cudnn_settings
 
     gen = torch.Generator(device=device).manual_seed(SEED + 100)
     batches = synthetic_batches(gen, 2, batch, size, num_classes, device)
     rows, ref = {}, None
-    for mode in REMAT_MODES:
-        trainer = make_trainer(device, batches, None, num_classes, "resnet50", remat=mode)
-        trainer._reset_opt(1e-3)
-        # the parameters before and after the first step, copied to pinned host memory
-        # in stream order: no host sync between the steps, no device memory
-        params = [p for p in trainer.model.parameters() if p.requires_grad]
-        before, after = ([torch.empty(p.shape, dtype=p.dtype, pin_memory=True) for p in params] for _ in range(2))
-        for h, p in zip(before, params):
-            h.copy_(p.detach(), non_blocking=True)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        losses, events = [], []
-        for i in range(steps):
-            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            start.record()
-            losses.append(trainer._run_step_async(*batches[i % 2]))
-            end.record()
-            events.append((start, end))
-            if i == 0:
-                stats = [m.running_mean.clone() for m in trainer.model.modules()
-                         if isinstance(m, torch.nn.BatchNorm2d)]
-                for h, p in zip(after, params):
-                    h.copy_(p.detach(), non_blocking=True)
-        torch.cuda.synchronize()
-        update = [a.float() - b.float() for a, b in zip(after, before)]
-        losses = [float(v) for v in losses]
-        if not all(map(math.isfinite, losses)):
-            fail(f"remat {mode}: losses {losses}")
-        if ref is None:
-            ref = (losses, stats, update)
-        loss_rel = max(abs(a - b) / abs(b) for a, b in zip(losses, ref[0]))
-        stat_rel = max(float((a - b).abs().max() / b.abs().max().clamp_min(1e-12)) for a, b in zip(stats, ref[1]))
-        update_rel = max(float((a - b).norm() / b.norm().clamp_min(1e-30)) for a, b in zip(update, ref[2]))
-        if loss_rel > 1e-3 or stat_rel > 1e-3 or update_rel > 1e-2:
-            fail(f"remat {mode}: losses {losses} against {ref[0]}, BN running means off by {stat_rel}, "
-                 f"first updates off by {update_rel} of their norm")
-        rows[str(mode)] = {"losses": losses, "step_ms_after_first": [s.elapsed_time(e) for s, e in events[1:]],
-                           "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
-                           "loss_rel_diff": loss_rel, "bn_running_mean_rel_diff": stat_rel,
-                           "first_update_rel_diff": update_rel}
-        del trainer, params, before, after
-        torch.cuda.empty_cache()
+    with cudnn_settings(deterministic=True, benchmark=False):
+        for mode in REMAT_MODES:
+            trainer = make_trainer(device, batches, None, num_classes, "resnet50", remat=mode)
+            trainer._reset_opt(1e-3)
+            # the parameters before and after the first step, copied to pinned host memory
+            # in stream order: no host sync between the steps, no device memory
+            params = [p for p in trainer.model.parameters() if p.requires_grad]
+            before, after = ([torch.empty(p.shape, dtype=p.dtype, pin_memory=True) for p in params] for _ in range(2))
+            for h, p in zip(before, params):
+                h.copy_(p.detach(), non_blocking=True)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            losses, events = [], []
+            for i in range(steps):
+                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                start.record()
+                losses.append(trainer._run_step_async(*batches[i % 2]))
+                end.record()
+                events.append((start, end))
+                if i == 0:
+                    stats = [m.running_mean.clone() for m in trainer.model.modules()
+                             if isinstance(m, torch.nn.BatchNorm2d)]
+                    for h, p in zip(after, params):
+                        h.copy_(p.detach(), non_blocking=True)
+            torch.cuda.synchronize()
+            update = [a.float() - b.float() for a, b in zip(after, before)]
+            losses = [float(v) for v in losses]
+            if not all(map(math.isfinite, losses)):
+                fail(f"remat {mode}: losses {losses}")
+            if ref is None:
+                ref = (losses, stats, update)
+            loss_rel = max(abs(a - b) / abs(b) for a, b in zip(losses, ref[0]))
+            stat_rel = max(float((a - b).abs().max() / b.abs().max().clamp_min(1e-12)) for a, b in zip(stats, ref[1]))
+            update_rel = max(float((a - b).norm() / b.norm().clamp_min(1e-30)) for a, b in zip(update, ref[2]))
+            if loss_rel > 1e-3 or stat_rel > 1e-3 or update_rel > 1e-2:
+                fail(f"remat {mode}: losses {losses} against {ref[0]}, BN running means off by {stat_rel}, "
+                     f"first updates off by {update_rel} of their norm")
+            rows[str(mode)] = {"losses": losses, "step_ms_after_first": [s.elapsed_time(e) for s, e in events[1:]],
+                               "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
+                               "loss_rel_diff": loss_rel, "bn_running_mean_rel_diff": stat_rel,
+                               "first_update_rel_diff": update_rel}
+            del trainer, params, before, after
+            torch.cuda.empty_cache()
     emit({"phase": "remat", "model": "resnet50", "batch": batch, "image_size": size, "amp": True,
           "optimizer": "LAMB", "modes": rows})
 
@@ -3205,6 +3224,345 @@ def phase_profiling(device, batch: int = 256, size: int = 224) -> None:
     torch.cuda.empty_cache()
 
 
+S2D_GEOMETRIES = [[48, 48, 112], [48, 96, 56], [96, 192, 28], [192, 1280, 14]]  # C, O, input H = W
+# bf16 top-1 agreement of an s2d form with the plain form: bf16's roundings differ where
+# the sums run in another order (float32 is held at 1e-3 of scale); a broken form agrees
+# on about a tenth of the batch
+S2D_TOP1_FLOOR = 0.95
+
+
+def phase_s2d_forms(device, batch: int = 256, size: int = 224, num_classes: int = 10, iters: int = 20) -> tuple:
+    """RepVGG's space-to-depth deploy forms on repvgg_a0 (224 px, batch 256, BN adapted
+    on 4 naturalistic batches, random weights from the seed), each through
+    ``models.core.deploy_forward``'s graph: bf16 plain, ``reparametrize(s2d_stem=True)``
+    and ``reparametrize(s2d_input=True)`` (its batch rearranged on the host by
+    ``transforms.functional.space_to_depth_batch``); the gated int8 form without and with
+    ``s2d_strided`` (its four stage-opening stride-2 convs as 2x2 stride-1 convs over 4x
+    the channels on ``wgmma``). Float32 logits of both s2d forms within 1e-3 x the
+    logits' scale of the plain form's (eager); bf16 top-1 agreement with the plain form of
+    at least ``S2D_TOP1_FLOOR``; the two int8 forms' logits equal bit for bit (the same int32
+    accumulators and epilogue). ms a call by CUDA events of each graph. Returns the
+    ``s2d_strided`` form, the bf16 plain form, the bf16 batch and the int8 launches
+    (eager forwards, warm-ups and captures)."""
+    import torch
+
+    from holocron_tpu_torch import models
+    from holocron_tpu_torch.bench import naturalistic_batch
+    from holocron_tpu_torch.kernels import KERNELS
+    from holocron_tpu_torch.models.core import WARMUP, deploy_forward
+    from holocron_tpu_torch.quant import QuantizedConv2d, quantize_model
+    from holocron_tpu_torch.transforms.functional import space_to_depth_batch
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 71)
+    model = models.repvgg_a0(num_classes=num_classes, generator=torch.Generator().manual_seed(SEED), device=device)
+    model = model.to(memory_format=torch.channels_last).train()
+    with torch.no_grad():
+        for _ in range(4):
+            model(naturalistic_batch(gen, batch, size, device))
+    model.eval()
+    forms = {name: copy.deepcopy(model).reparametrize(**kw).to(memory_format=torch.channels_last)
+             for name, kw in (("plain", {}), ("s2d_stem", {"s2d_stem": True}), ("s2d_input", {"s2d_input": True}))}
+    stem = forms["s2d_input"].features[0][0].branches
+    if tuple(stem.weight.shape) != (48, 12, 2, 2):
+        fail(f"s2d_forms: the folded stem is {tuple(stem.weight.shape)}, expected (48, 12, 2, 2)")
+    x32 = naturalistic_batch(gen, batch, size, device)
+    z32 = torch.from_numpy(space_to_depth_batch(x32.permute(0, 2, 3, 1).cpu().numpy())).permute(0, 3, 1, 2).to(device)
+    inputs32 = {"plain": x32, "s2d_stem": x32, "s2d_input": z32}
+    record = {"phase": "s2d_forms", "model": "repvgg_a0", "batch": batch, "image_size": size,
+              "stem_weight": list(stem.weight.shape), "s2d_input_shape": list(z32.shape)}
+    with torch.no_grad():
+        ref32 = forms["plain"](x32)
+        scale = max(1.0, float(ref32.abs().max()))
+        for name in ("s2d_stem", "s2d_input"):
+            drift = float((forms[name](inputs32[name]) - ref32).abs().max())
+            record[f"{name}_vs_plain_f32_max_abs"] = drift
+            if drift > 1e-3 * scale:
+                fail(f"s2d_forms: {name} float32 logits {drift} from the plain form's (scale {scale})")
+    bf16 = {name: copy.deepcopy(m).to(torch.bfloat16) for name, m in forms.items()}
+    inputs = {name: t.to(torch.bfloat16) for name, t in inputs32.items()}
+    qm = quantize_model(forms["plain"], calibration_batches=[x32], arch="repvgg_a0").to(torch.bfloat16)
+    qs = quantize_model(forms["plain"], calibration_batches=[x32], arch="repvgg_a0", s2d_strided=True)
+    qs = qs.to(torch.bfloat16)
+    folded = [[m.kernel_q.shape[2], m.kernel_q.shape[3], tuple(m.kernel_s2d_q.shape)]
+              for m in qs.modules() if isinstance(m, QuantizedConv2d) and m.s2d]
+    if [f[:2] for f in folded] != [g[:2] for g in S2D_GEOMETRIES] or any(f[2][:3] != (2, 2, 4 * f[0]) for f in folded):
+        fail(f"s2d_forms: folded int8 convs {folded}, expected the four of {S2D_GEOMETRIES}")
+    bf16["int8"], bf16["int8_s2d_strided"] = qm, qs
+    inputs["int8"] = inputs["int8_s2d_strided"] = inputs["plain"]
+    torch.cuda.synchronize()
+
+    reset_counts()
+    with torch.no_grad():
+        eager = {name: bf16[name](inputs[name]).float() for name in ("int8", "int8_s2d_strided")}
+        graphs = {name: deploy_forward(m, (batch,), size, input_shape=tuple(inputs[name].shape[1:]))
+                  for name, m in bf16.items()}
+        outs = {name: graphs[name](inputs[name]).float().clone() for name in bf16}
+    torch.cuda.synchronize()
+    launches = {name: k.launches for name, k in KERNELS.items()}
+    forwards = 2 * (1 + WARMUP + 1)  # each int8 form: eager, warm-ups, capture
+    if launches["int8_conv"] != 26 * forwards or launches["int8_quantize"] != 26 * forwards:
+        fail(f"s2d_forms: int8 launches {launches}, expected {26 * forwards} of the conv and the quantization")
+    for name in ("int8", "int8_s2d_strided"):
+        if not torch.equal(outs[name], eager[name]):
+            fail(f"s2d_forms: the {name} graph's logits differ from its eager forward")
+    if not torch.equal(outs["int8"], outs["int8_s2d_strided"]):
+        fail("s2d_forms: the s2d_strided int8 logits differ from the stride-2 int8 form's")
+    ref = outs["plain"]
+    for name, out in outs.items():
+        check_logits(out, batch, num_classes, f"s2d_forms {name}")
+        agree = float((out.argmax(-1) == ref.argmax(-1)).float().mean())
+        record[f"{name}_top1_vs_plain"] = agree
+        record[f"{name}_vs_plain_max_abs"] = float((out - ref).abs().max())
+        if name.startswith("s2d") and agree < S2D_TOP1_FLOOR:
+            fail(f"s2d_forms: {name} top-1 agreement {agree} with the plain bf16 form")
+    with torch.no_grad():
+        record["ms"] = {name: cuda_ms(lambda n=name: graphs[n](inputs[n]), iters) for name in bf16}
+    record["img_per_s"] = {name: batch / (ms / 1e3) for name, ms in record["ms"].items()}
+    record["int8_launches"] = {k: launches[k] for k in ("int8_conv", "int8_quantize", "int8_conv_general")}
+    record["folded"] = folded
+    emit(record)
+    del graphs, outs, eager
+    return qs, bf16["plain"], inputs["plain"], launches
+
+
+def check_int8_s2d(device, qs, model_bf16, x, iters: int = 20) -> dict:
+    """The ``wgmma`` conv at the four ``s2d_strided`` geometries of repvgg_a0 (inputs
+    captured from the served form at batch 8, 32 and 256): at batch 8 and 32 the 2x2
+    stride-1 conv over the top/left-padded space-to-depth of x_q against its plain
+    version (the int32 accumulator equal, bf16 and float32 outputs within one ulp) and
+    against the stride-2 conv on the card (accumulator and outputs equal bit for bit).
+    At 256, device time from CUDA graphs: the folded conv, the stride-2 conv, the
+    rearrangement, the quantization, the module's whole route and the stride-2 route,
+    cuDNN's bf16 stride-2 conv of the layer, the plain version; the bound of the function
+    (the stride-2 conv's 9C multiply-adds an output; the folded conv runs 16C, zeros
+    included). A ``check_int8_s2d_geometry`` line each; returns sums over the four as
+    ``check_int8`` does, for the ``kernels`` line."""
+    import torch
+    from torch.nn import functional as F
+
+    from holocron_tpu_torch.kernels import int8_conv as K
+    from holocron_tpu_torch.models.utils import space_to_depth_padded
+    from holocron_tpu_torch.quant import QuantizedConv2d
+
+    layers = [(name, m) for name, m in qs.named_modules() if isinstance(m, QuantizedConv2d) and m.s2d]
+    captured_x = {name: {} for name, _ in layers}
+    handles = [m.register_forward_pre_hook(lambda mod, args, n=name: captured_x[n].__setitem__(args[0].shape[0],
+                                                                                               args[0]))
+               for name, m in layers]
+    with torch.no_grad():
+        for b in (8, 32, x.shape[0]):
+            qs(x[:b])
+    for h in handles:
+        h.remove()
+    deploy_layers = dict(model_bf16.named_modules())
+    max_err = 0.0
+    totals, bound_by, rows = {}, {}, []
+    with torch.no_grad():
+        for name, m in layers:
+            c, o = m.kernel_q.shape[2], m.kernel_q.shape[3]
+            pitch = K.channel_pitch(4 * c)
+            args = (m.act_scale, m.w_scale, m.bias)
+            for b in (8, 32):
+                xn = captured_x[name][b].permute(0, 2, 3, 1)
+                x_q = K.quantize_activation(xn, m.act_scale)
+                if not torch.equal(x_q, K.quantize_activation_plain(xn, m.act_scale)):
+                    fail(f"int8_quantize s2d {name} batch {b}: differs from quantize_activation_plain")
+                z = space_to_depth_padded(x_q, pitch=pitch)
+                acc = K.int8_conv_acc(z, m.kernel_s2d_q, 1, 0, w_packed=m.kernel_s2d_packed)
+                if not torch.equal(acc, K.int8_conv_acc_plain(z, m.kernel_s2d_q, 1, 0)) or not torch.equal(
+                        acc, K.int8_conv_acc(x_q, m.kernel_q, 2, 1, w_packed=m.kernel_packed)):
+                    fail(f"int8 conv s2d {name} batch {b}: the int32 accumulator differs from the plain conv's or "
+                         "the stride-2 conv's")
+                for dtype, ulp in ((torch.float32, 2.0**-23), (torch.bfloat16, 2.0**-7)):
+                    y = K.int8_conv(z, m.kernel_s2d_q, *args, 1, 0, out_dtype=dtype, w_packed=m.kernel_s2d_packed)
+                    if not torch.equal(y, K.int8_conv(x_q, m.kernel_q, *args, 2, 1, out_dtype=dtype,
+                                                      w_packed=m.kernel_packed)):
+                        fail(f"int8 conv s2d {name} batch {b} {dtype}: differs from the stride-2 conv")
+                    ref = K.int8_conv_plain(z, m.kernel_s2d_q, *args, 1, 0, out_dtype=dtype).float()
+                    err = within_ulp(y, ref, ulp, f"int8 conv s2d {name} batch {b} {dtype}")
+                    if dtype == torch.bfloat16:
+                        max_err = max(max_err, err)
+            xin = captured_x[name][x.shape[0]]
+            xn = xin.permute(0, 2, 3, 1)
+            x_q = K.quantize_activation(xn, m.act_scale)
+            z = space_to_depth_padded(x_q, pitch=pitch)
+            deploy = deploy_layers[name.removeprefix("model.")]
+            plain = {}
+
+            def run_plain():
+                plain["y"] = K.int8_conv_plain(z, m.kernel_s2d_q, *args, 1, 0, out_dtype=torch.bfloat16)
+
+            def bytewise():  # the rearrangement as one int8 element a thread, for comparison
+                buf = torch.zeros((z.shape[0], z.shape[1], z.shape[2], pitch), dtype=torch.int8, device=z.device)
+                n_, h_, w_, _ = x_q.shape
+                buf[:, 1:, 1:, : 4 * c].unflatten(3, (2, 2, -1)).copy_(
+                    x_q.unflatten(1, (h_ // 2, 2)).unflatten(3, (w_ // 2, 2)).permute(0, 1, 3, 2, 4, 5))
+
+            row = {
+                "layer": name, "x": list(xin.shape), "w_hwio": list(m.kernel_q.shape),
+                "w_s2d_hwio": list(m.kernel_s2d_q.shape), "z": list(z.shape),
+                "conv_ms": graph_ms(lambda: K.int8_conv(z, m.kernel_s2d_q, *args, 1, 0, out_dtype=torch.bfloat16,
+                                                        w_packed=m.kernel_s2d_packed), iters),
+                "stride2_conv_ms": graph_ms(lambda: K.int8_conv(x_q, m.kernel_q, *args, 2, 1,
+                                                                out_dtype=torch.bfloat16, w_packed=m.kernel_packed),
+                                            iters),
+                "rearrange_ms": graph_ms(lambda: space_to_depth_padded(x_q, pitch=pitch), iters),
+                "rearrange_bytewise_ms": graph_ms(bytewise, iters),
+                "quantize_ms": graph_ms(lambda: K.quantize_activation(xn, m.act_scale), iters),
+                "route_ms": graph_ms(lambda: m(xin), iters),
+                "stride2_route_ms": graph_ms(lambda: K.quantized_conv(xn, m.act_scale, m.kernel_q, m.w_scale, m.bias,
+                                                                      2, 1, out_dtype=torch.bfloat16,
+                                                                      w_packed=m.kernel_packed), iters),
+                "cudnn_bf16_ms": graph_ms(lambda: F.conv2d(xin, deploy.weight, deploy.bias, 2, 1), iters),
+                "plain_ms": cuda_ms(run_plain, 2, 1),
+                "quantize_plain_ms": cuda_ms(lambda: K.quantize_activation_plain(xn, m.act_scale), 2, 1),
+            }
+            if not torch.equal(plain["y"], K.int8_conv(z, m.kernel_s2d_q, *args, 1, 0, out_dtype=torch.bfloat16,
+                                                       w_packed=m.kernel_s2d_packed)):
+                within_ulp(K.int8_conv(z, m.kernel_s2d_q, *args, 1, 0, out_dtype=torch.bfloat16,
+                                       w_packed=m.kernel_s2d_packed), plain["y"].float(), 2.0**-7,
+                           f"int8 conv s2d {name} batch {x.shape[0]} bf16")
+            n, oh, ow = xin.shape[0], xin.shape[2] // 2, xin.shape[3] // 2
+            macs = n * oh * ow * o * 9 * c  # the stride-2 conv's: the function computed
+            y_bytes = 2 * n * oh * ow * o
+            row.update(bound(xin.numel() + m.kernel_q.numel() + y_bytes, 2 * macs, INT8_OPS_PER_S))
+            row["route_bound_ms"] = bound(2 * xin.numel() + m.kernel_q.numel() + y_bytes, 2 * macs,
+                                          INT8_OPS_PER_S)["bound_ms"]
+            row["quantize_bound_ms"] = 3 * xin.numel() / HBM_BYTES_PER_S * 1e3
+            row["rearrange_bound_ms"] = (x_q.numel() + z.numel()) / HBM_BYTES_PER_S * 1e3
+            row["executed_macs_over_needed"] = 16 / 9
+            row["tops"] = 2 * macs / (row["conv_ms"] * 1e-3) / 1e12
+            rows.append(row)
+            for k_, v in row.items():
+                if k_.endswith("_ms"):
+                    totals[k_] = totals.get(k_, 0.0) + v
+            bound_by[row["bound_by"]] = bound_by.get(row["bound_by"], 0.0) + row["bound_ms"]
+            emit({"phase": "check_int8_s2d_geometry", "model": "repvgg_a0", **row})
+    torch.cuda.synchronize()
+    record = {"kernel": "int8_conv", "model": "repvgg_a0 s2d_strided", "geometries": len(rows),
+              "max_abs_err_bf16": {"wgmma": max_err, "general": 0.0}, "per_forward": {"wgmma": totals, "general": {}},
+              "bound_ms_by": {"wgmma": bound_by, "general": {}}}
+    emit({"phase": "check", **record})
+    return {**record, "rows": rows}
+
+
+def phase_data_parallel(device, batch: int = 128, size: int = 224, num_classes: int = 10, steps: int = 4,
+                        timed_steps: int = 4) -> dict:
+    """Data parallelism on the card: a process group of world size 1 over NCCL in this
+    process (``parallel.initialize`` with a ``tcp://127.0.0.1`` address), joined and then
+    destroyed. The repvgg_a0 trainer (224 px, batch 128, amp, LAMB, as ``training``
+    builds it) takes the same 4 steps from the same weights with the group, with the
+    group and ``shard_opt_state`` and with no group: the losses, parameters and buffers
+    must be equal bit for bit, under cuDNN's deterministic algorithms. At one process the
+    trainer skips the gradient all-reduce and ZeRO-1's partition (both are the identity
+    there), so the three runs take one path; ms a step of each (CUDA events over a steady
+    window). One step's gradient all-reduce (the buckets flattened, reduced over NCCL,
+    divided and copied back) is called directly: it must give back its input bit for bit,
+    and its time between CUDA events, its kernels' summed time and its host time (from
+    ``utils.profiling.device_op_summary``) are what the all-reduce would add to a step. Then the classification CLI's ``main()`` in this
+    process under ``RANK=0 WORLD_SIZE=1 LOCAL_RANK=0 MASTER_ADDR=127.0.0.1
+    MASTER_PORT=<free>`` (``fake``, repvgg_a0, ``--device cuda``, ``--shard-opt-state``,
+    4 steps): it must join NCCL from the environment, and train on ``cuda:0``."""
+    import os
+    import socket
+    import tempfile
+
+    import torch
+    from torch import distributed as dist
+
+    from holocron_tpu_torch import parallel
+    from holocron_tpu_torch.models.core import cudnn_settings
+    from holocron_tpu_torch.utils.profiling import device_op_summary
+
+    def free_port() -> int:
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            return sock.getsockname()[1]
+
+    if dist.is_initialized():
+        fail("data_parallel: a process group is already joined")
+    gen = torch.Generator(device=device).manual_seed(SEED + 81)
+    batches = synthetic_batches(gen, steps, batch, size, num_classes, device)
+    record = {"phase": "data_parallel", "model": "repvgg_a0", "batch": batch, "image_size": size, "steps": steps}
+
+    def run(label, **kwargs):
+        trainer = make_trainer(device, batches, None, num_classes, **kwargs)
+        trainer._reset_opt(1e-3)
+        losses = [trainer._run_step_async(x, y) for x, y in batches]
+        torch.cuda.synchronize()
+        state = [t.detach().clone() for t in (*trainer.model.parameters(), *trainer.model.buffers())]
+        ms = time_train_steps(trainer, batches, timed_steps)
+        record[f"{label}_step_ms"] = ms
+        record[f"{label}_distributed"] = trainer.distributed
+        return torch.stack(losses).float(), state, trainer
+
+    with cudnn_settings(deterministic=True, benchmark=False):
+        parallel.initialize(device, init_method=f"tcp://127.0.0.1:{free_port()}", world_size=1, rank=0)
+        try:
+            record["backend"], record["world_size"] = dist.get_backend(), dist.get_world_size()
+            if record["backend"] != "nccl":
+                fail(f"data_parallel: the group joined {record['backend']}, expected nccl")
+            group_losses, group_state, trainer = run("group")
+            grads = [torch.randn(p.shape, generator=gen, device=device) for p in trainer.model.parameters()]
+            record["grad_bytes"] = sum(g.nbytes for g in grads)
+            reduced = [g.clone() for g in grads]
+            trainer._all_reduce_grads(reduced)
+            record["all_reduce_bit_equal"] = all(torch.equal(a, b) for a, b in zip(reduced, grads))
+            if not record["all_reduce_bit_equal"]:
+                fail("data_parallel: the gradient all-reduce over one rank changed its input")
+            del reduced
+            record["all_reduce_ms_per_step"] = cuda_ms(lambda: trainer._all_reduce_grads(grads), 10)
+            summary = device_op_summary(trainer._all_reduce_grads, grads, iters=10)
+            record["all_reduce_kernel_ms_per_step"] = summary["ms_per_iter"]
+            record["all_reduce_wall_ms_per_step"] = summary["wall_ms_per_iter"]
+            record["all_reduce_ops_us"] = sorted(summary["ops"].items(), key=lambda kv: -kv[1])[:4]
+            del trainer
+            zero_losses, zero_state, trainer = run("group_zero1", shard_opt_state=True)
+            del trainer
+        finally:
+            dist.destroy_process_group()
+        plain_losses, plain_state, trainer = run("no_group")
+        del trainer
+    record["losses"] = plain_losses.tolist()
+    for label, losses, state in (("group", group_losses, group_state), ("group_zero1", zero_losses, zero_state)):
+        equal = torch.equal(losses, plain_losses) and all(torch.equal(a, b) for a, b in zip(state, plain_state))
+        record[f"{label}_bit_equal_to_no_group"] = equal
+        if not equal:
+            diff = max(float((a.float() - b.float()).abs().max()) for a, b in zip(state, plain_state))
+            fail(f"data_parallel: {label} losses {losses.tolist()} vs {plain_losses.tolist()}, state max diff {diff}")
+    torch.cuda.empty_cache()
+
+    env = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0", "MASTER_ADDR": "127.0.0.1",
+           "MASTER_PORT": str(free_port())}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        with tempfile.TemporaryDirectory(prefix="holocron_dp_") as tmp:
+            run_cli = _cli_run(["fake", "--arch", "repvgg_a0", "-b", "32", "--fake-samples", "128", "--epochs", "1",
+                                "-j", "0", "--device", "cuda", "--amp", "--shard-opt-state",
+                                "--output-file", str(Path(tmp) / "repvgg_a0.pt")], "data_parallel cli")
+        joined = dist.is_initialized() and dist.get_backend() == "nccl" and dist.get_world_size() == 1
+        cli_trainer = run_cli["trainer"]
+        record["cli"] = {"joined_nccl": joined, "trainer_distributed": cli_trainer.distributed,
+                         "device": str(cli_trainer.device), "losses": run_cli["losses"], "eval": run_cli["eval"],
+                         "step_ms_after_first": run_cli["step_ms_after_first"], "cli_seconds": run_cli["cli_seconds"]}
+        if not joined or not cli_trainer.distributed or len(run_cli["losses"]) != 4 \
+                or str(cli_trainer.device) != "cuda:0":
+            fail(f"data_parallel cli: {record['cli']}; expected NCCL joined from the environment and 4 steps on cuda:0")
+        del run_cli, cli_trainer
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    torch.cuda.empty_cache()
+    emit(record)
+    return record
+
+
 def _kernel_launches(fn) -> int:
     """The CUDA kernels one call of ``fn`` launches, from ``torch.profiler``."""
     import torch
@@ -3237,14 +3595,15 @@ def int8_entries(launches: list, replays_seen: dict, records: list, grouped: lis
     captures, yolov4's eager forwards, warm-ups and captures in ``detection_serving``,
     unet3p's in ``segmentation_serving``, mobileone_s1's and convnext_tiny's eager
     forwards, warm-ups and captures in their serving phases, the exported int8
-    repvgg_a0's eager and loaded runs in ``export``, and ``eval_latency``'s int8
-    rexnet1_0x in ``latency_and_zoo``);
+    repvgg_a0's eager and loaded runs in ``export``, ``eval_latency``'s int8
+    rexnet1_0x in ``latency_and_zoo``, and repvgg_a0's two int8 forms in ``s2d_forms``);
     apart from them, ``replay_launches_seen``: the launches ``torch.profiler`` saw in
     the counted graph replays of ``deploy_graph_profile`` (a replay makes no call a
     counter sees);
     the wgmma conv's and the quantization's times and bounds summed over one batch-256
     forward of each serving model (each geometry times its count of layers; each conv's bound
-    counts the int8 x it reads). No path runs the general route (0 launches): its times
+    counts the int8 x it reads), and over the four ``s2d_strided`` geometries of
+    repvgg_a0 (``check_int8_s2d``: the folded 2x2 stride-1 convs). No path runs the general route (0 launches): its times
     are those of the grouped check (``grouped``: resnext101_32x8d's two stage-4 convs,
     summed). ``library_ms`` is None: ``torch._int_mm`` computes only the 1x1 stride-1
     convs (``check_int8_geometry``'s ``int_mm_ms``), not the 3x3 ones of repvgg_a0 and
@@ -3303,6 +3662,7 @@ def main() -> int:
     rqm, rmodel_bf16, rx, rr8, resnet_launches = timed(phase_serving, device, "resnet50", 52, 52, "resnet_serving")
     xqm, xmodel_bf16, xx, xr8, rexnet_launches = timed(phase_serving, device, "rexnet1_0x", 44, 44, "rexnet_serving")
     dqm, dmodel_bf16, dx, _, darknet_launches = timed(phase_serving, device, "darknet53", 49, 49, "darknet_serving")
+    s2d_qm, s2d_bf16, s2d_x, s2d_launches = timed(phase_s2d_forms, device)
     inv_launches = timed(phase_involution, device)
     timed(phase_training, device)
     timed(phase_arch_training, device)
@@ -3335,12 +3695,15 @@ def main() -> int:
     timed(phase_pretrained, device)
     timed(phase_remat, device)
     timed(phase_binary_trainer, device)
+    timed(phase_data_parallel, device)
     export_launches = timed(phase_export, device)
     latency_launches = timed(phase_latency_and_zoo, device)
     inv = timed(check_involution, device)
     inv_bwd = timed(check_involution_bwd, device)
     add = timed(check_add2d, device)
     i8 = timed(check_int8, device, qm, model_bf16, x)
+    i8_s2d = timed(check_int8_s2d, device, s2d_qm, s2d_bf16, s2d_x)
+    del s2d_qm, s2d_bf16, s2d_x
     i8_resnet = timed(check_int8, device, rqm, rmodel_bf16, rx, "resnet50")
     i8_rexnet = timed(check_int8, device, xqm, xmodel_bf16, xx, "rexnet1_0x")
     timed(check_int8, device, dqm, dmodel_bf16, dx, "darknet53")
@@ -3381,8 +3744,8 @@ def main() -> int:
         *int8_entries([serving_launches, resnet_launches, rexnet_launches, darknet_launches, bench_launches,
                        graph_launches, service_launches, detection_launches, segmentation_launches,
                        mobileone_launches, mobileone_graph_launches, convnext_launches, convnext_graph_launches,
-                       profile_launches, export_launches, latency_launches], replays_seen,
-                      [i8, i8_resnet, i8_rexnet], grouped),
+                       profile_launches, export_launches, latency_launches, s2d_launches], replays_seen,
+                      [i8, i8_resnet, i8_rexnet, i8_s2d], grouped),
     ]})
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

@@ -4,9 +4,10 @@
 Train form: per block, the sum of a 3x3 conv+BN branch, a 1x1 conv+BN branch and, for
 stride-1 same-width blocks, an identity BN branch, then the activation.
 :meth:`RepVGG.reparametrize` folds every block in place into one biased 3x3 conv, as
-original Holocron does. ``state_dict`` keys follow original Holocron:
-``features.{s}.{j}.branches.{0,1,2}`` in train form, ``features.{s}.{j}.branches``
-(a biased conv) in deploy form, and ``head.*``.
+original Holocron does, and on request the stem into its space-to-depth form (a 2x2
+stride-1 conv over 4x the channels, the JAX package's ``s2d_stem`` / ``s2d_input``).
+``state_dict`` keys follow original Holocron: ``features.{s}.{j}.branches.{0,1,2}`` in
+train form, ``features.{s}.{j}.branches`` (a biased conv) in deploy form, and ``head.*``.
 """
 
 from enum import Enum
@@ -19,7 +20,7 @@ from torch.nn import functional as F
 from ...nn.init import kaiming_normal_, lecun_normal_
 from ..layers import BatchNorm2d
 from ..checkpoints import Checkpoint
-from ..utils import _checkpoint, _pretrained, fuse_conv_bn
+from ..utils import _checkpoint, _pretrained, fold_s2d_kernel, fuse_conv_bn, space_to_depth_padded
 
 __all__ = [
     "RepBlock",
@@ -41,7 +42,16 @@ __all__ = [
 
 
 class RepBlock(nn.Module):
-    """One RepVGG block (``repvgg.py:43-114``)."""
+    """One RepVGG block (``repvgg.py:43-114``).
+
+    ``s2d`` (deploy form only, set by :meth:`RepVGG.reparametrize`): the block's conv is
+    the 2x2 stride-1 fold of its 3x3 stride-2 one (:func:`fold_s2d_kernel`) over the
+    space-to-depth(2) input, padded by one zero row and column on top and left: the same
+    sums over 4x the input channels. ``s2d_input`` (with ``s2d``): the input is already
+    rearranged, ``(N, 4C, H/2, W/2)`` in
+    :func:`~holocron_tpu_torch.nn.functional.concat_downsample2d`'s channel order
+    (:func:`~holocron_tpu_torch.transforms.functional.space_to_depth_batch` on the host).
+    """
 
     def __init__(
         self,
@@ -63,9 +73,22 @@ class RepBlock(nn.Module):
             branches.append(BatchNorm2d(planes))
         self.branches: nn.Module = nn.ModuleList(branches)
         self.activation = act_layer or F.relu
+        self.s2d = self.s2d_input = False
+
+    def _s2d_padded(self, x: torch.Tensor) -> torch.Tensor:
+        """The folded conv's input: ``x`` rearranged (unless ``s2d_input``) and padded on
+        top and left, NCHW in the channels-last memory format."""
+        if self.s2d_input:
+            if x.shape[1] % 4:
+                raise ValueError("s2d_input expects a space-to-depth(2) batch (channels % 4 == 0)")
+        elif self.stride != 2 or x.shape[2] % 2 or x.shape[3] % 2:
+            raise ValueError("s2d deploy form requires stride 2 and even input H/W")
+        return space_to_depth_padded(x.permute(0, 2, 3, 1), s2d=not self.s2d_input).permute(0, 3, 1, 2)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not isinstance(self.branches, nn.ModuleList):  # deploy form: one conv (float or int8)
+            if self.s2d:
+                x = self._s2d_padded(x)
             return self.activation(self.branches(x))
         out = self.branches[0](x) + self.branches[1](x)
         if len(self.branches) == 3:
@@ -94,6 +117,21 @@ class RepBlock(nn.Module):
         conv.weight.copy_(weight)
         conv.bias.copy_(bias)
         self.branches = conv
+
+    @torch.no_grad()
+    def fold_s2d(self, s2d_input: bool = False) -> None:
+        """Replaces the deploy conv (3x3, stride 2, pad 1) by its space-to-depth fold,
+        a biased 2x2 stride-1 conv over 4x the channels (``repvgg.py:221-226``)."""
+        conv = self.branches
+        if isinstance(conv, nn.ModuleList):
+            raise AssertionError("reparametrize the block first")
+        if conv.kernel_size != (3, 3) or conv.stride != (2, 2) or conv.padding != (1, 1):
+            raise ValueError("s2d deploy form requires stride 2 and even input H/W")
+        folded = nn.Conv2d(4 * conv.in_channels, conv.out_channels, 2, 1, 0, bias=True,
+                           device=conv.weight.device, dtype=conv.weight.dtype)
+        folded.weight.copy_(fold_s2d_kernel(conv.weight))
+        folded.bias.copy_(conv.bias)
+        self.branches, self.s2d, self.s2d_input = folded, True, s2d_input
 
 
 class RepVGG(nn.Module):
@@ -146,11 +184,20 @@ class RepVGG(nn.Module):
         x = x.mean(dim=(2, 3))  # GlobalAvgPool2d(flatten=True)
         return self.head(x)
 
-    def reparametrize(self) -> "RepVGG":
-        """Folds every block into its deploy form, in place (``repvgg.py:205-239``)."""
+    def reparametrize(self, s2d_stem: bool = False, s2d_input: bool = False) -> "RepVGG":
+        """Folds every block into its deploy form, in place (``repvgg.py:205-239``).
+
+        ``s2d_stem=True`` also folds the stem into its space-to-depth form
+        (:meth:`RepBlock.fold_s2d`): the same logits, its conv ``(O, 12, 2, 2)``.
+        ``s2d_input=True`` (implies ``s2d_stem``) makes the model take a batch already
+        rearranged on the host, ``(N, 12, H/2, W/2)``
+        (:func:`~holocron_tpu_torch.transforms.functional.space_to_depth_batch`).
+        """
         for module in self.modules():
             if isinstance(module, RepBlock):
                 module.reparametrize()
+        if s2d_stem or s2d_input:
+            self.features[0][0].fold_s2d(s2d_input)
         return self
 
 

@@ -64,6 +64,7 @@ def deploy_forward(
     image_size: int = 224,
     mean_std: Optional[MeanStd] = None,
     forward: Optional[Callable[[torch.Tensor], Outputs]] = None,
+    input_shape: Optional[Tuple[int, int, int]] = None,
 ) -> Callable[[torch.Tensor], Outputs]:
     """Returns the forward of ``model`` (eval or deploy form, already reparametrized or
     quantized; its forward is taken as it is) for batches of up to ``max(buckets)``.
@@ -78,6 +79,9 @@ def deploy_forward(
       its device, with no host sync: e.g. a detector's raw forward followed by
       ``post_process``) returns, a tensor or a tuple, list or dict of tensors whose first
       dimension is the batch.
+
+    ``input_shape``: the ``(C, H, W)`` of a sample in the last two forms, where it is not
+    ``(3, image_size, image_size)`` (RepVGG's ``s2d_input`` form takes ``(12, H/2, W/2)``).
 
     It runs where the model's parameters lie. On the card each bucket is captured once as a CUDA graph after :data:`WARMUP` forwards on a side stream (cuDNN's
     autotuning runs there, never inside a capture), so the graph runs the kernels, and
@@ -101,7 +105,7 @@ def deploy_forward(
         raise ValueError(f"the model's parameters lie on {device}, neither a CUDA device nor the CPU")
     if mean_std is None:
         fn = model if forward is None else forward
-        shape = (3, image_size, image_size)
+        shape = tuple(input_shape) if input_shape is not None else (3, image_size, image_size)
     else:
         mean, std = (torch.tensor(v, dtype=torch.float32, device=device).reshape(1, -1, 1, 1) for v in mean_std)
         fn = functools.partial(softmax_forward, model, mean=mean, std=std)

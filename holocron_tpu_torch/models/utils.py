@@ -26,7 +26,8 @@ from .checkpoints import (Checkpoint, Dataset, Evaluation, LoadingMeta, Metric, 
                           _handle_legacy_pretrained)
 from .presets import IMAGENET, IMAGENETTE
 
-__all__ = ["ConvSequence", "conv_sequence", "fuse_conv_bn", "load_pretrained_params", "model_from_hf_hub"]
+__all__ = ["ConvSequence", "conv_sequence", "fold_s2d_kernel", "fuse_conv_bn", "load_pretrained_params",
+           "model_from_hf_hub", "space_to_depth_padded"]
 
 logger = logging.getLogger(__name__)
 
@@ -116,6 +117,61 @@ def fuse_conv_bn(
         fused_bias = fused_bias + scale_factor * conv_bias
     fused_weight = weight * scale_factor.reshape(-1, *([1] * (weight.ndim - 1)))
     return fused_weight, fused_bias
+
+
+def fold_s2d_kernel(k3: torch.Tensor) -> torch.Tensor:
+    """Folds an OIHW ``(O, C, 3, 3)`` stride-2 pad-1 kernel into the equivalent
+    ``(O, 4C, 2, 2)`` stride-1 kernel over the space-to-depth(2) input
+    (``holocron_tpu/models/utils.py:188-214``, there in HWIO).
+
+    Output pixel ``(i, j)`` reads ``x[2i + d - 1]`` for ``d`` in ``{0, 1, 2}``; writing
+    ``2i + d - 1 = 2(i - 1 + u) + a`` gives ``(u, a) = (0, 1)`` for ``d = 0`` and ``(1,
+    d - 1)`` otherwise: a 2x2 window over ``z[(a, b, c), p, q] = x[c, 2p + a, 2q + b]``
+    (:func:`~holocron_tpu_torch.nn.functional.concat_downsample2d`'s channel order) with
+    one zero row and column on top and left (:func:`space_to_depth_padded`). The unused
+    ``(u = 0, a = 0)`` taps stay zero, so an integer kernel folds bit for bit."""
+    o, c = k3.shape[:2]
+    k2 = k3.new_zeros((o, 4 * c, 2, 2))
+    for di in range(3):
+        u, a = (0, 1) if di == 0 else (1, di - 1)
+        for dj in range(3):
+            v, b = (0, 1) if dj == 0 else (1, dj - 1)
+            ch = (a * 2 + b) * c
+            k2[:, ch : ch + c, u, v] = k3[:, :, di, dj]
+    return k2
+
+
+def space_to_depth_padded(x: torch.Tensor, s2d: bool = True, pitch: Optional[int] = None) -> torch.Tensor:
+    """The input of a folded 2x2 stride-1 conv (:func:`fold_s2d_kernel`): NHWC ``x`` as
+    ``(N, H/2 + 1, W/2 + 1, 4C)``, space-to-depth(2) in
+    :func:`~holocron_tpu_torch.nn.functional.concat_downsample2d`'s channel order, with a
+    zero row on top and a zero column on the left (``nn.Conv2d`` pads both sides alike),
+    written in one copy. ``s2d=False`` takes ``x`` as already rearranged ``(N, H/2, W/2,
+    4C)`` and only pads it. ``pitch``: the pixel pitch of the buffer, at least the
+    channels (the result is then the view of its first channels, zeros beyond them)."""
+    n, h, w, c = x.shape
+    if s2d:
+        h, w, c = h // 2, w // 2, 4 * c
+    pitch = pitch or c
+    buf = x.new_empty((n, h + 1, w + 1, pitch))
+    buf[:, 0].zero_()
+    buf[:, 1:, 0].zero_()
+    if pitch != c:
+        buf[:, 1:, 1:, c:].zero_()
+    dst, src = buf[:, 1:, 1:, :c], x
+    if s2d:
+        # z[n, p, q, (a, b, ch)] = x[n, 2p + a, 2q + b, ch]
+        dst, src = dst.unflatten(3, (2, 2, -1)), x.unflatten(1, (h, 2)).unflatten(3, (w, 2)).permute(0, 1, 3, 2, 4, 5)
+    # the runs of channels move as 8-, 4- or 2-byte words where their lengths, strides and
+    # offsets allow: a strided copy moves one element a thread (an int8 x_q a byte)
+    for word in (torch.int64, torch.int32, torch.int16):
+        k = word.itemsize // x.element_size()
+        if k > 1 and src.shape[-1] % k == 0 and src.stride(-1) == dst.stride(-1) == 1 and all(
+                v % k == 0 for t in (src, dst) for v in (*t.stride()[:-1], t.storage_offset())):
+            dst, src = dst.view(word), src.view(word)
+            break
+    dst.copy_(src)
+    return buf[..., :c]
 
 
 def _download_checkpoint(url: str, sha256: Optional[str] = None, progress: bool = True) -> Path:

@@ -11,6 +11,11 @@
   ``acc * (s_x * w_scale) + bias`` run in :func:`.kernels.int8_conv.quantized_conv` (two
   CUDA launches a layer on the card; the quantized activation lies at a 16-byte channel
   pitch, and the weights of every ungrouped conv are packed once per layer over it).
+- **s2d_strided** (opt-in, ``quant.py:213-257``): a 3x3 stride-2 pad-1 conv on an even
+  input runs as the 2x2 stride-1 conv of its folded kernel over the space-to-depth(2)
+  of ``x_q``, padded on top and left by one zero row and column in the same copy
+  (:func:`~holocron_tpu_torch.models.utils.space_to_depth_padded`): the same int32
+  accumulators, bit for bit, from a stride-1 conv over 4x the channels.
 
 :func:`quantize_model` copies a model and swaps each selected ``nn.Conv2d`` for a
 :class:`QuantizedConv2d`; architecture code has no quantized variant. The same convs
@@ -28,7 +33,8 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
-from .kernels.int8_conv import pack_weights, quantize_activation, quantized_conv
+from .kernels.int8_conv import channel_pitch, int8_conv, pack_weights, quantize_activation, quantized_conv
+from .models.utils import fold_s2d_kernel, space_to_depth_padded
 
 __all__ = [
     "QINT_MAX",
@@ -163,10 +169,34 @@ def calibrate(model: nn.Module, batches: Iterable[torch.Tensor]) -> Dict[str, fl
     return {path: float(v) for path, v in absmax.items()}
 
 
+def _s2d_eligible(kernel_q: torch.Tensor, stride, padding, dilation, groups: int) -> bool:
+    """A dense 3x3 stride-2 pad-1 conv has an exact 2x2 stride-1 form over the
+    space-to-depth input (``quant.py:213-226``), on an input of even H and W (which
+    :class:`QuantizedConv2d` checks a call)."""
+    return (
+        tuple(kernel_q.shape[:2]) == (3, 3)
+        and tuple(stride) == (2, 2)
+        and tuple(padding) == (1, 1)
+        and tuple(dilation) == (1, 1)
+        and groups == 1
+    )
+
+
+def _fold_hwio(kernel_q: torch.Tensor) -> torch.Tensor:
+    """:func:`fold_s2d_kernel` of an HWIO kernel, HWIO ``(2, 2, 4C, O)``."""
+    return fold_s2d_kernel(kernel_q.permute(3, 2, 0, 1)).permute(2, 3, 1, 0).contiguous()
+
+
 class QuantizedConv2d(nn.Module):
     """An ``nn.Conv2d`` computed as int8 x int8 -> int32 with a float epilogue
     (``_quantized_conv``, ``quant.py:228-274``). NCHW in and out; the output has the
     input's dtype.
+
+    ``s2d_strided``: where the conv is :func:`_s2d_eligible`, ``kernel_s2d_q`` is the
+    kernel folded once (HWIO ``(2, 2, 4C, O)``) and ``kernel_s2d_packed`` its packing over
+    the pitch of 4C (both non-persistent buffers, remade from ``kernel_q``); an input of
+    even H and W then goes through the folded conv (``quant.py:246-257``), an odd one
+    through the stride-2 conv.
 
     ``w_scale`` and ``act_scale`` belong to the int8 arithmetic and stay float32 when
     the module's float remainder (the bias) is cast, e.g. by ``.to(torch.bfloat16)``.
@@ -178,13 +208,18 @@ class QuantizedConv2d(nn.Module):
     """
 
     def __init__(
-        self, conv: nn.Conv2d, kernel_q: torch.Tensor, w_scale: torch.Tensor, act_absmax: Optional[float] = None
+        self, conv: nn.Conv2d, kernel_q: torch.Tensor, w_scale: torch.Tensor, act_absmax: Optional[float] = None,
+        s2d_strided: bool = False,
     ) -> None:
         super().__init__()
         self.stride, self.padding, self.dilation, self.groups = conv.stride, conv.padding, conv.dilation, conv.groups
+        self.s2d = s2d_strided and _s2d_eligible(kernel_q, self.stride, self.padding, self.dilation, self.groups)
         device = conv.weight.device
         self.register_buffer("kernel_q", kernel_q.to(device))
         self.register_buffer("kernel_packed", self._packed(), persistent=False)
+        self.register_buffer("kernel_s2d_q", None, persistent=False)
+        self.register_buffer("kernel_s2d_packed", None, persistent=False)
+        self._fold()
         self.register_buffer("w_scale", w_scale.to(device=device, dtype=torch.float32))
         act_scale = None
         if act_absmax is not None:
@@ -196,6 +231,11 @@ class QuantizedConv2d(nn.Module):
     def _packed(self) -> Optional[torch.Tensor]:
         return pack_weights(self.kernel_q) if self.groups == 1 else None
 
+    def _fold(self) -> None:
+        if self.s2d:
+            self.kernel_s2d_q = _fold_hwio(self.kernel_q)
+            self.kernel_s2d_packed = pack_weights(self.kernel_s2d_q)
+
     def _apply(self, fn, recurse=True):
         scales = {"w_scale": self.w_scale, "act_scale": self.act_scale}
         super()._apply(fn, recurse)
@@ -203,11 +243,13 @@ class QuantizedConv2d(nn.Module):
             if value is not None:
                 setattr(self, name, value.to(self.kernel_q.device))
         self.kernel_packed = self._packed()
+        self._fold()
         return self
 
     def _load_from_state_dict(self, *args, **kwargs):
         super()._load_from_state_dict(*args, **kwargs)
         self.kernel_packed = self._packed()  # kernel_q may have changed in place
+        self._fold()
 
     def activation_scale(self, x: torch.Tensor) -> torch.Tensor:
         """The scale ``x`` is quantized with: the calibrated one, or else ``x``'s own,
@@ -218,6 +260,13 @@ class QuantizedConv2d(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         s_x = self.activation_scale(x)
+        if self.s2d and x.shape[2] % 2 == 0 and x.shape[3] % 2 == 0:
+            # quant.py:246-257: x_q rearranged and padded in one copy, at the pitch of 4C
+            x_q = quantize_activation(x.permute(0, 2, 3, 1), s_x)
+            z = space_to_depth_padded(x_q, pitch=channel_pitch(4 * x_q.shape[-1]))
+            y = int8_conv(z, self.kernel_s2d_q, s_x, self.w_scale, self.bias, 1, 0, 1, 1, out_dtype=x.dtype,
+                          w_packed=self.kernel_s2d_packed)
+            return y.permute(0, 3, 1, 2)
         # NHWC: a free view when x is channels_last, as on the card
         y = quantized_conv(
             x.permute(0, 2, 3, 1), s_x, self.kernel_q, self.w_scale, self.bias,
@@ -232,15 +281,18 @@ class QuantizedModel(nn.Module):
     selected convs are :class:`QuantizedConv2d`. Built by :func:`quantize_model`;
     called like the model (eval forward)."""
 
-    def __init__(self, model: nn.Module, qparams: Dict[str, Dict[str, torch.Tensor]], act_scales: Optional[Dict[str, float]]):
+    def __init__(self, model: nn.Module, qparams: Dict[str, Dict[str, torch.Tensor]], act_scales: Optional[Dict[str, float]],
+                 s2d_strided: bool = False):
         super().__init__()
         self.act_scales = act_scales
+        self.s2d_strided = s2d_strided
         self.model = copy.deepcopy(model).eval()
         modules = dict(self.model.named_modules())
         for path, rec in qparams.items():
             parent_path, _, name = path.rpartition(".")
             absmax = None if act_scales is None else act_scales.get(path)
-            setattr(modules[parent_path], name, QuantizedConv2d(modules[path], rec["kernel_q"], rec["w_scale"], absmax))
+            setattr(modules[parent_path], name,
+                    QuantizedConv2d(modules[path], rec["kernel_q"], rec["w_scale"], absmax, s2d_strided))
 
     def forward(self, *args, **kwargs):
         return self.model(*args, **kwargs)
@@ -376,13 +428,16 @@ def quantize_model(
     min_in_channels: Optional[int] = None,
     arch: Optional[str] = None,
     quantize_strided: Optional[bool] = None,
+    s2d_strided: Optional[bool] = None,
 ) -> QuantizedModel:
     """Post-training-quantizes ``model`` for int8 inference (``quant.py:535-629``).
 
     Convs with fewer input channels than ``min_in_channels`` stay float. When it is
     None, the per-arch policy's value applies if ``arch`` has one, else 64. When
     ``quantize_strided`` is False only stride-1 convs are int8 (None: the policy's
-    value, else True).
+    value, else True). ``s2d_strided`` runs each selected 3x3 stride-2 conv as its exact
+    space-to-depth form (:class:`QuantizedConv2d`); None: the policy's ``s2d_strided``
+    field, else off (no arch has one).
 
     Args:
         model: a model, reparametrized first where it supports it (BN folding
@@ -412,4 +467,6 @@ def quantize_model(
     ]
     qparams = quantize_conv_params(model, paths)
     act_scales = calibrate(model, calibration_batches) if calibration_batches is not None else None
-    return QuantizedModel(model, qparams, act_scales)
+    if s2d_strided is None:
+        s2d_strided = bool(QUANT_POLICY.get(arch, {}).get("s2d_strided", False))
+    return QuantizedModel(model, qparams, act_scales, s2d_strided)

@@ -10,9 +10,12 @@ root of an extracted CIFAR archive. A folder of JPEGs is decoded natively (decod
 RandomResizedCrop and flip in C++, uint8 batches normalized on the device) where the
 native decoder builds, else with PIL, as the JAX CLI chooses. Batches come from
 ``torch.utils.data.DataLoader`` (``-j`` spawned worker processes); each image's recipe
-draws from ``(--seed, epoch, index)``, Mixup's from ``(--seed, epoch, worker)``. One
-device: ``--model-parallel``, ``--spatial-parallel`` and ``--shard-opt-state`` are
-accepted at their defaults only.
+draws from ``(--seed, epoch, index)``, Mixup's from ``(--seed, epoch, worker)``.
+Across processes (``torchrun``, one a device): the process group is joined from the
+environment first (``parallel.initialize``), each process trains on ``cuda:LOCAL_RANK``
+and on its own shard of both loaders (``num_shards="auto"``), W&B logs from rank 0, and
+``--shard-opt-state`` shards the optimizer state (ZeRO-1); ``--model-parallel`` and
+``--spatial-parallel`` are accepted at 1 only.
 """
 
 import argparse
@@ -231,9 +234,9 @@ def main(args):
     evaluates) as ``train.py:179-307`` does; returns the trainer (None after
     ``--find-size``)."""
     print(args)  # noqa: T201
-    for flag, default in (("model_parallel", 1), ("spatial_parallel", 1), ("shard_opt_state", False)):
-        if getattr(args, flag) != default:
-            raise NotImplementedError(f"--{flag.replace('_', '-')}: the port trains on one device")
+    for flag in ("model_parallel", "spatial_parallel"):
+        if getattr(args, flag) != 1:
+            raise NotImplementedError(f"--{flag.replace('_', '-')}: not ported yet (data parallelism only)")
 
     tracker = None
     if args.codecarbon:
@@ -248,19 +251,21 @@ def main(args):
     import torch
 
     from holocron_tpu_torch.models import classification
+    from holocron_tpu_torch.parallel import initialize, local_device, rank
     from holocron_tpu_torch.trainer import ClassificationTrainer
     from holocron_tpu_torch.utils.data import EpochDataLoader, default_collate
 
-    device = torch.device(args.device)
+    initialize(args.device)
+    device = local_device(args.device)
     train_set, val_set, classes, train_collate, val_collate, input_norm = build_datasets(args)
     num_classes = args.num_classes or len(classes)
     collate = train_collate or default_collate
     if args.mixup_alpha > 0:
         collate = MixupCollate(collate, num_classes, args.mixup_alpha, args.seed)
     train_loader = EpochDataLoader(train_set, args.batch_size, shuffle=True, seed=args.seed, drop_last=True,
-                                   collate_fn=collate, num_workers=args.workers)
+                                   collate_fn=collate, num_workers=args.workers, num_shards="auto")
     val_loader = EpochDataLoader(val_set, args.batch_size, collate_fn=val_collate or default_collate,
-                                 num_workers=args.workers)
+                                 num_workers=args.workers, num_shards="auto")
     print(f"Decoding with {'the native decoder' if train_collate is not None else 'PIL'}"  # noqa: T201
           if args.data_path != "fake" else "Synthetic data")
 
@@ -286,6 +291,7 @@ def main(args):
         gradient_acc=args.grad_acc,
         gradient_clip=args.grad_clip,
         input_norm=input_norm,
+        shard_opt_state=args.shard_opt_state,
     )
     if args.resume:
         print(f"Resuming {args.resume}")  # noqa: T201
@@ -310,7 +316,7 @@ def main(args):
         return trainer
 
     run = None
-    if args.wb:
+    if args.wb and rank() == 0:
         try:
             import wandb
         except ImportError:
@@ -348,9 +354,10 @@ def parse_args(argv: Optional[List[str]] = None):
     group = parser.add_argument_group("Hardware")
     group.add_argument("--amp", help="use bf16 mixed precision", action="store_true")
     group.add_argument("--device", default="cuda", type=str, help="where to train: cuda (the card) or cpu")
-    group.add_argument("--model-parallel", default=1, type=int, help="only 1: one device")
-    group.add_argument("--spatial-parallel", default=1, type=int, help="only 1: one device")
-    group.add_argument("--shard-opt-state", action="store_true", help="not supported: one device")
+    group.add_argument("--model-parallel", default=1, type=int, help="only 1: tensor parallelism is not ported")
+    group.add_argument("--spatial-parallel", default=1, type=int, help="only 1: spatial parallelism is not ported")
+    group.add_argument("--shard-opt-state", action="store_true",
+                        help="ZeRO-1: each process keeps the optimizer state of its share of the parameters")
 
     group = parser.add_argument_group("Data loading")
     group.add_argument("--seed", default=0, type=int,

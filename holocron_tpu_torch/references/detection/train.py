@@ -11,8 +11,12 @@ runs on the CPU) and ``--seed``. ``data_path`` is ``fake`` (synthetic data) or a
 images resized to ``--img-size`` with their boxes, flipped at random for training,
 normalized on the host. Batches come from ``torch.utils.data.DataLoader`` (``-j``
 spawned worker processes); each training image's flip draws from ``(--seed, epoch,
-index)``. One device: ``--model-parallel``, ``--spatial-parallel`` and
-``--shard-opt-state`` are accepted at their defaults only.
+index)``.
+Across processes (``torchrun``, one a device): the process group is joined from the
+environment first (``parallel.initialize``), each process trains on ``cuda:LOCAL_RANK``
+and on its own shard of both loaders (``num_shards="auto"``), W&B logs from rank 0, and
+``--shard-opt-state`` shards the optimizer state (ZeRO-1); ``--model-parallel`` and
+``--spatial-parallel`` are accepted at 1 only.
 """
 
 import argparse
@@ -118,22 +122,25 @@ def main(args):
     """Trains (or finds the learning rate, overfits a batch, evaluates) as
     ``train.py:76-164`` does; returns the trainer."""
     print(args)  # noqa: T201
-    for flag, default in (("model_parallel", 1), ("spatial_parallel", 1), ("shard_opt_state", False)):
-        if getattr(args, flag) != default:
-            raise NotImplementedError(f"--{flag.replace('_', '-')}: the port trains on one device")
+    for flag in ("model_parallel", "spatial_parallel"):
+        if getattr(args, flag) != 1:
+            raise NotImplementedError(f"--{flag.replace('_', '-')}: not ported yet (data parallelism only)")
 
     import torch
 
     from holocron_tpu_torch.models import detection
+    from holocron_tpu_torch.parallel import initialize, local_device, rank
     from holocron_tpu_torch.trainer import DetectionTrainer
     from holocron_tpu_torch.utils.data import EpochDataLoader, default_collate
 
-    device = torch.device(args.device)
+    initialize(args.device)
+    device = local_device(args.device)
     train_set, val_set = build_datasets(args)
     train_loader = EpochDataLoader(train_set, args.batch_size, shuffle=True, seed=args.seed, drop_last=True,
                                    collate_fn=partial(train_collate, max_boxes=args.max_boxes),
-                                   num_workers=args.workers)
-    val_loader = EpochDataLoader(val_set, args.batch_size, collate_fn=default_collate, num_workers=args.workers)
+                                   num_workers=args.workers, num_shards="auto")
+    val_loader = EpochDataLoader(val_set, args.batch_size, collate_fn=default_collate, num_workers=args.workers,
+                                 num_shards="auto")
 
     kwargs = {"input_shape": (3, args.img_size, args.img_size)} if args.arch == "yolov1" else {}
     model = detection.__dict__[args.arch](pretrained=args.pretrained, pretrained_backbone=args.pretrained_backbone,
@@ -159,6 +166,7 @@ def main(args):
         amp=args.amp,
         gradient_acc=args.grad_acc,
         gradient_clip=args.grad_clip,
+        shard_opt_state=args.shard_opt_state,
     )
     if args.resume:
         print(f"Resuming {args.resume}")  # noqa: T201
@@ -177,7 +185,7 @@ def main(args):
         return trainer
 
     run = None
-    if args.wb:
+    if args.wb and rank() == 0:
         import wandb
 
         run = wandb.init(name=args.name, project="holocron-tpu-detection", config=vars(args))
@@ -206,9 +214,10 @@ def parse_args(argv: Optional[List[str]] = None):
     parser.add_argument("--fake-samples", default=32, type=int)
     parser.add_argument("--amp", action="store_true")
     parser.add_argument("--device", default="cuda", type=str, help="where to train: cuda (the card) or cpu")
-    parser.add_argument("--model-parallel", default=1, type=int, help="only 1: one device")
-    parser.add_argument("--spatial-parallel", default=1, type=int, help="only 1: one device")
-    parser.add_argument("--shard-opt-state", action="store_true", help="not supported: one device")
+    parser.add_argument("--model-parallel", default=1, type=int, help="only 1: tensor parallelism is not ported")
+    parser.add_argument("--spatial-parallel", default=1, type=int, help="only 1: spatial parallelism is not ported")
+    parser.add_argument("--shard-opt-state", action="store_true",
+                        help="ZeRO-1: each process keeps the optimizer state of its share of the parameters")
     parser.add_argument("--seed", default=0, type=int, help="the shuffle, the flips and the weights")
     parser.add_argument("-b", "--batch-size", default=8, type=int)
     parser.add_argument("-j", "--workers", default=8, type=int, help="number of loader worker processes")

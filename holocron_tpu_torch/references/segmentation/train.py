@@ -6,8 +6,12 @@
 The same arguments and defaults, and ``--device`` (default ``cuda``; ``cpu`` runs on
 the CPU). ``fake`` as ``data_path`` trains on synthetic data; a real dataset lies as
 ``<root>/{train,val}/images/*`` and ``<root>/{train,val}/masks/*`` (palette masks of
-class indices, 255 ignored). One device: ``--model-parallel``, ``--spatial-parallel``
-and ``--shard-opt-state`` are accepted at their defaults only.
+class indices, 255 ignored).
+Across processes (``torchrun``, one a device): the process group is joined from the
+environment first (``parallel.initialize``), each process trains on ``cuda:LOCAL_RANK``
+and on its own shard of both loaders (``num_shards="auto"``), W&B logs from rank 0, and
+``--shard-opt-state`` shards the optimizer state (ZeRO-1); ``--model-parallel`` and
+``--spatial-parallel`` are accepted at 1 only.
 """
 
 import argparse
@@ -107,22 +111,30 @@ def main(args):
     """Trains (or sweeps the learning rate, overfits a batch, evaluates) as
     ``train.py:53-158`` does; returns the trainer."""
     print(args)  # noqa: T201
-    for flag, default in (("model_parallel", 1), ("spatial_parallel", 1), ("shard_opt_state", False)):
-        if getattr(args, flag) != default:
-            raise NotImplementedError(f"--{flag.replace('_', '-')}: the port trains on one device")
+    for flag in ("model_parallel", "spatial_parallel"):
+        if getattr(args, flag) != 1:
+            raise NotImplementedError(f"--{flag.replace('_', '-')}: not ported yet (data parallelism only)")
 
     import torch
 
     from holocron_tpu_torch.models import segmentation
+    from holocron_tpu_torch.parallel import initialize, local_device, rank, world_size
     from holocron_tpu_torch.trainer import SegmentationTrainer
+    from holocron_tpu_torch.utils.data import ShardSampler
 
-    device = torch.device(args.device)
+    initialize(args.device)
+    device = local_device(args.device)
     train_set, val_set = build_datasets(args)
     # spawned workers: the process may hold the card, which forked ones must not touch
     loader_kw = ({"num_workers": args.workers, "multiprocessing_context": "spawn", "persistent_workers": True}
                  if args.workers > 0 else {})
-    train_loader = torch.utils.data.DataLoader(train_set, args.batch_size, shuffle=True, drop_last=True, **loader_kw)
-    val_loader = torch.utils.data.DataLoader(val_set, args.batch_size, **loader_kw)
+    # each process takes its shard of one permutation, seeded as the JAX loader's default
+    # (seed 0) at every world size, so that N processes reproduce one
+    train_sampler = ShardSampler(len(train_set), world_size(), rank(), torch.Generator().manual_seed(0))
+    val_sampler = ShardSampler(len(val_set), world_size(), rank())
+    train_loader = torch.utils.data.DataLoader(train_set, args.batch_size, sampler=train_sampler, drop_last=True,
+                                               **loader_kw)
+    val_loader = torch.utils.data.DataLoader(val_set, args.batch_size, sampler=val_sampler, **loader_kw)
 
     model = segmentation.__dict__[args.arch](pretrained=args.pretrained, num_classes=args.num_classes, device=device)
     if args.pretrained and not model.pretrained_loaded:
@@ -144,6 +156,7 @@ def main(args):
         amp=args.amp,
         gradient_acc=args.grad_acc,
         num_classes=args.num_classes,
+        shard_opt_state=args.shard_opt_state,
     )
     if args.resume:
         trainer.load(args.resume)
@@ -161,7 +174,7 @@ def main(args):
         return trainer
 
     run = None
-    if args.wb:
+    if args.wb and rank() == 0:
         import wandb
 
         run = wandb.init(name=args.name, project="holocron-tpu-segmentation", config=vars(args))
@@ -189,9 +202,10 @@ def parse_args(argv: Optional[List[str]] = None):
     parser.add_argument("--fake-samples", default=64, type=int)
     parser.add_argument("--amp", action="store_true")
     parser.add_argument("--device", default="cuda", type=str, help="where to train: cuda (the card) or cpu")
-    parser.add_argument("--model-parallel", default=1, type=int, help="only 1: one device")
-    parser.add_argument("--spatial-parallel", default=1, type=int, help="only 1: one device")
-    parser.add_argument("--shard-opt-state", action="store_true", help="not supported: one device")
+    parser.add_argument("--model-parallel", default=1, type=int, help="only 1: tensor parallelism is not ported")
+    parser.add_argument("--spatial-parallel", default=1, type=int, help="only 1: spatial parallelism is not ported")
+    parser.add_argument("--shard-opt-state", action="store_true",
+                        help="ZeRO-1: each process keeps the optimizer state of its share of the parameters")
     parser.add_argument("-b", "--batch-size", default=16, type=int)
     parser.add_argument("-j", "--workers", default=8, type=int)
     parser.add_argument("--crop-size", default=256, type=int)

@@ -1,4 +1,4 @@
-"""Trainers (``holocron_tpu/trainer``), on one device."""
+"""Trainers (``holocron_tpu/trainer``), one device a process."""
 
 from .classification import BinaryClassificationTrainer, ClassificationTrainer
 from .core import Trainer

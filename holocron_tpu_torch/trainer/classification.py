@@ -19,11 +19,13 @@ class ClassificationTrainer(Trainer):
     @torch.no_grad()
     def evaluate(self) -> Dict[str, float]:
         """Top-1 and top-5 accuracy (k clamped to the class count) and the mean loss
-        over the batches whose loss is finite (``classification.py:23-49``)."""
+        over the batches whose loss is finite (``classification.py:23-49``). Across
+        processes each batch is every process's, gathered (``_host_batch``)."""
         val_loss, top1, top5, num_samples, num_valid_batches = 0.0, 0, 0, 0, 0
         for x, target in self.val_loader:
-            out = self._eval_forward(x)
-            target = target.to(self.device)
+            bs = int(x.shape[0])
+            out = self._host_batch(self._eval_forward(x), bs)
+            target = self._host_batch(target.to(self.device), bs)
             loss = float(self.criterion(out, target))
             if math.isfinite(loss):
                 val_loss += loss
@@ -106,9 +108,12 @@ class ClassificationTrainer(Trainer):
         **kwargs: Any,
     ) -> None:
         """Shows the samples of :meth:`top_losses` with their loss, prediction and
-        target (``classification.py:84-158``); ``kwargs`` go to ``plt.show``."""
+        target (``classification.py:84-158``); ``kwargs`` go to ``plt.show``. One process
+        only: each process holds its own shard's images."""
         if not self.is_binary and classes is None:
             raise AssertionError("arg 'classes' must be specified for multi-class classification")
+        if self.world_size > 1:
+            raise NotImplementedError("plot_top_losses is a single-host visualization utility")
         top = self.top_losses(mean, std, num_samples)
 
         import matplotlib.pyplot as plt
@@ -146,8 +151,9 @@ class BinaryClassificationTrainer(ClassificationTrainer):
         (``classification.py:156-171``)."""
         val_loss, top1, num_samples, num_valid_batches = 0.0, 0.0, 0, 0
         for x, target in self.val_loader:
-            out = self._eval_forward(x)
-            target = target.to(self.device).to(out.dtype).reshape(out.shape)
+            bs = int(x.shape[0])
+            out = self._host_batch(self._eval_forward(x), bs)
+            target = self._host_batch(target.to(self.device), bs).to(out.dtype).reshape(out.shape)
             loss = float(self.criterion(out, target))
             if math.isfinite(loss):
                 val_loss += loss

@@ -1,4 +1,4 @@
-"""The training engine on one device: the port of ``holocron_tpu/trainer/core.py``.
+"""The training engine, one device a process: the port of ``holocron_tpu/trainer/core.py``.
 
 The JAX trainer compiles one step (forward, loss, gradients, clip, accumulation,
 update, BN statistics) and wraps its optimizer in optax transforms. The port runs the
@@ -32,6 +32,20 @@ products alone (``jax.checkpoint_policies.dots_saveable``, through
 running statistics (they move once a step, as without ``remat``) and draws the same
 random masks: checkpointing restores the global generators, and the explicit
 ``generator`` of a module (ConvNeXt's stochastic depth) is replayed too.
+
+Data parallelism across processes (the JAX trainer's mesh over hosts): with a process
+group joined (:func:`~holocron_tpu_torch.parallel.initialize`), each process trains on
+its own shard of every batch (``EpochDataLoader(num_shards="auto")``). The parameters
+and buffers start from rank 0's; the gradients are averaged over the processes right
+after the backward, in buckets of all-reduces (``_all_reduce_grads``), before
+accumulation, clipping and the non-finite check, so every process takes the same
+update and the same skip decision; with more than one process each batch norm takes its
+statistics over the global batch (:class:`~holocron_tpu_torch.parallel.CrossProcessBatchNorm2d`),
+as the JAX step does. DDP's reducer is not used: its hooks fire through the wrapper's
+``forward`` and ``loss.backward()``, which the step (``functional_call`` under amp,
+``checkpoint`` under remat, ``torch.autograd.grad``) does not go through.
+``shard_opt_state`` (ZeRO-1): each process keeps the optimizer state of its partition
+of the parameters only, steps it, and broadcasts the updated parameters.
 """
 
 import contextlib
@@ -47,7 +61,10 @@ from torch import profiler
 from torch.profiler import record_function
 from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts
 
+from torch import distributed as dist
+
 from ..optim.schedules import constant_schedule, cosine_decay_schedule, cosine_onecycle_schedule
+from ..parallel.batchnorm import convert_batchnorm
 from ..utils.data.loader import prefetch
 from ._progress import ProgressBar
 from .utils import freeze_bn, freeze_model, split_normalization_params
@@ -55,6 +72,7 @@ from .utils import freeze_bn, freeze_model, split_normalization_params
 __all__ = ["Trainer"]
 
 REMAT_MODES = (False, True, "full", "dots")
+BUCKET_BYTES = 25 * 2**20  # the gradients all-reduced in one call (DDP's default bucket)
 # the ops whose outputs "dots" keeps: what dots_saveable keeps (dot_general and
 # conv_general_dilated), as they reach the dispatcher below autograd
 DOTS_SAVEABLE = (torch.ops.aten.convolution.default, torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
@@ -117,7 +135,7 @@ class _GeneratorReplay:
 
 
 class Trainer:
-    """Baseline trainer (``core.py:38-139``), on one device.
+    """Baseline trainer (``core.py:38-139``), one device a process.
 
     Args:
         model: the model to train; it is moved to ``device``
@@ -139,6 +157,9 @@ class Trainer:
         input_norm: ``(mean, std)``; uint8 batches are normalized on the device inside
             the step, ``(x / 255 - mean) / std`` per channel; float batches pass as they are
         remat: ``False``, ``True`` / ``"full"`` or ``"dots"`` (see the module docstring)
+        model_parallel, spatial_parallel: tensor and spatial
+            parallelism, accepted at 1 only (not ported yet)
+        shard_opt_state: ZeRO-1 across the processes (see the module docstring)
     """
 
     def __init__(
@@ -158,12 +179,30 @@ class Trainer:
         on_epoch_end: Optional[Callable[[Dict[str, float]], Any]] = None,
         input_norm: Optional[Tuple[Sequence[float], Sequence[float]]] = None,
         remat: Union[bool, str] = False,
+        model_parallel: int = 1,
+        spatial_parallel: int = 1,
+        shard_opt_state: bool = False,
     ) -> None:
         if remat not in REMAT_MODES:
             raise ValueError(f"remat must be False, True/'full', or 'dots', got {remat!r}")
+        if model_parallel != 1:
+            raise NotImplementedError(f"model_parallel={model_parallel}: tensor parallelism "
+                                      "(holocron_tpu/parallel/inference.py) is not ported yet")
+        if spatial_parallel != 1:
+            raise NotImplementedError(f"spatial_parallel={spatial_parallel}: spatial parallelism "
+                                      "(holocron_tpu/parallel/spatial.py) is not ported yet")
         self.remat = remat
+        self.shard_opt_state = shard_opt_state
+        self.distributed = dist.is_available() and dist.is_initialized()
+        self.world_size = dist.get_world_size() if self.distributed else 1
+        self.rank = dist.get_rank() if self.distributed else 0
         self.device = torch.device(device)
         self.model = model.to(self.device)
+        if self.world_size > 1:
+            convert_batchnorm(self.model)
+            with torch.no_grad():  # every process starts from rank 0's weights, as DDP does
+                for t in [*self.model.parameters(), *self.model.buffers()]:
+                    dist.broadcast(t, 0)
         self.train_loader = train_loader
         self.val_loader = val_loader
         self.criterion = criterion
@@ -202,17 +241,91 @@ class Trainer:
         self._acc: List[torch.Tensor] = []
         self._mini_step = 0
         self._notfinite = 0
+        self._owned: List[List[torch.Tensor]] = []  # ZeRO-1: the trainable parameters each rank steps
+
+    # ------------------------------------------------------------------
+    # processes (``core.py:250-271``)
+    # ------------------------------------------------------------------
+    def _host_batch(self, arr: torch.Tensor, bs: int) -> torch.Tensor:
+        """The real rows of every process's eval batch, in rank order, on the device
+        (``core.py:250-271``): ``arr[:bs]`` with one process, else an all-gather of each
+        rank's first ``bs`` rows (their counts gathered first), so that every process
+        computes the same metrics over the whole validation view. A collective: every
+        process calls it in lockstep."""
+        arr = arr[:bs]
+        if self.world_size == 1:
+            return arr
+        arr = arr.to(self.device).contiguous()
+        sizes = [torch.zeros(1, dtype=torch.int64, device=self.device) for _ in range(self.world_size)]
+        dist.all_gather(sizes, torch.tensor([arr.shape[0]], dtype=torch.int64, device=self.device))
+        sizes = [int(n) for n in torch.cat(sizes).tolist()]
+        padded = arr.new_zeros((max(sizes), *arr.shape[1:]))
+        padded[: arr.shape[0]] = arr
+        parts = [torch.empty_like(padded) for _ in sizes]
+        dist.all_gather(parts, padded)
+        return torch.cat([p[:n] for p, n in zip(parts, sizes)])
+
+    def _all_reduce_grads(self, grads: Sequence[torch.Tensor]) -> None:
+        """Averages ``grads`` over the processes in place: the gradients flattened into
+        buckets of up to :data:`BUCKET_BYTES` a dtype, one all-reduce (sum) a bucket,
+        divided by the world size. With one process the result is the input, bit for
+        bit."""
+        buckets: Dict[torch.dtype, List[List[torch.Tensor]]] = {}
+        for g in grads:
+            runs = buckets.setdefault(g.dtype, [[]])
+            if runs[-1] and sum(t.numel() for t in runs[-1]) * g.element_size() + g.nbytes > BUCKET_BYTES:
+                runs.append([])
+            runs[-1].append(g)
+        for runs in buckets.values():
+            for bucket in runs:
+                flat = torch.cat([g.reshape(-1) for g in bucket])
+                dist.all_reduce(flat)
+                flat.div_(self.world_size)
+                for g, piece in zip(bucket, flat.split([g.numel() for g in bucket])):
+                    g.copy_(piece.view(g.shape))
+
+    def _partition(self, params: Sequence[torch.Tensor]) -> List[List[torch.Tensor]]:
+        """ZeRO-1's partition of ``params`` over the ranks: largest first, each to the
+        rank holding the fewest elements so far (the same on every process)."""
+        owned: List[List[torch.Tensor]] = [[] for _ in range(self.world_size)]
+        load = [0] * self.world_size
+        for p in sorted(params, key=lambda p: -p.numel()):
+            r = load.index(min(load))
+            owned[r].append(p)
+            load[r] += p.numel()
+        return owned
+
+    def _broadcast_owned(self) -> None:
+        """ZeRO-1: each rank's updated parameters sent to the others, one broadcast a
+        rank (the parameters flattened)."""
+        for src, params in enumerate(self._owned):
+            if not params:
+                continue
+            if src == self.rank:
+                flat = torch.cat([p.detach().reshape(-1) for p in params])
+            else:
+                flat = params[0].new_empty(sum(p.numel() for p in params))
+            dist.broadcast(flat, src)
+            if src != self.rank:
+                for p, piece in zip(params, flat.split([p.numel() for p in params])):
+                    p.data.copy_(piece.view(p.shape))
 
     # ------------------------------------------------------------------
     # checkpointing
     # ------------------------------------------------------------------
     def save(self, output_file: str) -> None:
         """Saves ``{epoch, step, min_loss, model}`` (the model's ``state_dict``) with
-        ``torch.save`` (``core.py:277-310``)."""
-        path = Path(output_file)
-        path.parent.mkdir(parents=True, exist_ok=True)
-        state = {"epoch": self.epoch, "step": self.step, "min_loss": self.min_loss, "model": self.model.state_dict()}
-        torch.save(state, path)
+        ``torch.save`` (``core.py:277-310``). Across processes every process calls it in
+        lockstep and rank 0 alone writes; the file holds the model, not the optimizer
+        state, as in the JAX package."""
+        if self.rank == 0:
+            path = Path(output_file)
+            path.parent.mkdir(parents=True, exist_ok=True)
+            state = {"epoch": self.epoch, "step": self.step, "min_loss": self.min_loss,
+                     "model": self.model.state_dict()}
+            torch.save(state, path)
+        if self.distributed:
+            dist.barrier()
 
     def load(self, state: Union[str, Path, Dict[str, Any]]) -> None:
         """Resumes from a state saved by :meth:`save` or its path (``core.py:312-327``)."""
@@ -261,7 +374,13 @@ class Trainer:
                 {"params": [p for n, p in trainable if n in self._norm_names], "weight_decay": norm_weight_decay},
             ]
             groups = [g for g in groups if g["params"]]
-        self._opt = self.optimizer(groups, lr=lr_or_schedule)
+        self._owned = []
+        if self.shard_opt_state and self.world_size > 1:
+            self._owned = self._partition([p for g in groups for p in g["params"]])
+            mine = {id(p) for p in self._owned[self.rank]}
+            groups = [g for g in ({**g, "params": [p for p in g["params"] if id(p) in mine]} for g in groups)
+                      if g["params"]]
+        self._opt = self.optimizer(groups, lr=lr_or_schedule) if groups else None
         self._acc = [torch.zeros_like(p) for p in self.model.parameters()] if self.gradient_acc > 1 else []
         self._mini_step = 0
         self._notfinite = 0
@@ -330,12 +449,16 @@ class Trainer:
         names, params = zip(*self.model.named_parameters())
         with record_function("train_step.backward"):
             grads = torch.autograd.grad(loss, params, allow_unused=True)
-        with torch.no_grad(), record_function("train_step.update"):
+        with torch.no_grad():
             for m, (mean, var) in zip(self._frozen_bn, frozen_stats):
                 m.running_mean.copy_(mean)
                 m.running_var.copy_(var)
             grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
-            self._apply_update(names, params, grads)
+            if self.world_size > 1:
+                with record_function("train_step.all_reduce"):
+                    self._all_reduce_grads(grads)
+            with record_function("train_step.update"):
+                self._apply_update(names, params, grads)
         return loss.detach()
 
     @torch.no_grad()
@@ -364,9 +487,12 @@ class Trainer:
             live = [(p, torch.where(keep, g, g / norm * self.grad_clip)) for p, g in live]
         for p, g in live:
             p.grad = g
-        self._opt.step()
+        if self._opt is not None:
+            self._opt.step()
         for p in params:
             p.grad = None
+        if self._owned:
+            self._broadcast_owned()
 
     def _run_step(self, x, target) -> float:
         return float(self._run_step_async(x, target))

@@ -8,6 +8,7 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+from torch import distributed as dist
 
 from ..ops.boxes import box_iou
 from .core import Trainer
@@ -39,7 +40,7 @@ def assign_iou(gt_boxes: np.ndarray, pred_boxes: np.ndarray, iou_threshold: floa
 
 
 class DetectionTrainer(Trainer):
-    """The object detection trainer (``detection.py:40-119``), on one device.
+    """The object detection trainer (``detection.py:40-119``).
 
     The model is a detector (``models.detection``): ``model(x, target)`` returns its
     loss dict, ``model(x)`` in eval mode its detections. The train loader yields ``(x,
@@ -69,8 +70,9 @@ class DetectionTrainer(Trainer):
         ``loc_err``, ``clf_err`` and ``det_err`` (None where their denominator is 0), and
         ``val_loss``, which is ``loc_err``. The detector's eval forward runs on the batch
         as given (a uint8 batch normalized by ``input_norm``), in float32 as the JAX
-        package's ``model(x)``. One process: the all-gather of the counters across hosts
-        is not ported."""
+        package's ``model(x)``. Across processes each evaluates its own shard and the six
+        counters are summed over them (``detection.py:105-113``), so every process returns
+        the same metrics."""
         self.model.eval()
         loc_assigns = correct = clf_error = loc_fn = loc_fp = num_samples = 0
         for x, target in self.val_loader:
@@ -91,6 +93,11 @@ class DetectionTrainer(Trainer):
                 loc_fp += d_boxes.shape[0] - len(pred_indices)
             num_samples += sum(np.asarray(t["boxes"]).shape[0] for t in target)
 
+        if self.world_size > 1:
+            counters = torch.tensor([loc_assigns, correct, clf_error, loc_fn, loc_fp, num_samples], dtype=torch.int64,
+                                    device=self.device)
+            dist.all_reduce(counters)
+            loc_assigns, correct, clf_error, loc_fn, loc_fp, num_samples = (int(v) for v in counters.tolist())
         nb_preds = num_samples - loc_fn + loc_fp
         loc_err = 1 - 2 * loc_assigns / (nb_preds + num_samples) if nb_preds + num_samples > 0 else None
         clf_err = 1 - correct / loc_assigns if loc_assigns > 0 else None

@@ -12,7 +12,7 @@ __all__ = ["SegmentationTrainer"]
 
 
 class SegmentationTrainer(Trainer):
-    """The semantic segmentation trainer (``segmentation.py:19-77``), on one device.
+    """The semantic segmentation trainer (``segmentation.py:19-77``).
 
     The model returns NCHW logits ``(N, C, H, W)`` (the JAX package's are NHWC); targets
     are ``(N, H, W)`` integer masks, and ``criterion(logits, target)`` takes them so.
@@ -33,15 +33,17 @@ class SegmentationTrainer(Trainer):
         (the confusion matrix's trace over its sum) and ``mean_iou`` (the mean over every
         class of ``diag / (row + column - diag)``, 0 for a class seen nowhere)
         (``segmentation.py:29-70``). The matrix is one ``torch.bincount`` a batch on the
-        device, invalid targets in an overflow bin, and is read once, with the losses.
+        device, invalid targets in an overflow bin, and is read once, with the losses; across
+        processes each batch is every process's, gathered (``_host_batch``).
         ``ignore_index`` is kept for the JAX signature: as there, ignored pixels are
         those the criterion ignores and those outside the classes."""
         nc = self.num_classes
         conf = torch.zeros(nc * nc, dtype=torch.int64, device=self.device)
         losses = []
         for x, target in self.val_loader:
-            out = self._eval_forward(x)
-            target = target.to(self.device, non_blocking=True)
+            bs = int(x.shape[0])
+            out = self._host_batch(self._eval_forward(x), bs)
+            target = self._host_batch(target.to(self.device, non_blocking=True), bs)
             losses.append(self.criterion(out, target).float())
             pred, tgt = out.argmax(1).flatten(), target.flatten().long()
             valid = (tgt >= 0) & (tgt < nc)

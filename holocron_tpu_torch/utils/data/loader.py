@@ -14,8 +14,8 @@ from typing import Any, Callable, Iterable, Iterator, List, Optional, Sequence, 
 import numpy as np
 import torch
 
-__all__ = ["EpochDataLoader", "IMG_EXTENSIONS", "ImageFolder", "SyntheticDataset", "default_collate",
-           "normalize_array", "normalize_image", "prefetch"]
+__all__ = ["EpochDataLoader", "IMG_EXTENSIONS", "ImageFolder", "ShardSampler", "SyntheticDataset",
+           "default_collate", "normalize_array", "normalize_image", "prefetch"]
 
 IMG_EXTENSIONS = {".jpg", ".jpeg", ".png", ".bmp", ".webp"}
 
@@ -104,11 +104,45 @@ def default_collate(batch: List[Tuple[Any, Any]]) -> Tuple[torch.Tensor, Any]:
     return x, torch.from_numpy(np.stack([np.asarray(v) for v in ys]))
 
 
+class ShardSampler(torch.utils.data.Sampler):
+    """One process's shard of each epoch's sample order (``loader.py:128-200``): the
+    permutation the one-process loader draws (``RandomSampler`` over ``generator``; the
+    identity without a shuffle), wrap-padded to a
+    multiple of ``num_shards`` by repeating its head, then every ``num_shards``-th index
+    from ``shard_index``. Every shard has ``ceil(n / num_shards)`` indices, so every
+    process runs the same number of steps."""
+
+    def __init__(self, n: int, num_shards: int, shard_index: int, generator: Optional[torch.Generator] = None):
+        if not 0 <= shard_index < num_shards:
+            raise ValueError(f"shard_index {shard_index} not in [0, {num_shards})")
+        self.n, self.num_shards, self.shard_index, self.generator = n, num_shards, shard_index, generator
+
+    def __len__(self) -> int:
+        return -(-self.n // self.num_shards)
+
+    def __iter__(self):
+        if self.generator is not None:
+            # RandomSampler's own draws, to the end of its iterator: the same generator
+            # stream as the one-process loader's, epoch after epoch
+            indices = list(torch.utils.data.RandomSampler(range(self.n), generator=self.generator))
+        else:
+            indices = list(range(self.n))
+        total = len(self) * self.num_shards
+        if indices:
+            indices = (indices * -(-total // len(indices)))[:total]
+        return iter(indices[self.shard_index :: self.num_shards])
+
+
 class EpochDataLoader(torch.utils.data.DataLoader):
     """``torch.utils.data.DataLoader`` with the JAX loader's epoch hook
     (``loader.py:184-188``): before each epoch's iterator is made, the collate's and the
     dataset's ``set_epoch(epoch)`` are called, where they have one (0 for the first
     epoch). The shuffle is drawn from a generator seeded with ``seed``.
+
+    ``num_shards`` / ``shard_index`` (``"auto"``: the process group's size and this
+    process's rank) give each process of a data-parallel job its :class:`ShardSampler`
+    shard of the same permutation; one shard is the whole of it, the order torch's own
+    shuffled or sequential sampler gives.
 
     With worker processes the collate and the dataset are pickled into them when the
     iterator is made, so the epoch reaches them only because it is set first and the
@@ -117,13 +151,20 @@ class EpochDataLoader(torch.utils.data.DataLoader):
     """
 
     def __init__(self, dataset, batch_size: int = 32, shuffle: bool = False, seed: int = 0,
-                 **kwargs: Any) -> None:
+                 num_shards: Any = None, shard_index: Optional[int] = None, **kwargs: Any) -> None:
         if kwargs.get("persistent_workers"):
             raise ValueError("persistent workers would keep the first epoch's collate")
         if kwargs.get("num_workers", 0) > 0:
             kwargs.setdefault("multiprocessing_context", "spawn")
+        if num_shards == "auto":
+            from ...parallel.multihost import rank, world_size
+
+            num_shards, shard_index = world_size(), rank()
+        self.num_shards = int(num_shards) if num_shards else 1
+        self.shard_index = int(shard_index) if shard_index is not None else 0
         generator = torch.Generator().manual_seed(seed) if shuffle else None
-        super().__init__(dataset, batch_size, shuffle=shuffle, generator=generator, **kwargs)
+        sampler = ShardSampler(len(dataset), self.num_shards, self.shard_index, generator)
+        super().__init__(dataset, batch_size, sampler=sampler, generator=generator, **kwargs)
         self.epoch = -1
 
     def __iter__(self):

@@ -388,9 +388,12 @@ def test_main_refuses_what_the_port_does_not_run(tmp_path, offline):
     with pytest.raises(SystemExit, match="--pretrained"):
         train.main(train.parse_args(["fake", "--arch", "mobileone_s0", "--pretrained", "--fake-samples", "8",
                                      *COMMON]))
-    for flag in (["--model-parallel", "2"], ["--spatial-parallel", "2"], ["--shard-opt-state"]):
+    for flag in (["--model-parallel", "2"], ["--spatial-parallel", "2"]):
         with pytest.raises(NotImplementedError):
             train.main(train.parse_args(["fake", *flag, *COMMON]))
+    # ZeRO-1 is accepted (inert in one process)
+    trainer = train.main(train.parse_args(["fake", "--shard-opt-state", "--test-only", "--fake-samples", "8", *COMMON]))
+    assert trainer.shard_opt_state and trainer.world_size == 1
 
 
 def test_epoch_reaches_spawned_workers():

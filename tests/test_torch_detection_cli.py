@@ -204,10 +204,13 @@ def test_main_on_a_folder_with_spawned_workers(tmp_path):
 
 
 def test_main_refuses_what_the_port_does_not_run(monkeypatch, tmp_path):
-    """The parallel flags raise; ``--pretrained`` offline exits, as the JAX CLI does."""
-    for flag in (["--model-parallel", "2"], ["--spatial-parallel", "2"], ["--shard-opt-state"]):
+    """Tensor and spatial parallelism raise (``--shard-opt-state`` is accepted);
+    ``--pretrained`` offline exits, as the JAX CLI does."""
+    for flag in (["--model-parallel", "2"], ["--spatial-parallel", "2"]):
         with pytest.raises(NotImplementedError):
             train.main(train.parse_args(["fake", *COMMON, *flag]))
+    trainer = train.main(train.parse_args(["fake", *COMMON, "-j", "0", "--fake-samples", "8", "--shard-opt-state", "--test-only"]))
+    assert trainer.shard_opt_state and trainer.world_size == 1
     with pytest.raises(ValueError):
         train.build_optimizer(train.parse_args(["fake", "--opt", "sgd"]))
     monkeypatch.setenv("HOLOCRON_CACHE_DIR", str(tmp_path))

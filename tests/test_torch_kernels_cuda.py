@@ -174,6 +174,46 @@ def _int8_route_matches_plain(cuda, x, w_q, stride, padding, dilation, seed, gro
             assert bool(((got.float() - ref).abs() <= ref.abs() * ulp).all())
 
 
+@pytest.mark.parametrize("hw,c,o", [(112, 48, 48), (56, 48, 96), (28, 96, 192), (14, 192, 1280), (10, 12, 20),
+                                    (12, 3, 8)])
+def test_int8_s2d_strided_at_repvgg_a0_geometries(cuda, hw, c, o):
+    """``s2d_strided`` at repvgg_a0's four stride-2 int8 geometries (and two whose 4C is
+    at a padded pitch or a whole one from C % 16 != 0), batch 2: the 2x2 stride-1 conv of
+    the folded kernel over the top/left-padded space-to-depth of x_q gives the plain
+    version's int32 accumulator and the stride-2 conv's, bit for bit, and the same
+    outputs; the module takes it with one quantization and one conv launch."""
+    from holocron_tpu_torch.models.utils import space_to_depth_padded
+    from holocron_tpu_torch.quant import QuantizedConv2d, _fold_hwio
+
+    gen = torch.Generator(device=cuda).manual_seed(16)
+    x = torch.randn(2, hw, hw, c, generator=gen, device=cuda).relu().to(torch.bfloat16)
+    w_q = torch.randint(-127, 128, (3, 3, c, o), generator=gen, device=cuda, dtype=torch.int8)
+    s_x = x.float().abs().amax() / 127
+    w_scale = torch.rand(o, generator=gen, device=cuda) / 127
+    bias = torch.randn(o, generator=gen, device=cuda)
+    x_q = Q.quantize_activation(x, s_x)
+    z = space_to_depth_padded(x_q, pitch=Q.channel_pitch(4 * c))
+    w2 = _fold_hwio(w_q)
+    w2p = Q.pack_weights(w2)
+    acc = int8_conv_acc(z, w2, 1, 0, w_packed=w2p)
+    assert torch.equal(acc, int8_conv_acc_plain(z, w2, 1, 0).contiguous())
+    assert torch.equal(acc, int8_conv_acc(x_q, w_q, 2, 1, w_packed=Q.pack_weights(w_q)))
+    for dtype, ulp in ((torch.float32, 2.0**-23), (torch.bfloat16, 2.0**-7)):
+        got = int8_conv(z, w2, s_x, w_scale, bias, 1, 0, out_dtype=dtype, w_packed=w2p)
+        assert torch.equal(got, int8_conv(x_q, w_q, s_x, w_scale, bias, 2, 1, out_dtype=dtype))
+        ref = int8_conv_plain(z, w2, s_x, w_scale, bias, 1, 0, out_dtype=dtype).float()
+        assert bool(((got.float() - ref).abs() <= ref.abs() * ulp).all())
+    conv = torch.nn.Conv2d(c, o, 3, 2, 1).to(cuda)
+    xin = x.permute(0, 3, 1, 2)
+    s2d, plain = (QuantizedConv2d(conv, w_q, w_scale, float(s_x * 127), s2d_strided=f) for f in (True, False))
+    assert s2d.s2d and not plain.s2d
+    before = (INT8_KERNEL.launches, Q.KERNEL_QUANTIZE.launches)
+    y = s2d(xin)
+    torch.cuda.synchronize()
+    assert (INT8_KERNEL.launches, Q.KERNEL_QUANTIZE.launches) == (before[0] + 1, before[1] + 1)
+    assert torch.equal(y, plain(xin))
+
+
 @pytest.mark.parametrize(
     "hw,c,o,stride",
     [(112, 48, 48, 1), (112, 48, 48, 2), (56, 48, 48, 1), (56, 48, 96, 2), (28, 96, 96, 1), (28, 96, 192, 2),

@@ -1,0 +1,302 @@
+"""Multi-process worker for the port's data-parallel tests (``tests/test_torch_parallel*.py``).
+
+Launched as N OS processes joined by ``torch.distributed`` over gloo on the CPU, one
+process a "device", as ``torchrun`` launches the port; imports no JAX. The tests also
+import it to run the one-process reference in their own process.
+
+    python tests/torch_mp_worker.py <mode> <rank> <world> <port> <outdir> [variant]
+
+Modes:
+
+- ``train``: the port's ``ClassificationTrainer`` on ``RepVGG([1], [8], 1.0, 1.0,
+  num_classes=5)`` over index-keyed data, a global batch of 8 (8 / world a process,
+  ``EpochDataLoader(num_shards="auto")``), 2 epochs, then ``evaluate()`` and a
+  checkpoint; ``variant`` ``zero1`` adds ``shard_opt_state``. Rank 0 writes the
+  parameters and BN statistics, the metrics and each rank's optimizer-state elements.
+- ``det``: ``DetectionTrainer.evaluate`` over a sharded loader with a deterministic
+  stub detector; every rank writes its metrics.
+- ``collectives``: ``parallel.initialize()`` from the environment (twice), the mesh, the
+  named collectives and their gradients, ``host_local_put`` / ``shard_batch`` /
+  ``replicate_to_host``, the cross-process batch norm against ``nn.BatchNorm2d`` on
+  the whole batch, and the trainer's gradient all-reduce on known per-rank gradients of
+  two dtypes over several buckets; each rank writes what it saw.
+"""
+
+import json
+import os
+import sys
+from pathlib import Path
+
+import numpy as np
+import torch
+
+sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+
+GLOBAL_BATCH = 8
+TRAIN_SAMPLES, VAL_SAMPLES = 32, 16
+
+
+class IndexedDataset:
+    """Samples keyed by index only, the same on every process: a CHW float32 image and
+    a label."""
+
+    def __init__(self, n: int, seed: int = 0) -> None:
+        self.n, self.seed = n, seed
+
+    def __len__(self) -> int:
+        return self.n
+
+    def __getitem__(self, i: int):
+        r = np.random.default_rng(1000 * (self.seed + 1) + i)
+        return torch.from_numpy(r.normal(size=(3, 16, 16)).astype(np.float32)), i % 5
+
+
+def make_trainer(world: int, variant: str = "plain", output_file: str = "ckpt.pt"):
+    """The trainer every rank of a ``world``-process run builds (``world`` 1: the
+    one-process run, no process group)."""
+    from holocron_tpu_torch.models import RepVGG
+    from holocron_tpu_torch.nn.functional import cross_entropy
+    from holocron_tpu_torch.optim import SGD
+    from holocron_tpu_torch.trainer import ClassificationTrainer
+    from holocron_tpu_torch.utils.data import EpochDataLoader
+
+    local_bs = GLOBAL_BATCH // world
+    train_loader = EpochDataLoader(IndexedDataset(TRAIN_SAMPLES), local_bs, shuffle=True, seed=0, num_shards="auto")
+    val_loader = EpochDataLoader(IndexedDataset(VAL_SAMPLES, seed=7), local_bs, num_shards="auto")
+    model = RepVGG([1], [8], 1.0, 1.0, num_classes=5, device="cpu", generator=torch.Generator().manual_seed(0))
+    # SGD's step is proportional to the gradient, so a sum where the mean belongs shows
+    return ClassificationTrainer(model, train_loader, val_loader, cross_entropy,
+                                 lambda groups, lr: SGD(groups, lr, momentum=0.9), device="cpu",
+                                 output_file=output_file, shard_opt_state=variant == "zero1")
+
+
+def state_arrays(model) -> dict:
+    """Parameters and BN running statistics, copied to numpy."""
+    return {k: v.detach().cpu().numpy().copy() for k, v in model.state_dict().items() if v.is_floating_point()}
+
+
+def train(outdir: Path, world: int, variant: str = "plain") -> dict:
+    trainer = make_trainer(world, variant, str(outdir / "unused.pt"))
+    trainer.fit_n_epochs(2, lr=1e-3)
+    metrics = trainer.evaluate()
+    opt_elems = sum(t.numel() for s in trainer._opt.state.values() for t in s.values()
+                    if isinstance(t, torch.Tensor) and t.ndim > 0) if trainer._opt is not None else 0
+    elems = [opt_elems]
+    if trainer.distributed:
+        from torch import distributed as dist
+
+        gathered = [None] * world
+        dist.all_gather_object(gathered, opt_elems)
+        elems = gathered
+    ckpt = outdir / "trainer.pt"
+    trainer.save(str(ckpt))  # every rank, in lockstep; rank 0 writes
+    state = state_arrays(trainer.model)
+    if trainer.rank == 0:
+        saved = torch.load(ckpt, weights_only=True)["model"]
+        for k, v in state.items():
+            np.testing.assert_array_equal(saved[k].numpy(), v)
+        np.savez(outdir / "state.npz", **state)
+        (outdir / "metrics.json").write_text(json.dumps({**metrics, "opt_state_elements": elems,
+                                                         "steps": trainer.step}))
+    return {"state": state, "metrics": metrics, "trainer": trainer}
+
+
+class StubDetector(torch.nn.Module):
+    """``model(x)`` in eval mode: one detection an image, keyed off the image's fill
+    value; even samples hit their box, odd ones miss it (IoU < 0.5)."""
+
+    def __init__(self, n: int) -> None:
+        super().__init__()
+        self.n = n
+        self.anchor = torch.nn.Parameter(torch.zeros(1))
+
+    def forward(self, x):
+        out = []
+        for img in x:
+            i = int(round(float(img[0, 0, 0]) * self.n))
+            off = 1.0 if i % 2 == 0 else 10.0
+            boxes = np.array([[off + i, off + i, off + 5.0 + i, off + 5.0 + i]], np.float32)
+            out.append({"boxes": boxes, "labels": np.array([i % 3]), "scores": np.ones(1)})
+        return out
+
+
+class DetValDataset:
+    """Index-keyed images and boxes: which samples are counted shows in the error rates."""
+
+    def __init__(self, n: int = 12) -> None:
+        self.n = n
+
+    def __len__(self) -> int:
+        return self.n
+
+    def __getitem__(self, i: int):
+        box = np.array([[1.0 + i, 1.0 + i, 6.0 + i, 6.0 + i]], np.float32)
+        return torch.full((3, 16, 16), i / self.n), {"boxes": box, "labels": np.array([i % 3])}
+
+
+def detection(outdir: Path, rank: int) -> dict:
+    from holocron_tpu_torch.trainer import DetectionTrainer
+    from holocron_tpu_torch.utils.data import EpochDataLoader, default_collate
+
+    loader = EpochDataLoader(DetValDataset(12), 4, collate_fn=default_collate, num_shards="auto")
+    trainer = DetectionTrainer(StubDetector(12), None, loader, device="cpu")
+    metrics = trainer.evaluate()
+    (outdir / f"det_{rank}.json").write_text(json.dumps(metrics))
+    return metrics
+
+
+def collectives(outdir: Path, rank: int, world: int) -> None:
+    from torch import distributed as dist
+    from torch import nn
+
+    from holocron_tpu_torch import parallel
+    from holocron_tpu_torch.parallel import collectives as C
+
+    parallel.initialize("cpu")
+    group = dist.group.WORLD
+    parallel.initialize("cpu")  # idempotent: the same group
+    out = {"world": dist.get_world_size(), "rank": dist.get_rank(), "backend": dist.get_backend(),
+           "same_group": dist.group.WORLD is group, "num_slices": parallel.num_slices()}
+    mesh = parallel.create_mesh()
+    out["mesh"] = [list(mesh.mesh_dim_names), list(mesh.shape)]
+    out["axis"] = [C.axis_index("data", mesh), C.axis_size("data", mesh), C.axis_index("model", mesh),
+                   C.axis_size("model", mesh)]
+    x = torch.arange(4, dtype=torch.float32).reshape(2, 2) + 10 * rank
+    xr = x.clone().requires_grad_()
+    total = C.psum(xr, "data", mesh)
+    (total * (rank + 1)).sum().backward()
+    out["psum"], out["psum_grad"] = total.tolist(), xr.grad.tolist()
+    out["pmean"] = C.pmean(x).tolist()
+    xr = x.clone().requires_grad_()
+    gathered = C.all_gather(xr, axis=1)
+    (gathered * torch.arange(gathered.numel()).reshape(gathered.shape)).sum().backward()
+    out["all_gather"], out["all_gather_grad"] = gathered.tolist(), xr.grad.tolist()
+    out["all_gather_stacked"] = list(C.all_gather(x, tiled=False).shape)
+    xr = x.clone().requires_grad_()
+    scattered = C.reduce_scatter(xr)
+    (scattered * (rank + 1)).sum().backward()
+    out["reduce_scatter"], out["reduce_scatter_grad"] = scattered.tolist(), xr.grad.tolist()
+    xr = x.clone().requires_grad_()
+    moved = C.ppermute(xr, [(i, (i + 1) % world) for i in range(world)])
+    (moved * (rank + 1)).sum().backward()
+    out["ppermute"], out["ppermute_grad"] = moved.tolist(), xr.grad.tolist()
+    out["ppermute_partial"] = C.ppermute(x, [(0, 1)]).tolist()
+    # a batch placed as each process's rows of one global tensor, and gathered back
+    sharding = parallel.batch_sharding(mesh)
+    local = torch.full((2, 3), float(rank))
+    out["host_local_put"] = parallel.replicate_to_host(parallel.host_local_put(local, sharding)).tolist()
+    glob = torch.arange(world * 2 * 3, dtype=torch.float32).reshape(world * 2, 3)
+    sharded = parallel.shard_batch({"x": glob}, mesh)["x"]
+    out["shard_batch_local"] = sharded.to_local().tolist()
+    out["shard_batch_whole"] = parallel.replicate_to_host(sharded).tolist()
+    try:
+        parallel.create_mesh(model_parallel=3)
+    except ValueError as err:
+        out["mp3_error"] = str(err)
+    try:
+        parallel.batch_sharding(parallel.create_mesh(model_parallel=world))
+    except ValueError as err:
+        out["data_axis_error"] = str(err)
+    # the cross-process batch norm against nn.BatchNorm2d on the whole batch
+    gen = torch.Generator().manual_seed(5)
+    whole = torch.randn(2 * world, 4, 5, 3, generator=gen) * 3 + 1
+    weight = torch.rand(4, generator=gen) + 0.5
+    ref_bn, bn = nn.BatchNorm2d(4), nn.BatchNorm2d(4)
+    for m in (ref_bn, bn):
+        with torch.no_grad():
+            m.weight.copy_(weight)
+    bn = parallel.convert_batchnorm(nn.Sequential(bn))[0]
+    out["converted"] = type(bn).__name__
+    xw = whole.clone().requires_grad_()
+    y_ref = ref_bn(xw)
+    (y_ref * torch.arange(y_ref.numel()).reshape(y_ref.shape).sin()).sum().backward()
+    xl = whole[2 * rank : 2 * rank + 2].clone().requires_grad_()
+    y = bn(xl)
+    (y * torch.arange(y_ref.numel()).reshape(y_ref.shape).sin()[2 * rank : 2 * rank + 2]).sum().backward()
+    grads = [p.grad for p in bn.parameters()]
+    for g in grads:
+        dist.all_reduce(g)
+    out["bn_errors"] = {
+        "y": float((y - y_ref[2 * rank : 2 * rank + 2]).abs().max()),
+        "dx": float((xl.grad - xw.grad[2 * rank : 2 * rank + 2]).abs().max()),
+        "dweight": float((grads[0] - ref_bn.weight.grad).abs().max()),
+        "dbias": float((grads[1] - ref_bn.bias.grad).abs().max()),
+        "running_mean": float((bn.running_mean - ref_bn.running_mean).abs().max()),
+        "running_var": float((bn.running_var - ref_bn.running_var).abs().max()),
+    }
+    bn.eval()
+    ref_bn.eval()
+    out["bn_errors"]["eval"] = float((bn(whole) - ref_bn(whole)).abs().max())
+    # the trainer's gradient average: known gradients a rank, buckets of 64 bytes
+    from holocron_tpu_torch.trainer import Trainer
+    from holocron_tpu_torch.trainer import core as trainer_core
+
+    trainer = Trainer(nn.Linear(2, 2), device="cpu")
+    shapes = [((3, 5), torch.float32), ((4,), torch.float64), ((7,), torch.float32), ((2, 2), torch.float64)]
+    bases = [torch.arange(torch.Size(shape).numel(), dtype=dtype).reshape(shape) for shape, dtype in shapes]
+    grads = [b * (rank + 1) + rank for b in bases]
+    bucket_bytes, trainer_core.BUCKET_BYTES = trainer_core.BUCKET_BYTES, 64
+    try:
+        trainer._all_reduce_grads(grads)
+    finally:
+        trainer_core.BUCKET_BYTES = bucket_bytes
+    mean = [sum(b * (r + 1) + r for r in range(world)) / world for b in bases]
+    out["all_reduce_grads_equal_mean"] = all(g.dtype == m.dtype and torch.equal(g, m) for g, m in zip(grads, mean))
+    (outdir / f"collectives_{rank}.json").write_text(json.dumps(out))
+
+
+def run_workers(mode: str, nproc: int, outdir: Path, variant: str = "plain", timeout: float = 300) -> None:
+    """Runs ``nproc`` workers of ``mode`` on a free port and waits for all; when one
+    fails, the others (blocked on a collective) are killed and every output is shown."""
+    import socket
+    import subprocess
+    import time
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    env = {k: v for k, v in os.environ.items() if k not in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT")}
+    procs = [subprocess.Popen([sys.executable, __file__, mode, str(r), str(nproc), str(port), str(outdir), variant],
+                              env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(nproc)]
+    deadline = time.monotonic() + timeout
+    while any(p.poll() is None for p in procs) and time.monotonic() < deadline:
+        if any(p.poll() not in (None, 0) for p in procs):
+            break
+        time.sleep(0.2)
+    outs = []
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+        outs.append(p.communicate()[0])
+    report = "\n".join(f"--- worker {r} (rc={p.returncode}) ---\n{o}" for r, (p, o) in enumerate(zip(procs, outs)))
+    assert all(p.returncode == 0 and "WORKER_DONE" in o for p, o in zip(procs, outs)), f"worker failed:\n{report}"
+
+
+def main() -> None:
+    mode, rank, world, port, outdir = sys.argv[1], int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], Path(sys.argv[5])
+    variant = sys.argv[6] if len(sys.argv) > 6 else "plain"
+    torch.set_num_threads(1)
+    outdir.mkdir(parents=True, exist_ok=True)
+    from torch import distributed as dist
+
+    if mode == "collectives":  # joins from torchrun's environment
+        os.environ.update({"RANK": str(rank), "WORLD_SIZE": str(world), "LOCAL_RANK": "0",
+                           "LOCAL_WORLD_SIZE": str(world), "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": port})
+        collectives(outdir, rank, world)
+    else:
+        from holocron_tpu_torch.parallel import initialize
+
+        initialize("cpu", init_method=f"tcp://127.0.0.1:{port}", world_size=world, rank=rank)
+        if mode == "train":
+            train(outdir, world, variant)
+        elif mode == "det":
+            detection(outdir, rank)
+        else:
+            raise SystemExit(f"unknown mode {mode}")
+    dist.destroy_process_group()
+    print(f"[{rank}] WORKER_DONE", flush=True)
+
+
+if __name__ == "__main__":
+    main()
