@@ -121,11 +121,11 @@ Phases, each printing one JSON line to stdout:
    ``main()`` on an Imagenette-shaped folder it writes (convnext_tiny, Adan, amp, the
    default recipe, one epoch, then ``--test-only --resume``) and on ``fake``
    (mobileone_s1, LARS): the decode route, ms a step, the loader's wait, peak memory.
-   ``optim_zoo``: 4 steps of mobileone_s1 (batch 64, amp) under LARS, RaLars, Adan,
+   ``optim_zoo``: 3 steps of mobileone_s1 (batch 64, amp) under LARS, RaLars, Adan,
    AdEMAMix, Lookahead and Scout (around AdamP), no optimizer step reading the device.
 19. The tools' phases (after ``optim_zoo``): ``detection_cli``, the detection CLI's
    ``main()`` at the JAX CLI's defaults (yolov2, darknet19, 20 classes, 416 px, batch 8,
-   TAdam, onecycle) with ``--amp`` and 8 spawned loader workers, on ``fake`` (32 samples,
+   TAdam, onecycle) with ``--amp`` and 2 spawned loader workers, on ``fake`` (32 samples,
    4 steps) and on a folder of JPEGs and PNGs it writes (16 + 8 images), then
    ``--test-only --resume`` and ``--check-setup``; ``pretrained``, checkpoints written
    with ``torch.save`` loaded through ``file://`` (rexnet1_0x's logits, darknet19 into
@@ -206,6 +206,9 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SEED = 0
 AGREEMENT_FLOOR = 0.99  # bench.py:150-157
+# Tensor-parallel logits against one process's, relative to their largest magnitude:
+# the split layers sum the same products in another order (float32, TF32 off)
+TP_LOGIT_RTOL = 1e-5
 IMAGENET = ((0.485, 0.456, 0.406), (0.229, 0.224, 0.225))
 
 # NVIDIA H100 SXM peaks (data sheet, dense): device memory 3.35 TB/s; int8 tensor cores
@@ -2692,22 +2695,22 @@ def _cli_run(argv: list, what: str, task: str = "classification") -> dict:
             "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30}
 
 
-def phase_classification_cli(device, workers: int = 8) -> None:
+def phase_classification_cli(device, workers: int = 2) -> None:
     """The classification CLI's ``main()`` run in this process on the card, twice.
 
     (a) On an Imagenette-shaped folder written to a temporary directory (10 classes, 8
     images a class around 300 x 250 for training, 3 of them PNG, and 4 a class for
     evaluation): ``--arch convnext_tiny --opt adan --amp -b 32 --random-erase 0.1
     --epochs 1``, the default crop (176), Mixup (0.2) and label smoothing (0.1), ``-j
-    8`` spawned loader workers: an epoch of 2 steps and the evaluation, then
+    2`` spawned loader workers: an epoch of 2 steps and the evaluation, then
     ``--test-only --resume`` on the checkpoint it wrote, whose evaluation must agree
     with the first (the same accuracies, the loss within 1e-3 relative). The decode
     route the CLI printed (native or PIL: PIL wherever a PNG is in the folder, and on a
     machine without libjpeg), ms of the second step (CUDA events), the host's wait on
     the loader before it and its share of the two, peak memory, and a steady window of
     4 steps of the CLI's trainer on 176 px batches made on the device.
-    (b) ``fake --arch mobileone_s1 --opt lars -b 32 --fake-samples 128`` at the default
-    176 px: 4 steps and the evaluation.
+    (b) ``fake --arch mobileone_s1 --opt lars -b 32 --fake-samples 64 -j 0`` at the default
+    176 px: 2 steps and the evaluation.
 
     Every loss finite and on the card, the model on the card, one evaluation a run."""
     import tempfile
@@ -2750,11 +2753,11 @@ def phase_classification_cli(device, workers: int = 8) -> None:
                         "window_peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30}
         del run, resumed
         torch.cuda.empty_cache()
-        run = _cli_run(["fake", "--arch", "mobileone_s1", "--opt", "lars", "-b", "32", "--fake-samples", "128",
-                        "--epochs", "1", "-j", str(workers), "--device", str(device),
+        run = _cli_run(["fake", "--arch", "mobileone_s1", "--opt", "lars", "-b", "32", "--fake-samples", "64",
+                        "--epochs", "1", "-j", "0", "--device", str(device),
                         "--output-file", str(Path(tmp) / "mobileone_s1.pt")], "classification_cli (b)")
-        if len(run["losses"]) != 4:
-            fail(f"classification_cli (b): {len(run['losses'])} steps, expected 4")
+        if len(run["losses"]) != 2:
+            fail(f"classification_cli (b): {len(run['losses'])} steps, expected 2")
         records["b"] = {"model": "mobileone_s1", "optimizer": "LARS", "data": "fake", "batch": 32, "image_size": 176,
                         "losses": run["losses"], "eval": run["eval"], "cli_seconds": run["cli_seconds"],
                         "step_ms_after_first": run["step_ms_after_first"],
@@ -2768,11 +2771,11 @@ def phase_classification_cli(device, workers: int = 8) -> None:
 OPTIM_ZOO = ("lars", "ralars", "adan", "ademamix", "lookahead_adamp", "scout_adamp")
 
 
-def phase_optim_zoo(device, batch: int = 64, size: int = 224, num_classes: int = 10, steps: int = 4) -> None:
-    """4 train steps of mobileone_s1 (batch 64, 224 px, amp, label-smoothed
+def phase_optim_zoo(device, batch: int = 64, size: int = 224, num_classes: int = 10, steps: int = 3) -> None:
+    """3 train steps of mobileone_s1 (batch 64, 224 px, amp, label-smoothed
     cross-entropy) under each of LARS (momentum 0.9), RaLars, Adan, AdEMAMix, and
     Lookahead and Scout around AdamP (sync every 2 steps, so each syncs twice), each on
-    a fresh model from the seed: finite losses, ms a step (CUDA events over the last 3),
+    a fresh model from the seed: finite losses, ms a step (CUDA events over the last 2),
     the kernels one step launches and those of the optimizer's step alone
     (``torch.profiler``, one step after the timed ones), and no optimizer step reading
     the device (``torch.cuda.set_sync_debug_mode("error")`` around each)."""
@@ -2857,12 +2860,13 @@ def _write_detection_folder(root, train: int = 16, val: int = 8) -> None:
                 json.dumps({"boxes": boxes.tolist(), "labels": rng.integers(0, 20, n).tolist()}))
 
 
-def phase_detection_cli(device, workers: int = 8) -> None:
+def phase_detection_cli(device, workers: int = 2) -> None:
     """The detection CLI's ``main()`` in this process on the card at the JAX CLI's
     defaults (yolov2, darknet19, 20 classes, 416 px, batch 8, 50 boxes a target, TAdam at
-    1e-4 under onecycle) with ``--amp`` and ``-j 8`` spawned loader workers.
+    1e-4 under onecycle) with ``--amp`` and ``-j 2`` spawned loader workers.
 
-    (a) ``fake`` with 32 samples, one epoch: 4 steps and the evaluation on 8. (b) A
+    (a) ``fake`` with 32 samples, one epoch, loaded in this process (``-j 0``): 4 steps
+    and the evaluation on 8. (b) A
     folder written to a temporary directory (16 training and 8 evaluation images of
     varied sizes, a quarter PNG, with JSON labels): one epoch of 2 steps and the
     evaluation, then ``--test-only --resume`` on the checkpoint it wrote, whose printed
@@ -2883,7 +2887,8 @@ def phase_detection_cli(device, workers: int = 8) -> None:
     records = {}
     with tempfile.TemporaryDirectory(prefix="holocron_det_cli_") as tmp:
         tmp = Path(tmp)
-        run = _cli_run(["fake", *common, "--output-file", str(tmp / "fake.pt")], "detection_cli (a)", "detection")
+        run = _cli_run(["fake", *common, "-j", "0", "--output-file", str(tmp / "fake.pt")], "detection_cli (a)",
+                       "detection")
         if len(run["losses"]) != 4:
             fail(f"detection_cli (a): {len(run['losses'])} steps, expected 4")
         gen = torch.Generator(device=device).manual_seed(SEED + 81)
@@ -3126,7 +3131,8 @@ def phase_binary_trainer(device, batch: int = 128, size: int = 224, steps: int =
 def phase_export(device) -> dict:
     """``python -m holocron_tpu_torch.export``'s ``main()`` on the card: repvgg_a0 at
     batch 1 and 224 px in bf16 and in int8 (bf16 remainder, per-call scales), and
-    yolov2 at 416 px in float32 with its post-processing; each exported, saved, loaded
+    yolov2 at 256 px (320 unrolled NMS steps) in float32 with its post-processing; each
+    exported, saved, loaded
     and run against the eager module (float32 within 1e-5; int8 equal bit for bit; bf16's
     difference, if any, printed). The int8 graph must hold both ops once a layer (26),
     and its runs launch the kernels (counted). Printed: export time, graph nodes, file
@@ -3140,7 +3146,7 @@ def phase_export(device) -> dict:
     with tempfile.TemporaryDirectory(prefix="holocron_export_") as tmp:
         for name, argv in (("repvgg_a0_bf16", ["repvgg_a0", "--dtype", "bfloat16"]),
                            ("repvgg_a0_int8", ["repvgg_a0", "--dtype", "bfloat16", "--quantize"]),
-                           ("yolov2_post_process", ["yolov2", "--size", "416", "--num-classes", "20"])):
+                           ("yolov2_post_process", ["yolov2", "--size", "256", "--num-classes", "20"])):
             out = Path(tmp) / f"{name}.pt2"
             rec = export.main(export.parse_args([*argv, "--device", str(device), "--output", str(out)]))
             rows[name] = {k: rec[k] for k in ("export_s", "nodes", "custom_ops", "file_bytes", "max_abs_err", "equal",
@@ -3563,6 +3569,408 @@ def phase_data_parallel(device, batch: int = 128, size: int = 224, num_classes: 
     return record
 
 
+def _sync(device) -> None:
+    import torch
+
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _peak_reset(device) -> None:
+    import torch
+
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+        torch.cuda.reset_peak_memory_stats(device)
+
+
+def _peak_gib(device) -> float:
+    import torch
+
+    return torch.cuda.max_memory_allocated(device) / 2**30 if device.type == "cuda" else 0.0
+
+
+def _tensor_bytes(model) -> int:
+    return sum(t.numel() * t.element_size() for t in (*model.parameters(), *model.buffers()))
+
+
+def _halves(model, what: str) -> int:
+    """Fails unless every tensor of ``model`` held as a block is half of its whole;
+    returns how many are."""
+    from holocron_tpu_torch.parallel import sharded
+
+    held = [(n, t) for n, t in (*model.named_parameters(), *model.named_buffers()) if sharded.split_of(t)]
+    for n, t in held:
+        s = sharded.split_of(t)
+        if t.shape[s.dim] * 2 != s.size or s.n != 2:
+            fail(f"model_spatial_parallel: {what}'s {n} holds {t.shape[s.dim]} of {s.size} over {s.n} ranks")
+    if not held:
+        fail(f"model_spatial_parallel: {what} holds no tensor as a block")
+    return len(held)
+
+
+def _check_int8_blocks(fwd, x) -> tuple:
+    """Each int8 conv of a tensor-parallel forward that holds a block of the output
+    channels, on this rank's block (its weights, scales and bias, packed once) against
+    the plain versions (:func:`_int8_case_holds`), at the whole input the layer took in a
+    forward of ``x``; one layer a geometry. Every rank calls it in lockstep (the inputs
+    are gathered over the model group). Returns the geometries checked and the largest
+    bf16 error."""
+    import torch
+
+    from holocron_tpu_torch.parallel import sharded
+    from holocron_tpu_torch.quant import QuantizedConv2d
+
+    layers = [m for m in fwd.model.modules() if isinstance(m, QuantizedConv2d) and sharded.split_of(m.kernel_q)]
+    taken = []
+    handles = [m.register_forward_pre_hook(lambda m, args: taken.append((m, args[0]))) for m in layers]
+    try:
+        fwd(x)
+    finally:
+        for hd in handles:
+            hd.remove()
+    if len(taken) != len(layers):
+        fail(f"model_spatial_parallel: {len(taken)} of the {len(layers)} split int8 convs ran")
+    max_err, checked = {"wgmma": 0.0}, []
+    for m, xin in taken:
+        xin = sharded.gather(xin).contiguous(memory_format=torch.channels_last)
+        key = [list(xin.shape), list(m.kernel_q.shape), list(m.stride)]
+        if key in checked:
+            continue
+        checked.append(key)
+        _int8_case_holds(f"tensor-parallel block {key}", "wgmma", xin.permute(0, 2, 3, 1), m.act_scale, m.kernel_q,
+                         m.kernel_packed, m.w_scale, m.bias, m.stride, m.padding, m.dilation, m.groups, max_err)
+    return checked, max_err["wgmma"]
+
+
+def model_spatial_parallel_worker(rank: int, port: int, outdir: str, device_name: str = "cuda", cls_batch: int = 64,
+                                  cls_size: int = 224, seg_batch: int = 2, seg_size: int = 1024, train_batch: int = 128,
+                                  train_size: int = 224, seg_train_batch: int = 4, seg_train_size: int = 512,
+                                  steps: int = 3, seg_classes: int = 21, layout=None) -> None:
+    """One of the two ranks of :func:`phase_model_spatial_parallel`. First, with no group,
+    rank 0 runs the one-process references of tensor parallelism and rank 1 those of
+    spatial partitioning (side by side on the card); then both join gloo on
+    ``tcp://127.0.0.1:port`` and run the parallel forms. Each writes its numbers to
+    ``outdir/rank<r>.json``."""
+    import copy
+    import functools
+    import json
+
+    import torch
+    from torch import distributed as dist
+
+    from holocron_tpu_torch import models, parallel
+    from holocron_tpu_torch.bench import naturalistic_batch
+    from holocron_tpu_torch.kernels import KERNELS
+    from holocron_tpu_torch.models.core import cudnn_settings
+    from holocron_tpu_torch.models.segmentation import UNet3p
+    from holocron_tpu_torch.nn import functional as HF
+    from holocron_tpu_torch.optim import LAMB
+    from holocron_tpu_torch.parallel import collectives, sharded
+    from holocron_tpu_torch.quant import quantize_model
+    from holocron_tpu_torch.trainer import SegmentationTrainer
+
+    device = torch.device(device_name, 0) if device_name == "cuda" else torch.device(device_name)
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    layout = list(layout or (64, 128, 256, 512, 1024))
+    out = {"rank": rank}
+    gen = torch.Generator(device=device).manual_seed(SEED + 90)
+    x_cls = naturalistic_batch(gen, cls_batch, cls_size, device)
+    x_seg = naturalistic_batch(gen, seg_batch, seg_size, device)
+    cls_train = synthetic_batches(gen, 2, train_batch, train_size, 10, device)
+    seg_train = []
+    for _ in range(2):
+        target = torch.randint(0, seg_classes, (seg_train_batch, seg_train_size, seg_train_size), generator=gen,
+                               device=device)
+        target[torch.rand(target.shape, generator=gen, device=device) < 0.2] = 255
+        seg_train.append((naturalistic_batch(gen, seg_train_batch, seg_train_size, device), target))
+
+    unet_seed = UNet3p(layout, num_classes=seg_classes, generator=torch.Generator().manual_seed(SEED), device=device)
+
+    def unet(dtype=torch.float32):  # a fresh copy of the seed's weights
+        return copy.deepcopy(unet_seed).eval().to(dtype).to(memory_format=torch.channels_last)
+
+    def seg_trainer(**kw):
+        return SegmentationTrainer(
+            unet().train(), seg_train, None, lambda o, t: HF.cross_entropy(o.permute(0, 2, 3, 1), t, ignore_index=255),
+            functools.partial(LAMB, weight_decay=5e-5), device=device, num_classes=seg_classes, **kw)
+
+    def train_steps(trainer, batches, record: str):
+        trainer._reset_opt(1e-4)
+        losses, walls = [], []
+        _peak_reset(device)
+        sharded.FALLBACKS.clear()
+        for i in range(steps):
+            t0 = time.perf_counter()
+            losses.append(float(trainer._run_step_async(*batches[i % 2])))
+            _sync(device)
+            walls.append((time.perf_counter() - t0) * 1e3)
+        out[record] = {"losses": losses, "step_wall_ms": walls, "peak_memory_gib": _peak_gib(device),
+                       "fallbacks": dict(sharded.FALLBACKS)}
+
+    def timed_call(fn):
+        _sync(device)
+        t0 = time.perf_counter()
+        y = fn()
+        _sync(device)
+        return y, (time.perf_counter() - t0) * 1e3
+
+    # resnet50, BN adapted on rank 0 (broadcast to rank 1 once the group is joined)
+    model = models.resnet50(num_classes=1000, generator=torch.Generator().manual_seed(SEED),
+                            device=device).to(memory_format=torch.channels_last)
+    with cudnn_settings(deterministic=True, benchmark=False):
+        if rank == 0:
+            adapt_bn(model, torch.Generator(device=device).manual_seed(SEED + 91), 2, cls_batch, cls_size, device)
+            with torch.no_grad():
+                ref = model(x_cls)
+                qm = quantize_model(model, [x_cls[:16]])
+                ref_q = qm(x_cls)
+            out["params_bytes_one_process"] = {"resnet50": _tensor_bytes(model), "resnet50_int8": _tensor_bytes(qm)}
+            del qm
+            trainer = make_trainer(device, cls_train, None, 10, "resnet50")
+            trainer.amp = False
+            train_steps(trainer, cls_train, "tp_train_ref")
+            del trainer
+        else:
+            seg_ref = {}
+            with torch.no_grad():
+                for name, dtype in (("float32", torch.float32), ("bf16", torch.bfloat16)):
+                    net = unet(dtype)
+                    xs = x_seg.to(dtype)
+                    _peak_reset(device)
+                    y = net(xs)
+                    _sync(device)
+                    seg_ref[name] = y.argmax(1)
+                    out[f"sp_ref_{name}"] = {"peak_memory_gib": _peak_gib(device)}
+                    del y, net
+            train_steps(seg_trainer(), seg_train, "sp_train_ref")
+    model.eval()
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", world_size=2, rank=rank)
+    try:
+        out["world_size"], out["backend"] = dist.get_world_size(), dist.get_backend()
+        if out["world_size"] != 2:
+            fail(f"model_spatial_parallel: world size {out['world_size']}, expected 2")
+        with torch.no_grad():
+            for t in (*model.parameters(), *model.buffers()):  # rank 0's adapted statistics
+                dist.broadcast(t, 0)
+        mesh = parallel.create_mesh(("data", "model"), model_parallel=2, device_type=device.type)
+        staged = collectives.STAGED_BYTES[0]
+        with torch.no_grad(), cudnn_settings(deterministic=True, benchmark=False):
+            # tensor parallelism, served: float32, then the int8 form
+            fwd = parallel.shard_inference(model, mesh, tensor_parallel=True)
+            out["tp_blocks"] = _halves(fwd.model, "resnet50")
+            out["params_bytes_rank"] = {"resnet50": _tensor_bytes(fwd.model)}
+            sharded.FALLBACKS.clear()
+            logits, out["tp_ms"] = timed_call(lambda: fwd(x_cls))
+            out["tp_fallbacks"] = dict(sharded.FALLBACKS)
+            del fwd
+            qm = quantize_model(model, [x_cls[:16]])
+            fwd = parallel.shard_inference(qm, mesh, tensor_parallel=True)
+            out["tp_int8_blocks"] = _halves(fwd.model, "resnet50 int8")
+            out["params_bytes_rank"]["resnet50_int8"] = _tensor_bytes(fwd.model)
+            for k in KERNELS.values():
+                k.launches = 0
+            logits_q, out["tp_int8_ms"] = timed_call(lambda: fwd(x_cls))
+            out["tp_int8_launches"] = {name: k.launches for name, k in KERNELS.items()}
+            out["tp_int8_blocks_checked"], out["tp_int8_block_max_abs_err_bf16"] = _check_int8_blocks(fwd, x_cls[:8])
+            del fwd, qm
+            if rank == 0:
+                out["tp_top1_agreement"] = float((logits.argmax(1) == ref.argmax(1)).float().mean())
+                out["tp_max_abs_logit_diff"] = float((logits - ref).abs().max())
+                out["tp_logit_scale"] = float(ref.abs().max())
+                out["tp_int8_top1_agreement"] = float((logits_q.argmax(1) == ref_q.argmax(1)).float().mean())
+                out["tp_int8_max_abs_logit_diff"] = float((logits_q - ref_q).abs().max())
+                out["tp_int8_logit_scale"] = float(ref_q.abs().max())
+            # spatial partitioning, served: each rank keeps its rows; the argmax gathered
+            sp_mesh = parallel.create_mesh(("data", "spatial"), model_parallel=2, device_type=device.type)
+            group = sp_mesh.get_group("spatial")
+            for name, dtype in (("float32", torch.float32), ("bf16", torch.bfloat16)):
+                net = unet(dtype)
+                xs = x_seg.to(dtype)
+                run = parallel.shard_spatial_inference(net, sp_mesh, gather_output=False)
+                _peak_reset(device)
+                sharded.FALLBACKS.clear()
+                y, ms = timed_call(lambda: run(xs))
+                rec = {"rows": list(y.shape), "peak_memory_gib": _peak_gib(device), "ms": ms,
+                       "fallbacks": dict(sharded.FALLBACKS)}
+                rows = y.argmax(1).contiguous()
+                parts = [torch.empty_like(rows) for _ in range(2)]
+                dist.all_gather(parts, rows, group=group)
+                if rank == 1:
+                    rec["argmax_agreement"] = float((torch.cat(parts, 1) == seg_ref[name]).float().mean())
+                out[f"sp_{name}"] = rec
+                del y, net, run
+        out["staged_bytes_served"] = collectives.STAGED_BYTES[0] - staged
+        del model
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+        with cudnn_settings(deterministic=True, benchmark=False):
+            trainer = make_trainer(device, cls_train, None, 10, "resnet50", model_parallel=2)
+            trainer.amp = False
+            out["tp_train_blocks"] = _halves(trainer.model, "the resnet50 trainer")
+            out["tp_train_params_bytes_rank"] = _tensor_bytes(trainer.model)
+            train_steps(trainer, cls_train, "tp_train")
+            del trainer
+            trainer = seg_trainer(spatial_parallel=2)
+            if trainer._spatial_group is None or dist.get_world_size(trainer._spatial_group) != 2:
+                fail("model_spatial_parallel: the segmentation trainer has no spatial group of 2")
+            train_steps(trainer, seg_train, "sp_train")
+            del trainer
+        out["staged_bytes_total"] = collectives.STAGED_BYTES[0] - staged
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    Path(outdir, f"rank{rank}.json").write_text(json.dumps(out))
+
+
+def phase_model_spatial_parallel(device, timeout: float = 300.0, **sizes) -> dict:
+    """Tensor and spatial parallelism on the card: two processes sharing the one H100,
+    joined over gloo with CUDA tensors (NCCL refuses two ranks on one device; gloo's
+    point-to-point sends go through host memory, counted as ``staged_bytes``), each
+    running :func:`model_spatial_parallel_worker`. Fails unless both ranks see a world of
+    2 and hold half of every split tensor. The one-process references run first, with no
+    group: tensor parallelism's on rank 0 and spatial partitioning's on rank 1, side by
+    side on the card.
+
+    - resnet50, 224 px, batch 64, float32 with TF32 off, 1000 classes (BN adapted),
+      ``shard_inference(tensor_parallel=True)`` against the same model in one process:
+      top-1 agreement 1.0 and the largest logit difference within
+      :data:`TP_LOGIT_RTOL` of the largest logit; its int8 form (``quantize_model``,
+      calibrated) the same way, top-1 agreement 0.99 or more, the same logit bound, and
+      the ``wgmma`` conv's and the quantizer's launches a rank; then each rank's int8
+      conv at each geometry of its block of the output channels against the plain
+      versions (:func:`_check_int8_blocks`, batch 8); each rank's parameter and buffer
+      bytes against one process's; wall ms of the forward.
+    - unet3p, 1024 px, batch 2, 21 classes, float32 and bf16,
+      ``shard_spatial_inference`` keeping each rank's rows: the argmax (gathered)
+      against one process's, 0.999 or more; each rank's peak memory against the
+      one-process forward's; wall ms of the forward. Fails if the forward or the
+      spatial train step below ran a function on gathered rows
+      (``sharded.FALLBACKS``, printed for every form).
+    - the resnet50 trainer (batch 128, 224 px, LAMB, ``model_parallel=2``) and the
+      segmentation trainer on unet3p (512 px, batch 4, LAMB, ``spatial_parallel=2``),
+      3 steps each under cuDNN's deterministic algorithms against the one-process run:
+      every step's loss within 1e-3 relative; wall ms a step and each rank's peak
+      memory. Both in float32 (TF32 off) at a learning rate of 1e-4: LAMB's first update
+      follows the gradients' signs, and under bf16 compute the last bits of the split
+      convs (other shapes, so other cuDNN algorithms) move the third loss past 1e-3, as
+      cuDNN's nondeterministic algorithms moved ``remat``'s.
+
+    Returns the int8 kernels' launches, summed over the ranks, and the largest bf16
+    error of the block checks."""
+    import shutil
+    import socket
+    import tempfile
+
+    import torch
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="holocron_msp_")
+    args = json.dumps({"device_name": device.type, **sizes})
+    procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--parallel-worker", str(r), str(port),
+                               tmp, args], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(2)]
+    t0 = time.perf_counter()
+    try:
+        while any(p.poll() is None for p in procs) and time.perf_counter() - t0 < timeout:
+            if any(p.poll() not in (None, 0) for p in procs):
+                break
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+        logs = [p.communicate()[0] for p in procs]
+    if any(p.returncode != 0 for p in procs):
+        for r, log in enumerate(logs):
+            print(f"--- model_spatial_parallel rank {r} (rc={procs[r].returncode}) ---\n{log[-6000:]}", file=sys.stderr)
+        shutil.rmtree(tmp, ignore_errors=True)
+        fail("model_spatial_parallel: a rank failed")
+    ranks = [json.loads(Path(tmp, f"rank{r}.json").read_text()) for r in range(2)]
+    shutil.rmtree(tmp, ignore_errors=True)
+    r0, r1 = ranks
+    record = {"phase": "model_spatial_parallel", "world_size": [r["world_size"] for r in ranks],
+              "backend": r0["backend"], "seconds": time.perf_counter() - t0,
+              "staged_bytes": [r["staged_bytes_total"] for r in ranks]}
+    record["tensor_parallel"] = {
+        "model": "resnet50", "batch": sizes.get("cls_batch", 64), "dtype": "float32",
+        "blocks_a_rank": r0["tp_blocks"],
+        "top1_agreement": r0["tp_top1_agreement"], "max_abs_logit_diff": r0["tp_max_abs_logit_diff"],
+        "logit_scale": r0["tp_logit_scale"], "wall_ms": [r["tp_ms"] for r in ranks],
+        "params_bytes_rank": [r["params_bytes_rank"] for r in ranks],
+        "params_bytes_one_process": r0["params_bytes_one_process"],
+        "int8_top1_agreement": r0["tp_int8_top1_agreement"],
+        "int8_max_abs_logit_diff": r0["tp_int8_max_abs_logit_diff"], "int8_logit_scale": r0["tp_int8_logit_scale"],
+        "int8_wall_ms": [r["tp_int8_ms"] for r in ranks],
+        "int8_launches_a_rank": [{k: r["tp_int8_launches"][k] for k in ("int8_conv", "int8_quantize",
+                                                                        "int8_conv_general")} for r in ranks],
+        "int8_blocks_checked_a_rank": [len(r["tp_int8_blocks_checked"]) for r in ranks],
+        "int8_block_max_abs_err_bf16": max(r["tp_int8_block_max_abs_err_bf16"] for r in ranks),
+        "fallbacks_a_rank": [r["tp_fallbacks"] for r in ranks]}
+    record["spatial"] = {"model": "unet3p", "batch": sizes.get("seg_batch", 2),
+                         "image_size": sizes.get("seg_size", 1024), "num_classes": 21,
+                         **{name: {"argmax_agreement": r1[f"sp_{name}"]["argmax_agreement"],
+                                   "rows_a_rank": [r[f"sp_{name}"]["rows"] for r in ranks],
+                                   "peak_memory_gib_rank": [r[f"sp_{name}"]["peak_memory_gib"] for r in ranks],
+                                   "peak_memory_gib_one_process": r1[f"sp_ref_{name}"]["peak_memory_gib"],
+                                   "wall_ms": [r[f"sp_{name}"]["ms"] for r in ranks],
+                                   "fallbacks_a_rank": [r[f"sp_{name}"]["fallbacks"] for r in ranks]}
+                            for name in ("float32", "bf16")}}
+    refs = {"tp_train": r0["tp_train_ref"], "sp_train": r1["sp_train_ref"]}
+    record["training"] = {
+        name: {"losses": [r[name]["losses"] for r in ranks], "one_process_losses": refs[name]["losses"],
+               "step_wall_ms": [r[name]["step_wall_ms"] for r in ranks],
+               "one_process_step_wall_ms": refs[name]["step_wall_ms"],
+               "peak_memory_gib_rank": [r[name]["peak_memory_gib"] for r in ranks],
+               "peak_memory_gib_one_process": refs[name]["peak_memory_gib"],
+               "fallbacks_a_rank": [r[name]["fallbacks"] for r in ranks]}
+        for name in ("tp_train", "sp_train")}
+    record["training"]["tp_train"]["params_bytes_rank"] = [r["tp_train_params_bytes_rank"] for r in ranks]
+    emit(record)
+    tp, sp = record["tensor_parallel"], record["spatial"]
+    if record["world_size"] != [2, 2] or record["backend"] != "gloo":
+        fail(f"model_spatial_parallel: world sizes {record['world_size']} over {record['backend']}")
+    if tp["top1_agreement"] != 1.0 or tp["int8_top1_agreement"] < AGREEMENT_FLOOR:
+        fail(f"model_spatial_parallel: top-1 agreement {tp['top1_agreement']} (float32), "
+             f"{tp['int8_top1_agreement']} (int8)")
+    for form in ("", "int8_"):
+        if not tp[f"{form}max_abs_logit_diff"] <= TP_LOGIT_RTOL * tp[f"{form}logit_scale"]:
+            fail(f"model_spatial_parallel: {form or 'float32 '}logits {tp[f'{form}max_abs_logit_diff']} from one "
+                 f"process's, beyond {TP_LOGIT_RTOL} x {tp[f'{form}logit_scale']}")
+    if any(n == 0 for n in tp["int8_blocks_checked_a_rank"]):
+        fail(f"model_spatial_parallel: a rank checked no int8 block: {tp['int8_blocks_checked_a_rank']}")
+    if any(r["int8_conv"] == 0 or r["int8_quantize"] == 0 for r in tp["int8_launches_a_rank"]):
+        fail(f"model_spatial_parallel: a rank's int8 forward launched no kernel: {tp['int8_launches_a_rank']}")
+    for name in ("float32", "bf16"):
+        if sp[name]["argmax_agreement"] < 0.999:
+            fail(f"model_spatial_parallel: unet3p {name} argmax agreement {sp[name]['argmax_agreement']} < 0.999")
+    # a rows-split activation gathered whole on every rank defeats spatial partitioning
+    for what, counts in [*((f"unet3p {n} forward", sp[n]["fallbacks_a_rank"]) for n in ("float32", "bf16")),
+                         ("unet3p train step", record["training"]["sp_train"]["fallbacks_a_rank"])]:
+        gathered = sorted({k for c in counts for k in c if k.startswith("rows:")})
+        if gathered:
+            fail(f"model_spatial_parallel: the {what} gathered its split rows in {gathered}")
+    for name, rec in record["training"].items():
+        for losses in rec["losses"]:
+            if len(losses) != len(rec["one_process_losses"]) or any(
+                    not math.isfinite(a) or abs(a - b) > 1e-3 * abs(b) for a, b in zip(losses, rec["one_process_losses"])):
+                fail(f"model_spatial_parallel: {name} losses {losses} vs one process {rec['one_process_losses']}")
+    launches = {k: sum(r[k] for r in tp["int8_launches_a_rank"]) for k in ("int8_conv", "int8_quantize",
+                                                                            "int8_conv_general")}
+    return launches, tp["int8_block_max_abs_err_bf16"]
+
+
 def _kernel_launches(fn) -> int:
     """The CUDA kernels one call of ``fn`` launches, from ``torch.profiler``."""
     import torch
@@ -3588,7 +3996,7 @@ def naturalistic_batch_u8(gen, batch: int, size: int, device):
     return (x * 40 + 128).clamp(0, 255).to(torch.uint8).contiguous(memory_format=torch.channels_last)
 
 
-def int8_entries(launches: list, replays_seen: dict, records: list, grouped: list) -> list:
+def int8_entries(launches: list, replays_seen: dict, records: list, grouped: list, blocks_err: float) -> list:
     """The ``kernels`` line's entries of the int8 kernels: launches the counters saw,
     summed over the paths' runs (the four classification serving paths, the bench, the
     captured deploy forward's warm-ups, captures and eager forwards, the service's
@@ -3596,7 +4004,10 @@ def int8_entries(launches: list, replays_seen: dict, records: list, grouped: lis
     unet3p's in ``segmentation_serving``, mobileone_s1's and convnext_tiny's eager
     forwards, warm-ups and captures in their serving phases, the exported int8
     repvgg_a0's eager and loaded runs in ``export``, ``eval_latency``'s int8
-    rexnet1_0x in ``latency_and_zoo``, and repvgg_a0's two int8 forms in ``s2d_forms``);
+    rexnet1_0x in ``latency_and_zoo``, repvgg_a0's two int8 forms in ``s2d_forms``, and
+    both ranks' tensor-parallel int8 resnet50 in ``model_spatial_parallel``, each on its
+    block of the output channels; ``blocks_err`` is the largest bf16 error of that
+    phase's checks of the blocks, beside the whole layers' of ``records``);
     apart from them, ``replay_launches_seen``: the launches ``torch.profiler`` saw in
     the counted graph replays of ``deploy_graph_profile`` (a replay makes no call a
     counter sees);
@@ -3630,7 +4041,8 @@ def int8_entries(launches: list, replays_seen: dict, records: list, grouped: lis
     quantize["replaces"] = "holocron_tpu/quant.py:244"
     return [
         entry("int8_conv", "int8_conv.cu", total("conv_ms", "wgmma"), total("plain_ms", "wgmma"),
-              total("bound_ms", "wgmma"), max(by, key=by.get), max(r["max_abs_err_bf16"]["wgmma"] for r in records)),
+              total("bound_ms", "wgmma"), max(by, key=by.get),
+              max(blocks_err, *(r["max_abs_err_bf16"]["wgmma"] for r in records))),
         quantize,
         entry("int8_conv_general", "int8_conv_general.cu", sum(g["conv_ms"] for g in grouped),
               sum(g["plain_ms"] for g in grouped), sum(g["bound_ms"] for g in grouped),
@@ -3641,6 +4053,10 @@ def int8_entries(launches: list, replays_seen: dict, records: list, grouped: lis
 def main() -> int:
     import torch
 
+    if len(sys.argv) > 5 and sys.argv[1] == "--parallel-worker":  # a rank of model_spatial_parallel
+        sys.path.insert(0, str(ROOT))
+        model_spatial_parallel_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], **json.loads(sys.argv[5]))
+        return 0
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available; this script runs the port on an NVIDIA GPU only",
               file=sys.stderr)
@@ -3696,6 +4112,7 @@ def main() -> int:
     timed(phase_remat, device)
     timed(phase_binary_trainer, device)
     timed(phase_data_parallel, device)
+    parallel_launches, parallel_int8_err = timed(phase_model_spatial_parallel, device)
     export_launches = timed(phase_export, device)
     latency_launches = timed(phase_latency_and_zoo, device)
     inv = timed(check_involution, device)
@@ -3744,8 +4161,9 @@ def main() -> int:
         *int8_entries([serving_launches, resnet_launches, rexnet_launches, darknet_launches, bench_launches,
                        graph_launches, service_launches, detection_launches, segmentation_launches,
                        mobileone_launches, mobileone_graph_launches, convnext_launches, convnext_graph_launches,
-                       profile_launches, export_launches, latency_launches, s2d_launches], replays_seen,
-                      [i8, i8_resnet, i8_rexnet, i8_s2d], grouped),
+                       profile_launches, export_launches, latency_launches, s2d_launches, parallel_launches],
+                      replays_seen,
+                      [i8, i8_resnet, i8_rexnet, i8_s2d], grouped, parallel_int8_err),
     ]})
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

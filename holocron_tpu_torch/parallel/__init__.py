@@ -1,12 +1,17 @@
-"""Data parallelism across processes (``holocron_tpu/parallel``) on ``torch.distributed``,
-one process a device. Tensor, spatial and pipeline parallelism (``inference.py``,
-``spatial.py``, ``pipeline.py``) are not ported yet."""
+"""Data, tensor and spatial parallelism across processes (``holocron_tpu/parallel``) on
+``torch.distributed``, one process a device: the process group and meshes
+(``multihost.py``, ``mesh.py``), the named collectives, the cross-process batch norm,
+tensor parallelism (``inference.py``) and spatial partitioning (``spatial.py``), both
+run by the split-tensor mode of ``sharded.py``. The GPipe schedule (``pipeline.py``)
+is not ported yet."""
 
 from . import collectives
 from .batchnorm import CrossProcessBatchNorm2d, CrossProcessFlaxBatchNorm2d, convert_batchnorm
+from .inference import shard_inference, tensor_parallel_specs
 from .mesh import batch_sharding, create_mesh, replicated, shard_batch
 from .multihost import host_local_put, hybrid_mesh, initialize, local_device, num_slices, rank, replicate_to_host, \
     world_size
+from .spatial import shard_spatial_inference, spatial_sharding
 
 __all__ = [
     "CrossProcessBatchNorm2d",
@@ -24,5 +29,9 @@ __all__ = [
     "replicate_to_host",
     "replicated",
     "shard_batch",
+    "shard_inference",
+    "shard_spatial_inference",
+    "spatial_sharding",
+    "tensor_parallel_specs",
     "world_size",
 ]

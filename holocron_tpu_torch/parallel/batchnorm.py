@@ -13,17 +13,19 @@ from torch import distributed as dist
 from torch import nn
 
 from ..nn.modules._norm import FlaxBatchNorm2d
-from .collectives import _Sum
+from .sharded import _batch_norm_over, gather, local_view, split_of, tag
 
 __all__ = ["CrossProcessBatchNorm2d", "CrossProcessFlaxBatchNorm2d", "convert_batchnorm"]
 
 
 class CrossProcessBatchNorm2d(nn.BatchNorm2d):
     """A batch norm whose training forward takes its statistics over every process's
-    batch: the mean from the summed per-channel sums and counts, then the biased
-    variance from the summed squared deviations (two passes, as torch's), each sum a
-    differentiable all-reduce (its backward sums the gradients over the processes), in
-    float32; the output in the input's dtype. The running statistics move as those of
+    batch (``group``; every process by default): the mean from the summed per-channel
+    sums and counts, then the biased variance from the summed squared deviations (two
+    passes, as torch's), each sum a differentiable all-reduce (its backward sums the
+    gradients over the processes), in float32; the output in the input's dtype. Under
+    spatial partitioning each process holds rows of every image and the sums cover
+    them; under tensor parallelism each holds its block of the channels. The running statistics move as those of
     ``nn.BatchNorm2d``'s (:class:`CrossProcessFlaxBatchNorm2d`: towards the biased
     variance, as :class:`~holocron_tpu_torch.nn.modules._norm.FlaxBatchNorm2d`'s).
 
@@ -40,25 +42,22 @@ class CrossProcessBatchNorm2d(nn.BatchNorm2d):
         if not self.training or self._world() == 1:
             return super().forward(x)
         group = self.group if self.group is not None else dist.group.WORLD
-        xf = x.float()
-        c = xf.shape[1]
-        count = xf.new_full((1,), xf.numel() // c)
-        sums = _Sum.apply(torch.cat([xf.sum((0, 2, 3)), count]), group)
-        n = sums[-1].detach()
-        mean = sums[:-1] / n
-        centred = xf - mean.reshape(1, -1, 1, 1)
-        var = _Sum.apply(centred.square().sum((0, 2, 3)), group) / n
-        y = centred * torch.rsqrt(var + self.eps).reshape(1, -1, 1, 1)
-        if self.affine:
-            y = y * self.weight.reshape(1, -1, 1, 1) + self.bias.reshape(1, -1, 1, 1)
+        factor = 0.0
         if self.track_running_stats:
             with torch.no_grad():
                 self.num_batches_tracked.add_(1)
-                factor = self.momentum if self.momentum is not None else 1.0 / float(self.num_batches_tracked)
-                running_var = var if self.flax_running_var else var * (n / (n - 1))
-                self.running_mean.lerp_(mean, factor)
-                self.running_var.lerp_(running_var, factor)
-        return y.to(x.dtype)
+            factor = self.momentum if self.momentum is not None else 1.0 / float(self.num_batches_tracked)
+        # under tensor parallelism this rank's channels, split as its parameters; under
+        # spatial partitioning this rank's rows, the group's sums covering every row
+        ps, xs = split_of(self.running_mean if self.weight is None else self.weight), split_of(x)
+        if ps is not None and (xs is None or not (xs.same(ps) and xs.dim == 1)):
+            x = local_view(gather(x), ps._replace(dim=1))
+        elif ps is None and xs is not None and xs.kind == "channels":
+            x = gather(x)
+        y = _batch_norm_over(x, self.running_mean if self.track_running_stats else None,
+                             self.running_var if self.track_running_stats else None, self.weight, self.bias,
+                             True, factor, self.eps, group, self.flax_running_var)
+        return tag(y, split_of(x))
 
 
 class CrossProcessFlaxBatchNorm2d(CrossProcessBatchNorm2d, FlaxBatchNorm2d):

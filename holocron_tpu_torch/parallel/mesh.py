@@ -26,8 +26,11 @@ class Sharding(NamedTuple):
 def create_mesh(axes: Sequence[str] = ("data", "model"), model_parallel: int = 1,
                 device_type: Optional[str] = None):
     """A mesh over every process of the group (``mesh.py:20-39``): ``(world /
-    model_parallel, model_parallel)``, or ``(world,)`` for one axis name. ``device_type``
-    defaults to ``cuda`` under NCCL and ``cpu`` under gloo."""
+    model_parallel, model_parallel)``, or ``(world,)`` for one axis name; the second
+    axis is ``model`` for tensor parallelism or ``spatial`` for spatial partitioning
+    (``("data", "spatial")``), consecutive ranks sharing a model or spatial group.
+    ``device_type`` defaults to ``cuda`` under NCCL and ``cpu`` under gloo; gloo over
+    CUDA tensors (processes sharing a card) asks for ``cuda``."""
     from torch.distributed.device_mesh import init_device_mesh
 
     if not dist.is_initialized():
@@ -46,17 +49,11 @@ def create_mesh(axes: Sequence[str] = ("data", "model"), model_parallel: int = 1
 
 def batch_sharding(mesh, axis: str = "data") -> Sharding:
     """The leading (batch) dimension split over ``axis``, replicated over the others
-    (``mesh.py:42-44``). Each process feeds its own rows, so ``axis`` must be divisible
-    by the process count (``holocron_tpu/trainer/core.py:166-175``)."""
+    (``mesh.py:42-44``). The processes of a model or spatial group hold the same rows:
+    the batch splits over the ``axis`` dimension of the mesh, one device a process."""
     from torch.distributed.tensor import Replicate, Shard
 
     names = mesh.mesh_dim_names
-    size, processes = mesh.size(names.index(axis)), dist.get_world_size()
-    if size % processes != 0:
-        raise ValueError(
-            f"the mesh data axis ({size}) must be divisible by the process count ({processes}) — lower "
-            "model_parallel/spatial_parallel so every host keeps a slice of the batch axis"
-        )
     return Sharding(mesh, tuple(Shard(0) if name == axis else Replicate() for name in names))
 
 

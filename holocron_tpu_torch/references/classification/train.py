@@ -14,8 +14,9 @@ draws from ``(--seed, epoch, index)``, Mixup's from ``(--seed, epoch, worker)``.
 Across processes (``torchrun``, one a device): the process group is joined from the
 environment first (``parallel.initialize``), each process trains on ``cuda:LOCAL_RANK``
 and on its own shard of both loaders (``num_shards="auto"``), W&B logs from rank 0, and
-``--shard-opt-state`` shards the optimizer state (ZeRO-1); ``--model-parallel`` and
-``--spatial-parallel`` are accepted at 1 only.
+``--shard-opt-state`` shards the optimizer state (ZeRO-1), ``--model-parallel N`` splits
+the model's channels over groups of N processes (tensor parallelism) and
+``--spatial-parallel N`` the image rows (spatial partitioning), the batch over the rest.
 """
 
 import argparse
@@ -234,9 +235,6 @@ def main(args):
     evaluates) as ``train.py:179-307`` does; returns the trainer (None after
     ``--find-size``)."""
     print(args)  # noqa: T201
-    for flag in ("model_parallel", "spatial_parallel"):
-        if getattr(args, flag) != 1:
-            raise NotImplementedError(f"--{flag.replace('_', '-')}: not ported yet (data parallelism only)")
 
     tracker = None
     if args.codecarbon:
@@ -292,6 +290,8 @@ def main(args):
         gradient_clip=args.grad_clip,
         input_norm=input_norm,
         shard_opt_state=args.shard_opt_state,
+        model_parallel=args.model_parallel,
+        spatial_parallel=args.spatial_parallel,
     )
     if args.resume:
         print(f"Resuming {args.resume}")  # noqa: T201
@@ -354,8 +354,10 @@ def parse_args(argv: Optional[List[str]] = None):
     group = parser.add_argument_group("Hardware")
     group.add_argument("--amp", help="use bf16 mixed precision", action="store_true")
     group.add_argument("--device", default="cuda", type=str, help="where to train: cuda (the card) or cpu")
-    group.add_argument("--model-parallel", default=1, type=int, help="only 1: tensor parallelism is not ported")
-    group.add_argument("--spatial-parallel", default=1, type=int, help="only 1: spatial parallelism is not ported")
+    group.add_argument("--model-parallel", default=1, type=int,
+                       help="channel tensor-parallel factor (mesh 'model' axis); batch shards over the rest")
+    group.add_argument("--spatial-parallel", default=1, type=int,
+                       help="spatial-partitioning factor (mesh 'spatial' axis): image height split, halos exchanged")
     group.add_argument("--shard-opt-state", action="store_true",
                         help="ZeRO-1: each process keeps the optimizer state of its share of the parameters")
 

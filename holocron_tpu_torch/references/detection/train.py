@@ -15,8 +15,9 @@ index)``.
 Across processes (``torchrun``, one a device): the process group is joined from the
 environment first (``parallel.initialize``), each process trains on ``cuda:LOCAL_RANK``
 and on its own shard of both loaders (``num_shards="auto"``), W&B logs from rank 0, and
-``--shard-opt-state`` shards the optimizer state (ZeRO-1); ``--model-parallel`` and
-``--spatial-parallel`` are accepted at 1 only.
+``--shard-opt-state`` shards the optimizer state (ZeRO-1), ``--model-parallel N`` splits
+the model's channels over groups of N processes (tensor parallelism) and
+``--spatial-parallel N`` the image rows (spatial partitioning), the batch over the rest.
 """
 
 import argparse
@@ -122,9 +123,6 @@ def main(args):
     """Trains (or finds the learning rate, overfits a batch, evaluates) as
     ``train.py:76-164`` does; returns the trainer."""
     print(args)  # noqa: T201
-    for flag in ("model_parallel", "spatial_parallel"):
-        if getattr(args, flag) != 1:
-            raise NotImplementedError(f"--{flag.replace('_', '-')}: not ported yet (data parallelism only)")
 
     import torch
 
@@ -167,6 +165,8 @@ def main(args):
         gradient_acc=args.grad_acc,
         gradient_clip=args.grad_clip,
         shard_opt_state=args.shard_opt_state,
+        model_parallel=args.model_parallel,
+        spatial_parallel=args.spatial_parallel,
     )
     if args.resume:
         print(f"Resuming {args.resume}")  # noqa: T201
@@ -214,8 +214,10 @@ def parse_args(argv: Optional[List[str]] = None):
     parser.add_argument("--fake-samples", default=32, type=int)
     parser.add_argument("--amp", action="store_true")
     parser.add_argument("--device", default="cuda", type=str, help="where to train: cuda (the card) or cpu")
-    parser.add_argument("--model-parallel", default=1, type=int, help="only 1: tensor parallelism is not ported")
-    parser.add_argument("--spatial-parallel", default=1, type=int, help="only 1: spatial parallelism is not ported")
+    parser.add_argument("--model-parallel", default=1, type=int,
+                        help="channel tensor-parallel factor (mesh 'model' axis); batch shards over the rest")
+    parser.add_argument("--spatial-parallel", default=1, type=int,
+                        help="spatial-partitioning factor (mesh 'spatial' axis): image height split, halos exchanged")
     parser.add_argument("--shard-opt-state", action="store_true",
                         help="ZeRO-1: each process keeps the optimizer state of its share of the parameters")
     parser.add_argument("--seed", default=0, type=int, help="the shuffle, the flips and the weights")

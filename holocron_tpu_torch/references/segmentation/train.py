@@ -10,8 +10,9 @@ class indices, 255 ignored).
 Across processes (``torchrun``, one a device): the process group is joined from the
 environment first (``parallel.initialize``), each process trains on ``cuda:LOCAL_RANK``
 and on its own shard of both loaders (``num_shards="auto"``), W&B logs from rank 0, and
-``--shard-opt-state`` shards the optimizer state (ZeRO-1); ``--model-parallel`` and
-``--spatial-parallel`` are accepted at 1 only.
+``--shard-opt-state`` shards the optimizer state (ZeRO-1), ``--model-parallel N`` splits
+the model's channels over groups of N processes (tensor parallelism) and
+``--spatial-parallel N`` the image rows (spatial partitioning), the batch over the rest.
 """
 
 import argparse
@@ -111,14 +112,11 @@ def main(args):
     """Trains (or sweeps the learning rate, overfits a batch, evaluates) as
     ``train.py:53-158`` does; returns the trainer."""
     print(args)  # noqa: T201
-    for flag in ("model_parallel", "spatial_parallel"):
-        if getattr(args, flag) != 1:
-            raise NotImplementedError(f"--{flag.replace('_', '-')}: not ported yet (data parallelism only)")
 
     import torch
 
     from holocron_tpu_torch.models import segmentation
-    from holocron_tpu_torch.parallel import initialize, local_device, rank, world_size
+    from holocron_tpu_torch.parallel import initialize, local_device, rank
     from holocron_tpu_torch.trainer import SegmentationTrainer
     from holocron_tpu_torch.utils.data import ShardSampler
 
@@ -129,9 +127,10 @@ def main(args):
     loader_kw = ({"num_workers": args.workers, "multiprocessing_context": "spawn", "persistent_workers": True}
                  if args.workers > 0 else {})
     # each process takes its shard of one permutation, seeded as the JAX loader's default
-    # (seed 0) at every world size, so that N processes reproduce one
-    train_sampler = ShardSampler(len(train_set), world_size(), rank(), torch.Generator().manual_seed(0))
-    val_sampler = ShardSampler(len(val_set), world_size(), rank())
+    # (seed 0) at every world size, so that N processes reproduce one; the trainer shards
+    # them over its data axis under --model-parallel / --spatial-parallel
+    train_sampler = ShardSampler(len(train_set), "auto", generator=torch.Generator().manual_seed(0))
+    val_sampler = ShardSampler(len(val_set), "auto")
     train_loader = torch.utils.data.DataLoader(train_set, args.batch_size, sampler=train_sampler, drop_last=True,
                                                **loader_kw)
     val_loader = torch.utils.data.DataLoader(val_set, args.batch_size, sampler=val_sampler, **loader_kw)
@@ -157,6 +156,8 @@ def main(args):
         gradient_acc=args.grad_acc,
         num_classes=args.num_classes,
         shard_opt_state=args.shard_opt_state,
+        model_parallel=args.model_parallel,
+        spatial_parallel=args.spatial_parallel,
     )
     if args.resume:
         trainer.load(args.resume)
@@ -202,8 +203,10 @@ def parse_args(argv: Optional[List[str]] = None):
     parser.add_argument("--fake-samples", default=64, type=int)
     parser.add_argument("--amp", action="store_true")
     parser.add_argument("--device", default="cuda", type=str, help="where to train: cuda (the card) or cpu")
-    parser.add_argument("--model-parallel", default=1, type=int, help="only 1: tensor parallelism is not ported")
-    parser.add_argument("--spatial-parallel", default=1, type=int, help="only 1: spatial parallelism is not ported")
+    parser.add_argument("--model-parallel", default=1, type=int,
+                        help="channel tensor-parallel factor (mesh 'model' axis); batch shards over the rest")
+    parser.add_argument("--spatial-parallel", default=1, type=int,
+                        help="spatial-partitioning factor (mesh 'spatial' axis): image height split, halos exchanged")
     parser.add_argument("--shard-opt-state", action="store_true",
                         help="ZeRO-1: each process keeps the optimizer state of its share of the parameters")
     parser.add_argument("-b", "--batch-size", default=16, type=int)

@@ -20,7 +20,9 @@ class ClassificationTrainer(Trainer):
     def evaluate(self) -> Dict[str, float]:
         """Top-1 and top-5 accuracy (k clamped to the class count) and the mean loss
         over the batches whose loss is finite (``classification.py:23-49``). Across
-        processes each batch is every process's, gathered (``_host_batch``)."""
+        processes each batch is every data-parallel process's, gathered
+        (``_host_batch``): the processes of a model or spatial group hold the same
+        whole logits, so the counts are summed over the data group."""
         val_loss, top1, top5, num_samples, num_valid_batches = 0.0, 0, 0, 0, 0
         for x, target in self.val_loader:
             bs = int(x.shape[0])

@@ -46,6 +46,29 @@ as the JAX step does. DDP's reducer is not used: its hooks fire through the wrap
 ``checkpoint`` under remat, ``torch.autograd.grad``) does not go through.
 ``shard_opt_state`` (ZeRO-1): each process keeps the optimizer state of its partition
 of the parameters only, steps it, and broadcasts the updated parameters.
+
+``model_parallel`` and ``spatial_parallel`` (``core.py:144-175``, mutually exclusive)
+lay the processes on a ``("data", "model")`` or ``("data", "spatial")`` mesh; the
+batch splits over ``data`` (the trainer shards its loaders' ``num_shards="auto"``
+samplers over that axis), and the step's
+forward and loss, and under tensor parallelism its update, run under
+:class:`~holocron_tpu_torch.parallel.sharded.SplitMode`:
+
+- tensor parallelism: every parameter, batch norm statistic and optimizer moment whose
+  output channels are ``tp_min_channels`` or wider and divide the axis is held as this
+  process's block (:func:`~holocron_tpu_torch.parallel.tensor_parallel_specs`), the
+  layers column-parallel; the loss is the whole one on every process of a model group,
+  each gradient its block's whole one, so the gradients are averaged over the data
+  group only; clipping's and LAMB's norms are summed over the blocks; ZeRO-1 is a no-op.
+- spatial parallelism: each batch's rows (and a dense target's, split with the image;
+  other targets whole) split over the spatial axis, H divisible by it; every
+  reduction over the rows is summed over the group, so the loss is the global one on
+  every process, and its gradient each process's share times the group's size:
+  averaged over every process, as under data parallelism, they are the one-process
+  gradients. Batch norm takes its statistics over the data and spatial processes.
+
+The reported loss is the global one (averaged over the data group); ``save`` writes
+whole tensors, so a checkpoint restores into any layout's trainer.
 """
 
 import contextlib
@@ -64,8 +87,9 @@ from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selectiv
 from torch import distributed as dist
 
 from ..optim.schedules import constant_schedule, cosine_decay_schedule, cosine_onecycle_schedule
+from ..parallel import sharded
 from ..parallel.batchnorm import convert_batchnorm
-from ..utils.data.loader import prefetch
+from ..utils.data.loader import ShardSampler, prefetch
 from ._progress import ProgressBar
 from .utils import freeze_bn, freeze_model, split_normalization_params
 
@@ -157,9 +181,13 @@ class Trainer:
         input_norm: ``(mean, std)``; uint8 batches are normalized on the device inside
             the step, ``(x / 255 - mean) / std`` per channel; float batches pass as they are
         remat: ``False``, ``True`` / ``"full"`` or ``"dots"`` (see the module docstring)
-        model_parallel, spatial_parallel: tensor and spatial
-            parallelism, accepted at 1 only (not ported yet)
-        shard_opt_state: ZeRO-1 across the processes (see the module docstring)
+        model_parallel: the ``model`` axis' size: tensor parallelism above 1 (see the
+            module docstring)
+        tp_min_channels: the narrowest per-channel dimension split under
+            ``model_parallel``
+        spatial_parallel: the ``spatial`` axis' size: spatial partitioning above 1
+        shard_opt_state: ZeRO-1 across the processes (see the module docstring); a
+            no-op under ``model_parallel``
     """
 
     def __init__(
@@ -180,31 +208,40 @@ class Trainer:
         input_norm: Optional[Tuple[Sequence[float], Sequence[float]]] = None,
         remat: Union[bool, str] = False,
         model_parallel: int = 1,
+        tp_min_channels: int = 64,
         spatial_parallel: int = 1,
         shard_opt_state: bool = False,
     ) -> None:
         if remat not in REMAT_MODES:
             raise ValueError(f"remat must be False, True/'full', or 'dots', got {remat!r}")
-        if model_parallel != 1:
-            raise NotImplementedError(f"model_parallel={model_parallel}: tensor parallelism "
-                                      "(holocron_tpu/parallel/inference.py) is not ported yet")
-        if spatial_parallel != 1:
-            raise NotImplementedError(f"spatial_parallel={spatial_parallel}: spatial parallelism "
-                                      "(holocron_tpu/parallel/spatial.py) is not ported yet")
         self.remat = remat
-        self.shard_opt_state = shard_opt_state
         self.distributed = dist.is_available() and dist.is_initialized()
         self.world_size = dist.get_world_size() if self.distributed else 1
         self.rank = dist.get_rank() if self.distributed else 0
         self.device = torch.device(device)
+        self.model_parallel, self.tp_min_channels, self.spatial_parallel = model_parallel, tp_min_channels, \
+            spatial_parallel
+        self._set_mesh()
+        self.shard_opt_state = shard_opt_state and model_parallel == 1
         self.model = model.to(self.device)
         if self.world_size > 1:
-            convert_batchnorm(self.model)
+            # batch norm over the processes that hold the same channels: the data group
+            # under tensor parallelism, every process otherwise
+            convert_batchnorm(self.model, self._data_group if model_parallel > 1 else None)
             with torch.no_grad():  # every process starts from rank 0's weights, as DDP does
                 for t in [*self.model.parameters(), *self.model.buffers()]:
                     dist.broadcast(t, 0)
+        if model_parallel > 1:
+            from ..parallel.inference import shard_module, tensor_parallel_specs
+
+            shard_module(self.model, tensor_parallel_specs(self.model, self.mesh, min_channels=tp_min_channels))
         self.train_loader = train_loader
         self.val_loader = val_loader
+        if self.mesh is not None:  # the processes of a model or spatial group read the same rows
+            for loader in (train_loader, val_loader):
+                sampler = getattr(loader, "sampler", None)
+                if isinstance(sampler, ShardSampler) and sampler.auto:
+                    sampler.shard_over(self._data_group)
         self.criterion = criterion
         self.optimizer = optimizer
         self.amp = amp
@@ -244,32 +281,92 @@ class Trainer:
         self._owned: List[List[torch.Tensor]] = []  # ZeRO-1: the trainable parameters each rank steps
 
     # ------------------------------------------------------------------
-    # processes (``core.py:250-271``)
+    # processes (``core.py:144-283``)
     # ------------------------------------------------------------------
+    def _set_mesh(self) -> None:
+        """The mesh of ``model_parallel`` / ``spatial_parallel`` (``core.py:144-175``) and
+        the groups the step reduces over: ``_data_group`` (the processes that hold
+        different rows of the batch) and ``_grad_group`` (those whose gradients are
+        averaged: the data group under tensor parallelism, every process otherwise)."""
+        mp, sp = self.model_parallel, self.spatial_parallel
+        if mp > 1 and sp > 1:
+            raise ValueError("model_parallel and spatial_parallel cannot be combined — pick one "
+                             "(data parallelism composes with either over the leading axis)")
+        self.mesh = None
+        self._data_group = self._grad_group = dist.group.WORLD if self.distributed else None
+        self._spatial_group = None
+        if mp == 1 and sp == 1:
+            self._data_size = self.world_size
+            return
+        if self.world_size % max(mp, sp) != 0:
+            raise ValueError(f"{self.world_size} devices cannot host a "
+                             f"{'model' if mp > 1 else 'spatial'}-parallel factor of {max(mp, sp)}")
+        from ..parallel.mesh import create_mesh
+
+        axes = ("data", "model") if mp > 1 else ("data", "spatial")
+        self.mesh = create_mesh(axes, max(mp, sp), device_type=self.device.type)
+        self._data_group = self.mesh.get_group("data")
+        self._data_size = dist.get_world_size(self._data_group)
+        if mp > 1:
+            self._grad_group = self._data_group
+        else:
+            self._spatial_group = self.mesh.get_group("spatial")
+
+    def _split_mode(self):
+        """The split-tensor mode under tensor or spatial parallelism, else nothing."""
+        return sharded.SplitMode() if self.mesh is not None else contextlib.nullcontext()
+
+    def _split_batch(self, x, target):
+        """Spatial parallelism (``core.py:222-240``): this process's rows of the batch on
+        the device, and of a dense target (``(N, H, W, ...)`` with the image's H and W),
+        split with the image; other targets whole. H must divide the axis."""
+        if self._spatial_group is None:
+            return x, target
+        n = dist.get_world_size(self._spatial_group)
+        x = x.to(self.device, non_blocking=True)
+        h, w = int(x.shape[2]), int(x.shape[3])
+        if h % n != 0:
+            raise ValueError(f"spatial_parallel={n} needs the image height to divide; got H={h}")
+
+        def split_target(t):
+            if isinstance(t, torch.Tensor) and t.ndim >= 3 and tuple(t.shape[1:3]) == (h, w):
+                return sharded.split_rows(t.to(self.device, non_blocking=True), 1, self._spatial_group)
+            if isinstance(t, dict):
+                return {k: split_target(v) for k, v in t.items()}
+            return t
+
+        return sharded.split_rows(x, 2, self._spatial_group), split_target(target)
+
     def _host_batch(self, arr: torch.Tensor, bs: int) -> torch.Tensor:
         """The real rows of every process's eval batch, in rank order, on the device
-        (``core.py:250-271``): ``arr[:bs]`` with one process, else an all-gather of each
-        rank's first ``bs`` rows (their counts gathered first), so that every process
-        computes the same metrics over the whole validation view. A collective: every
-        process calls it in lockstep."""
+        (``core.py:250-271``): ``arr[:bs]`` with one process, else an all-gather over
+        the data group of each rank's first ``bs`` rows (their counts gathered first),
+        so that every process computes the same metrics over the whole validation view.
+        A collective: every process calls it in lockstep."""
         arr = arr[:bs]
-        if self.world_size == 1:
+        if self._data_size == 1:
             return arr
+        group = self._data_group
         arr = arr.to(self.device).contiguous()
-        sizes = [torch.zeros(1, dtype=torch.int64, device=self.device) for _ in range(self.world_size)]
-        dist.all_gather(sizes, torch.tensor([arr.shape[0]], dtype=torch.int64, device=self.device))
+        sizes = [torch.zeros(1, dtype=torch.int64, device=self.device) for _ in range(self._data_size)]
+        dist.all_gather(sizes, torch.tensor([arr.shape[0]], dtype=torch.int64, device=self.device), group=group)
         sizes = [int(n) for n in torch.cat(sizes).tolist()]
         padded = arr.new_zeros((max(sizes), *arr.shape[1:]))
         padded[: arr.shape[0]] = arr
         parts = [torch.empty_like(padded) for _ in sizes]
-        dist.all_gather(parts, padded)
+        dist.all_gather(parts, padded, group=group)
         return torch.cat([p[:n] for p, n in zip(parts, sizes)])
 
     def _all_reduce_grads(self, grads: Sequence[torch.Tensor]) -> None:
-        """Averages ``grads`` over the processes in place: the gradients flattened into
-        buckets of up to :data:`BUCKET_BYTES` a dtype, one all-reduce (sum) a bucket,
-        divided by the world size. With one process the result is the input, bit for
-        bit."""
+        """Averages ``grads`` over ``_grad_group`` in place (the data group under tensor
+        parallelism, every process otherwise; see the module docstring): the gradients
+        flattened into buckets of up to :data:`BUCKET_BYTES` a dtype, one all-reduce
+        (sum) a bucket, divided by the group's size. With one process the result is the
+        input, bit for bit."""
+        group = self._grad_group
+        size = dist.get_world_size(group) if group is not None else 1
+        if size == 1:
+            return
         buckets: Dict[torch.dtype, List[List[torch.Tensor]]] = {}
         for g in grads:
             runs = buckets.setdefault(g.dtype, [[]])
@@ -279,8 +376,8 @@ class Trainer:
         for runs in buckets.values():
             for bucket in runs:
                 flat = torch.cat([g.reshape(-1) for g in bucket])
-                dist.all_reduce(flat)
-                flat.div_(self.world_size)
+                dist.all_reduce(flat, group=group)
+                flat.div_(size)
                 for g, piece in zip(bucket, flat.split([g.numel() for g in bucket])):
                     g.copy_(piece.view(g.shape))
 
@@ -313,29 +410,44 @@ class Trainer:
     # ------------------------------------------------------------------
     # checkpointing
     # ------------------------------------------------------------------
+    def _named_splits(self) -> Dict[str, sharded.Split]:
+        """The tensors of the model's ``state_dict`` held as blocks, by name."""
+        return {n: sharded.split_of(t) for n, t in [*self.model.named_parameters(), *self.model.named_buffers()]
+                if sharded.split_of(t) is not None}
+
     def save(self, output_file: str) -> None:
         """Saves ``{epoch, step, min_loss, model}`` (the model's ``state_dict``) with
         ``torch.save`` (``core.py:277-310``). Across processes every process calls it in
-        lockstep and rank 0 alone writes; the file holds the model, not the optimizer
-        state, as in the JAX package."""
+        lockstep and rank 0 alone writes; tensors held as blocks (tensor parallelism)
+        are gathered whole first, so the file restores into any layout. It holds the
+        model, not the optimizer state, as in the JAX package."""
+        state = self.model.state_dict()
+        splits = self._named_splits()
+        if splits:
+            with torch.no_grad():
+                whole = {n: dict([*self.model.named_parameters(), *self.model.named_buffers()])[n] for n in splits}
+                state = {k: sharded.gather(whole[k]).detach() if k in splits else v for k, v in state.items()}
         if self.rank == 0:
             path = Path(output_file)
             path.parent.mkdir(parents=True, exist_ok=True)
-            state = {"epoch": self.epoch, "step": self.step, "min_loss": self.min_loss,
-                     "model": self.model.state_dict()}
-            torch.save(state, path)
+            torch.save({"epoch": self.epoch, "step": self.step, "min_loss": self.min_loss, "model": state}, path)
         if self.distributed:
             dist.barrier()
 
     def load(self, state: Union[str, Path, Dict[str, Any]]) -> None:
-        """Resumes from a state saved by :meth:`save` or its path (``core.py:312-327``)."""
+        """Resumes from a state saved by :meth:`save` or its path (``core.py:312-327``);
+        under tensor parallelism each tensor held as blocks takes its block."""
         if isinstance(state, (str, Path)):
             state = torch.load(state, map_location=self.device, weights_only=True)
         self.start_epoch = int(state["epoch"])
         self.epoch = self.start_epoch
         self.step = int(state["step"])
         self.min_loss = float(state["min_loss"])
-        self.model.load_state_dict(state["model"])
+        model_state = dict(state["model"])
+        for name, split in self._named_splits().items():
+            lo, hi = split.bounds()
+            model_state[name] = model_state[name].narrow(split.dim, lo, hi - lo)
+        self.model.load_state_dict(model_state)
 
     # ------------------------------------------------------------------
     # optimizer / schedule setup
@@ -381,7 +493,8 @@ class Trainer:
             groups = [g for g in ({**g, "params": [p for p in g["params"] if id(p) in mine]} for g in groups)
                       if g["params"]]
         self._opt = self.optimizer(groups, lr=lr_or_schedule) if groups else None
-        self._acc = [torch.zeros_like(p) for p in self.model.parameters()] if self.gradient_acc > 1 else []
+        self._acc = [sharded.tag(torch.zeros_like(p), sharded.split_of(p)) for p in self.model.parameters()] \
+            if self.gradient_acc > 1 else []
         self._mini_step = 0
         self._notfinite = 0
 
@@ -427,7 +540,8 @@ class Trainer:
         """``checkpoint``'s ``context_fn`` under ``remat``: the forward's and the
         recomputation's contexts."""
         generators = _GeneratorReplay(self.model)
-        forward, recompute = [generators.forward()], [generators.recompute(), _running_stats_kept(self.model)]
+        forward, recompute = [generators.forward()], [generators.recompute(), _running_stats_kept(self.model),
+                                                      self._split_mode()]
         if self.remat == "dots":
             keep, redo = create_selective_checkpoint_contexts(_dots_saveable)
             forward.append(keep)
@@ -444,7 +558,8 @@ class Trainer:
         """One train step; returns the loss on the device, without reading it back."""
         self.model.train()
         frozen_stats = [(m.running_mean.clone(), m.running_var.clone()) for m in self._frozen_bn]
-        with record_function("train_step.forward"):
+        x, target = self._split_batch(x, target)
+        with record_function("train_step.forward"), self._split_mode():
             loss = self._step_loss(x, target)
         names, params = zip(*self.model.named_parameters())
         with record_function("train_step.backward"):
@@ -453,13 +568,20 @@ class Trainer:
             for m, (mean, var) in zip(self._frozen_bn, frozen_stats):
                 m.running_mean.copy_(mean)
                 m.running_var.copy_(var)
-            grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
+            grads = [sharded.tag(torch.zeros_like(p) if g is None else g, sharded.split_of(p))
+                     for p, g in zip(params, grads)]
             if self.world_size > 1:
                 with record_function("train_step.all_reduce"):
                     self._all_reduce_grads(grads)
-            with record_function("train_step.update"):
+            with record_function("train_step.update"), \
+                    (self._split_mode() if self.model_parallel > 1 else contextlib.nullcontext()):
                 self._apply_update(names, params, grads)
-        return loss.detach()
+            loss = loss.detach()
+            if self._data_size > 1:  # the global loss: the mean over the data group
+                loss = loss.clone()
+                dist.all_reduce(loss, group=self._data_group)
+                loss.div_(self._data_size)
+        return loss
 
     @torch.no_grad()
     def _apply_update(self, names: Sequence[str], params: Sequence[torch.Tensor], grads: List[torch.Tensor]) -> None:
@@ -690,6 +812,13 @@ class Trainer:
 
     @torch.no_grad()
     def _eval_forward(self, x: torch.Tensor) -> torch.Tensor:
-        """Eval-mode logits in float32, amp as in training (``core.py:705-730``)."""
+        """Eval-mode logits in float32, amp as in training (``core.py:705-730``). Under
+        tensor parallelism they are gathered whole; under spatial parallelism a dense
+        output is this process's rows of it (tagged), other outputs whole."""
         self.model.eval()
-        return self._forward(self._input_prep(x))
+        x, _ = self._split_batch(x, None)
+        with self._split_mode():
+            out = self._forward(self._input_prep(x))
+            if self.model_parallel > 1:
+                out = sharded.tree_gather(out)
+        return out

@@ -71,12 +71,15 @@ class DetectionTrainer(Trainer):
         ``val_loss``, which is ``loc_err``. The detector's eval forward runs on the batch
         as given (a uint8 batch normalized by ``input_norm``), in float32 as the JAX
         package's ``model(x)``. Across processes each evaluates its own shard and the six
-        counters are summed over them (``detection.py:105-113``), so every process returns
-        the same metrics."""
+        counters are summed over the data group (``detection.py:105-113``), so every
+        process returns the same metrics; the processes of a model or spatial group
+        evaluate the same images together (the detections come out whole)."""
         self.model.eval()
         loc_assigns = correct = clf_error = loc_fn = loc_fp = num_samples = 0
         for x, target in self.val_loader:
-            detections = self.model(self._normalize(x))
+            x, _ = self._split_batch(x, None)
+            with self._split_mode():
+                detections = self.model(self._normalize(x))
             for dets, t in zip(detections, target):
                 t_boxes = np.asarray(t["boxes"])
                 d_boxes = np.asarray(dets["boxes"])
@@ -93,10 +96,10 @@ class DetectionTrainer(Trainer):
                 loc_fp += d_boxes.shape[0] - len(pred_indices)
             num_samples += sum(np.asarray(t["boxes"]).shape[0] for t in target)
 
-        if self.world_size > 1:
+        if self._data_size > 1:
             counters = torch.tensor([loc_assigns, correct, clf_error, loc_fn, loc_fp, num_samples], dtype=torch.int64,
                                     device=self.device)
-            dist.all_reduce(counters)
+            dist.all_reduce(counters, group=self._data_group)
             loc_assigns, correct, clf_error, loc_fn, loc_fp, num_samples = (int(v) for v in counters.tolist())
         nb_preds = num_samples - loc_fn + loc_fp
         loc_err = 1 - 2 * loc_assigns / (nb_preds + num_samples) if nb_preds + num_samples > 0 else None

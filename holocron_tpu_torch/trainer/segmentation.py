@@ -5,7 +5,9 @@ import math
 from typing import Any, Dict
 
 import torch
+from torch import distributed as dist
 
+from ..parallel.sharded import split_of, tag
 from .core import Trainer
 
 __all__ = ["SegmentationTrainer"]
@@ -34,7 +36,9 @@ class SegmentationTrainer(Trainer):
         class of ``diag / (row + column - diag)``, 0 for a class seen nowhere)
         (``segmentation.py:29-70``). The matrix is one ``torch.bincount`` a batch on the
         device, invalid targets in an overflow bin, and is read once, with the losses; across
-        processes each batch is every process's, gathered (``_host_batch``).
+        processes each batch is every data-parallel process's, gathered (``_host_batch``);
+        under spatial partitioning each process counts its rows and the matrix is
+        summed over the spatial group, the loss the global one.
         ``ignore_index`` is kept for the JAX signature: as there, ignored pixels are
         those the criterion ignores and those outside the classes."""
         nc = self.num_classes
@@ -42,13 +46,21 @@ class SegmentationTrainer(Trainer):
         losses = []
         for x, target in self.val_loader:
             bs = int(x.shape[0])
-            out = self._host_batch(self._eval_forward(x), bs)
-            target = self._host_batch(target.to(self.device, non_blocking=True), bs)
-            losses.append(self.criterion(out, target).float())
+            out = self._eval_forward(x)
+            _, target = self._split_batch(x, target.to(self.device, non_blocking=True))
+            rows = split_of(out)  # spatial partitioning: this process's rows of each
+            out, target = self._host_batch(out, bs), self._host_batch(target, bs)
+            if rows is not None:
+                tag(out, rows)
+                tag(target, rows._replace(dim=1))
+            with self._split_mode():
+                losses.append(self.criterion(out, target).float())
             pred, tgt = out.argmax(1).flatten(), target.flatten().long()
             valid = (tgt >= 0) & (tgt < nc)
             inds = torch.where(valid, nc * tgt + pred, nc * nc)  # invalid -> overflow bin
             conf += torch.bincount(inds, minlength=nc * nc + 1)[: nc * nc]
+        if self._spatial_group is not None:  # each process counted its rows
+            dist.all_reduce(conf, group=self._spatial_group)
         loss_t = torch.stack(losses).double() if losses else torch.zeros(0, dtype=torch.float64, device=self.device)
         readout = torch.cat([conf.double(), loss_t]).cpu()
         conf_mat = readout[: nc * nc].reshape(nc, nc)

@@ -110,12 +110,28 @@ class ShardSampler(torch.utils.data.Sampler):
     identity without a shuffle), wrap-padded to a
     multiple of ``num_shards`` by repeating its head, then every ``num_shards``-th index
     from ``shard_index``. Every shard has ``ceil(n / num_shards)`` indices, so every
-    process runs the same number of steps."""
+    process runs the same number of steps.
 
-    def __init__(self, n: int, num_shards: int, shard_index: int, generator: Optional[torch.Generator] = None):
+    ``num_shards="auto"``: the process group's size and this process's rank, until a
+    trainer with a ``data`` axis narrower than the group (tensor or spatial parallelism)
+    shards it over that axis (:meth:`shard_over`), so that the processes of a model or
+    spatial group read the same rows."""
+
+    def __init__(self, n: int, num_shards: Any, shard_index: int = 0, generator: Optional[torch.Generator] = None):
+        self.auto = num_shards == "auto"
+        if self.auto:
+            from ...parallel.multihost import rank, world_size
+
+            num_shards, shard_index = world_size(), rank()
         if not 0 <= shard_index < num_shards:
             raise ValueError(f"shard_index {shard_index} not in [0, {num_shards})")
         self.n, self.num_shards, self.shard_index, self.generator = n, num_shards, shard_index, generator
+
+    def shard_over(self, group) -> None:
+        """Shards over the processes of ``group``: its size, this process's rank in it."""
+        from torch import distributed as dist
+
+        self.num_shards, self.shard_index = dist.get_world_size(group), dist.get_rank(group)
 
     def __len__(self) -> int:
         return -(-self.n // self.num_shards)
@@ -140,9 +156,10 @@ class EpochDataLoader(torch.utils.data.DataLoader):
     epoch). The shuffle is drawn from a generator seeded with ``seed``.
 
     ``num_shards`` / ``shard_index`` (``"auto"``: the process group's size and this
-    process's rank) give each process of a data-parallel job its :class:`ShardSampler`
-    shard of the same permutation; one shard is the whole of it, the order torch's own
-    shuffled or sequential sampler gives.
+    process's rank, or the trainer's data axis, see :class:`ShardSampler`) give each
+    process of a data-parallel job its :class:`ShardSampler` shard of the same
+    permutation; one shard is the whole of it, the order torch's own shuffled or
+    sequential sampler gives.
 
     With worker processes the collate and the dataset are pickled into them when the
     iterator is made, so the epoch reaches them only because it is set first and the
@@ -156,16 +173,20 @@ class EpochDataLoader(torch.utils.data.DataLoader):
             raise ValueError("persistent workers would keep the first epoch's collate")
         if kwargs.get("num_workers", 0) > 0:
             kwargs.setdefault("multiprocessing_context", "spawn")
-        if num_shards == "auto":
-            from ...parallel.multihost import rank, world_size
-
-            num_shards, shard_index = world_size(), rank()
-        self.num_shards = int(num_shards) if num_shards else 1
-        self.shard_index = int(shard_index) if shard_index is not None else 0
+        if num_shards != "auto":
+            num_shards = int(num_shards) if num_shards else 1
         generator = torch.Generator().manual_seed(seed) if shuffle else None
-        sampler = ShardSampler(len(dataset), self.num_shards, self.shard_index, generator)
+        sampler = ShardSampler(len(dataset), num_shards, int(shard_index or 0), generator)
         super().__init__(dataset, batch_size, sampler=sampler, generator=generator, **kwargs)
         self.epoch = -1
+
+    @property
+    def num_shards(self) -> int:
+        return self.sampler.num_shards
+
+    @property
+    def shard_index(self) -> int:
+        return self.sampler.shard_index
 
     def __iter__(self):
         self.epoch += 1

@@ -388,8 +388,9 @@ def test_main_refuses_what_the_port_does_not_run(tmp_path, offline):
     with pytest.raises(SystemExit, match="--pretrained"):
         train.main(train.parse_args(["fake", "--arch", "mobileone_s0", "--pretrained", "--fake-samples", "8",
                                      *COMMON]))
+    # the flags are passed on: one process cannot host a factor of 2
     for flag in (["--model-parallel", "2"], ["--spatial-parallel", "2"]):
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(ValueError, match="cannot host a (model|spatial)-parallel factor of 2"):
             train.main(train.parse_args(["fake", *flag, *COMMON]))
     # ZeRO-1 is accepted (inert in one process)
     trainer = train.main(train.parse_args(["fake", "--shard-opt-state", "--test-only", "--fake-samples", "8", *COMMON]))

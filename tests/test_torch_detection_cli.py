@@ -204,10 +204,11 @@ def test_main_on_a_folder_with_spawned_workers(tmp_path):
 
 
 def test_main_refuses_what_the_port_does_not_run(monkeypatch, tmp_path):
-    """Tensor and spatial parallelism raise (``--shard-opt-state`` is accepted);
-    ``--pretrained`` offline exits, as the JAX CLI does."""
+    """Tensor and spatial parallelism are passed on, and one process cannot host a
+    factor of 2 (``--shard-opt-state`` is accepted); ``--pretrained`` offline exits,
+    as the JAX CLI does."""
     for flag in (["--model-parallel", "2"], ["--spatial-parallel", "2"]):
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(ValueError, match="cannot host a (model|spatial)-parallel factor of 2"):
             train.main(train.parse_args(["fake", *COMMON, *flag]))
     trainer = train.main(train.parse_args(["fake", *COMMON, "-j", "0", "--fake-samples", "8", "--shard-opt-state", "--test-only"]))
     assert trainer.shard_opt_state and trainer.world_size == 1

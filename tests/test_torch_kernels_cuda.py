@@ -273,6 +273,31 @@ def test_int8_route_at_rexnet1_0x_geometries(cuda, n, hw, c, o, ksize, stride, p
     _int8_route_matches_plain(cuda, x, w_q, stride, padding, 1, 14)
 
 
+@pytest.mark.parametrize(
+    "n,hw,c,o,ksize,stride,padding",
+    [
+        (2, 28, 72, 216, 1, 1, 0),    # rexnet1_0x's expand of 432 over two ranks
+        (2, 14, 106, 318, 1, 1, 0),   # an expand of 636 halved: O % 8 == 6
+        (8, 1, 75, 453, 1, 1, 0),     # an SE excite of 906 halved: odd O over two column tiles
+        (2, 7, 185, 640, 1, 1, 0),    # the penultimate conv's 1280 halved
+        (3, 5, 768, 70, 1, 1, 0),     # 140 halved: O % 8 == 6, ragged M
+        (2, 56, 64, 32, 3, 1, 1),     # resnet50's 3x3 of 64 halved
+        (2, 56, 256, 32, 1, 1, 0),    # resnet50's reduce of 64 halved
+        (2, 28, 128, 256, 1, 1, 0),   # resnet50's expand of 512 halved
+        (2, 7, 2048, 256, 1, 1, 0),   # a stage-4 reduce of 512 halved
+    ],
+)
+def test_int8_route_at_tensor_parallel_blocks(cuda, n, hw, c, o, ksize, stride, padding):
+    """The wgmma route at the geometries a rank meets under tensor parallelism: every
+    input channel, half of a layer's output channels (``parallel.shard_inference``
+    splits rexnet1_0x's and resnet50's int8 kernels so), weights packed from the block;
+    the masked epilogue takes each block's O."""
+    gen = torch.Generator(device=cuda).manual_seed(19)
+    x = torch.randn(n, hw, hw, c, generator=gen, device=cuda).to(torch.bfloat16)
+    w_q = torch.randint(-127, 128, (ksize, ksize, c, o), generator=gen, device=cuda, dtype=torch.int8)
+    _int8_route_matches_plain(cuda, x, w_q, stride, padding, 1, 20)
+
+
 def _wgmma_case_is_exact(cuda, n, h, w, c, o, ksize, stride, padding, seed):
     """quantize + wgmma conv against the plain versions, bit for bit: the quantized
     activation and its zero pad, the int32 accumulator, and float32 and bf16 outputs

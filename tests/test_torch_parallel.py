@@ -114,7 +114,7 @@ def test_initialize_and_collectives_across_two_processes(tmp_path):
         assert o["shard_batch_local"] == np.arange(12.0).reshape(4, 3)[2 * r : 2 * r + 2].tolist()
         assert o["shard_batch_whole"] == np.arange(12.0).reshape(4, 3).tolist()
         assert o["mp3_error"] == "2 devices cannot host a model-parallel factor of 3"
-        assert o["data_axis_error"].startswith("the mesh data axis (1) must be divisible by the process count (2)")
+        assert o["data_axis_sharding"] == ["S(0)", "R"]
         assert o["converted"] == "CrossProcessBatchNorm2d"
         assert max(o["bn_errors"].values()) < 2e-6, o["bn_errors"]
         assert o["all_reduce_grads_equal_mean"]
@@ -153,14 +153,17 @@ def test_cross_process_batchnorm_is_the_batchnorm_in_one_process():
 
 
 def test_trainer_parallel_options_in_one_process(tmp_path):
-    """One process: ``_host_batch`` is the first rows, a batch is placed as it is, tensor
-    and spatial parallelism raise, ``shard_opt_state`` is accepted and partitions
-    nothing, and ``plot_top_losses`` refuses more than one process."""
+    """One process: ``_host_batch`` is the first rows, a batch is placed as it is, one
+    process cannot host a tensor or spatial factor of 2 and the two do not combine,
+    ``shard_opt_state`` is accepted and partitions nothing, and ``plot_top_losses``
+    refuses more than one process."""
     trainer = W.make_trainer(1)
     model = trainer.model
     for kw in ({"model_parallel": 2}, {"spatial_parallel": 2}):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
+        with pytest.raises(ValueError, match="1 devices cannot host a (model|spatial)-parallel factor of 2"):
             ClassificationTrainer(model, device="cpu", **kw)
+    with pytest.raises(ValueError, match="cannot be combined"):
+        ClassificationTrainer(model, device="cpu", model_parallel=2, spatial_parallel=2)
     trainer = ClassificationTrainer(model, device="cpu", optimizer=trainer.optimizer, shard_opt_state=True)
     assert (trainer.distributed, trainer.world_size, trainer.rank) == (False, 1, 0)
     trainer._reset_opt(1e-3)

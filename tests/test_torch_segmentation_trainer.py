@@ -247,15 +247,16 @@ def test_cli_trains_an_epoch_on_cpu(tmp_path, flags):
 
 def test_cli_find_lr_check_setup_and_one_device(tmp_path, capsys):
     """``--find-lr`` prints the sweep (2 batches), ``--check-setup`` the overfit losses;
-    tensor and spatial parallelism raise at any value but 1; ``--shard-opt-state`` is
-    accepted (ZeRO-1, inert in one process)."""
+    ``--model-parallel`` and ``--spatial-parallel`` are passed on, and one process cannot
+    host a factor of 2; ``--shard-opt-state`` is accepted (ZeRO-1, inert in one
+    process)."""
     trainer = _cli(tmp_path, "--arch", "unet", "--find-lr")
     assert len(trainer.lr_recorder) == len(trainer.loss_recorder) == 2
     _cli(tmp_path, "--arch", "unet_rexnet13", "--opt", "adamw", "--check-setup")  # 20 steps
     out = capsys.readouterr().out
     assert out.count("\nlr=") == 2 and "overfit-one-batch losses" in out
-    for flags in (["--model-parallel", "2"], ["--spatial-parallel", "2"]):
-        with pytest.raises(NotImplementedError):
+    for flags in (["--model-parallel", "2"], ["--spatial-parallel", "2"]):  # passed on: one process hosts no 2
+        with pytest.raises(ValueError, match="cannot host a (model|spatial)-parallel factor of 2"):
             _cli(tmp_path, *flags)
     trainer = _cli(tmp_path, "--arch", "unet", "--shard-opt-state", "--test-only")
     assert trainer.shard_opt_state and trainer.world_size == 1

@@ -1,4 +1,5 @@
-"""Multi-process worker for the port's data-parallel tests (``tests/test_torch_parallel*.py``).
+"""Multi-process worker for the port's parallelism tests (``tests/test_torch_parallel*.py``,
+``tests/test_torch_{tensor,spatial}_parallel.py``).
 
 Launched as N OS processes joined by ``torch.distributed`` over gloo on the CPU, one
 process a "device", as ``torchrun`` launches the port; imports no JAX. The tests also
@@ -11,10 +12,18 @@ Modes:
 - ``train``: the port's ``ClassificationTrainer`` on ``RepVGG([1], [8], 1.0, 1.0,
   num_classes=5)`` over index-keyed data, a global batch of 8 (8 / world a process,
   ``EpochDataLoader(num_shards="auto")``), 2 epochs, then ``evaluate()`` and a
-  checkpoint; ``variant`` ``zero1`` adds ``shard_opt_state``. Rank 0 writes the
-  parameters and BN statistics, the metrics and each rank's optimizer-state elements.
+  checkpoint; ``variant`` ``zero1`` adds ``shard_opt_state``, ``tp`` ``model_parallel=2``
+  (channels of 4 or more split, ``tp_min_channels=4``) and ``spatial``
+  ``spatial_parallel=2``, both over a data axis of ``world / 2`` (a global batch of 8
+  still). Rank 0 writes the parameters and BN statistics (whole, from the checkpoint),
+  the metrics and each rank's optimizer-state elements.
 - ``det``: ``DetectionTrainer.evaluate`` over a sharded loader with a deterministic
   stub detector; every rank writes its metrics.
+- ``tp`` / ``sp``: tensor and spatial parallelism's inference (and the spatial train
+  step) on models a test saved in ``<outdir>/inputs.pt``; every rank writes its
+  outputs and the one-process ones (``tests/test_torch_{tensor,spatial}_parallel.py``).
+- ``amp``: the first train step of the ``tp`` and ``spatial`` variants under ``amp``
+  (bf16 compute); rank 0 writes the loss and the reduced gradients, whole.
 - ``collectives``: ``parallel.initialize()`` from the environment (twice), the mesh, the
   named collectives and their gradients, ``host_local_put`` / ``shard_batch`` /
   ``replicate_to_host``, the cross-process batch norm against ``nn.BatchNorm2d`` on
@@ -29,6 +38,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+from torch.utils._pytree import tree_map
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
@@ -51,23 +61,28 @@ class IndexedDataset:
         return torch.from_numpy(r.normal(size=(3, 16, 16)).astype(np.float32)), i % 5
 
 
-def make_trainer(world: int, variant: str = "plain", output_file: str = "ckpt.pt"):
+VARIANTS = {"plain": {}, "zero1": {"shard_opt_state": True}, "tp": {"model_parallel": 2, "tp_min_channels": 4},
+            "spatial": {"spatial_parallel": 2}}
+
+
+def make_trainer(world: int, variant: str = "plain", output_file: str = "ckpt.pt", amp: bool = False):
     """The trainer every rank of a ``world``-process run builds (``world`` 1: the
-    one-process run, no process group)."""
+    one-process run, no process group), with bf16 compute under ``amp``."""
     from holocron_tpu_torch.models import RepVGG
     from holocron_tpu_torch.nn.functional import cross_entropy
     from holocron_tpu_torch.optim import SGD
     from holocron_tpu_torch.trainer import ClassificationTrainer
     from holocron_tpu_torch.utils.data import EpochDataLoader
 
-    local_bs = GLOBAL_BATCH // world
+    extra = VARIANTS[variant]
+    local_bs = GLOBAL_BATCH // (world // max(extra.get("model_parallel", 1), extra.get("spatial_parallel", 1)))
     train_loader = EpochDataLoader(IndexedDataset(TRAIN_SAMPLES), local_bs, shuffle=True, seed=0, num_shards="auto")
     val_loader = EpochDataLoader(IndexedDataset(VAL_SAMPLES, seed=7), local_bs, num_shards="auto")
     model = RepVGG([1], [8], 1.0, 1.0, num_classes=5, device="cpu", generator=torch.Generator().manual_seed(0))
     # SGD's step is proportional to the gradient, so a sum where the mean belongs shows
     return ClassificationTrainer(model, train_loader, val_loader, cross_entropy,
                                  lambda groups, lr: SGD(groups, lr, momentum=0.9), device="cpu",
-                                 output_file=output_file, shard_opt_state=variant == "zero1")
+                                 output_file=output_file, amp=amp, **extra)
 
 
 def state_arrays(model) -> dict:
@@ -89,16 +104,49 @@ def train(outdir: Path, world: int, variant: str = "plain") -> dict:
         dist.all_gather_object(gathered, opt_elems)
         elems = gathered
     ckpt = outdir / "trainer.pt"
-    trainer.save(str(ckpt))  # every rank, in lockstep; rank 0 writes
+    trainer.save(str(ckpt))  # every rank, in lockstep; rank 0 writes whole tensors
     state = state_arrays(trainer.model)
     if trainer.rank == 0:
         saved = torch.load(ckpt, weights_only=True)["model"]
+        split = trainer._named_splits()
         for k, v in state.items():
-            np.testing.assert_array_equal(saved[k].numpy(), v)
+            if k in split:  # this rank's block of the whole tensor
+                lo, hi = split[k].bounds()
+                np.testing.assert_array_equal(saved[k].narrow(split[k].dim, lo, hi - lo).numpy(), v)
+            else:
+                np.testing.assert_array_equal(saved[k].numpy(), v)
+        state = {k: v.numpy() for k, v in saved.items() if v.is_floating_point()}
         np.savez(outdir / "state.npz", **state)
         (outdir / "metrics.json").write_text(json.dumps({**metrics, "opt_state_elements": elems,
                                                          "steps": trainer.step}))
     return {"state": state, "metrics": metrics, "trainer": trainer}
+
+
+def amp_first_step(world: int, variant: str = "plain") -> dict:
+    """The first train step under ``amp`` (bf16 compute): its loss and the gradients
+    the update takes (after the reduction over the processes), whole, as numpy."""
+    from holocron_tpu_torch.parallel import sharded
+
+    trainer = make_trainer(world, variant, amp=True)
+    trainer._reset_opt(1e-3)
+    grads = {}
+    apply = trainer._apply_update
+
+    def capture(names, params, gs):
+        grads.update({n: sharded.gather(g).detach().float().numpy().copy() for n, g in zip(names, gs)})
+        return apply(names, params, gs)
+
+    trainer._apply_update = capture
+    loss = trainer._run_step(*next(iter(trainer.train_loader)))
+    return {"loss": loss, "grads": grads}
+
+
+def amp_steps(outdir: Path, rank: int, world: int) -> None:
+    """``amp``: :func:`amp_first_step` with ``model_parallel=2`` and with
+    ``spatial_parallel=2``; rank 0 writes both."""
+    res = {v: amp_first_step(world, v) for v in ("tp", "spatial")}
+    if rank == 0:
+        torch.save(res, outdir / "amp.pt")
 
 
 class StubDetector(torch.nn.Module):
@@ -193,10 +241,9 @@ def collectives(outdir: Path, rank: int, world: int) -> None:
         parallel.create_mesh(model_parallel=3)
     except ValueError as err:
         out["mp3_error"] = str(err)
-    try:
-        parallel.batch_sharding(parallel.create_mesh(model_parallel=world))
-    except ValueError as err:
-        out["data_axis_error"] = str(err)
+    # one device a process: the batch splits over the data axis however small it is
+    out["data_axis_sharding"] = [str(p) for p in
+                                 parallel.batch_sharding(parallel.create_mesh(model_parallel=world)).placements]
     # the cross-process batch norm against nn.BatchNorm2d on the whole batch
     gen = torch.Generator().manual_seed(5)
     whole = torch.randn(2 * world, 4, 5, 3, generator=gen) * 3 + 1
@@ -243,6 +290,133 @@ def collectives(outdir: Path, rank: int, world: int) -> None:
     mean = [sum(b * (r + 1) + r for r in range(world)) / world for b in bases]
     out["all_reduce_grads_equal_mean"] = all(g.dtype == m.dtype and torch.equal(g, m) for g, m in zip(grads, mean))
     (outdir / f"collectives_{rank}.json").write_text(json.dumps(out))
+
+
+def _models(inputs: dict) -> dict:
+    """The models a test saved (``inputs.pt``: state dicts converted from the JAX
+    package's), in eval mode on the CPU."""
+    from holocron_tpu_torch.models import RepVGG
+    from holocron_tpu_torch.models.classification.convnext import ConvNeXt
+    from holocron_tpu_torch.models.segmentation import UNet
+
+    build = {"repvgg": lambda: RepVGG([1, 1], [8, 16], 1.0, 2.0, num_classes=8, device="cpu"),
+             "repvgg_deploy": lambda: RepVGG([1, 1], [8, 16], 1.0, 2.0, num_classes=8, device="cpu").reparametrize(),
+             "repvgg64": lambda: RepVGG([1, 1], [8, 16], 1.0, 2.0, num_classes=8, device="cpu"),
+             "repvgg67": lambda: RepVGG([1, 1], [8, 16], 1.0, 2.0, num_classes=8, device="cpu"),
+             "convnext": lambda: ConvNeXt([1, 1], [16, 32], num_classes=8, device="cpu"),
+             "unet": lambda: UNet([8, 16], num_classes=4, device="cpu")}
+    out = {}
+    for name, sd in inputs["models"].items():
+        model = build[name]()
+        model.load_state_dict(sd)
+        out[name] = model.eval()
+    return out
+
+
+def tensor_parallel(outdir: Path, rank: int, world: int) -> None:
+    """``tp``: ``shard_inference`` over a ``("data", "model")`` mesh of one data row
+    (2 processes) or two (4: DP x TP), each model's one-process forward beside it; the
+    int8 form; the gathers' gradients (2 processes)."""
+    from torch import distributed as dist
+
+    from holocron_tpu_torch import parallel
+    from holocron_tpu_torch.parallel import collectives as C
+    from holocron_tpu_torch.quant import quantize_model
+
+    inputs = torch.load(outdir / "inputs.pt", weights_only=False)
+    models = _models(inputs)
+    x = inputs["x"]
+    mesh = parallel.create_mesh(("data", "model"), model_parallel=2)
+    res = {}
+    with torch.no_grad():
+        for name in ("repvgg", "repvgg_deploy", "convnext"):
+            min_ch = 16 if name == "convnext" else 8
+            run = parallel.shard_inference(models[name], mesh, tensor_parallel=True, min_channels=min_ch)
+            blocks = [(n, t.shape, parallel.sharded.split_of(t).size) for n, t in
+                      [*run.model.named_parameters(), *run.model.named_buffers()] if parallel.sharded.split_of(t)]
+            res[name] = {"one": models[name](x), "tp": run(x), "blocks": len(blocks),
+                         "halves": all(shape[parallel.sharded.split_of(dict([*run.model.named_parameters(),
+                                       *run.model.named_buffers()])[n]).dim] * 2 == size for n, shape, size in blocks)}
+        run = parallel.shard_inference(models["repvgg_deploy"], mesh, head_tensor_parallel=True)
+        res["head"] = {"one": models["repvgg_deploy"](x), "tp": run(x),
+                       "blocks": sorted(n for n, t in run.model.named_parameters() if parallel.sharded.split_of(t))}
+        qm = quantize_model(models["repvgg_deploy"], calibration_batches=[inputs["calib"]], min_in_channels=8)
+        run = parallel.shard_inference(qm, mesh, tensor_parallel=True, min_channels=8)
+        res["int8"] = {"one": qm(x), "tp": run(x),
+                       "kernels": sorted(n for n, t in run.model.named_buffers() if n.endswith("kernel_q")
+                                         and parallel.sharded.split_of(t))}
+    if world == 2:
+        # a column-parallel linear whose whole output is gathered: the gradient of each
+        # rank's block of the weight, against the one-process one
+        gen = torch.Generator().manual_seed(3)
+        w, xl, c = torch.randn(6, 4, generator=gen), torch.randn(3, 4, generator=gen), torch.randn(3, 6, generator=gen)
+        wr = w[3 * rank: 3 * rank + 3].clone().requires_grad_()
+        group = mesh.get_group("model")
+        (C.gather_replicated(xl @ wr.t(), group, 1) * c).sum().backward()
+        local = wr.grad.clone()
+        wr.grad = None
+        (C.all_gather(xl @ wr.t(), "model", axis=1, mesh=mesh) * c).sum().backward()
+        whole = w.clone().requires_grad_()
+        ((xl @ whole.t()) * c).sum().backward()
+        res["gather_grad"] = {"replicated": local, "all_gather": wr.grad.clone(),
+                              "one": whole.grad[3 * rank: 3 * rank + 3].clone()}
+    torch.save(tree_map(lambda t: t.detach().clone() if isinstance(t, torch.Tensor) else t, res),
+               outdir / f"tp_{rank}.pt")
+    dist.barrier()
+
+
+def spatial_parallel(outdir: Path, rank: int, world: int) -> None:
+    """``sp``: ``shard_spatial_inference`` (2 processes: the U-Net gathered and not, the
+    classifier at 64 and 67 rows, the train step's loss and gradients, the missing-axis
+    error; 4: DP x SP on a ``("data", "spatial")`` mesh and DP x TP on a ``("data",
+    "model")`` one), each beside the one-process forward."""
+    from torch import distributed as dist
+
+    from holocron_tpu_torch import parallel
+    from holocron_tpu_torch.nn import functional as HF
+    from holocron_tpu_torch.parallel import sharded
+
+    inputs = torch.load(outdir / "inputs.pt", weights_only=False)
+    models = _models(inputs)
+    res = {}
+    with torch.no_grad():
+        if world == 4:
+            mesh = parallel.create_mesh(("data", "spatial"), model_parallel=2)
+            x = inputs["x_unet"]
+            res["dpsp"] = {"one": models["unet"](x),
+                           "sp": parallel.shard_spatial_inference(models["unet"], mesh, batch_axis="data")(x)}
+            mesh = parallel.create_mesh(("data", "model"), model_parallel=2)
+            xc = inputs["x64"]
+            res["dptp"] = {"one": models["repvgg64"](xc), "tp": parallel.shard_inference(
+                models["repvgg64"], mesh, tensor_parallel=True, min_channels=8)(xc)}
+        else:
+            x = inputs["x_unet"]
+            res["unet"] = {"one": models["unet"](x), "sp": parallel.shard_spatial_inference(models["unet"])(x),
+                           "rows": parallel.shard_spatial_inference(models["unet"], gather_output=False)(x)}
+            for h in (64, 67):
+                xc = inputs[f"x{h}"]
+                res[f"repvgg{h}"] = {"one": models[f"repvgg{h}"](xc),
+                                     "sp": parallel.shard_spatial_inference(models[f"repvgg{h}"])(xc)}
+            try:
+                parallel.shard_spatial_inference(models["unet"], parallel.create_mesh(("spatial",)), batch_axis="data")
+            except ValueError as err:
+                res["missing_axis"] = str(err)
+    if world == 2:  # the train step: each rank's rows of the image and the mask
+        unet = models["unet"].train()
+        xs, ys = inputs["x_step"], inputs["y_step"]
+        group = dist.group.WORLD
+        with sharded.SplitMode():
+            out = unet(sharded.split_rows(xs, 2, group))
+            loss = HF.cross_entropy(out.permute(0, 2, 3, 1), sharded.split_rows(ys, 1, group))
+        names, params = zip(*unet.named_parameters())
+        grads = torch.autograd.grad(loss, params)
+        for g in grads:  # the data-parallel rule: every process's gradient, averaged
+            dist.all_reduce(g)
+            g.div_(world)
+        res["step"] = {"loss": loss.detach(), "grads": dict(zip(names, grads))}
+    torch.save(tree_map(lambda t: t.detach().clone() if isinstance(t, torch.Tensor) else t, res),
+               outdir / f"sp_{rank}.pt")
+    dist.barrier()
 
 
 def run_workers(mode: str, nproc: int, outdir: Path, variant: str = "plain", timeout: float = 300) -> None:
@@ -292,6 +466,12 @@ def main() -> None:
             train(outdir, world, variant)
         elif mode == "det":
             detection(outdir, rank)
+        elif mode == "tp":
+            tensor_parallel(outdir, rank, world)
+        elif mode == "sp":
+            spatial_parallel(outdir, rank, world)
+        elif mode == "amp":
+            amp_steps(outdir, rank, world)
         else:
             raise SystemExit(f"unknown mode {mode}")
     dist.destroy_process_group()
