@@ -15,18 +15,21 @@ Phases, each printing one JSON line to stdout:
    on 2 held-out batches, the same requests in int8, and bf16 / int8 throughput. A
    gate miss is reported (``served_form``); it does not fail the run. Each int8 layer
    launches, a forward, the quantization kernel and the conv of the route
-   ``conv_route`` picks for it: here every one the ``wgmma`` route, none the general
-   route. (After the checks, a ``serving_profile`` line: ``torch.profiler`` over the
-   int8 and bf16 forwards at batch 256 and 8.)
+   ``conv_route`` picks for it: the pointwise GEMM (``int8_pointwise``) for a 1x1
+   stride-1 conv, else the ``wgmma`` conv (``int8_conv``); here every one the
+   ``wgmma`` route (3x3), none the general route. (After the checks, a
+   ``serving_profile`` line: ``torch.profiler`` over the int8 and bf16 forwards at
+   batch 256 and 8.)
 3. ``resnet_serving``: the same path for resnet50 (10 classes, 23,528,522 parameters):
    no reparametrization (BN stays after each conv, as the JAX package serves a ResNet),
-   52 ``wgmma`` convs (every conv but the 3-channel stem). (Last, a
+   52 int8 convs (every conv but the 3-channel stem): 33 1x1 stride-1 ones on the
+   pointwise route, 19 on ``wgmma``. (Last, a
    ``resnet_serving_profile`` line.)
 4. ``rexnet_serving``: the same path for rexnet1_0x, the API's default model
    (``api/app/config.py:8``; 3,527,996 parameters at 10 classes), BN kept: 44 int8
-   convs, all on ``wgmma`` (41 of them at C % 16 != 0 or O % 8 != 0: x_q at its 16-byte
-   channel pitch, the masked epilogue; the SE convs' 1 x 1 inputs), none on the
-   general route. (Last, a ``rexnet_serving_profile`` line.)
+   convs, all 1x1 and on the pointwise route (41 of them at C % 16 != 0 or O % 8 != 0:
+   x_q at its 16-byte channel pitch, rows of y not whole 16-byte pieces; the SE convs'
+   1 x 1 inputs), none on the general route. (Last, a ``rexnet_serving_profile`` line.)
 5. ``involution``: ``Involution2d`` at ``scripts/bench_ops.py:82-87``'s shape (N32,
    56x56, C128, G8, k7, reduction 2, bf16) through the module: the tiled route's forward
    (``csrc/involution.cu``, a halo tile in shared memory), which must launch, and never
@@ -79,9 +82,11 @@ Phases, each printing one JSON line to stdout:
 15. ``darknet_zoo`` (after ``resnet_zoo``): the same forwards of darknet24, darknet19,
    darknet53, cspdarknet53 and cspdarknet53_mish (224 px, batch 32), each parameter
    count held against the JAX package's at 10 classes. ``darknet_serving`` (after
-   ``rexnet_serving``): the serving path for darknet53, BN kept: 49 ``wgmma`` convs.
+   ``rexnet_serving``): the serving path for darknet53, BN kept: 49 int8 convs (23
+   pointwise, 26 ``wgmma``).
 16. ``detection_serving`` (after ``service``): yolov4 at 608 px, 80 classes, bf16 and
-   selective int8 (102 ``wgmma`` convs, the three prediction convs 255 wide) at batch
+   selective int8 (102 convs: 61 pointwise, 41 ``wgmma``; the three prediction convs
+   255 wide) at batch
    8 and 32, eager and through ``deploy_forward``'s graphs: the raw forward,
    ``post_process`` alone and both together (ms, img/s, idle share; the replays' boxes,
    scores, labels and keep masks equal to eager, bit for bit), the NMS pass alone; the
@@ -98,8 +103,9 @@ Phases, each printing one JSON line to stdout:
    unet_tvvgg11, unet_tvresnet34, unet_rexnet13) at full width, 256 px, 21 classes,
    batch 32: logits ``(32, 21, 256, 256)``, finite, bf16 ms. ``segmentation_serving``:
    unet3p (the segmentation CLI's default) at 256 px, BN adapted on 4 naturalistic
-   batches, bf16 and selective int8 (33 ``wgmma`` convs: 320- and 1024-wide inputs,
-   biased convs without BN, a 21-wide head) at batch 8 and 32, eager and through
+   batches, bf16 and selective int8 (33 convs, 32 ``wgmma`` and the 1x1 head pointwise:
+   320- and 1024-wide inputs, biased convs without BN, a 21-wide head) at batch 8 and
+   32, eager and through
    ``deploy_forward``'s graphs (every replay bit-equal to eager), the pixel-agreement
    gate (pixel agreement and mean mask IoU against bf16) on 2 held-out batches of 32,
    the batch-32 forwards profiled. ``segmentation_training``: the segmentation CLI's
@@ -107,10 +113,10 @@ Phases, each printing one JSON line to stdout:
    batches and ``evaluate()``), then ms a step and peak memory in bf16 and in float32,
    kernels a step and the idle share.
 18. ``mobileone_serving`` and ``convnext_serving`` (after ``segmentation_training``):
-   the serving path for mobileone_s1 (BN adapted, reparametrized: 21 ``wgmma`` 1x1
+   the serving path for mobileone_s1 (BN adapted, reparametrized: 21 pointwise 1x1
    convs; its depthwise convs stay bf16) and for convnext_tiny (every LayerScale drawn
    from a seeded normal of std 0.1 first, said in the line: at its 1e-6 init the gate
-   would see the stem, the downsamples and the head alone; 39 ``wgmma`` convs, 36 1x1
+   would see the stem, the downsamples and the head alone; 39 int8 convs, 36 1x1 (pointwise)
    and the three 2x2 stride-2 downsamples), each followed by a ``*_serving_graphs``
    line: bf16 and int8 at batch 8 and 256 through ``deploy_forward``'s graphs, every
    replay equal to eager bit for bit (last, ``mobileone_serving_profile`` and
@@ -153,13 +159,16 @@ Phases, each printing one JSON line to stdout:
    repvgg_a0 (nine), resnet50 (22), rexnet1_0x (44), darknet53 (13), unet3p (30, at
    its path's batch of 32), mobileone_s1 (7) and convnext_tiny (11) at batch 8 and 32
    (an ``int8_sums_by_kernel`` line after each of the last two: the 1x1 and 2x2
-   stride-2 layers' sums against cuDNN bf16 and ``torch._int_mm``), checked again
+   stride-2 layers' sums against cuDNN bf16 and ``torch._int_mm``; then the same
+   for resnet50 and rexnet1_0x), checked again
    and timed at each at batch 256 (``check_int8_geometry`` lines, device time from CUDA
    graphs): quantize + conv, each kernel, cuDNN's bf16 conv of the layer, the plain
-   version, ``torch._int_mm`` on the same int8 operands for each 1x1 stride-1
-   geometry (the library call, alone, no epilogue), and the bounds of the route and of
-   each kernel. Then a ``rexnet_int8_by_kind`` line sums rexnet1_0x's geometries by
-   kind of conv. The grouped general route the same way at resnext101_32x8d's stage-4
+   version, for each 1x1 stride-1 geometry (the pointwise route) the wgmma conv forced
+   on the same operands (``conv_wgmma_ms``, its output equal bit for bit) and
+   ``torch._int_mm`` (the library call, alone, no epilogue), and the bounds of the
+   route and of each kernel; the pointwise route's outputs are held bit for bit. Then a
+   ``rexnet_int8_by_kind`` line sums rexnet1_0x's geometries by kind of conv. The
+   grouped general route the same way at resnext101_32x8d's stage-4
    3x3 conv (32 groups of 64, stride 1 and 2; its 16-byte staging), and checked at two
    odd per-group widths (its byte-wise staging): the only launches of
    ``int8_conv_general``, which no serving path runs (its check fails if it launched no
@@ -285,7 +294,7 @@ def phase_build() -> None:
     emit({"phase": "build", "libraries": [p.name for p in paths], "seconds": round(seconds, 3)})
 
 
-def phase_serving(device, arch: str = "repvgg_a0", int8_layers: int = 26, wgmma_layers: int = 26,
+def phase_serving(device, arch: str = "repvgg_a0", int8_layers: int = 26, pointwise_layers: int = 0,
                   phase: str = "serving", batch: int = 256, size: int = 224, num_classes: int = 10, iters: int = 30,
                   prepare=None):
     """The serving path of ``arch``; a model with ``reparametrize`` (RepVGG, MobileOne)
@@ -293,16 +302,15 @@ def phase_serving(device, arch: str = "repvgg_a0", int8_layers: int = 26, wgmma_
     with BN after each conv, as the JAX package serves it. ``prepare(model, generator)``,
     where given, sets weights the seed's initialization leaves degenerate, before
     anything else; its docstring goes into the line as ``prepared``. Fails unless
-    ``int8_layers`` convs are int8, ``wgmma_layers`` of them on the ``wgmma`` route and
-    the rest on the general route, and unless each int8 conv launched the route
-    ``conv_route`` picks for it once a forward. The int8 requests run whether or not
-    the gate passes."""
+    ``int8_layers`` convs are int8, ``pointwise_layers`` of them on the pointwise route
+    (the 1x1 stride-1 convs), the rest on the ``wgmma`` route and none on the general
+    route, and unless each int8 conv launched the route ``conv_route`` picks for it once
+    a forward. The int8 requests run whether or not the gate passes."""
     import torch
 
     from holocron_tpu_torch import models
     from holocron_tpu_torch.bench import naturalistic_batch
     from holocron_tpu_torch.kernels import KERNELS
-    from holocron_tpu_torch.kernels.int8_conv import conv_route
     from holocron_tpu_torch.quant import QuantizedConv2d, measure_agreement, quantize_model
 
     gen = torch.Generator(device=device).manual_seed(SEED)
@@ -335,12 +343,12 @@ def phase_serving(device, arch: str = "repvgg_a0", int8_layers: int = 26, wgmma_
     x = naturalistic_batch(gen, batch, size, device).to(torch.bfloat16)
     # as bench.py: calibrated on the timing batch in float32, float remainder in bf16
     qm = quantize_model(model, calibration_batches=[x.float()], arch=arch).to(torch.bfloat16)
-    routes = [conv_route(m.kernel_q.shape[2], m.kernel_q.shape[3], m.groups)
-              for m in qm.modules() if isinstance(m, QuantizedConv2d)]
-    n_int8, n_wgmma = len(routes), routes.count("wgmma")
+    routes = [m.route for m in qm.modules() if isinstance(m, QuantizedConv2d)]
+    n_int8, n_wgmma, n_pointwise = len(routes), routes.count("wgmma"), routes.count("pointwise")
     n_convs = sum(isinstance(m, torch.nn.Conv2d) for m in model.modules())
-    if (n_int8, n_wgmma) != (int8_layers, wgmma_layers):
-        fail(f"{arch}: {n_int8} int8 convs, {n_wgmma} on the wgmma route; expected {int8_layers}, {wgmma_layers}")
+    if (n_int8, n_pointwise, n_wgmma) != (int8_layers, pointwise_layers, int8_layers - pointwise_layers):
+        fail(f"{arch}: {n_int8} int8 convs, {n_pointwise} on the pointwise route and {n_wgmma} on wgmma; expected "
+             f"{int8_layers}, {pointwise_layers} and the rest")
     gate_batches = [naturalistic_batch(gen, batch, size, device).to(torch.bfloat16) for _ in range(2)]
     requests = [naturalistic_batch(gen, 8, size, device).to(torch.bfloat16) for _ in range(8)] + [x]
     torch.cuda.synchronize()
@@ -358,8 +366,7 @@ def phase_serving(device, arch: str = "repvgg_a0", int8_layers: int = 26, wgmma_
     launches = {name: k.launches for name, k in KERNELS.items()}
     # two launches a layer a forward: the quantization and the conv of its route
     forwards = len(gate_batches) + len(requests)
-    expected = {"int8_conv": n_wgmma * forwards, "int8_quantize": n_int8 * forwards,
-                "int8_conv_general": (n_int8 - n_wgmma) * forwards}
+    expected = int8_expected(qm, forwards)
     if any(launches[k] != v for k, v in expected.items()):
         fail(f"{arch}: the int8 path launched {[launches[k] for k in expected]} of {list(expected)}, "
              f"expected {expected}")
@@ -389,7 +396,8 @@ def phase_serving(device, arch: str = "repvgg_a0", int8_layers: int = 26, wgmma_
         "logit_absmax_f32": float(ref32.abs().max()),
         "int8_convs": n_int8,
         "int8_convs_wgmma": n_wgmma,
-        "int8_convs_general": n_int8 - n_wgmma,
+        "int8_convs_pointwise": n_pointwise,
+        "int8_convs_general": n_int8 - n_wgmma - n_pointwise,
         "int8_geometries": int8_geometries(qm),
         "convs": n_convs,
         "top1_agreement": agreement["top1_agreement"],
@@ -478,7 +486,12 @@ def profile_forward(fn, x, steps: int = 5, top: int = 10, count: tuple = (), pad
             "top": [[k[:90], totals[k] / 1e3 / steps, launches[k] / steps] for k in ranked[:top]]}
 
 
-INT8_KERNEL_NAMES = ("int8_conv_wgmma_kernel", "int8_quantize")  # the kernels' names in a profile
+# the int8 kernels' counters, and their names in a profile
+INT8_KERNEL_NAMES = {"int8_conv": "int8_conv_wgmma_kernel", "int8_pointwise": "int8_pointwise_wgmma_kernel",
+                     "int8_quantize": "int8_quantize"}
+INT8_COUNTERS = ("int8_conv", "int8_pointwise", "int8_quantize", "int8_conv_general")
+# the counter of the conv kernel each route (conv_route) launches
+ROUTE_COUNTER = {"wgmma": "int8_conv", "pointwise": "int8_pointwise", "general": "int8_conv_general"}
 PROFILED_STEPS = 5  # the forwards phase_deploy_graph_profile profiles a form
 
 
@@ -486,8 +499,27 @@ def int8_launches() -> dict:
     """The int8 kernels' launch counters (calls from Python: a graph replay makes none)."""
     from holocron_tpu_torch.kernels import KERNELS
 
-    return {"int8_conv": KERNELS["int8_conv"].launches, "int8_quantize": KERNELS["int8_quantize"].launches,
-            "int8_conv_general": KERNELS["int8_conv_general"].launches}
+    return {name: KERNELS[name].launches for name in INT8_COUNTERS}
+
+
+def int8_expected(model, forwards: int = 1) -> dict:
+    """The int8 launches ``forwards`` forwards of ``model`` make: the quantization once
+    an int8 conv, and each conv's route's kernel (``QuantizedConv2d.route``) once."""
+    from holocron_tpu_torch.quant import QuantizedConv2d
+
+    counts = dict.fromkeys(INT8_COUNTERS, 0)
+    for m in model.modules():
+        if isinstance(m, QuantizedConv2d):
+            counts[ROUTE_COUNTER[m.route]] += forwards
+            counts["int8_quantize"] += forwards
+    return counts
+
+
+def int8_routes_launched(launches: dict, model) -> bool:
+    """Whether ``launches`` holds some of each int8 kernel ``model``'s int8 convs take,
+    and none of the others."""
+    expected = int8_expected(model)
+    return all(bool(launches[k]) == bool(expected[k]) for k in INT8_COUNTERS)
 
 
 def phase_bench(device) -> dict:
@@ -510,8 +542,9 @@ def phase_bench(device) -> dict:
     if runs[0]["top1_agreement"] != runs[1]["top1_agreement"] or runs[0]["max_prob_drift"] != runs[1]["max_prob_drift"]:
         fail(f"bench: the two repvgg_a0 gates differ: {runs[0]} against {runs[1]}")
     launches = int8_launches()
-    if not launches["int8_conv"] or not launches["int8_quantize"]:
-        fail(f"bench: the int8 forms launched no int8 kernel ({launches})")
+    if not launches["int8_conv"] or not launches["int8_pointwise"] or not launches["int8_quantize"]:
+        fail(f"bench: the int8 forms launched {launches}, expected the wgmma conv (repvgg_a0), the pointwise one "
+             "(rexnet1_0x) and the quantization")
     emit({"phase": "bench", "runs": runs, "launches": launches})
     return launches
 
@@ -562,10 +595,9 @@ def phase_deploy_graph(device, qm, model_bf16, buckets=(1, 2, 4, 8), size: int =
         before = int8_launches()
         graph = deploy_forward(model, buckets, size, mean_std if u8 else None)
         captured = {k: v - before[k] for k, v in int8_launches().items()}
-        expected = (WARMUP + 1) * len(buckets) * n_int8
-        if captured != {"int8_conv": expected, "int8_quantize": expected, "int8_conv_general": 0}:
-            fail(f"deploy_graph {arch} {form}: building the graphs launched {captured}, expected {expected} "
-                 "of each int8 kernel")
+        expected = int8_expected(model, (WARMUP + 1) * len(buckets))
+        if captured != expected:
+            fail(f"deploy_graph {arch} {form}: building the graphs launched {captured}, expected {expected}")
         replay = graph
 
         def batch_of(n):
@@ -606,28 +638,29 @@ def phase_deploy_graph_profile(forms: list) -> dict:
     run, the host launches more slowly; ``profile_forward`` counts a window between
     padding forwards and takes a profile that lost a kernel in it again): kernel ms and
     launches a forward, the idle share 1 - kernel ms / the unprofiled wall ms, and the
-    int8 kernels the profiler saw a forward, which must be some and at most one
-    quantization and one conv an int8 layer in a replay as in the eager forward (the
-    exact count a replay runs is held where the graphs are built). Returns the
+    int8 kernels the profiler saw a forward, which must be some of each the form's
+    routes launch and at most one quantization and one conv an int8 layer in a replay as
+    in the eager forward (the exact count a replay runs is held where the graphs are
+    built). Returns the
     int8 launches the counters saw (the eager forwards, padding included) and, apart,
     the int8 kernels the profiler saw in the counted replays."""
     reset_counts()
-    seen = {"int8_conv": 0, "int8_quantize": 0, "int8_conv_general": 0}
+    seen = dict.fromkeys(INT8_COUNTERS, 0)
     for form in forms:
-        record, n_int8 = form["record"], form["record"]["int8_convs"]
+        record, expected = form["record"], int8_expected(form["model"])
         line = {"phase": "deploy_graph_profile", "model": record["model"], "form": record["form"], "batch": 8}
         for name, fn in form["fns"].items():
-            prof = profile_forward(fn, form["x8"], steps=PROFILED_STEPS, count=INT8_KERNEL_NAMES)
-            per = prof["counts"].values()
-            if any(not (0 < v <= n_int8) for v in per) if n_int8 else any(per):
+            prof = profile_forward(fn, form["x8"], steps=PROFILED_STEPS, count=tuple(INT8_KERNEL_NAMES.values()))
+            per = {key: prof["counts"][kernel] for key, kernel in INT8_KERNEL_NAMES.items()}
+            if any(not (0 < v <= expected[k]) if expected[k] else v for k, v in per.items()):
                 fail(f"deploy_graph {record['model']} {record['form']} {name}: the profiler saw int8 kernels "
-                     f"{prof['counts']} a forward, expected some and at most {n_int8} of each")
+                     f"{prof['counts']} a forward, expected some and at most {expected} of each")
             line[name] = {"kernel_ms": prof["kernel_ms"], "kernel_launches": prof["kernel_launches"],
                           "idle": 1 - prof["kernel_ms"] / record[name]["wall_ms"], "int8_per_forward": prof["counts"],
                           "profiled_wall_ms": prof["wall_ms"], "profiles": prof["profiles"], "top": prof["top"][:5]}
             if name == "graph":
-                for key, kernel in zip(("int8_conv", "int8_quantize"), INT8_KERNEL_NAMES):
-                    seen[key] += round(prof["counts"][kernel] * PROFILED_STEPS)
+                for key, v in per.items():
+                    seen[key] += round(v * PROFILED_STEPS)
         emit(line)
     return int8_launches(), seen
 
@@ -677,7 +710,7 @@ def phase_service(device, requests: int = 100, concurrency=(1, 4, 16, 64)) -> di
     port = srv.server_address[1]
     thread = threading.Thread(target=srv.serve_forever, daemon=True)
     thread.start()
-    total = {"int8_conv": 0, "int8_quantize": 0, "int8_conv_general": 0}
+    total = dict.fromkeys(INT8_COUNTERS, 0)
     try:
         for form, quantize in (("float32", False), ("int8", "force")):
             vision.reset()
@@ -690,9 +723,10 @@ def phase_service(device, requests: int = 100, concurrency=(1, 4, 16, 64)) -> di
             if n_int8 != (44 if quantize else 0):
                 fail(f"service {form}: {n_int8} int8 convs")
             captured = int8_launches()
-            expected = (WARMUP + 1) * 4 * n_int8  # the warm-ups and the capture of each of the 4 buckets
-            if captured != {"int8_conv": expected, "int8_quantize": expected, "int8_conv_general": 0}:
-                fail(f"service {form}: the captures launched {captured}, expected {expected} of each int8 kernel")
+            # the warm-ups and the capture of each of the 4 buckets
+            expected = int8_expected(vision.get_model(), (WARMUP + 1) * 4)
+            if captured != expected:
+                fail(f"service {form}: the captures launched {captured}, expected {expected}")
             s_code, s_body, _ = _request(port, "GET", "/status")
             if s_code != 200 or s_body.get("status") != "ok":
                 fail(f"service {form}: GET /status answered {s_code} {s_body}")
@@ -866,8 +900,9 @@ def _int8_case_holds(name, route, xn, s_x, w_q, w_packed, w_scale, bias, stride,
                      max_err) -> None:
     """One int8 conv on the card against its plain versions: quantized activations
     equal, the int32 accumulator equal, float32 output within one float32 ulp and bf16
-    output within one bf16 ulp of the plain epilogue, through ``int8_conv`` and
-    ``quantized_conv``. Keeps the largest bf16 error of each route in ``max_err``."""
+    output within one bf16 ulp of the plain epilogue (bit for bit on the pointwise
+    route), through ``int8_conv`` and ``quantized_conv``. Keeps the largest bf16 error
+    of each route in ``max_err``."""
     import torch
 
     from holocron_tpu_torch.kernels import int8_conv as K
@@ -886,6 +921,8 @@ def _int8_case_holds(name, route, xn, s_x, w_q, w_packed, w_scale, bias, stride,
                                  w_packed=w_packed, groups=groups)]
         for got in outs:
             err = within_ulp(got, ref, ulp, f"int8 conv {name} ({route}) {dtype}")
+            if route == "pointwise" and not torch.equal(got.float(), ref.to(dtype).float()):
+                fail(f"int8 conv {name} (pointwise) {dtype}: differs from the plain version's bits")
             if dtype == torch.bfloat16:
                 max_err[route] = max(max_err[route], err)
 
@@ -928,16 +965,18 @@ def _time_int8_geometry(xin, w_q, w_packed, s_x, w_scale, bias, stride, padding,
     """At the path's batch: quantized activations and bf16 outputs (of the conv and of
     the route) held against the plain versions, then device time from CUDA graphs of
     the route (quantize + conv), each of its two kernels, ``cudnn`` (cuDNN's bf16 conv of
-    the layer), ``torch._int_mm`` on the same int8 operands where the conv is a 1x1
-    stride-1 GEMM (its int32 product checked against the accumulator first; the call
-    alone, no epilogue) and the plain version, beside the bounds."""
+    the layer), and where the conv is a 1x1 stride-1 GEMM (the pointwise route) the
+    wgmma conv forced on the same operands (``conv_wgmma_ms``; its bf16 output and
+    accumulator equal to the pointwise route's, bit for bit) and ``torch._int_mm`` (its
+    int32 product checked against the accumulator first; the call alone, no epilogue),
+    and the plain version, beside the bounds."""
     import torch
 
     from holocron_tpu_torch.kernels import int8_conv as K
 
     xn = xin.permute(0, 2, 3, 1)
     kh, kw, c, o = w_q.shape
-    route = K.conv_route(c, o, groups)
+    route = K.conv_route(c, o, groups, kernel_size=(kh, kw), stride=stride, padding=padding)
     args = (s_x, w_scale, bias, stride, padding, dilation, groups)
     x_q = K.quantize_activation(xn, s_x)
     if not torch.equal(x_q, K.quantize_activation_plain(xn, s_x)):
@@ -950,7 +989,7 @@ def _time_int8_geometry(xin, w_q, w_packed, s_x, w_scale, bias, stride, padding,
     def run_plain():
         plain["y"] = K.int8_conv_plain(x_q, w_q, *args[:-1], torch.bfloat16, groups)
 
-    gemm = kh == kw == 1 and tuple(stride) == (1, 1) and tuple(padding) == (0, 0) and groups == 1
+    gemm = route == "pointwise"
     with torch.no_grad():
         row = {
             "x": list(xin.shape), "w_hwio": list(w_q.shape), "stride": list(stride), "groups": groups, "route": route,
@@ -960,12 +999,23 @@ def _time_int8_geometry(xin, w_q, w_packed, s_x, w_scale, bias, stride, padding,
                                 iters),
             "quantize_ms": graph_ms(lambda: K.quantize_activation(xn, s_x), iters),
             "cudnn_bf16_ms": graph_ms(cudnn, iters),
+            "conv_wgmma_ms": None,
             "int_mm_ms": None,
             "plain_ms": cuda_ms(run_plain, 2, 1),
             "quantize_plain_ms": cuda_ms(lambda: K.quantize_activation_plain(xn, s_x), 2, 1),
         }
         if gemm:
             acc = K.int8_conv_acc_plain(x_q, w_q, stride, padding, dilation, groups)
+            if not torch.equal(K.int8_conv_acc(x_q, w_q, stride, padding, dilation, w_packed), acc):
+                fail(f"int8 conv {tuple(xin.shape)} {tuple(w_q.shape)} (pointwise): accumulator differs")
+
+            def wgmma(out_dtype=torch.bfloat16):
+                return K._launch(x_q, w_q, w_packed, s_x, w_scale, bias, stride, padding, dilation, out_dtype, groups,
+                                 route="wgmma")
+
+            if not torch.equal(wgmma(torch.int32), acc) or not torch.equal(wgmma(), y):
+                fail(f"int8 conv {tuple(xin.shape)} {tuple(w_q.shape)}: the wgmma route differs from the pointwise")
+            row["conv_wgmma_ms"] = graph_ms(wgmma, iters)
             row["int_mm_ms"], row["int_mm_mkn"] = int_mm_ms(x_q, w_packed, o, acc, iters)
     ref = plain["y"].float()
     for what, got in (("int8_conv", y), ("quantized_conv", y_route)):
@@ -991,7 +1041,8 @@ def rexnet_int8_by_kind(rows: list) -> dict:
     and the SE squeezes and excitations on 1 x 1 maps. ``padded_or_masked``: the 41
     convs with C % 16 != 0 (x at a padded pitch) or O % 8 != 0 (the masked epilogue),
     by kind; ``whole_rows``: the other 3, whose x and y rows are whole 16-byte pieces.
-    ``int_mm_ms`` is None where a row has no such time."""
+    ``conv_ms`` is the pointwise route's, ``conv_wgmma_ms`` the wgmma conv's on the same
+    operands; ``int_mm_ms`` is None where a row has no such time."""
 
     def kind(row):
         _, _, hw, _ = row["x"]
@@ -1000,7 +1051,7 @@ def rexnet_int8_by_kind(rows: list) -> dict:
             return "se_squeezes" if o < c else "se_excitations"
         return "projections" if o < c else "expansions" if o == 6 * c else "penultimate"
 
-    keys = ("conv_ms", "cudnn_bf16_ms", "int_mm_ms", "bound_ms")
+    keys = ("conv_ms", "conv_wgmma_ms", "cudnn_bf16_ms", "int_mm_ms", "bound_ms")
     out = {"padded_or_masked": {k: {"layers": 0, **dict.fromkeys(keys, 0.0)} for k in REXNET_KINDS},
            "whole_rows": {"layers": 0, **dict.fromkeys(keys, 0.0)}}
     for row in rows:
@@ -1021,8 +1072,8 @@ def check_int8(device, qm, model_bf16, x, model: str = "repvgg_a0", iters: int =
     14x14 layer and at a 3x3 layer of odd widths, 12 -> 20 (``_int8_case_holds``;
     quantization also on inputs built on its ties and beyond its clip). Then each
     geometry at the path's batch of 256 (``_time_int8_geometry``). Per-forward sums
-    are kept apart by route (``wgmma``, ``general``); the record returned also holds
-    the geometries' rows (``rows``)."""
+    are kept apart by route (``wgmma``, ``pointwise``, ``general``); the record
+    returned also holds the geometries' rows (``rows``)."""
     import torch
     from torch.nn import functional as F
 
@@ -1069,17 +1120,18 @@ def check_int8(device, qm, model_bf16, x, model: str = "repvgg_a0", iters: int =
         cases.append((f"synthetic {c}->{o} {hw}x{hw}", w_q, None, torch.rand(o, generator=gen, device=device) / 127,
                       xin.abs().amax().float() / 127, torch.randn(o, generator=gen, device=device), (1, 1), (1, 1),
                       (1, 1), 1, xin.contiguous(memory_format=torch.channels_last)))
-    max_err = {"wgmma": 0.0, "general": 0.0}
+    max_err = {"wgmma": 0.0, "pointwise": 0.0, "general": 0.0}
     checked = []
     for name, w_q, w_packed, w_scale, s_x, bias, stride, padding, dilation, groups, xin in cases:
-        route = K.conv_route(w_q.shape[2], w_q.shape[3], groups)
+        route = K.conv_route(w_q.shape[2], w_q.shape[3], groups, kernel_size=w_q.shape[:2], stride=stride,
+                             padding=padding)
         _int8_case_holds(name, route, xin.permute(0, 2, 3, 1), s_x, w_q, w_packed, w_scale, bias, stride, padding,
                          dilation, groups, max_err)
         checked.append({"layer": name, "route": route, "x": list(xin.shape), "w_hwio": list(w_q.shape)})
 
     # -- checks again and timing at the path's batch
-    totals = {"wgmma": {}, "general": {}}
-    bound_by = {"wgmma": {}, "general": {}}
+    totals = {"wgmma": {}, "pointwise": {}, "general": {}}
+    bound_by = {"wgmma": {}, "pointwise": {}, "general": {}}
     rows = []
     deploy_layers = dict(model_bf16.named_modules())
     for key, g in geometries.items():
@@ -1138,9 +1190,9 @@ def check_int8_service(device, forms: list, batches=(8, 1)) -> dict:
             hd.remove()
     if len(cases) != len(layers) * len(batches) or any(x.dtype != torch.float32 for _, _, x, _ in cases):
         fail(f"int8 service check: hooked {len(cases)} float32 inputs, expected {len(layers) * len(batches)}")
-    max_err = {"wgmma": 0.0, "general": 0.0}
+    max_err = {"wgmma": 0.0, "pointwise": 0.0, "general": 0.0}
     for name, m, xin, s_x in cases:
-        route = K.conv_route(m.kernel_q.shape[2], m.kernel_q.shape[3], m.groups)
+        route = m.route
         _int8_case_holds(f"{form['record']['model']} {form['record']['form']} {name} batch {xin.shape[0]}", route,
                          xin.permute(0, 2, 3, 1), s_x, m.kernel_q, m.kernel_packed, m.w_scale, m.bias, m.stride,
                          m.padding, m.dilation, m.groups, max_err)
@@ -1230,7 +1282,7 @@ def check_int8_grouped(device, batch: int = 256, iters: int = 20) -> list:
     w_scale = torch.rand(o, generator=gen, device=device) / 127 / 64
     bias = torch.randn(o, generator=gen, device=device).to(torch.bfloat16)
     weight = (w_q.float() * w_scale).permute(3, 2, 0, 1).to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
-    max_err = {"wgmma": 0.0, "general": 0.0}
+    max_err = {"wgmma": 0.0, "pointwise": 0.0, "general": 0.0}
     rows = []
     before = KERNEL_GENERAL.launches
     odd = torch.Generator(device=device).manual_seed(SEED + 12)
@@ -1886,14 +1938,13 @@ def phase_darknet_zoo(device, batch: int = 32, size: int = 224, num_classes: int
 def int8_geometries(qm) -> list:
     """The distinct int8 conv geometries of a quantized model, each with its count of
     layers: ``[C, O, kernel, stride, route, layers]``."""
-    from holocron_tpu_torch.kernels.int8_conv import conv_route
     from holocron_tpu_torch.quant import QuantizedConv2d
 
     geoms = {}
     for m in qm.modules():
         if isinstance(m, QuantizedConv2d):
             kh, _, c, o = m.kernel_q.shape
-            key = (c, o, kh, m.stride[0], conv_route(c, o, m.groups))
+            key = (c, o, kh, m.stride[0], m.route)
             geoms[key] = geoms.get(key, 0) + 1
     return [[*k, n] for k, n in sorted(geoms.items())]
 
@@ -1988,8 +2039,10 @@ def phase_detection_serving(device, size: int = 608, num_classes: int = 80, batc
     qm = quantize_model(model, calibration_batches=[calib], arch="yolov4").to(torch.bfloat16)
     n_int8 = sum(isinstance(m, QuantizedConv2d) for m in qm.modules())
     geoms = int8_geometries(qm)
-    if n_int8 != 102 or any(g[4] != "wgmma" for g in geoms) or not any(g[1] == 255 for g in geoms):
-        fail(f"yolov4: {n_int8} int8 convs at {geoms}; expected 102 on wgmma, the prediction convs 255 wide")
+    if (n_int8 != 102 or any(g[4] != ("pointwise" if g[2] == g[3] == 1 else "wgmma") for g in geoms)
+            or not any(g[1] == 255 for g in geoms)):
+        fail(f"yolov4: {n_int8} int8 convs at {geoms}; expected 102, the 1x1 stride-1 ones on the pointwise route "
+             "and the rest on wgmma, the prediction convs 255 wide")
     xs = {b: naturalistic_batch(gen, b, size, device).to(torch.bfloat16) for b in batches}
     candidates = 3 * sum((size // s) ** 2 for s in (8, 16, 32))  # 22,743 at 608 px
     torch.cuda.synchronize()
@@ -2073,11 +2126,12 @@ def phase_detection_serving(device, size: int = 608, num_classes: int = 80, batc
                 h.remove()
         torch.cuda.synchronize()
         launches = int8_launches()  # the path's; the checks below launch more
-        if not launches["int8_conv"] or not launches["int8_quantize"] or launches["int8_conv_general"]:
-            fail(f"yolov4 int8: the path launched {launches}, expected the wgmma conv and the quantization")
-        max_err = {"wgmma": 0.0, "general": 0.0}
+        if not int8_routes_launched(launches, qm):
+            fail(f"yolov4 int8: the path launched {launches}, expected the quantization and its layers' routes "
+                 f"({int8_expected(qm)} a forward)")
+        max_err = {"wgmma": 0.0, "pointwise": 0.0, "general": 0.0}
         for n, m, xin in cases:
-            _int8_case_holds(f"yolov4 {n}", K.conv_route(m.kernel_q.shape[2], m.kernel_q.shape[3], m.groups),
+            _int8_case_holds(f"yolov4 {n}", m.route,
                              xin.permute(0, 2, 3, 1), m.activation_scale(xin), m.kernel_q, m.kernel_packed,
                              m.w_scale, m.bias, m.stride, m.padding, m.dilation, m.groups, max_err)
         if len(cases) != n_int8:
@@ -2104,7 +2158,7 @@ def phase_detection_serving(device, size: int = 608, num_classes: int = 80, batc
           "int8_over_bf16_raw_graph": (records["int8"][last]["img_per_s_raw_graph"]
                                        / records["bf16"][last]["img_per_s_raw_graph"]),
           "gate": {**gate, **rung},
-          "int8_checked_layers": len(cases), "int8_max_abs_err_bf16": max_err["wgmma"], "others": others,
+          "int8_checked_layers": len(cases), "int8_max_abs_err_bf16": max(max_err.values()), "others": others,
           "launches": launches})
     return launches
 
@@ -2290,7 +2344,6 @@ def phase_segmentation_serving(device, size: int = 256, num_classes: int = 21, b
     import torch
 
     from holocron_tpu_torch.bench import naturalistic_batch
-    from holocron_tpu_torch.kernels.int8_conv import conv_route
     from holocron_tpu_torch.models import segmentation
     from holocron_tpu_torch.models.core import deploy_forward
     from holocron_tpu_torch.quant import QuantizedConv2d, measure_agreement_segmentation, quantize_model
@@ -2308,11 +2361,12 @@ def phase_segmentation_serving(device, size: int = 256, num_classes: int = 21, b
     qm = quantize_model(model, calibration_batches=[calib], arch="unet3p").to(torch.bfloat16)
     layers = [m for m in qm.modules() if isinstance(m, QuantizedConv2d)]
     geoms = int8_geometries(qm)
-    routes = [conv_route(m.kernel_q.shape[2], m.kernel_q.shape[3], m.groups) for m in layers]
-    if (len(layers) != UNET3P_INT8 or routes.count("wgmma") != UNET3P_INT8
+    routes = [m.route for m in layers]
+    if (len(layers) != UNET3P_INT8 or routes.count("pointwise") != 1 or routes.count("general")
             or not any(g[1] == num_classes for g in geoms) or not any(m.bias is not None for m in layers)):
-        fail(f"unet3p: {len(layers)} int8 convs at {geoms}, routes {set(routes)}; expected {UNET3P_INT8} on wgmma, "
-             f"a {num_classes}-wide head and biased convs among them")
+        fail(f"unet3p: {len(layers)} int8 convs at {geoms}, routes {set(routes)}; expected {UNET3P_INT8}, the 1x1 "
+             f"head on the pointwise route and the rest on wgmma, a {num_classes}-wide head and biased convs among "
+             "them")
     xs = {b: naturalistic_batch(gen, b, size, device).to(torch.bfloat16) for b in batches}
     held = [naturalistic_batch(gen, batches[-1], size, device).to(torch.bfloat16) for _ in range(2)]
     del calib
@@ -2326,9 +2380,9 @@ def phase_segmentation_serving(device, size: int = 256, num_classes: int = 21, b
             for b, x in xs.items():
                 check_masks(m(x), b, num_classes, size, f"unet3p {name} batch {b}")
         eager_launches = int8_launches()
-        expected = len(batches) * UNET3P_INT8
-        if eager_launches != {"int8_conv": expected, "int8_quantize": expected, "int8_conv_general": 0}:
-            fail(f"unet3p int8: the eager forwards launched {eager_launches}, expected {expected} of each")
+        expected = int8_expected(qm, len(batches))
+        if eager_launches != expected:
+            fail(f"unet3p int8: the eager forwards launched {eager_launches}, expected {expected}")
         for name, m in forms.items():
             graphs[name] = deploy_forward(m, batches, size)
             rec = {}
@@ -2348,8 +2402,8 @@ def phase_segmentation_serving(device, size: int = 256, num_classes: int = 21, b
                 rec[f"batch{b}"] = row
             records[name] = rec
         launches = int8_launches()
-        if not launches["int8_conv"] or not launches["int8_quantize"] or launches["int8_conv_general"]:
-            fail(f"unet3p int8: the path launched {launches}, expected the wgmma conv and the quantization")
+        if not int8_routes_launched(launches, qm):
+            fail(f"unet3p int8: the path launched {launches}, expected the quantization and its layers' routes")
         gate = measure_agreement_segmentation(model_bf16, qm, held)
         x32 = xs[batches[-1]]
         profiles = {f"{name}_{mode}": profile_forward(fn, x32, steps=3, top=8)
@@ -2569,8 +2623,9 @@ def phase_serving_graphs(device, arch: str, qm, model_bf16, x, r8, phase: str, i
             del graph
     torch.cuda.synchronize()
     launches = int8_launches()
-    if not launches["int8_conv"] or not launches["int8_quantize"] or launches["int8_conv_general"]:
-        fail(f"{arch} graphs: the int8 path launched {launches}, expected the wgmma conv and the quantization")
+    if not int8_routes_launched(launches, qm):
+        fail(f"{arch} graphs: the int8 path launched {launches}, expected the quantization and its layers' routes "
+             f"({int8_expected(qm)} a forward)")
     b = x.shape[0]
     emit({"phase": phase, "model": arch, "image_size": size, "replays_equal_eager": True, "forms": rows,
           "int8_over_bf16_graph": rows[f"bf16_b{b}"]["graph_ms"] / rows[f"int8_b{b}"]["graph_ms"],
@@ -2581,8 +2636,10 @@ def phase_serving_graphs(device, arch: str, qm, model_bf16, x, r8, phase: str, i
 def int8_sums_by_kernel(rows: list, model: str) -> dict:
     """A served model's ``check_int8_geometry`` rows summed over its layers (each
     geometry times its count of layers) by kernel shape: ``1x1`` and, where there are
-    any, ``2x2_s2``; ``int_mm_ms`` is None where a row has no such time."""
-    keys = ("route_ms", "conv_ms", "quantize_ms", "cudnn_bf16_ms", "int_mm_ms", "bound_ms")
+    any, ``2x2_s2``; ``conv_ms`` is each layer's route's (the pointwise GEMM at 1x1),
+    ``conv_wgmma_ms`` the wgmma conv's on the 1x1 layers' operands; a key is None where
+    a row has no such time."""
+    keys = ("route_ms", "conv_ms", "conv_wgmma_ms", "quantize_ms", "cudnn_bf16_ms", "int_mm_ms", "bound_ms")
     out = {}
     for row in rows:
         kh, _, _, _ = row["w_hwio"]
@@ -3187,7 +3244,7 @@ def phase_latency_and_zoo(device, zoo_batch: int = 32, it: int = 20) -> dict:
     errors = [r for r in rows if "error" in r]
     if errors or len(rows) != len(ZOO_ONE_A_FAMILY):
         fail(f"latency_and_zoo: {len(rows)} rows, errors {errors}")
-    if not launches["int8_conv"] or not launches["int8_quantize"]:
+    if not launches["int8_pointwise"] or not launches["int8_quantize"]:  # rexnet1_0x's 1x1 convs
         fail(f"latency_and_zoo: the int8 runs launched {launches}")
     emit({"phase": "latency_and_zoo", "eval_latency": latency, "zoo": rows, "launches": launches})
     return launches
@@ -3631,16 +3688,16 @@ def _check_int8_blocks(fwd, x) -> tuple:
             hd.remove()
     if len(taken) != len(layers):
         fail(f"model_spatial_parallel: {len(taken)} of the {len(layers)} split int8 convs ran")
-    max_err, checked = {"wgmma": 0.0}, []
+    max_err, checked = {"wgmma": 0.0, "pointwise": 0.0}, []
     for m, xin in taken:
         xin = sharded.gather(xin).contiguous(memory_format=torch.channels_last)
         key = [list(xin.shape), list(m.kernel_q.shape), list(m.stride)]
         if key in checked:
             continue
         checked.append(key)
-        _int8_case_holds(f"tensor-parallel block {key}", "wgmma", xin.permute(0, 2, 3, 1), m.act_scale, m.kernel_q,
+        _int8_case_holds(f"tensor-parallel block {key}", m.route, xin.permute(0, 2, 3, 1), m.act_scale, m.kernel_q,
                          m.kernel_packed, m.w_scale, m.bias, m.stride, m.padding, m.dilation, m.groups, max_err)
-    return checked, max_err["wgmma"]
+    return checked, max(max_err.values())
 
 
 def model_spatial_parallel_worker(rank: int, port: int, outdir: str, device_name: str = "cuda", cls_batch: int = 64,
@@ -3913,8 +3970,7 @@ def phase_model_spatial_parallel(device, timeout: float = 300.0, **sizes) -> dic
         "int8_top1_agreement": r0["tp_int8_top1_agreement"],
         "int8_max_abs_logit_diff": r0["tp_int8_max_abs_logit_diff"], "int8_logit_scale": r0["tp_int8_logit_scale"],
         "int8_wall_ms": [r["tp_int8_ms"] for r in ranks],
-        "int8_launches_a_rank": [{k: r["tp_int8_launches"][k] for k in ("int8_conv", "int8_quantize",
-                                                                        "int8_conv_general")} for r in ranks],
+        "int8_launches_a_rank": [{k: r["tp_int8_launches"][k] for k in INT8_COUNTERS} for r in ranks],
         "int8_blocks_checked_a_rank": [len(r["tp_int8_blocks_checked"]) for r in ranks],
         "int8_block_max_abs_err_bf16": max(r["tp_int8_block_max_abs_err_bf16"] for r in ranks),
         "fallbacks_a_rank": [r["tp_fallbacks"] for r in ranks]}
@@ -3950,7 +4006,8 @@ def phase_model_spatial_parallel(device, timeout: float = 300.0, **sizes) -> dic
                  f"process's, beyond {TP_LOGIT_RTOL} x {tp[f'{form}logit_scale']}")
     if any(n == 0 for n in tp["int8_blocks_checked_a_rank"]):
         fail(f"model_spatial_parallel: a rank checked no int8 block: {tp['int8_blocks_checked_a_rank']}")
-    if any(r["int8_conv"] == 0 or r["int8_quantize"] == 0 for r in tp["int8_launches_a_rank"]):
+    if any(r["int8_conv"] == 0 or r["int8_pointwise"] == 0 or r["int8_quantize"] == 0
+           for r in tp["int8_launches_a_rank"]):
         fail(f"model_spatial_parallel: a rank's int8 forward launched no kernel: {tp['int8_launches_a_rank']}")
     for name in ("float32", "bf16"):
         if sp[name]["argmax_agreement"] < 0.999:
@@ -3966,8 +4023,7 @@ def phase_model_spatial_parallel(device, timeout: float = 300.0, **sizes) -> dic
             if len(losses) != len(rec["one_process_losses"]) or any(
                     not math.isfinite(a) or abs(a - b) > 1e-3 * abs(b) for a, b in zip(losses, rec["one_process_losses"])):
                 fail(f"model_spatial_parallel: {name} losses {losses} vs one process {rec['one_process_losses']}")
-    launches = {k: sum(r[k] for r in tp["int8_launches_a_rank"]) for k in ("int8_conv", "int8_quantize",
-                                                                            "int8_conv_general")}
+    launches = {k: sum(r[k] for r in tp["int8_launches_a_rank"]) for k in INT8_COUNTERS}
     return launches, tp["int8_block_max_abs_err_bf16"]
 
 
@@ -3996,7 +4052,8 @@ def naturalistic_batch_u8(gen, batch: int, size: int, device):
     return (x * 40 + 128).clamp(0, 255).to(torch.uint8).contiguous(memory_format=torch.channels_last)
 
 
-def int8_entries(launches: list, replays_seen: dict, records: list, grouped: list, blocks_err: float) -> list:
+def int8_entries(launches: list, replays_seen: dict, records: list, pointwise_records: list, grouped: list,
+                 blocks_err: float) -> list:
     """The ``kernels`` line's entries of the int8 kernels: launches the counters saw,
     summed over the paths' runs (the four classification serving paths, the bench, the
     captured deploy forward's warm-ups, captures and eager forwards, the service's
@@ -4012,22 +4069,28 @@ def int8_entries(launches: list, replays_seen: dict, records: list, grouped: lis
     the counted graph replays of ``deploy_graph_profile`` (a replay makes no call a
     counter sees);
     the wgmma conv's and the quantization's times and bounds summed over one batch-256
-    forward of each serving model (each geometry times its count of layers; each conv's bound
-    counts the int8 x it reads), and over the four ``s2d_strided`` geometries of
-    repvgg_a0 (``check_int8_s2d``: the folded 2x2 stride-1 convs). No path runs the general route (0 launches): its times
+    forward of each serving model in ``records`` (repvgg_a0, resnet50, rexnet1_0x: each
+    geometry times its count of layers; each conv's bound counts the int8 x it reads),
+    and over the four ``s2d_strided`` geometries of repvgg_a0 (``check_int8_s2d``: the
+    folded 2x2 stride-1 convs); the pointwise conv's over one batch-256 forward of each
+    model in ``pointwise_records`` (resnet50, rexnet1_0x, mobileone_s1, convnext_tiny:
+    their 1x1 stride-1 layers), its ``library_ms`` ``torch._int_mm`` on the same
+    operands (no epilogue), summed the same way. No path runs the general route (0 launches): its times
     are those of the grouped check (``grouped``: resnext101_32x8d's two stage-4 convs,
-    summed). ``library_ms`` is None: ``torch._int_mm`` computes only the 1x1 stride-1
-    convs (``check_int8_geometry``'s ``int_mm_ms``), not the 3x3 ones of repvgg_a0 and
-    resnet50."""
+    summed). The wgmma conv's ``library_ms`` is None: ``torch._int_mm`` computes only
+    1x1 stride-1 convs, which take the pointwise route."""
 
-    def total(key, route=None):
-        return sum(v for r in records for rt, t in r["per_forward"].items() if route in (None, rt)
+    def total(key, route=None, recs=records):
+        return sum(v for r in recs for rt, t in r["per_forward"].items() if route in (None, rt)
                    for k, v in t.items() if k == key)
 
-    by = {}
-    for r in records:
-        for k, v in r["bound_ms_by"]["wgmma"].items():
-            by[k] = by.get(k, 0.0) + v
+    def bound_by(route, recs):
+        by = {}
+        for r in recs:
+            for k, v in r["bound_ms_by"][route].items():
+                by[k] = by.get(k, 0.0) + v
+        return max(by, key=by.get)
+
     src = "holocron_tpu_torch/csrc/"
 
     def entry(name, source, ms, plain_ms, bound_ms, bound_by, max_abs_err):
@@ -4039,10 +4102,16 @@ def int8_entries(launches: list, replays_seen: dict, records: list, grouped: lis
     quantize = entry("int8_quantize", "int8_conv.cu", total("quantize_ms"), total("quantize_plain_ms"),
                      total("quantize_bound_ms"), "bytes", 0.0)
     quantize["replaces"] = "holocron_tpu/quant.py:244"
+    recs = pointwise_records
+    pointwise = entry("int8_pointwise", "int8_conv.cu", total("conv_ms", "pointwise", recs),
+                      total("plain_ms", "pointwise", recs), total("bound_ms", "pointwise", recs),
+                      bound_by("pointwise", recs), max(blocks_err, *(r["max_abs_err_bf16"]["pointwise"] for r in recs)))
+    pointwise["library_ms"] = total("int_mm_ms", "pointwise", recs)
     return [
         entry("int8_conv", "int8_conv.cu", total("conv_ms", "wgmma"), total("plain_ms", "wgmma"),
-              total("bound_ms", "wgmma"), max(by, key=by.get),
+              total("bound_ms", "wgmma"), bound_by("wgmma", records),
               max(blocks_err, *(r["max_abs_err_bf16"]["wgmma"] for r in records))),
+        pointwise,
         quantize,
         entry("int8_conv_general", "int8_conv_general.cu", sum(g["conv_ms"] for g in grouped),
               sum(g["plain_ms"] for g in grouped), sum(g["bound_ms"] for g in grouped),
@@ -4075,9 +4144,9 @@ def main() -> int:
 
     timed(phase_build)
     qm, model_bf16, x, r8, serving_launches = timed(phase_serving, device)
-    rqm, rmodel_bf16, rx, rr8, resnet_launches = timed(phase_serving, device, "resnet50", 52, 52, "resnet_serving")
+    rqm, rmodel_bf16, rx, rr8, resnet_launches = timed(phase_serving, device, "resnet50", 52, 33, "resnet_serving")
     xqm, xmodel_bf16, xx, xr8, rexnet_launches = timed(phase_serving, device, "rexnet1_0x", 44, 44, "rexnet_serving")
-    dqm, dmodel_bf16, dx, _, darknet_launches = timed(phase_serving, device, "darknet53", 49, 49, "darknet_serving")
+    dqm, dmodel_bf16, dx, _, darknet_launches = timed(phase_serving, device, "darknet53", 49, 23, "darknet_serving")
     s2d_qm, s2d_bf16, s2d_x, s2d_launches = timed(phase_s2d_forms, device)
     inv_launches = timed(phase_involution, device)
     timed(phase_training, device)
@@ -4100,7 +4169,7 @@ def main() -> int:
                                                           "mobileone_serving")
     mobileone_graph_launches = timed(phase_serving_graphs, device, "mobileone_s1", mqm, mmodel_bf16, mx, mr8,
                                      "mobileone_serving_graphs")
-    cqm, cmodel_bf16, cx, cr8, convnext_launches = timed(phase_serving, device, "convnext_tiny", 39, 39,
+    cqm, cmodel_bf16, cx, cr8, convnext_launches = timed(phase_serving, device, "convnext_tiny", 39, 36,
                                                          "convnext_serving", prepare=draw_layer_scales)
     convnext_graph_launches = timed(phase_serving_graphs, device, "convnext_tiny", cqm, cmodel_bf16, cx, cr8,
                                     "convnext_serving_graphs")
@@ -4126,9 +4195,12 @@ def main() -> int:
     timed(check_int8, device, dqm, dmodel_bf16, dx, "darknet53")
     timed(check_int8, device, sqm, smodel_bf16, sx, "unet3p")
     del sqm, smodel_bf16, sx
+    i8_more = []
     for qmodel, bf16, xb, arch in ((mqm, mmodel_bf16, mx, "mobileone_s1"), (cqm, cmodel_bf16, cx, "convnext_tiny")):
-        emit({"phase": "int8_sums_by_kernel", **int8_sums_by_kernel(timed(check_int8, device, qmodel, bf16, xb,
-                                                                           arch)["rows"], arch)})
+        i8_more.append(timed(check_int8, device, qmodel, bf16, xb, arch))
+        emit({"phase": "int8_sums_by_kernel", **int8_sums_by_kernel(i8_more[-1]["rows"], arch)})
+    for rec in (i8_resnet, i8_rexnet):
+        emit({"phase": "int8_sums_by_kernel", **int8_sums_by_kernel(rec["rows"], rec["model"])})
     timed(check_int8_service, device, graph_forms)
     emit({"phase": "rexnet_int8_by_kind", **rexnet_int8_by_kind(i8_rexnet["rows"])})
     grouped = timed(check_int8_grouped, device)
@@ -4163,7 +4235,8 @@ def main() -> int:
                        mobileone_launches, mobileone_graph_launches, convnext_launches, convnext_graph_launches,
                        profile_launches, export_launches, latency_launches, s2d_launches, parallel_launches],
                       replays_seen,
-                      [i8, i8_resnet, i8_rexnet, i8_s2d], grouped, parallel_int8_err),
+                      [i8, i8_resnet, i8_rexnet, i8_s2d], [i8_resnet, i8_rexnet, *i8_more], grouped,
+                      parallel_int8_err),
     ]})
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

@@ -15,8 +15,10 @@
 // (kernels/int8_conv.py:pack_weights) from HWIO into an (O_pad, K_pad) K-major int8
 // matrix over the same pitch, zero beyond C, O and K, so the reduction runs over
 // K = KH*KW*P and the zeros add nothing. y is float32 or bfloat16; out_dtype 2 stores
-// the raw int32 accumulator. Every ungrouped conv takes this route; grouped convs go to
-// int8_conv_general.cu.
+// the raw int32 accumulator. Every ungrouped conv that is not pointwise takes this route
+// (int8_conv_wgmma_kernel); a 1x1, stride-1, unpadded conv whose O is a multiple of 8
+// or fits one column tile takes the pointwise GEMM (int8_pointwise_wgmma_kernel, at the
+// end of this file); grouped convs go to int8_conv_general.cu.
 //
 // What bounds it on an H100: at repvgg_a0's 192- and 1280-channel layers the int8
 // tensor-core rate (1,979 TOP/s, reachable only through wgmma); at the 48- and
@@ -71,6 +73,7 @@
 
 #include <algorithm>
 
+#include <cuda.h>  // CUtensorMap and its enums; cuTensorMapEncodeTiled is fetched at run time
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -930,6 +933,525 @@ int launch_quantize_pitched(const T* x, const float* s_x, int8_t* q, long long p
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---- The pointwise route: int8_pointwise_wgmma_kernel --------------------------------
+//
+// A 1x1, stride-1, unpadded conv is a GEMM over the pixels: y (M, O) = x (M, P) w^T,
+// x_q a dense (M, P) int8 matrix at its pitch, w the packed (O_pad, K_pad) matrix. Same
+// arithmetic and epilogue as the route above (quant.py:259-274), bit for bit. What
+// bounds it on an H100 is the bytes: at the expansions (96 -> 384 at 56 x 56) y's bf16
+// writes are 8x x's reads, and a 1-2 step reduction leaves each tile almost all
+// epilogue. The design:
+//
+// - TMA loads: one producer thread issues cp.async.bulk.tensor.2d copies of 64 x 128-byte
+//   boxes of x (rows past M and bytes past P zero-filled by the tensor map's bounds) into
+//   a ring of mbarrier-guarded stages (expect_tx). Each block keeps one column tile for
+//   its life (blockIdx.x % column tiles) and walks row tiles; where BN x K_pad fits
+//   beside the ring, its weights are copied into shared memory once ("resident"), else
+//   each stage carries the step's BN x 128 bytes of them beside two tiles' x, read by
+//   both warpgroups ("streamed"). Blocks of one row tile run side by side, so x is
+//   read from device memory about once.
+// - No padded products: a step issues only the k32 wgmmas over bytes below P.
+// - Ping-pong consumers: each of the two consumer warpgroups owns whole 64-row tiles,
+//   taken alternately; with resident weights an order barrier (named barriers 4 and 5)
+//   passes the tensor cores from one to the other, so one warpgroup's products run
+//   during the other's epilogue (streamed, they multiply side by side).
+// - Asynchronous stores: where a row of y is whole 16-byte pieces, the epilogue writes
+//   128-byte-wide column chunks into two staging buffers a warpgroup in TMA's 128-byte
+//   swizzle, each leaving as one cp.async.bulk.tensor.2d store (rows past M and columns
+//   past O clipped by the map); else, where all of O lies in one column tile of at most
+//   192, each warp stages its 16 rows compactly, one contiguous 16-byte-aligned run of
+//   y, which leaves as one 1D cp.async.bulk copy. cp.async.bulk.wait_group.read guards a
+//   buffer's reuse, so the stores drain during the next chunk and the next tile's
+//   products. The remaining widths (rexnet's expansions to 570, 636, 702, ...: rows
+//   neither whole 16-byte pieces nor in one tile) copy the staged chunks out in the
+//   widest units their rows' alignment allows (8, 4 or 2 bytes).
+
+constexpr int PW_ROWS = 64;                     // rows of a tile: one warpgroup's wgmma M
+constexpr int PW_A_BYTES = PW_ROWS * BK;        // one step of a tile's x: 64 rows of 128 bytes
+constexpr int PW_MAX_STAGES = 6;   // 4, 8, 12 and 16 measured slower on the read-bound layers (PERF.md)
+constexpr int PW_CHUNK_BYTES = PW_ROWS * 128;   // a 2D store chunk: 64 rows of 128 bytes
+constexpr int PW_SMEM = 232448 - 1024;          // a block's dynamic shared memory, less the alignment slack
+constexpr long long PW_RUN_ROWS = 1LL << 30;    // rows a launch: TMA's coordinates are 32-bit
+constexpr int PW_FLAT_MAX = 192;                // the widest column tile with 1D stores (its staging fits a ring)
+// the epilogue's store forms: 2D tensor stores of column chunks (rows of y whole
+// 16-byte pieces), a 1D bulk copy of each warp's rows (O <= PW_FLAT_MAX, one column
+// tile), or the staged chunks copied out by the threads (the other widths)
+constexpr int PW_STORE_TENSOR = 0, PW_STORE_FLAT = 1, PW_STORE_COPY = 2;
+
+struct PointwiseShape {
+  int m, o, p;          // rows of this launch, output channels, reduction bytes (x's pitch)
+  int ksteps;           // 128-byte steps, ceil(P / 128)
+  int col_tiles, row_tiles, blocks_per_col;
+  int stages, resident, store, out_dtype, bias_bf16;  // store: PW_STORE_*
+  int vec;              // PW_STORE_COPY's unit in bytes
+  // byte offsets from the 1024-aligned base of shared memory
+  int off_w, off_epi, epi_warp_bytes, off_table, off_bar;
+};
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, uint32_t bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%3, %4}], [%2];\n"
+      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, uint32_t src, int c0, int c1) {
+  asm volatile("cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];\n"
+               ::"l"(reinterpret_cast<uint64_t>(map)), "r"(src), "r"(c0), "r"(c1)
+               : "memory");
+}
+
+__device__ __forceinline__ void bulk_store(void* dst, uint32_t src, uint32_t bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(dst), "r"(src), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() { asm volatile("cp.async.bulk.commit_group;\n" ::: "memory"); }
+
+// this thread's bulk stores have finished reading shared memory
+__device__ __forceinline__ void bulk_wait_read() { asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory"); }
+
+// this thread's bulk stores have completed
+__device__ __forceinline__ void bulk_wait_all() { asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory"); }
+
+// this thread's shared-memory writes made visible to the bulk copies (the async proxy)
+__device__ __forceinline__ void fence_async_shared() { asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory"); }
+
+__device__ __forceinline__ void named_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+__device__ __forceinline__ uint32_t ld_shared2(uint32_t src) {
+  uint16_t v;
+  asm volatile("ld.shared.u16 %0, [%1];\n" : "=h"(v) : "r"(src) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ uint32_t ld_shared4(uint32_t src) {
+  uint32_t v;
+  asm volatile("ld.shared.b32 %0, [%1];\n" : "=r"(v) : "r"(src) : "memory");
+  return v;
+}
+
+// float(acc) * (s_x * w_scale[o]) + bias[o] in float32, quant.py:270-273's order; no
+// bias, no addition (+0 would turn a -0 into +0)
+__device__ __forceinline__ float requantize(int a, float scale, float bias, bool has_bias) {
+  const float y = __fmul_rn(__int2float_rn(a), scale);
+  return has_bias ? __fadd_rn(y, bias) : y;
+}
+
+// The bits of a thread's two elements of y: raw int32, float32, or a bfloat16 each.
+template <int B>
+__device__ __forceinline__ void epilogue_pair(int a0, int a1, int c, const float* col_scale, const float* col_bias,
+                                              bool has_bias, int out_dtype, uint32_t& b0, uint32_t& b1) {
+  if (B == 4 && out_dtype == 2) {
+    b0 = static_cast<uint32_t>(a0);
+    b1 = static_cast<uint32_t>(a1);
+    return;
+  }
+  const float2 scale = *reinterpret_cast<const float2*>(col_scale + c);  // c is even
+  const float2 add = *reinterpret_cast<const float2*>(col_bias + c);
+  const float y0 = requantize(a0, scale.x, add.x, has_bias);
+  const float y1 = requantize(a1, scale.y, add.y, has_bias);
+  if constexpr (B == 4) {
+    b0 = __float_as_uint(y0);
+    b1 = __float_as_uint(y1);
+  } else {
+    __nv_bfloat162 pair = __floats2bfloat162_rn(y0, y1);
+    const uint32_t bits = *reinterpret_cast<uint32_t*>(&pair);
+    b0 = bits & 0xFFFFu;
+    b1 = bits >> 16;
+  }
+}
+
+// The epilogue of one 64 x BN tile, by the 128 threads (t) of a warpgroup:
+// 128-byte-wide column chunks (CW columns) staged in TMA's 128-byte swizzle (row r's
+// 16-byte piece k at r * 128 + (k ^ (r % 8)) * 16, so a warp's eight rows fall in
+// different banks), alternating between the warpgroup's two buffers. Where a row of y
+// is whole 16-byte pieces (`tensor`), each chunk leaves as one bulk tensor store at
+// (n0 + chunk * CW, m0); before the barrier that releases a chunk, thread 0 waits
+// until the previous chunk's store has read its buffer, the one the next chunk writes.
+// Else the warpgroup copies each chunk out in units of `vec` bytes, a row's run by
+// consecutive threads (a rolled loop: no registers beyond the accumulators'); the next
+// chunk's barrier orders the copy before the buffer's next use. `chunk_no` counts
+// the warpgroup's chunks across tiles.
+template <int BN, int B>
+__device__ __forceinline__ void pointwise_epilogue_2d(const int (&acc)[BN / 2], const CUtensorMap* tm_y, bool tensor,
+                                                      char* __restrict__ out, uint32_t bufs, const float* col_scale,
+                                                      const float* col_bias, bool has_bias, int out_dtype, int o,
+                                                      int m, int vec, int cols, int n0, int m0, int t, int bar_id,
+                                                      int& chunk_no) {
+  constexpr int CW = 128 / B;
+  const int warp = t / 32, lane = t % 32;
+#pragma unroll
+  for (int ch = 0; ch < (BN + CW - 1) / CW; ++ch) {
+    if (ch * CW >= cols) break;
+    const uint32_t buf = bufs + (chunk_no & 1) * PW_CHUNK_BYTES;
+#pragma unroll
+    for (int q = 0; q < CW / 8; ++q) {
+      const int jj = ch * (CW / 8) + q;
+      if (jj >= BN / 8) break;
+      const int c = 8 * jj + 2 * (lane % 4);
+      const int byte = (8 * q + 2 * (lane % 4)) * B;  // in the chunk's row
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = warp * 16 + lane / 4 + 8 * h;
+        const uint32_t dst = buf + r * 128 + ((((byte >> 4) ^ (r & 7))) << 4) + (byte & 15);
+        uint32_t b0, b1;
+        epilogue_pair<B>(acc[4 * jj + 2 * h], acc[4 * jj + 2 * h + 1], c, col_scale, col_bias, has_bias, out_dtype,
+                         b0, b1);
+        if constexpr (B == 4) {
+          st_shared8(dst, b0, b1);
+        } else {
+          st_shared4(dst, b0 | b1 << 16);
+        }
+      }
+    }
+    if (tensor) {
+      fence_async_shared();
+      if (t == 0) bulk_wait_read();
+    }
+    named_barrier(bar_id, 128);
+    if (tensor) {
+      if (t == 0) {
+        tma_store_2d(tm_y, buf, n0 + ch * CW, m0);
+        bulk_commit();
+      }
+    } else {
+      // `vec` bytes at a time (8, 4 or one element: what y's row alignment allows; a
+      // unit never straddles a 16-byte piece of the staging row)
+      // thread t takes unit t % units of rows t / units, + 128 / units, ...: no division
+      // in the loop (units <= 64, so every row is covered)
+      const int c0 = ch * CW, units = min(CW, cols - c0) * B / vec, rows = min(PW_ROWS, m - m0);
+      const int step = 128 / units, byte = (t % units) * vec;
+      char* const base = out + (static_cast<long long>(m0) * o + n0 + c0) * B + byte;
+#pragma unroll 1
+      for (int r = t < step * units ? t / units : rows; r < rows; r += step) {
+        const uint32_t src = buf + r * 128 + (((byte >> 4) ^ (r & 7)) << 4) + (byte & 15);
+        char* const dst = base + static_cast<long long>(r) * o * B;
+        if (vec == 8) {
+          uint2 v;
+          asm volatile("ld.shared.v2.b32 {%0, %1}, [%2];\n" : "=r"(v.x), "=r"(v.y) : "r"(src) : "memory");
+          *reinterpret_cast<uint2*>(dst) = v;
+        } else if (vec == 4) {
+          *reinterpret_cast<uint32_t*>(dst) = ld_shared4(src);
+        } else {
+          *reinterpret_cast<uint16_t*>(dst) = static_cast<uint16_t>(ld_shared2(src));
+        }
+      }
+    }
+    ++chunk_no;
+  }
+}
+
+// The epilogue of one tile where a row of y is not whole 16-byte pieces (odd O, all of
+// it in this column tile), by one warp: its 16 rows staged compactly in its buffer,
+// element (r, c) at (r * O + c) * B, the same bytes as the run of y they go to, which
+// starts on a 16-byte boundary and is 16 * O * B bytes long: one 1D bulk copy. A warp
+// whose rows run past M (the launch's last tile) stores its valid rows directly.
+template <int BN, int B>
+__device__ __forceinline__ void pointwise_epilogue_flat(const int (&acc)[BN / 2], char* __restrict__ out,
+                                                        uint32_t wbuf, const float* col_scale, const float* col_bias,
+                                                        bool has_bias, int out_dtype, int o, int m, int m0, int t) {
+  const int warp = t / 32, lane = t % 32;
+  if (lane == 0) bulk_wait_read();  // the warp's previous run has left its buffer
+  __syncwarp();
+#pragma unroll
+  for (int jj = 0; jj < BN / 8; ++jj) {
+    const int c = 8 * jj + 2 * (lane % 4);
+    if (c >= o) continue;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = lane / 4 + 8 * h;
+      uint32_t b0, b1;
+      // the second column past O reads the table's zero entry and is not stored
+      epilogue_pair<B>(acc[4 * jj + 2 * h], acc[4 * jj + 2 * h + 1], c, col_scale, col_bias, has_bias, out_dtype,
+                       b0, b1);
+      stage_pair(wbuf + (r * o + c) * B, B, b0, b1, c + 1 < o);
+    }
+  }
+  fence_async_shared();
+  __syncwarp();
+  const int row0 = m0 + 16 * warp;
+  const int rows = min(16, m - row0);
+  char* const dst = out + static_cast<long long>(row0) * o * B;
+  if (rows == 16) {
+    if (lane == 0) {
+      bulk_store(dst, wbuf, 16 * o * B);
+      bulk_commit();
+    }
+  } else {
+    for (int i = lane; i < rows * o; i += 32) {
+      if constexpr (B == 2) {
+        *reinterpret_cast<uint16_t*>(dst + 2 * i) = static_cast<uint16_t>(ld_shared2(wbuf + 2 * i));
+      } else {
+        *reinterpret_cast<uint32_t*>(dst + 4 * i) = ld_shared4(wbuf + 4 * i);
+      }
+    }
+  }
+}
+
+// One block keeps column tile blockIdx.x % col_tiles and walks row tiles first_row,
+// first_row + blocks_per_col, ... (its tiles j = 0, 1, ...); warpgroup w takes the
+// tiles j = w, w + 2, ..., in rounds of two. Where the weights are resident, the
+// producer thread copies them once, then each tile's steps of x into the ring in j
+// order, and the warpgroups ping-pong: in each round a warpgroup waits for the other's
+// products before issuing its own (the order barrier), then runs its epilogue while the
+// other multiplies. Where they are streamed, a stage holds a round's two tiles of x and
+// the step's weights, which both warpgroups read (a 64-row tile a stage would copy the
+// weights twice as often, through L2): the warpgroups multiply side by side.
+template <int BN>
+__global__ void __launch_bounds__(THREADS, 1) int8_pointwise_wgmma_kernel(
+    const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ CUtensorMap tm_w,
+    const __grid_constant__ CUtensorMap tm_y, const float* __restrict__ s_x, const float* __restrict__ w_scale,
+    const void* __restrict__ bias, void* __restrict__ out, PointwiseShape s) {
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t smem = (raw + 1023u) & ~1023u;
+  uint8_t* const smem_ptr = smem_raw + (smem - raw);
+  const uint32_t full_bar = smem + s.off_bar, empty_bar = full_bar + 8 * s.stages, w_bar = empty_bar + 8 * s.stages;
+  float* const col_scale = reinterpret_cast<float*>(smem_ptr + s.off_table);
+  float* const col_bias = col_scale + BN;
+  const bool resident = s.resident != 0;
+  // resident: one tile's step of x; streamed: a round's two and the step's weights
+  const uint32_t stage_bytes = resident ? PW_A_BYTES : 2 * PW_A_BYTES + BN * BK;
+
+  const int tid = threadIdx.x;
+  const int n0 = static_cast<int>(blockIdx.x % s.col_tiles) * BN;
+  const int first_row = static_cast<int>(blockIdx.x / s.col_tiles);
+  const int tiles = first_row < s.row_tiles ? (s.row_tiles - first_row + s.blocks_per_col - 1) / s.blocks_per_col : 0;
+  const int rounds = (tiles + 1) / 2;
+  if (tid == 0) {
+    for (int i = 0; i < s.stages; ++i) {
+      mbar_init(full_bar + 8 * i, 1);                                // the producer's expect_tx, then the bytes
+      mbar_init(empty_bar + 8 * i, resident ? 128 : CONSUMERS);      // the warpgroups that read the stage
+    }
+    mbar_init(w_bar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (tid >= CONSUMERS) {
+    // ---- producer: one thread of warpgroup 2 ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (tid != CONSUMERS) return;
+    int slot = 0, phase = 0;
+    if (resident) {
+      mbar_expect_tx(w_bar, BN * BK * s.ksteps);
+      for (int kt = 0; kt < s.ksteps; ++kt) tma_load_2d(smem + s.off_w + kt * BN * BK, &tm_w, w_bar, kt * BK, n0);
+      for (int j = 0; j < tiles; ++j) {
+        const int m0 = (first_row + j * s.blocks_per_col) * PW_ROWS;
+        for (int kt = 0; kt < s.ksteps; ++kt) {
+          mbar_wait(empty_bar + 8 * slot, phase ^ 1);
+          const uint32_t stage = smem + slot * stage_bytes;
+          mbar_expect_tx(full_bar + 8 * slot, PW_A_BYTES);
+          tma_load_2d(stage, &tm_x, full_bar + 8 * slot, kt * BK, m0);
+          if (++slot == s.stages) {
+            slot = 0;
+            phase ^= 1;
+          }
+        }
+      }
+    } else {
+      for (int rd = 0; rd < rounds; ++rd) {
+        const bool pair = 2 * rd + 1 < tiles;
+        const int m0 = (first_row + 2 * rd * s.blocks_per_col) * PW_ROWS;
+        for (int kt = 0; kt < s.ksteps; ++kt) {
+          mbar_wait(empty_bar + 8 * slot, phase ^ 1);
+          const uint32_t stage = smem + slot * stage_bytes;
+          const uint32_t bar = full_bar + 8 * slot;
+          mbar_expect_tx(bar, (pair ? 2 : 1) * PW_A_BYTES + BN * BK);
+          tma_load_2d(stage, &tm_x, bar, kt * BK, m0);
+          if (pair) tma_load_2d(stage + PW_A_BYTES, &tm_x, bar, kt * BK, m0 + s.blocks_per_col * PW_ROWS);
+          tma_load_2d(stage + 2 * PW_A_BYTES, &tm_w, bar, kt * BK, n0);
+          if (++slot == s.stages) {
+            slot = 0;
+            phase ^= 1;
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  // ---- consumers: warpgroups 0 and 1 ----
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+  // the warpgroup, broadcast from lane 0 so that the compiler sees it warp-uniform (the
+  // wgmmas below sit in branches on it)
+  const int wg = __shfl_sync(0xFFFFFFFFu, tid / 128, 0);
+  const int t = tid % 128;
+  const int cols = min(BN, s.o - n0);
+  const bool has_bias = bias != nullptr;
+  if (s.out_dtype != 2) {  // the column tile's s_x * w_scale and bias, for the block's life
+    const float sx = *s_x;
+    for (int c = tid; c < BN; c += CONSUMERS) {
+      const bool in = c < cols;
+      col_scale[c] = in ? __fmul_rn(sx, w_scale[n0 + c]) : 0.f;
+      col_bias[c] = !in || !has_bias ? 0.f
+                    : s.bias_bf16    ? __bfloat162float(static_cast<const __nv_bfloat16*>(bias)[n0 + c])
+                                     : static_cast<const float*>(bias)[n0 + c];
+    }
+  }
+  named_barrier(3, CONSUMERS);
+  if (resident) mbar_wait(w_bar, 0);
+  const uint32_t epi = smem + s.off_epi;
+  int acc[BN / 2];
+  int chunk_no = 0;
+  for (int rd = 0; rd < rounds; ++rd) {
+    const int j = 2 * rd + wg;
+    const bool have = j < tiles;
+    if (resident) {
+      if (wg == 0) {
+        if (rd > 0) named_barrier(4, CONSUMERS);  // warpgroup 1 has issued round rd - 1's products
+      } else {
+        named_barrier(5, CONSUMERS);              // warpgroup 0 has issued round rd's
+      }
+    }
+    if (have || !resident) {
+      const int pos = (resident ? j : rd) * s.ksteps;  // the tile's (round's) first step in the ring's order
+      int slot = pos % s.stages, phase = (pos / s.stages) & 1;
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) acc[i] = 0;
+      int prev = -1;
+      for (int kt = 0; kt < s.ksteps; ++kt) {
+        mbar_wait(full_bar + 8 * slot, phase);
+        const uint32_t stage = smem + slot * stage_bytes;
+        if (have) {
+          const uint32_t a = resident ? stage : stage + wg * PW_A_BYTES;
+          const uint32_t b = resident ? smem + s.off_w + kt * BN * BK : stage + 2 * PW_A_BYTES;
+          const int nk = min(BK / 32, (s.p - kt * BK + 31) / 32);  // k32 products over bytes below P
+          asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+          Wgmma<BN>::mma(acc, smem_desc(a), smem_desc(b));
+          if (nk > 1) Wgmma<BN>::mma(acc, smem_desc(a + 32), smem_desc(b + 32));
+          if (nk > 2) Wgmma<BN>::mma(acc, smem_desc(a + 64), smem_desc(b + 64));
+          if (nk > 3) Wgmma<BN>::mma(acc, smem_desc(a + 96), smem_desc(b + 96));
+          asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+          asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+        }
+        if (prev >= 0) mbar_arrive(empty_bar + 8 * prev);
+        prev = slot;
+        if (++slot == s.stages) {
+          slot = 0;
+          phase ^= 1;
+        }
+      }
+      if (have) asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+      mbar_arrive(empty_bar + 8 * prev);
+#pragma unroll
+      for (int k = 0; k < BN / 2; ++k) asm volatile("" : "+r"(acc[k])::"memory");
+    }
+    if (resident) {  // the tensor cores pass to the other warpgroup
+      if (wg == 0) {
+        named_arrive(5, CONSUMERS);
+      } else if (rd + 1 < rounds) {
+        named_arrive(4, CONSUMERS);
+      }
+    }
+    if (!have) continue;
+    const int m0 = (first_row + j * s.blocks_per_col) * PW_ROWS;
+    if constexpr (BN <= PW_FLAT_MAX) {
+      if (s.store == PW_STORE_FLAT) {
+        const uint32_t wbuf = epi + (wg * 4 + t / 32) * s.epi_warp_bytes;
+        if (s.out_dtype == 1) {
+          pointwise_epilogue_flat<BN, 2>(acc, static_cast<char*>(out), wbuf, col_scale, col_bias, has_bias,
+                                         s.out_dtype, s.o, s.m, m0, t);
+        } else {
+          pointwise_epilogue_flat<BN, 4>(acc, static_cast<char*>(out), wbuf, col_scale, col_bias, has_bias,
+                                         s.out_dtype, s.o, s.m, m0, t);
+        }
+        continue;
+      }
+    }
+    const uint32_t bufs = epi + wg * 2 * PW_CHUNK_BYTES;
+    const bool tensor = s.store == PW_STORE_TENSOR;
+    if (s.out_dtype == 1) {
+      pointwise_epilogue_2d<BN, 2>(acc, &tm_y, tensor, static_cast<char*>(out), bufs, col_scale, col_bias, has_bias,
+                                   s.out_dtype, s.o, s.m, s.vec, cols, n0, m0, t, 1 + wg, chunk_no);
+    } else {
+      pointwise_epilogue_2d<BN, 4>(acc, &tm_y, tensor, static_cast<char*>(out), bufs, col_scale, col_bias, has_bias,
+                                   s.out_dtype, s.o, s.m, s.vec, cols, n0, m0, t, 1 + wg, chunk_no);
+    }
+  }
+  bulk_wait_all();  // the block's shared memory outlives every store this thread issued
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, fetched through the runtime's entry-point query (so the
+// library needs no link to libcuda); null where it is not available.
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault,
+                                                             &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A tensor map of a row-major (rows, cols) matrix at `pitch` bytes a row, moved in
+// boxes of box_rows x box_cols elements (box_cols * element bytes = 128) in the 128-byte
+// swizzle; outside the matrix a load reads zeros and a store writes nothing.
+cudaError_t make_map(CUtensorMap* map, CUtensorMapDataType type, const void* base, long long cols, long long rows,
+                     long long pitch, int box_cols, int box_rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(pitch)};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_cols), static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t elem_strides[2] = {1, 1};
+  const CUresult r = encode(map, type, 2, const_cast<void*>(base), dims, strides, box, elem_strides,
+                            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+template <int BN>
+int launch_pointwise(const CUtensorMap& tm_x, const CUtensorMap& tm_w, const CUtensorMap& tm_y, const void* s_x,
+                     const void* w_scale, const void* bias, void* out, const PointwiseShape& s, int grid,
+                     int smem_bytes, cudaStream_t stream) {
+  auto* kernel = int8_pointwise_wgmma_kernel<BN>;
+  static bool ready[MAX_DEVICES];  // per device: the kernel's shared memory limit raised
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (dev >= MAX_DEVICES) return static_cast<int>(cudaErrorInvalidDevice);
+  if (!ready[dev]) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, PW_SMEM + 1024);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    ready[dev] = true;
+  }
+  kernel<<<grid, THREADS, smem_bytes, stream>>>(tm_x, tm_w, tm_y, static_cast<const float*>(s_x),
+                                                static_cast<const float*>(w_scale), bias, out, s);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int dispatch_pointwise(int bn, const CUtensorMap& tm_x, const CUtensorMap& tm_w, const CUtensorMap& tm_y,
+                       const void* s_x, const void* w_scale, const void* bias, void* out, const PointwiseShape& s,
+                       int grid, int smem_bytes, cudaStream_t stream) {
+  switch (bn) {
+    case 48: return launch_pointwise<48>(tm_x, tm_w, tm_y, s_x, w_scale, bias, out, s, grid, smem_bytes, stream);
+    case 64: return launch_pointwise<64>(tm_x, tm_w, tm_y, s_x, w_scale, bias, out, s, grid, smem_bytes, stream);
+    case 96: return launch_pointwise<96>(tm_x, tm_w, tm_y, s_x, w_scale, bias, out, s, grid, smem_bytes, stream);
+    case 128: return launch_pointwise<128>(tm_x, tm_w, tm_y, s_x, w_scale, bias, out, s, grid, smem_bytes, stream);
+    case 192: return launch_pointwise<192>(tm_x, tm_w, tm_y, s_x, w_scale, bias, out, s, grid, smem_bytes, stream);
+    case 256: return launch_pointwise<256>(tm_x, tm_w, tm_y, s_x, w_scale, bias, out, s, grid, smem_bytes, stream);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 }  // namespace
 
 extern "C" const char* holocron_cuda_error_string(int err) {
@@ -1007,4 +1529,92 @@ extern "C" int int8_quantize_forward(const void* x, const void* s_x, void* q, in
     return launch_quantize_pitched(static_cast<const __nv_bfloat16*>(x), sx, out, pieces, c, vec, grid, cu_stream);
   }
   return launch_quantize_pitched(static_cast<const float*>(x), sx, out, pieces, c, vec, grid, cu_stream);
+}
+
+// The pointwise conv (1x1, stride 1, no padding) as a GEMM: x an (m, p) int8 matrix at
+// pitch p (a multiple of 16: the activation's channels rounded up, zero beyond them);
+// wp the packed (o_rows, k_pad) weights over that pitch (k_pad = p rounded up to a
+// multiple of 128, o_rows >= o); bn the column tile (48, 64, 96, 128, 192 or 256);
+// out_dtype as int8_conv_wgmma_forward's; out (m, o). The epilogue stores by the
+// tensor map where a row of y is whole 16-byte pieces, as each warp's contiguous run
+// where it is not and o <= 192 (then o <= bn), else copied out by the threads. x, wp
+// and out 16-byte aligned. Runs of 2^30 rows a launch (TMA's coordinates are 32-bit).
+// Refuses what it does not take (cudaErrorInvalidValue), and cudaErrorNotSupported
+// where cuTensorMapEncodeTiled is not available; else returns cudaGetLastError()
+// after the last launch.
+extern "C" int int8_pointwise_forward(const void* x, const void* wp, const void* s_x, const void* w_scale,
+                                      const void* bias, int bias_bf16, void* out, int out_dtype, long long m, int p,
+                                      int o, int bn, int o_rows, int k_pad, void* stream) {
+  const int out_bytes = out_dtype == 1 ? 2 : 4;
+  const int store = static_cast<long long>(o) * out_bytes % 16 == 0 ? PW_STORE_TENSOR
+                    : o <= PW_FLAT_MAX                                ? PW_STORE_FLAT
+                                                                      : PW_STORE_COPY;
+  const bool width = bn == 48 || bn == 64 || bn == 96 || bn == 128 || bn == 192 || bn == 256;
+  if (out_dtype < 0 || out_dtype > 2 || m < 0 || p < 16 || p % 16 != 0 || o < 1 || !width || o_rows < o ||
+      k_pad != (p + BK - 1) / BK * BK || (store == PW_STORE_FLAT && (o > bn || bn > PW_FLAT_MAX)) ||
+      reinterpret_cast<uintptr_t>(x) % 16 != 0 || reinterpret_cast<uintptr_t>(wp) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(out) % 16 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (m == 0) return 0;
+
+  static int sms[MAX_DEVICES];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (dev >= MAX_DEVICES) return static_cast<int>(cudaErrorInvalidDevice);
+  if (sms[dev] == 0) {
+    err = cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  CUtensorMap tm_w, tm_y{};
+  err = make_map(&tm_w, CU_TENSOR_MAP_DATA_TYPE_UINT8, wp, k_pad, o_rows, k_pad, BK, bn);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const CUtensorMapDataType y_type = out_dtype == 0   ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                                     : out_dtype == 1 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                                                      : CU_TENSOR_MAP_DATA_TYPE_INT32;
+  PointwiseShape s{};
+  s.o = o;
+  s.p = p;
+  s.ksteps = k_pad / BK;
+  s.store = store;
+  s.out_dtype = out_dtype;
+  s.bias_bf16 = bias_bf16;
+  s.vec = o * out_bytes % 8 == 0 ? 8 : o * out_bytes % 4 == 0 ? 4 : out_bytes;
+  s.col_tiles = (o + bn - 1) / bn;
+  // shared memory: the ring, the resident weights, the epilogue's staging, the column
+  // table and the barriers
+  s.epi_warp_bytes = store == PW_STORE_FLAT ? 16 * bn * out_bytes : 0;
+  const int epi_bytes = store == PW_STORE_FLAT ? 8 * s.epi_warp_bytes : 4 * PW_CHUNK_BYTES;
+  const int table_bytes = 2 * bn * 4, bar_bytes = 8 * (2 * PW_MAX_STAGES + 1);
+  const int fixed = epi_bytes + table_bytes + bar_bytes;
+  const int w_bytes = bn * k_pad;
+  int code = 0;
+  for (long long r0 = 0; r0 < m && code == 0; r0 += PW_RUN_ROWS) {
+    const long long rows = std::min(PW_RUN_ROWS, m - r0);
+    s.m = static_cast<int>(rows);
+    s.row_tiles = static_cast<int>((rows + PW_ROWS - 1) / PW_ROWS);
+    s.blocks_per_col = std::max(1, std::min(sms[dev] / s.col_tiles, s.row_tiles));
+    // the weights are resident where they fit beside a ring of 4 stages and a block
+    // walks more than one round of tiles; else streamed, a step at a time
+    const int tiles = (s.row_tiles + s.blocks_per_col - 1) / s.blocks_per_col;
+    s.resident = tiles > 2 && w_bytes + fixed + 4 * PW_A_BYTES <= PW_SMEM;
+    const int stage_bytes = s.resident ? PW_A_BYTES : 2 * PW_A_BYTES + bn * BK;
+    s.stages = std::min(PW_MAX_STAGES, (PW_SMEM - fixed - (s.resident ? w_bytes : 0)) / stage_bytes);
+    if (s.stages < 2) return static_cast<int>(cudaErrorInvalidValue);
+    s.off_w = s.stages * stage_bytes;
+    s.off_epi = s.off_w + (s.resident ? w_bytes : 0);
+    s.off_table = s.off_epi + epi_bytes;
+    s.off_bar = s.off_table + table_bytes;
+    CUtensorMap tm_x;
+    err = make_map(&tm_x, CU_TENSOR_MAP_DATA_TYPE_UINT8, static_cast<const int8_t*>(x) + r0 * p, p, rows, p, BK,
+                   PW_ROWS);
+    char* const y = static_cast<char*>(out) + r0 * o * out_bytes;
+    if (err == cudaSuccess && store == PW_STORE_TENSOR) {
+      err = make_map(&tm_y, y_type, y, o, rows, static_cast<long long>(o) * out_bytes, 128 / out_bytes, PW_ROWS);
+    }
+    if (err != cudaSuccess) return static_cast<int>(err);
+    code = dispatch_pointwise(bn, tm_x, tm_w, tm_y, s_x, w_scale, bias, y, s, s.blocks_per_col * s.col_tiles,
+                              s.off_bar + bar_bytes + 1024, static_cast<cudaStream_t>(stream));
+  }
+  return code;
 }

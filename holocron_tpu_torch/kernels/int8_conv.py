@@ -6,15 +6,19 @@ Layouts are the JAX package's: NHWC activations and int8 HWIO weights; the resul
 NHWC. A quantized activation ``x_q`` keeps its logical shape ``(..., C)`` but lies at a
 pixel pitch of :func:`channel_pitch` ``(C)``, C rounded up to whole 16-byte copies, with
 channels C .. pitch - 1 zero: the view ``x_q[..., :C]`` of a ``(..., pitch)`` buffer,
-the buffer itself where C % 16 == 0. On CUDA tensors the wrappers launch one of two
+the buffer itself where C % 16 == 0. On CUDA tensors the wrappers launch one of three
 routes, chosen by shape in :func:`conv_route`:
 
-- ``"wgmma"`` (``csrc/int8_conv.cu``, counter ``int8_conv``): every ungrouped conv. It
-  reads x_q at its pitch and the weights packed once per layer over the same pitch by
-  :func:`pack_weights`, so the reduction runs over KH * KW * pitch and the zeros add
-  nothing; its quantization prologue has the counter ``int8_quantize``. Its indices are
-  32-bit: a batch whose x reaches 2^31 elements (with an image of margin) runs as
-  several launches of whole images within the one call, which counts once.
+- ``"pointwise"`` (``csrc/int8_conv.cu``'s ``int8_pointwise_wgmma_kernel``, counter
+  ``int8_pointwise``): every 1x1, stride-1, unpadded, ungrouped conv, a GEMM over the
+  pixels fed by TMA, in column tiles of :func:`pointwise_launch_tile_n`. Its rows run
+  in launches of 2^30 within the one call, which counts once.
+- ``"wgmma"`` (``csrc/int8_conv.cu``, counter ``int8_conv``): every other ungrouped
+  conv. It reads x_q at its pitch and the weights packed once per layer over the same
+  pitch by :func:`pack_weights`, so the reduction runs over KH * KW * pitch and the
+  zeros add nothing; its quantization prologue has the counter ``int8_quantize``. Its
+  indices are 32-bit: a batch whose x reaches 2^31 elements (with an image of margin)
+  runs as several launches of whole images within the one call, which counts once.
 - ``"general"`` (``csrc/int8_conv_general.cu``, counter ``int8_conv_general``): every
   grouped conv, one GEMM a group.
 
@@ -45,6 +49,7 @@ from ._build import Kernel
 __all__ = [
     "KERNEL",
     "KERNEL_GENERAL",
+    "KERNEL_POINTWISE",
     "KERNEL_QUANTIZE",
     "STEP_K",
     "TILE_M",
@@ -57,6 +62,8 @@ __all__ = [
     "int8_conv_plain",
     "launch_tile_n",
     "pack_weights",
+    "pointwise_launch_tile_n",
+    "pointwise_tile_n",
     "quantize_activation",
     "quantize_activation_plain",
     "quantized_conv",
@@ -68,6 +75,8 @@ _CONV_ARGS = [_P, _P, _P, _P, _P, _I, _P, _I] + [_I] * 15
 KERNEL = Kernel("int8_conv", "int8_conv_wgmma_forward", _CONV_ARGS + [_I, _I, _P])
 KERNEL_GENERAL = Kernel("int8_conv_general", "int8_conv_forward", _CONV_ARGS + [_I] * 3 + [_P])
 KERNEL_QUANTIZE = Kernel("int8_conv", "int8_quantize_forward", [_P, _P, _P, _I, ctypes.c_longlong, _I, _P])
+KERNEL_POINTWISE = Kernel("int8_conv", "int8_pointwise_forward",
+                          [_P, _P, _P, _P, _P, _I, _P, _I, ctypes.c_longlong] + [_I] * 5 + [_P])
 _OUT_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int32: 2}
 QINT_MAX = 127.0
 
@@ -75,6 +84,8 @@ QINT_MAX = 127.0
 TILE_N = (48, 64, 96, 128, 192, 256)
 TILE_M = 128
 STEP_K = 128
+# the pointwise route's column tiles where O spans several: multiples of 64 columns
+POINTWISE_WIDE = (64, 128, 192, 256)
 
 IntPair = Union[int, Tuple[int, int]]
 
@@ -89,18 +100,46 @@ def channel_pitch(c: int) -> int:
     return -(-c // 16) * 16
 
 
-def conv_route(c: int, o: int, groups: int = 1) -> str:
+def conv_route(c: int, o: int, groups: int = 1, *, kernel_size: IntPair, stride: IntPair = 1,
+               padding: IntPair = 0) -> str:
     """The route a CUDA int8 conv with ``c`` input channels a group, ``o`` output
-    channels and ``groups`` groups takes: ``"wgmma"`` for every ungrouped conv (any C,
-    read at its 16-byte pitch; any O, under a masked epilogue), ``"general"`` for a
-    grouped one."""
-    return "wgmma" if groups == 1 else "general"
+    channels, ``groups`` groups and the given geometry takes, by shape alone:
+    ``"general"`` for a grouped conv; ``"pointwise"`` for a 1x1, stride-1, unpadded one
+    (any C, read at its 16-byte pitch; any O: its epilogue stores rows of y that are
+    whole 16-byte pieces by the tensor map, the rows of an O of at most 192 as
+    contiguous runs, and other widths copied out by the threads); ``"wgmma"`` for every
+    other (any C and O, under a masked epilogue). A 1x1 kernel's dilation changes
+    nothing. ``c`` and ``o`` do not choose the route."""
+    if groups != 1:
+        return "general"
+    pointwise = _pair(kernel_size) == (1, 1) and _pair(stride) == (1, 1) and _pair(padding) == (0, 0)
+    return "pointwise" if pointwise else "wgmma"
 
 
 def tile_n(o: int) -> int:
     """The wgmma route's column tile: the layer's whole O rounded up to a built width,
     or 256-wide tiles beyond 256."""
     return next((n for n in TILE_N if n >= o), TILE_N[-1])
+
+
+def pointwise_tile_n(o: int) -> int:
+    """The pointwise route's column tile: one tile of :func:`tile_n` where O fits one
+    (O <= 256), else the width of :data:`POINTWISE_WIDE` that pads O least, the widest
+    of those that tie (384 -> 192, 320 -> 64, 640 -> 128, 1280 -> 256). Those widths are
+    whole 128-byte store chunks in every output dtype, so no chunk reaches into the next
+    tile."""
+    if o <= TILE_N[-1]:
+        return tile_n(o)
+    return min(POINTWISE_WIDE, key=lambda n: (-(-o // n) * n, -n))
+
+
+def pointwise_launch_tile_n(o: int, m: int, sms: int) -> int:
+    """The column tile the pointwise route launches with at M = ``m`` rows on a card of
+    ``sms`` SMs: :func:`pointwise_tile_n`, except that a layer of several column tiles
+    with fewer 64-row tiles than SMs (an SE excitation, M = the batch) takes 64-wide
+    ones, which spread it over more SMs."""
+    bn = pointwise_tile_n(o)
+    return 64 if o > TILE_N[-1] and -(-m // 64) * -(-o // bn) < sms else bn
 
 
 @functools.lru_cache(maxsize=None)
@@ -264,9 +303,16 @@ def int8_conv_plain(
     return _epilogue(int8_conv_acc_plain(x_q, w_q, stride, padding, dilation, groups), s_x, w_scale, bias, out_dtype)
 
 
-def _launch(x, w_q, w_packed, s_x, w_scale, bias, stride, padding, dilation, out_dtype, groups):
-    """Launches the route :func:`conv_route` picks on the int8 NHWC ``x``."""
+def _launch(x, w_q, w_packed, s_x, w_scale, bias, stride, padding, dilation, out_dtype, groups, route=None):
+    """Launches the route :func:`conv_route` picks on the int8 NHWC ``x``, or ``route``
+    where given (``"wgmma"`` takes any ungrouped conv: the checks time it beside the
+    pointwise route on the same operands)."""
     (sh, sw), (ph, pw), (dh, dw), oh, ow = _geometry(x, w_q, stride, padding, dilation, groups)
+    picked = conv_route(w_q.shape[2], w_q.shape[3], groups, kernel_size=w_q.shape[:2], stride=(sh, sw),
+                        padding=(ph, pw))
+    if route not in (None, picked) and not (route == "wgmma" and picked == "pointwise"):
+        raise ValueError(f"the {route} route does not take this conv (conv_route picks {picked})")
+    route = route or picked
     dev = x.device
     operands = [x, w_q] + ([] if out_dtype == torch.int32 else [s_x, w_scale]) + ([] if bias is None else [bias])
     if dev.type != "cuda" or any(t.device != dev for t in operands):
@@ -297,12 +343,21 @@ def _launch(x, w_q, w_packed, s_x, w_scale, bias, stride, padding, dilation, out
     geometry = (sh, sw, ph, pw, dh, dw, oh, ow)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        if conv_route(w_q.shape[2], o, groups) == "wgmma":
+        if route != "general":
             if w_packed is None:
                 w_packed = pack_weights(w_q)
             if (w_packed.device != dev or w_packed.dtype != torch.int8 or not w_packed.is_contiguous()
                     or tuple(w_packed.shape) != _packed_shape(kh, kw, pitch, o)):
                 raise ValueError(f"w_packed ({tuple(w_packed.shape)}, {w_packed.device}) is not pack_weights(w_q)")
+        if route == "pointwise":
+            # x at its pitch is an (N * H * W, pitch) matrix; a column tile reads the
+            # packed rows past O as zeros, and past the packed matrix zeros too (the
+            # tensor map's bounds), so any launch width reads the one packing
+            KERNEL_POINTWISE(x.data_ptr(), w_packed.data_ptr(), s_ptr, ws_ptr, b_ptr, bias_bf16, out.data_ptr(),
+                             _OUT_CODES[out_dtype], n * h * w, pitch, o,
+                             pointwise_launch_tile_n(o, n * h * w, _sm_count(torch.cuda.current_device())),
+                             w_packed.shape[0], w_packed.shape[1], stream)
+        elif route == "wgmma":
             # the kernel reads x at its pitch: the reduction runs over the pitch's channels
             bn = launch_tile_n(o, n * oh * ow, _sm_count(torch.cuda.current_device()))
             KERNEL(x.data_ptr(), w_packed.data_ptr(), s_ptr, ws_ptr, b_ptr, bias_bf16, out.data_ptr(),

@@ -12,8 +12,9 @@ whole in a block, pooling) stays on the blocks, and a consumer that needs every 
 channel (a dense conv, the head, a layer norm over the channels, a join with a
 replicated operand, a grouped conv whose groups span blocks) gathers them first. An
 int8 :class:`~holocron_tpu_torch.quant.QuantizedModel` splits its int8 kernels and
-per-channel scales by the same rule; each process runs the ``wgmma`` int8 conv on its
-block of the output channels, with weights packed once a block.
+per-channel scales by the same rule; each process runs its layer's route (the ``wgmma``
+conv, or the pointwise GEMM at a 1x1 stride-1 conv) on its block of the output
+channels, with weights packed once a block.
 """
 
 import copy

@@ -33,7 +33,9 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
-from .kernels.int8_conv import channel_pitch, int8_conv, pack_weights, quantize_activation, quantized_conv
+from .kernels.int8_conv import (
+    channel_pitch, conv_route, int8_conv, pack_weights, quantize_activation, quantized_conv,
+)
 from .models.utils import fold_s2d_kernel, space_to_depth_padded
 
 __all__ = [
@@ -201,8 +203,8 @@ class QuantizedConv2d(nn.Module):
     ``w_scale`` and ``act_scale`` belong to the int8 arithmetic and stay float32 when
     the module's float remainder (the bias) is cast, e.g. by ``.to(torch.bfloat16)``.
     ``act_scale`` is None for a per-call (dynamic) activation scale. ``kernel_packed``
-    is ``kernel_q`` as the wgmma route reads it (``pack_weights``, over the activation's
-    16-byte channel pitch) for every ungrouped conv, None for a grouped one (the general
+    is ``kernel_q`` as the wgmma and pointwise routes read it (``pack_weights``, over
+    the activation's 16-byte channel pitch) for every ungrouped conv, None for a grouped one (the general
     route reads ``kernel_q``); a non-persistent buffer, remade when the module moves,
     so the ``state_dict`` holds ``kernel_q`` (HWIO, ``(KH, KW, C / groups, O)``) alone.
     """
@@ -230,6 +232,14 @@ class QuantizedConv2d(nn.Module):
 
     def _packed(self) -> Optional[torch.Tensor]:
         return pack_weights(self.kernel_q) if self.groups == 1 else None
+
+    @property
+    def route(self) -> str:
+        """The CUDA route of its conv (:func:`.kernels.int8_conv.conv_route`): the
+        ``s2d_strided`` fold of a 3x3 stride-2 conv is a 2x2 one, which takes the same
+        route."""
+        kh, kw, c, o = self.kernel_q.shape
+        return conv_route(c, o, self.groups, kernel_size=(kh, kw), stride=self.stride, padding=self.padding)
 
     def _fold(self) -> None:
         if self.s2d:

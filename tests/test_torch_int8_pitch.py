@@ -88,19 +88,24 @@ def test_packed_weights_over_the_pitch(kh, kw, c, o):
 
 def test_rexnet1_0x_int8_convs_all_take_the_wgmma_route():
     """The 44 convs ``quantize_model`` selects on rexnet1_0x: every one ungrouped, 1x1,
-    stride 1, on the wgmma route with its weights packed over the pitch; 41 of them
-    have C % 16 != 0 or O % 8 != 0 (the padded pitch or the masked epilogue), the
-    shapes the general route took before. Grouped convs keep the general route."""
+    stride 1, with its weights packed over the pitch; 41 of them have C % 16 != 0 or O %
+    8 != 0 (the padded pitch or the masked epilogue), the shapes the general route took
+    before. Since the pointwise GEMM, every one takes it (``conv_route`` by shape: a
+    1x1, stride-1, unpadded, ungrouped conv), the same 44 geometries forced onto the
+    wgmma route where the checks time it. Grouped convs keep the general route."""
     model = models.rexnet1_0x(num_classes=10, generator=torch.Generator().manual_seed(0), device="cpu").eval()
     layers = [m for m in quant.quantize_model(model).modules() if isinstance(m, quant.QuantizedConv2d)]
     shapes = [tuple(m.kernel_q.shape) for m in layers]
     assert [(c, o) for _, _, c, o in shapes] == REXNET1_0X_INT8
     assert all(s[:2] == (1, 1) and m.stride == (1, 1) and m.groups == 1 for s, m in zip(shapes, layers))
-    assert [K.conv_route(c, o, m.groups) for (_, _, c, o), m in zip(shapes, layers)] == ["wgmma"] * 44
+    assert [K.conv_route(c, o, m.groups, kernel_size=(kh, kw), stride=m.stride, padding=m.padding)
+            for (kh, kw, c, o), m in zip(shapes, layers)] == ["pointwise"] * 44
+    assert [m.route for m in layers] == ["pointwise"] * 44
     assert all(torch.equal(m.kernel_packed, K.pack_weights(m.kernel_q)) for m in layers)
     assert sum(c % 16 != 0 or o % 8 != 0 for c, o in REXNET1_0X_INT8) == 41
     for c, o, groups in ((64, 2048, 32), (8, 4, 3), (3, 7, 5), (32, 64, 2)):
-        assert K.conv_route(c, o, groups) == "general", (c, o, groups)
+        for ksize in (1, 3):
+            assert K.conv_route(c, o, groups, kernel_size=ksize) == "general", (c, o, groups, ksize)
 
 
 def _gemm_over_padded_operands(x_q: torch.Tensor, packed: torch.Tensor, kh: int, kw: int, o: int, padding: int):

@@ -46,10 +46,11 @@ def test_packed_weights_unpack_to_kernel_q(kh, kw, c, o):
 
 
 def test_route_by_shape():
-    """repvgg_a0's int8 convs all take the wgmma route with the layer's whole O as its
-    tile (256-wide tiles for 1280); so does every other ungrouped conv (C read at its
-    16-byte pitch, O under a masked epilogue), and only grouped convs take the general
-    route."""
+    """repvgg_a0's int8 convs (3x3) all take the wgmma route with the layer's whole O
+    as its tile (256-wide tiles for 1280); so does every other ungrouped conv but the
+    1x1, stride-1, unpadded ones (C read at its 16-byte pitch, O under a masked
+    epilogue), which take the pointwise GEMM at any C and O; only grouped convs take the
+    general route."""
     model = repvgg_a0(num_classes=10, generator=torch.Generator().manual_seed(0), device="cpu").reparametrize()
     qm = quant.quantize_model(model, arch="repvgg_a0")
     seen = {}
@@ -57,18 +58,23 @@ def test_route_by_shape():
         if isinstance(m, quant.QuantizedConv2d):
             _, _, c, o = m.kernel_q.shape
             seen[(c, o, m.stride[0])] = seen.get((c, o, m.stride[0]), 0) + 1
-            assert K.conv_route(c, o) == "wgmma"
+            assert K.conv_route(c, o, kernel_size=m.kernel_q.shape[:2], stride=m.stride, padding=m.padding) == "wgmma"
+            assert m.route == "wgmma"
             assert m.kernel_packed is not None and torch.equal(m.kernel_packed, K.pack_weights(m.kernel_q))
     assert seen == REPVGG_A0_INT8
     assert {o: K.tile_n(o) for o in (48, 96, 192, 1280)} == {48: 48, 96: 96, 192: 192, 1280: 256}
     # shapes that took byte-wise staging on the general route before the padded pitch
     # (tests/test_torch_kernels_cuda.py) and the stem's C = 3
     for c, o in ((12, 8), (3, 5), (16, 70), (3, 48), (8, 16), (24, 32)):
-        assert K.conv_route(c, o) == "wgmma", (c, o)
+        assert K.conv_route(c, o, kernel_size=3, padding=1) == "wgmma", (c, o)
+        assert K.conv_route(c, o, kernel_size=1) == "pointwise", (c, o)
     for c, o in ((16, 24), (48, 72), (32, 8), (16, 16), (256, 256)):
-        assert K.conv_route(c, o) == "wgmma", (c, o)
+        assert K.conv_route(c, o, kernel_size=3, stride=2, padding=1) == "wgmma", (c, o)
+        assert K.conv_route(c, o, kernel_size=1, stride=2) == "wgmma", (c, o)  # 1x1 stride 2: not a GEMM over x
+        assert K.conv_route(c, o, kernel_size=1, padding=1) == "wgmma", (c, o)
     for c, o, groups in ((64, 2048, 32), (12, 8, 2), (16, 16, 4)):
-        assert K.conv_route(c, o, groups) == "general", (c, o, groups)
+        assert K.conv_route(c, o, groups, kernel_size=3) == "general", (c, o, groups)
+        assert K.conv_route(c, o, groups, kernel_size=1) == "general", (c, o, groups)
 
 
 def test_quantized_conv2d_packed_buffer_is_not_state():

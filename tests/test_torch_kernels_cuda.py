@@ -117,11 +117,11 @@ def test_int8_conv_kernel_matches_plain(cuda, n, h, w, c, o, ksize, stride, padd
     gen = torch.Generator(device=cuda).manual_seed(1)
     x_q = torch.randint(-127, 128, (n, h, w, c), generator=gen, device=cuda, dtype=torch.int8)
     w_q = torch.randint(-127, 128, (ksize, ksize, c, o), generator=gen, device=cuda, dtype=torch.int8)
-    counter = INT8_KERNEL if Q.conv_route(c, o) == "wgmma" else Q.KERNEL_GENERAL
-    before = counter.launches
+    route = _route_of(w_q, stride, padding)
+    before = _conv_launches()
     acc = int8_conv_acc(x_q, w_q, stride, padding, dilation)
     torch.cuda.synchronize()
-    assert counter.launches == before + 1
+    assert _conv_launches() == _moved(before, route)
     assert torch.equal(acc, int8_conv_acc_plain(x_q, w_q, stride, padding, dilation).contiguous())
     s_x = torch.tensor(0.013, device=cuda)
     w_scale = torch.rand(o, generator=gen, device=cuda) / 127
@@ -140,19 +140,38 @@ def _pad_of(x_q):
     return x_q.as_strided((*x_q.shape[:-1], pitch), x_q.stride())[..., x_q.shape[-1]:]
 
 
-def _int8_route_matches_plain(cuda, x, w_q, stride, padding, dilation, seed, groups=1, expected_route="wgmma"):
+# the conv routes' launch counters
+_CONV_COUNTERS = {"wgmma": INT8_KERNEL, "pointwise": Q.KERNEL_POINTWISE, "general": Q.KERNEL_GENERAL}
+
+
+def _conv_launches():
+    return {route: kernel.launches for route, kernel in _CONV_COUNTERS.items()}
+
+
+def _moved(before, route, by=1):
+    """``before``'s counts with ``route``'s advanced ``by``."""
+    return {r: v + by * (r == route) for r, v in before.items()}
+
+
+def _route_of(w_q, stride, padding, groups=1):
+    return Q.conv_route(w_q.shape[2], w_q.shape[3], groups, kernel_size=tuple(w_q.shape[:2]), stride=stride,
+                        padding=padding)
+
+
+def _int8_route_matches_plain(cuda, x, w_q, stride, padding, dilation, seed, groups=1, expected_route=None):
     """quantize + conv on the card against quantize_activation_plain + the plain conv:
     quantized activations equal (their pitch's pad zero), int32 accumulator equal, float32 within one float32
-    ulp and bf16 within one bf16 ulp, with and without bias; conv_route picks
-    ``expected_route``, and the quantization counter and that route's counter advance
-    once each, the other route's not at all."""
+    ulp and bf16 within one bf16 ulp, with and without bias (bit for bit on the pointwise
+    route); conv_route picks ``expected_route`` where given, and the quantization
+    counter and the picked route's counter advance once each, the other routes' not at
+    all."""
     gen = torch.Generator(device=cuda).manual_seed(seed)
     c, o = w_q.shape[2], w_q.shape[3]
-    route = Q.conv_route(c, o, groups)
-    assert route == expected_route
+    route = _route_of(w_q, stride, padding, groups)
+    assert expected_route in (None, route)
     s_x = x.float().abs().amax() / 127
     w_scale = torch.rand(o, generator=gen, device=cuda) / 127
-    packed = Q.pack_weights(w_q) if route == "wgmma" else None
+    packed = Q.pack_weights(w_q) if route != "general" else None
     x_q = Q.quantize_activation(x, s_x)
     assert torch.equal(x_q, Q.quantize_activation_plain(x, s_x))
     assert not bool(_pad_of(x_q).any())
@@ -161,17 +180,17 @@ def _int8_route_matches_plain(cuda, x, w_q, stride, padding, dilation, seed, gro
     for bias in (None, torch.randn(o, generator=gen, device=cuda)):
         for dtype, ulp in ((torch.float32, 2.0**-23), (torch.bfloat16, 2.0**-7)):
             b = None if bias is None else bias.to(dtype)
-            before = (INT8_KERNEL.launches, Q.KERNEL_QUANTIZE.launches, Q.KERNEL_GENERAL.launches)
+            before = (_conv_launches(), Q.KERNEL_QUANTIZE.launches)
             got = Q.quantized_conv(x, s_x, w_q, w_scale, b, stride, padding, dilation, out_dtype=dtype,
                                    w_packed=packed, groups=groups)
             torch.cuda.synchronize()
-            wgmma = int(route == "wgmma")
-            assert (INT8_KERNEL.launches, Q.KERNEL_QUANTIZE.launches, Q.KERNEL_GENERAL.launches) == (
-                before[0] + wgmma, before[1] + 1, before[2] + 1 - wgmma)
+            assert (_conv_launches(), Q.KERNEL_QUANTIZE.launches) == (_moved(before[0], route), before[1] + 1)
             ref = int8_conv_plain(x_q, w_q, s_x, w_scale, b, stride, padding, dilation, out_dtype=dtype,
-                                  groups=groups).float()
+                                  groups=groups)
             assert got.dtype == dtype
-            assert bool(((got.float() - ref).abs() <= ref.abs() * ulp).all())
+            assert bool(((got.float() - ref.float()).abs() <= ref.float().abs() * ulp).all())
+            if route == "pointwise":
+                assert torch.equal(got, ref)
 
 
 @pytest.mark.parametrize("hw,c,o", [(112, 48, 48), (56, 48, 96), (28, 96, 192), (14, 192, 1280), (10, 12, 20),
@@ -298,31 +317,43 @@ def test_int8_route_at_tensor_parallel_blocks(cuda, n, hw, c, o, ksize, stride, 
     _int8_route_matches_plain(cuda, x, w_q, stride, padding, 1, 20)
 
 
+def _conv_case_is_exact(x_q, w_q, packed, s_x, w_scale, bias, stride, padding, route):
+    """The ``route`` kernel (forced: the wgmma one takes every ungrouped conv) against the
+    plain versions, bit for bit: the int32 accumulator, and float32 and bf16 outputs with
+    no bias and with a float32 and a bf16 one (the epilogue's roundings are the plain
+    version's, in its order); each call moves the route's counter alone, by one."""
+    before = _conv_launches()
+    acc = Q._launch(x_q, w_q, packed, None, None, None, stride, padding, 1, torch.int32, 1, route=route)
+    torch.cuda.synchronize()
+    assert _conv_launches() == _moved(before, route)
+    assert acc.dtype == torch.int32 and torch.equal(acc, int8_conv_acc_plain(x_q, w_q, stride, padding))
+    for b in (None, bias, bias.to(torch.bfloat16)):
+        for dtype in (torch.float32, torch.bfloat16):
+            got = Q._launch(x_q, w_q, packed, s_x, w_scale, b, stride, padding, 1, dtype, 1, route=route)
+            ref = int8_conv_plain(x_q, w_q, s_x, w_scale, b, stride, padding, out_dtype=dtype)
+            assert got.dtype == dtype and torch.equal(got, ref), (route, dtype, None if b is None else b.dtype)
+    torch.cuda.synchronize()
+    assert _conv_launches() == _moved(before, route, 7)
+
+
 def _wgmma_case_is_exact(cuda, n, h, w, c, o, ksize, stride, padding, seed):
-    """quantize + wgmma conv against the plain versions, bit for bit: the quantized
-    activation and its zero pad, the int32 accumulator, and float32 and bf16 outputs
-    with no bias and with a float32 and a bf16 one (the epilogue's roundings are the
-    plain version's, in its order)."""
+    """quantize + the wgmma conv against the plain versions, bit for bit: the quantized
+    activation and its zero pad, then :func:`_conv_case_is_exact`; where conv_route picks
+    the pointwise route (a 1x1 stride-1 conv), the wgmma kernel is forced (the checks
+    time it there beside the pointwise one) and the pointwise route is held the same way."""
     gen = torch.Generator(device=cuda).manual_seed(seed)
     x = torch.randn(n, h, w, c, generator=gen, device=cuda).to(torch.bfloat16)
     w_q = torch.randint(-127, 128, (ksize, ksize, c, o), generator=gen, device=cuda, dtype=torch.int8)
-    assert Q.conv_route(c, o) == "wgmma"
+    route = _route_of(w_q, stride, padding)
+    assert route in ("wgmma", "pointwise")
     s_x = x.float().abs().amax() / 127
     w_scale = torch.rand(o, generator=gen, device=cuda) / 127
     packed = Q.pack_weights(w_q)
     x_q = Q.quantize_activation(x, s_x)
     assert torch.equal(x_q, Q.quantize_activation_plain(x, s_x)) and not bool(_pad_of(x_q).any())
-    before = INT8_KERNEL.launches
-    acc = int8_conv_acc(x_q, w_q, stride, padding, w_packed=packed)
-    torch.cuda.synchronize()
-    assert INT8_KERNEL.launches == before + 1
-    assert acc.dtype == torch.int32 and torch.equal(acc, int8_conv_acc_plain(x_q, w_q, stride, padding))
     bias = torch.randn(o, generator=gen, device=cuda)
-    for b in (None, bias, bias.to(torch.bfloat16)):
-        for dtype in (torch.float32, torch.bfloat16):
-            got = int8_conv(x_q, w_q, s_x, w_scale, b, stride, padding, out_dtype=dtype, w_packed=packed)
-            ref = int8_conv_plain(x_q, w_q, s_x, w_scale, b, stride, padding, out_dtype=dtype)
-            assert got.dtype == dtype and torch.equal(got, ref), (dtype, None if b is None else b.dtype)
+    for r in sorted({"wgmma", route}):
+        _conv_case_is_exact(x_q, w_q, packed, s_x, w_scale, bias, stride, padding, r)
 
 
 @pytest.mark.parametrize("o", [*range(249, 257), *range(257, 265)])
@@ -400,9 +431,10 @@ def test_int8_grouped_general_route(cuda, n, hw, c, o, groups, stride):
 
 def test_int8_rexnet_takes_only_the_wgmma_route(cuda):
     """A small int8 ReXNet (``min_in_channels=16``, odd widths) on the card: each int8
-    layer launches the quantization kernel and the wgmma conv once a forward, the
-    general route never; its logits agree with the CPU's plain int8 form within 1e-3 of
-    their largest magnitude (as the ResNet's below)."""
+    layer launches the quantization kernel and its route's conv (``QuantizedConv2d.route``:
+    the pointwise GEMM or the wgmma conv) once a forward, the general route never; its
+    logits agree with the CPU's plain int8 form within 1e-3 of their largest magnitude
+    (as the ResNet's below)."""
     import copy
 
     from holocron_tpu_torch import quant
@@ -415,21 +447,24 @@ def test_int8_rexnet_takes_only_the_wgmma_route(cuda):
     layers = [m for m in qm.modules() if isinstance(m, quant.QuantizedConv2d)]
     assert layers and all(m.groups == 1 and m.kernel_packed is not None for m in layers)
     assert any(m.kernel_q.shape[2] % 16 or m.kernel_q.shape[3] % 8 for m in layers)
+    routes = [m.route for m in layers]
+    assert "general" not in routes and "pointwise" in routes
     with torch.no_grad():
         ref = qm(x)
         qm_card = copy.deepcopy(qm).to(cuda)
-        before = (INT8_KERNEL.launches, Q.KERNEL_QUANTIZE.launches, Q.KERNEL_GENERAL.launches)
+        before = (_conv_launches(), Q.KERNEL_QUANTIZE.launches)
         out = qm_card(x.to(cuda).contiguous(memory_format=torch.channels_last))
         torch.cuda.synchronize()
-    assert (INT8_KERNEL.launches, Q.KERNEL_QUANTIZE.launches, Q.KERNEL_GENERAL.launches) == (
-        before[0] + len(layers), before[1] + len(layers), before[2])
+    assert _conv_launches() == {r: v + routes.count(r) for r, v in before[0].items()}
+    assert Q.KERNEL_QUANTIZE.launches == before[1] + len(layers)
     torch.testing.assert_close(out.cpu(), ref, rtol=0, atol=1e-3 * float(ref.abs().max()))
 
 
 def test_int8_resnet_takes_only_the_wgmma_route(cuda):
     """A small int8 ResNet on the card: every int8 layer (every conv but the 3-channel
-    stem) launches the quantization kernel and the wgmma conv once a forward, the
-    general route never; its logits agree with the CPU's plain int8 form within 1e-3 of
+    stem) launches the quantization kernel and its route's conv once a forward (the 1x1
+    stride-1 convs the pointwise GEMM, the others the wgmma conv), the general route
+    never; its logits agree with the CPU's plain int8 form within 1e-3 of
     their largest magnitude (the convs agree to an ulp of float32, but BN and ReLU
     between them round differently on the card and may move an activation across a
     quantization tie)."""
@@ -442,16 +477,17 @@ def test_int8_resnet_takes_only_the_wgmma_route(cuda):
     model = ResNet(Bottleneck, [1, 1], [16, 32], generator=gen, device="cpu").eval()
     x = torch.randn(4, 3, 32, 32, generator=gen)
     qm = quant.quantize_model(model, calibration_batches=[x], min_in_channels=16)
-    layers = sum(isinstance(m, quant.QuantizedConv2d) for m in qm.modules())
-    assert layers == 7  # the first stage has no shortcut conv: 64 channels in and out
+    routes = [m.route for m in qm.modules() if isinstance(m, quant.QuantizedConv2d)]
+    assert len(routes) == 7  # the first stage has no shortcut conv: 64 channels in and out
+    assert routes.count("pointwise") == 4 and routes.count("wgmma") == 3  # the 1x1 stride-1 convs, the rest
     with torch.no_grad():
         ref = qm(x)
         qm_card = copy.deepcopy(qm).to(cuda)
-        before = (INT8_KERNEL.launches, Q.KERNEL_QUANTIZE.launches, Q.KERNEL_GENERAL.launches)
+        before = (_conv_launches(), Q.KERNEL_QUANTIZE.launches)
         out = qm_card(x.to(cuda).contiguous(memory_format=torch.channels_last))
         torch.cuda.synchronize()
-    assert (INT8_KERNEL.launches, Q.KERNEL_QUANTIZE.launches, Q.KERNEL_GENERAL.launches) == (
-        before[0] + layers, before[1] + layers, before[2])
+    assert _conv_launches() == {r: v + routes.count(r) for r, v in before[0].items()}
+    assert Q.KERNEL_QUANTIZE.launches == before[1] + len(routes)
     torch.testing.assert_close(out.cpu(), ref, rtol=0, atol=1e-3 * float(ref.abs().max()))
 
 
@@ -954,10 +990,10 @@ def test_int8_wgmma_runs_a_batch_beyond_32_bit_indices_in_runs_of_images(cuda):
     del x_q, acc
     big = torch.zeros(1, 1024, 1024, 1040, dtype=torch.int8, device=cuda)
     w1 = torch.zeros(1, 1, 1040, 16, dtype=torch.int8, device=cuda)
-    before = INT8_KERNEL.launches
-    with pytest.raises(RuntimeError, match="int8_conv_wgmma_forward"):
-        int8_conv_acc(big, w1, 1, 0, 1)
-    assert INT8_KERNEL.launches == before
+    before = _conv_launches()
+    with pytest.raises(RuntimeError, match="int8_conv_wgmma_forward"):  # forced: conv_route picks the pointwise GEMM
+        Q._launch(big, w1, None, None, None, None, 1, 0, 1, torch.int32, 1, route="wgmma")
+    assert _conv_launches() == before
 
 
 def _small_unet(arch: str):
@@ -1097,7 +1133,7 @@ def test_int8_custom_ops_launch_the_kernels_and_equal_the_plain_versions(cuda, c
     s_x = (x.abs().amax() / 127).float().reshape(())
     w_q = torch.randint(-127, 128, (ksize, ksize, c // groups, o), generator=gen, device=cuda, dtype=torch.int8)
     scale, bias = torch.rand(o, generator=gen, device=cuda) * 1e-2, torch.randn(o, generator=gen, device=cuda)
-    route = Q.KERNEL if Q.conv_route(c // groups, o, groups) == "wgmma" else Q.KERNEL_GENERAL
+    route = _CONV_COUNTERS[_route_of(w_q, stride, ksize // 2, groups)]
     before = (Q.KERNEL_QUANTIZE.launches, route.launches)
     q = torch.ops.holocron_tpu_torch.int8_quantize(x, s_x)
     y = torch.ops.holocron_tpu_torch.int8_conv(q[..., :c], w_q, s_x, scale, bias, [stride] * 2, [ksize // 2] * 2,
@@ -1132,3 +1168,204 @@ def test_exported_int8_program_equals_eager_on_the_card(cuda, tmp_path):
     rec = export.export(qm, x, tmp_path / "int8.pt2")
     assert rec["custom_ops"] == {op: layers for op in export.OPS} and layers == 3
     assert rec["equal"] and INT8_KERNEL.launches - before == 2 * layers  # the eager run and the loaded one
+
+
+# ---- the pointwise route (int8_pointwise_wgmma_kernel): 1x1 stride-1 convs as a GEMM ----
+
+# every 1x1 stride-1 int8 layer geometry (H = W, C, O) of the served models, as
+# quantize_model selects them at 224 px
+_POINTWISE_MODEL_GEOMETRIES = {
+    "resnet50": [(56, 64, 64), (56, 64, 256), (56, 256, 64), (56, 256, 128), (28, 128, 512), (28, 512, 128),
+                 (28, 512, 256), (14, 256, 1024), (14, 1024, 256), (14, 1024, 512), (7, 512, 2048), (7, 2048, 512)],
+    "convnext_tiny": [(56, 96, 384), (56, 384, 96), (28, 192, 768), (28, 768, 192), (14, 384, 1536),
+                      (14, 1536, 384), (7, 768, 3072), (7, 3072, 768)],
+    "mobileone_s1": [(56, 64, 96), (56, 96, 96), (28, 96, 192), (28, 192, 192), (14, 192, 512), (14, 512, 512),
+                     (7, 512, 1280)],
+    "rexnet1_0x": [(56, 96, 27), (56, 162, 38), (28, 228, 50), (28, 300, 61), (14, 72, 432), (14, 84, 504),
+                   (14, 95, 570), (14, 106, 636), (14, 117, 702), (14, 128, 768), (14, 366, 72), (14, 432, 84),
+                   (14, 504, 95), (14, 570, 106), (14, 636, 117), (14, 702, 128), (7, 140, 840), (7, 151, 906),
+                   (7, 162, 972), (7, 174, 1044), (7, 185, 1280), (7, 768, 140), (7, 840, 151), (7, 906, 162),
+                   (7, 972, 174), (7, 1044, 185), (1, 64, 768), (1, 70, 840), (1, 75, 906), (1, 81, 972),
+                   (1, 87, 1044), (1, 228, 19), (1, 300, 25), (1, 366, 30), (1, 432, 36), (1, 504, 42),
+                   (1, 570, 47), (1, 636, 53), (1, 702, 58), (1, 768, 64), (1, 840, 70), (1, 906, 75),
+                   (1, 972, 81), (1, 1044, 87)],
+}
+
+
+def _pointwise_case_is_exact(cuda, n, h, w, c, o, seed, x_dtype=torch.bfloat16):
+    """A 1x1 stride-1 conv: quantized activations equal to the plain version's (their
+    pitch's pad zero); the pointwise route, which conv_route picks at every O, bit for
+    bit against the plain versions (:func:`_conv_case_is_exact`: the int32 accumulator,
+    float32 and bf16 outputs under no, float32 and bf16 bias) and through
+    ``quantized_conv`` (one quantization and one pointwise launch)."""
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    x = (2 * torch.randn(n, h, w, c, generator=gen, device=cuda)).to(x_dtype)
+    w_q = torch.randint(-127, 128, (1, 1, c, o), generator=gen, device=cuda, dtype=torch.int8)
+    route = _route_of(w_q, 1, 0)
+    assert route == "pointwise"
+    s_x = x.float().abs().amax() / 127
+    w_scale = torch.rand(o, generator=gen, device=cuda) / 127
+    bias = torch.randn(o, generator=gen, device=cuda)
+    packed = Q.pack_weights(w_q)
+    x_q = Q.quantize_activation(x, s_x)
+    assert torch.equal(x_q, Q.quantize_activation_plain(x, s_x)) and not bool(_pad_of(x_q).any())
+    _conv_case_is_exact(x_q, w_q, packed, s_x, w_scale, bias, 1, 0, route)
+    before = (_conv_launches(), Q.KERNEL_QUANTIZE.launches)
+    got = Q.quantized_conv(x, s_x, w_q, w_scale, bias.to(torch.bfloat16), out_dtype=torch.bfloat16, w_packed=packed)
+    torch.cuda.synchronize()
+    assert (_conv_launches(), Q.KERNEL_QUANTIZE.launches) == (_moved(before[0], route), before[1] + 1)
+    assert torch.equal(got, int8_conv_plain(x_q, w_q, s_x, w_scale, bias.to(torch.bfloat16), out_dtype=torch.bfloat16))
+
+
+@pytest.mark.parametrize("model,hw,c,o", [(m, *g) for m, gs in _POINTWISE_MODEL_GEOMETRIES.items() for g in gs])
+def test_int8_pointwise_at_model_geometries(cuda, model, hw, c, o):
+    """Each 1x1 stride-1 int8 geometry of resnet50, convnext_tiny, mobileone_s1 and
+    rexnet1_0x at batch 2 (batch 8 on the SE convs' 1 x 1 maps: M = 8, below one row
+    tile) on the pointwise route, bit for bit: rexnet1_0x's odd widths in one column
+    tile (its 1D stores) and past one (570, 636, 702, 906, 972, 1044: staged chunks
+    copied out by the threads)."""
+    n = 8 if hw == 1 else 2
+    _pointwise_case_is_exact(cuda, n, hw, hw, c, o, 50 + c + o)
+
+
+_POINTWISE_O_RESIDUES = sorted({o for bn in Q.TILE_N for o in range(bn - 8, bn + 9)}
+                               | {o for wide in (320, 384, 640) for o in range(wide - 8, wide + 9)})
+
+
+@pytest.mark.parametrize("o", _POINTWISE_O_RESIDUES)
+def test_int8_pointwise_o_residues_around_tile_widths(cuda, o):
+    """O at every residue mod 8 on both sides of each built column width (48 ... 256) and
+    of the wide tilings (320 = 5 x 64, 384 = 2 x 192, 640 = 5 x 128): one column tile
+    up to 256, several past it; rows of whole 16-byte pieces leave by 2D tensor stores,
+    others as each warp's 1D bulk copy (O <= 192) or copied out by the threads; M =
+    275, four row tiles and a tail of 19 rows."""
+    _pointwise_case_is_exact(cuda, 1, 11, 25, 32, o, 100 + o)
+    assert Q.pointwise_tile_n(o) == (Q.tile_n(o) if o <= 256 else
+                                     min(Q.POINTWISE_WIDE, key=lambda b: (-(-o // b) * b, -b)))
+
+
+@pytest.mark.parametrize("n,h,w", [(1, 1, 1), (1, 1, 7), (1, 7, 9), (1, 1, 65), (3, 7, 7), (2, 9, 10), (5, 13, 11)])
+@pytest.mark.parametrize("c,o", [(16, 27), (96, 64), (96, 384), (40, 136)])
+def test_int8_pointwise_m_tails(cuda, n, h, w, c, o):
+    """M below one 64-row tile (1, 7, 63) and past whole tiles (65, 147, 180, 715): the
+    tensor map zero-fills x's missing rows and clips y's; a 1D-stored warp whose rows
+    run past M stores its valid ones directly."""
+    _pointwise_case_is_exact(cuda, n, h, w, c, o, 200 + n * h * w + c + o)
+
+
+@pytest.mark.parametrize("c", [1, 15, 16, 17, 32, 48, 64, 80, 96, 112, 128, 144, 185, 240, 256, 272, 384, 512,
+                               640, 1024, 1536, 2048, 2560, 3072])
+def test_int8_pointwise_every_pitch(cuda, c):
+    """Reduction pitches P from 16 to 3072: one step with 1-4 k32 products (P <= 128),
+    several with a partial last one, weights resident in shared memory (BN x K_pad
+    fits) or streamed with each step (P >= 768 at BN = 256); C % 16 != 0 reads x at its
+    padded pitch. O = 256 (one tile) and 512 (two), float32 input."""
+    for o in (256, 512):
+        _pointwise_case_is_exact(cuda, 2, 10, 11, c, o, 300 + c + o, x_dtype=torch.float32)
+
+
+@pytest.mark.parametrize("c,o", [(64, 64), (96, 27), (96, 384), (192, 570), (512, 2048), (1024, 256), (48, 185)])
+def test_int8_pointwise_resident_weights_and_ping_pong(cuda, c, o):
+    """M = 8 x 56 x 56 = 25,088 rows (392 row tiles), enough that a block walks three
+    tiles or two (an odd round where warpgroup 1 has none): the weights resident where
+    they fit (the warpgroups' products and epilogues interleaved by the order barrier),
+    streamed where they do not (K = 512 and 1024 at 256 columns), under each store
+    form (tensor map, 1D runs, copied out)."""
+    _pointwise_case_is_exact(cuda, 8, 56, 56, c, o, 500 + c + o)
+
+
+def test_int8_pointwise_runs_a_batch_beyond_32_bit_element_indices(cuda):
+    """x_q of 8 x 512 x 512 x 1040 int8 elements, beyond 2^31: the pointwise route
+    addresses x and y through 64-bit tensor maps (its launches run 2^30 rows each), so
+    it runs in one launch (one count); the accumulator equals the two halves' (each
+    under 2^31 elements) and the last image's equals the plain version's."""
+    gen = torch.Generator(device=cuda).manual_seed(51)
+    x_q = torch.randint(-127, 128, (8, 512, 512, 1040), generator=gen, device=cuda, dtype=torch.int8)
+    w_q = torch.randint(-127, 128, (1, 1, 1040, 16), generator=gen, device=cuda, dtype=torch.int8)
+    assert x_q.numel() > 2**31 and _route_of(w_q, 1, 0) == "pointwise"
+    packed = Q.pack_weights(w_q)
+    before = _conv_launches()
+    acc = int8_conv_acc(x_q, w_q, 1, 0, 1, w_packed=packed)
+    torch.cuda.synchronize()
+    assert _conv_launches() == _moved(before, "pointwise")
+    for half in (slice(0, 4), slice(4, 8)):
+        assert torch.equal(acc[half], int8_conv_acc(x_q[half], w_q, 1, 0, 1, w_packed=packed))
+    assert torch.equal(acc[7:], int8_conv_acc_plain(x_q[7:], w_q, 1, 0, 1))
+
+
+@pytest.mark.parametrize("c,o,out_dtype", [(96, 384, torch.bfloat16), (64, 27, torch.float32),
+                                           (256, 1024, torch.float32)])
+def test_int8_pointwise_graph_capture_equals_eager(cuda, c, o, out_dtype):
+    """The pointwise route captured in a CUDA graph (the tensor maps, built on the host,
+    hold the captured tensors' addresses): each replay, after x_q is overwritten in
+    place, equals an eager call on the new values bit for bit."""
+    gen = torch.Generator(device=cuda).manual_seed(52 + o)
+    x_q = torch.randint(-127, 128, (4, 14, 14, c), generator=gen, device=cuda, dtype=torch.int8)
+    w_q = torch.randint(-127, 128, (1, 1, c, o), generator=gen, device=cuda, dtype=torch.int8)
+    packed = Q.pack_weights(w_q)
+    s_x = torch.tensor(0.02, device=cuda)
+    w_scale, bias = torch.rand(o, generator=gen, device=cuda) / 127, torch.randn(o, generator=gen, device=cuda)
+
+    def call():
+        return int8_conv(x_q, w_q, s_x, w_scale, bias, out_dtype=out_dtype, w_packed=packed)
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        call()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = call()
+    for _ in range(3):
+        x_q.copy_(torch.randint(-127, 128, x_q.shape, generator=gen, device=cuda, dtype=torch.int8))
+        before = _conv_launches()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert _conv_launches() == before  # a replay makes no call a counter sees
+        assert torch.equal(out, call())
+        assert torch.equal(out, int8_conv_plain(x_q, w_q, s_x, w_scale, bias, out_dtype=out_dtype))
+
+
+@pytest.mark.parametrize("n,hw,c,o", [(2, 28, 72, 216), (2, 7, 185, 640), (3, 5, 768, 70), (2, 56, 256, 32),
+                                      (2, 28, 128, 256), (2, 7, 2048, 256), (2, 14, 106, 318), (8, 1, 75, 453)])
+def test_int8_pointwise_at_tensor_parallel_blocks(cuda, n, hw, c, o):
+    """The 1x1 blocks a rank meets under tensor parallelism (``parallel.shard_inference``:
+    every input channel, half of rexnet1_0x's and resnet50's output channels, weights
+    packed from the block) on the pointwise route, bit for bit, the odd halves past one
+    column tile (318, 453) among them."""
+    _pointwise_case_is_exact(cuda, n, hw, hw, c, o, 400 + c + o)
+
+
+def test_int8_pointwise_refuses_and_does_not_fall_back(cuda):
+    """What the pointwise route refuses raises, and no conv kernel launches in its
+    place: weights not packed as ``pack_weights`` packs them, the route forced on a conv
+    it does not take, and at its C entry point a column tile it is not built for, 1D
+    runs in a tile wider than 192, a misaligned x and a pitch that is not a multiple of
+    16."""
+    x_q = torch.zeros(2, 4, 4, 32, dtype=torch.int8, device=cuda)
+    w_q = torch.zeros(1, 1, 32, 96, dtype=torch.int8, device=cuda)
+    s_x, w_scale = torch.tensor(1.0, device=cuda), torch.ones(96, device=cuda)
+    out = torch.empty(2 * 4 * 4, 300, dtype=torch.bfloat16, device=cuda)
+    packed = Q.pack_weights(w_q)
+    before = _conv_launches()
+    with pytest.raises(ValueError, match="pack_weights"):
+        int8_conv(x_q, w_q, s_x, w_scale, w_packed=packed[:, :64].contiguous())
+    with pytest.raises(ValueError, match="route"):
+        Q._launch(x_q, torch.zeros(3, 3, 32, 96, dtype=torch.int8, device=cuda), None, s_x, w_scale, None, 1, 1, 1,
+                  torch.float32, 1, route="pointwise")
+    stream = torch.cuda.current_stream().cuda_stream
+    for args in (
+        (x_q.data_ptr(), packed.data_ptr(), s_x.data_ptr(), w_scale.data_ptr(), None, 0, out.data_ptr(), 1, 32, 32,
+         96, 100, 96, 128, stream),  # a 100-wide column tile
+        (x_q.data_ptr(), packed.data_ptr(), s_x.data_ptr(), w_scale.data_ptr(), None, 0, out.data_ptr(), 1, 32, 32,
+         27, 256, 27, 128, stream),  # rows of 54 bytes (1D runs) in a tile wider than 192
+        (x_q.data_ptr() + 1, packed.data_ptr(), s_x.data_ptr(), w_scale.data_ptr(), None, 0, out.data_ptr(), 1, 32,
+         32, 96, 96, 96, 128, stream),  # x off a 16-byte boundary
+        (x_q.data_ptr(), packed.data_ptr(), s_x.data_ptr(), w_scale.data_ptr(), None, 0, out.data_ptr(), 1, 32, 24,
+         96, 96, 96, 128, stream),  # a pitch of 24
+    ):
+        with pytest.raises(RuntimeError, match="int8_pointwise_forward"):
+            Q.KERNEL_POINTWISE(*args)
+    torch.cuda.synchronize()
+    assert _conv_launches() == before

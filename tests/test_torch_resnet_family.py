@@ -194,7 +194,8 @@ def test_quantize_resnext101_32x8d_selects_its_grouped_convs():
     grouped = {path: m for path, m in layers.items() if m.groups > 1}
     assert sorted(grouped) == ["features.7.0.conv.3", "features.7.1.conv.3", "features.7.2.conv.3"]
     assert all(m.groups == 32 and tuple(m.kernel_q.shape) == (3, 3, 64, 2048) for m in grouped.values())
-    assert all(conv_route(64, 2048, 32) == "general" and m.kernel_packed is None for m in grouped.values())
+    assert all(conv_route(64, 2048, 32, kernel_size=3, stride=m.stride, padding=m.padding) == m.route == "general"
+               and m.kernel_packed is None for m in grouped.values())
     with torch.no_grad():
         out = pq(torch.randn(1, 3, 32, 32, generator=torch.Generator().manual_seed(1)))
     assert out.shape == (1, 10) and bool(torch.isfinite(out).all())

@@ -184,8 +184,9 @@ def test_quantize_model_selects_the_convs_jax_selects_on_rexnet1_0x():
     theirs = {np.asarray(q["kernel_q"]).tobytes() for q in jq.qparams.values()}
     assert ours == theirs and len(ours) == len(layers) == len(jq.qparams)
     assert all(m.groups == 1 for m in layers)
-    routes = [conv_route(m.kernel_q.shape[2], m.kernel_q.shape[3]) for m in layers]
-    assert routes.count("wgmma") == len(layers) == 44
+    routes = [conv_route(m.kernel_q.shape[2], m.kernel_q.shape[3], kernel_size=m.kernel_q.shape[:2], stride=m.stride,
+                         padding=m.padding) for m in layers]
+    assert routes.count("pointwise") == len(layers) == 44  # every one 1x1, stride 1: the pointwise GEMM
     assert all(m.kernel_packed is not None for m in layers)
     depthwise = [m for m in pq.modules() if type(m) is torch.nn.Conv2d and m.groups > 1]
     assert depthwise and all(m.groups == m.in_channels for m in depthwise)
