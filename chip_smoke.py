@@ -109,8 +109,8 @@ Phases, each printing one JSON line to stdout:
    ``deploy_forward``'s graphs (every replay bit-equal to eager), the pixel-agreement
    gate (pixel agreement and mean mask IoU against bf16) on 2 held-out batches of 32,
    the batch-32 forwards profiled. ``segmentation_training``: the segmentation CLI's
-   ``main()`` in-process (unet3p, batch 16, 256 px, amp, AdamP, onecycle, an epoch of 4
-   batches and ``evaluate()``), then ms a step and peak memory in bf16 and in float32,
+   ``main()`` in-process (unet3p, batch 16, 256 px, amp, AdamP, onecycle, 2 spawned loader
+   workers, an epoch of 4 batches and ``evaluate()``), then ms a step and peak memory in bf16 and in float32,
    kernels a step and the idle share.
 18. ``mobileone_serving`` and ``convnext_serving`` (after ``segmentation_training``):
    the serving path for mobileone_s1 (BN adapted, reparametrized: 21 pointwise 1x1
@@ -218,6 +218,9 @@ AGREEMENT_FLOOR = 0.99  # bench.py:150-157
 # Tensor-parallel logits against one process's, relative to their largest magnitude:
 # the split layers sum the same products in another order (float32, TF32 off)
 TP_LOGIT_RTOL = 1e-5
+# GPipe against the fold of the same blocks (float32, TF32 off): largest difference over
+# the largest |y|
+PIPELINE_RTOL = 1e-5
 IMAGENET = ((0.485, 0.456, 0.406), (0.229, 0.224, 0.225))
 
 # NVIDIA H100 SXM peaks (data sheet, dense): device memory 3.35 TB/s; int8 tensor cores
@@ -2421,11 +2424,11 @@ def phase_segmentation_serving(device, size: int = 256, num_classes: int = 21, b
 
 
 def phase_segmentation_training(device, size: int = 256, batch: int = 16, num_classes: int = 21,
-                                timed_steps: int = 4) -> None:
+                                timed_steps: int = 4, workers: int = 2) -> None:
     """The segmentation CLI's ``main()`` in this process, on the card:
-    ``fake --arch unet3p -b 16 --crop-size 256 --fake-samples 64 --epochs 1 --amp`` (AdamP,
-    onecycle, cross-entropy ignoring 255; an epoch of 4 batches from spawned loader
-    workers, then ``evaluate()``), its output on stderr: every step's loss and the
+    ``fake --arch unet3p -b 16 --crop-size 256 --fake-samples 64 --epochs 1 --amp -j 2``
+    (AdamP, onecycle, cross-entropy ignoring 255; an epoch of 4 batches from 2 spawned
+    loader workers, then ``evaluate()``), its output on stderr: every step's loss and the
     evaluation must be finite, 4 updates applied. Then, in the CLI's trainer, ms a
     train step over a steady window of ``timed_steps`` (CUDA events) on batches made on
     the device (a fifth of the pixels 255), with bf16 compute (``--amp``) and in the
@@ -2442,7 +2445,7 @@ def phase_segmentation_training(device, size: int = 256, batch: int = 16, num_cl
     ckpt = ROOT / "holocron_tpu_torch" / "_build" / "smoke_segmentation.pt"
     args = train.parse_args(["fake", "--arch", "unet3p", "-b", str(batch), "--crop-size", str(size),
                              "--fake-samples", "64", "--epochs", "1", "--amp", "--num-classes", str(num_classes),
-                             "--device", str(device), "--output-file", str(ckpt)])
+                             "-j", str(workers), "--device", str(device), "--output-file", str(ckpt)])
     losses, evaluated = [], []
     step, evaluate = SegmentationTrainer._run_step_async, SegmentationTrainer.evaluate
 
@@ -2499,7 +2502,8 @@ def phase_segmentation_training(device, size: int = 256, batch: int = 16, num_cl
         fail("segmentation training: parameters not finite after the steps")
     torch.cuda.synchronize()
     emit({"phase": "segmentation_training", "model": "unet3p", "image_size": size, "batch": batch,
-          "num_classes": num_classes, "optimizer": "AdamP", "sched": "onecycle", "cli_seconds": cli_s,
+          "num_classes": num_classes, "optimizer": "AdamP", "sched": "onecycle", "workers": workers,
+          "cli_seconds": cli_s,
           "losses": losses, "eval": evaluated[0], "steps": windows,
           "kernel_launches_per_step": prof["kernel_launches"],
           "profile": {k: prof[k] for k in ("host_ms", "kernel_ms", "idle", "top")}})
@@ -3253,10 +3257,12 @@ def phase_latency_and_zoo(device, zoo_batch: int = 32, it: int = 20) -> dict:
 def phase_profiling(device, batch: int = 256, size: int = 224) -> None:
     """``utils.profiling.device_op_summary`` on rexnet1_0x's bf16 eval forward at batch
     256, against ``profile_forward``'s kernel ms of the same forward (within 5%) and
-    against the forward's device time from CUDA events, unprofiled: kernels run one
-    after another on one stream, so their sum lies within 0.85-1.03 of it (the rest is
-    the gaps between them, and the clock's drift between the readings). The top kernels
-    by device time."""
+    against the forward's device time from CUDA events, unprofiled, on replays of the
+    forward captured in a CUDA graph (:func:`graph_ms`): kernels run one after another
+    on one stream, so their sum lies within 0.85-1.03 of it (the rest is the gaps
+    between them, and the clock's drift between the readings). The eager forward's
+    event time is printed beside it and not held: its gaps are the host's launch time,
+    which grows with the host's load. The top kernels by device time."""
     import torch
 
     from holocron_tpu_torch import models
@@ -3270,18 +3276,20 @@ def phase_profiling(device, batch: int = 256, size: int = 224) -> None:
     summary = device_op_summary(model, x, iters=20)
     reference = profile_forward(model, x)
     with torch.no_grad():
-        event_ms = cuda_ms(lambda: model(x), 20)
+        eager_ms = cuda_ms(lambda: model(x), 20)
+        event_ms = graph_ms(lambda: model(x), iters=5, replays=4)
     rel = abs(summary["ms_per_iter"] - reference["kernel_ms"]) / reference["kernel_ms"]
     share = summary["ms_per_iter"] / event_ms
     if rel > 0.05 or not 0.85 <= share <= 1.03:
         fail(f"profiling: device_op_summary {summary['ms_per_iter']} ms against profile_forward "
-             f"{reference['kernel_ms']} ms and CUDA events' {event_ms} ms a forward")
+             f"{reference['kernel_ms']} ms and CUDA events' {event_ms} ms a graph-replayed forward")
     top = sorted(summary["ops"].items(), key=lambda kv: -kv[1])[:8]
     emit({"phase": "profiling", "model": "rexnet1_0x", "batch": batch, "dtype": "bfloat16",
           "device_op_summary_ms": summary["ms_per_iter"], "wall_ms": summary["wall_ms_per_iter"],
           "profile_forward_kernel_ms": reference["kernel_ms"], "profile_forward_profiles": reference["profiles"],
           "profile_forward_pad_kernels_missing": reference["pad_kernels_missing"],
           "rel_diff": rel, "cuda_event_ms": event_ms, "kernel_share_of_event_ms": share,
+          "eager_event_ms": eager_ms, "kernel_share_of_eager_event_ms": summary["ms_per_iter"] / eager_ms,
           "top": [[name[:90], us / 20 / 1e3] for name, us in top]})
     del model
     torch.cuda.empty_cache()
@@ -3700,15 +3708,75 @@ def _check_int8_blocks(fwd, x) -> tuple:
     return checked, max(max_err.values())
 
 
+def pipeline_checks(device, rank: int, batch: int = 256, hw: int = 16) -> dict:
+    """GPipe over the two ranks of :func:`model_spatial_parallel_worker`'s group:
+    darknet53's 512-channel stage (eight ``ResBlock(512, 256)``,
+    :func:`holocron_tpu_torch.bench_pipeline_memory.darknet53_stage`: random weights from
+    seed 0, BN statistics drawn away from the identity), float32, a stage input of
+    ``batch`` at ``hw`` x ``hw``. ``pipeline_module`` at n = 2, M = 8, gathered, against
+    the sequential fold on rank 0 (largest difference over the largest |y|); one
+    backward of the global sum of squares, the stacked gradients (each rank's blocks,
+    summed over the ranks) against the fold's on rank 0 (each element within 1e-4
+    relative plus 1e-5 of the tensor's largest gradient: the worst ratio of difference to
+    that bound, a rank's blocks apiece); then ``bench_pipeline_memory.measure`` (M = 8
+    and 16, under ``no_grad``). Every rank calls it in lockstep."""
+    import torch
+    from torch import distributed as dist
+
+    from holocron_tpu_torch import bench_pipeline_memory as BPM
+    from holocron_tpu_torch.parallel import collectives, create_mesh, pipeline_module
+
+    staged = collectives.STAGED_BYTES[0]
+    block, stacked = BPM.darknet53_stage(device, SEED)
+    x = torch.randn(batch, 512, hw, hw, generator=torch.Generator(device=device).manual_seed(SEED + 92),
+                    device=device)
+    mesh = create_mesh(axes=("pipe",), device_type=device.type)
+    rec = {"rank": rank}
+    with torch.no_grad():
+        y, _, rec["pipelined_wall_ms"], _ = BPM.peak_above(
+            lambda: pipeline_module(block, stacked, x, mesh, num_microbatches=8, gather_output=True), device)
+    trainable = {name for name, _ in block.named_parameters()}
+    params = {k: v.clone().requires_grad_(k in trainable) for k, v in stacked.items()}
+    _sync(device)
+    t0 = time.perf_counter()
+    (pipeline_module(block, params, x, mesh, num_microbatches=8) ** 2).sum().backward()
+    _sync(device)
+    rec["pipelined_forward_backward_wall_ms"] = (time.perf_counter() - t0) * 1e3
+    grads = {k: params[k].grad for k in sorted(trainable)}
+    for g in grads.values():
+        dist.all_reduce(g)
+    if rank == 0:
+        with torch.no_grad():
+            ref, _, rec["fold_wall_ms"], _ = BPM.peak_above(lambda: BPM.fold(block, stacked, x), device)
+        rec["max_rel_err"] = float((y - ref).abs().max() / ref.abs().max())
+        del ref
+        fparams = {k: v.clone().requires_grad_(k in trainable) for k, v in stacked.items()}
+        (BPM.fold(block, fparams, x) ** 2).sum().backward()
+        per = next(iter(stacked.values())).shape[0] // 2
+        worst = [0.0, 0.0]
+        for k, g in grads.items():
+            want = fparams[k].grad
+            ratio = (g - want).abs() / (1e-4 * want.abs() + 1e-5 * want.abs().max())
+            for r in range(2):
+                worst[r] = max(worst[r], float(ratio[r * per:(r + 1) * per].max()))
+        rec["grad_worst_ratio_a_rank"] = worst
+        del fparams
+    del params, grads, y
+    rec["memory"] = BPM.measure(block, stacked, x, mesh)
+    rec["staged_bytes"] = collectives.STAGED_BYTES[0] - staged
+    return rec
+
+
 def model_spatial_parallel_worker(rank: int, port: int, outdir: str, device_name: str = "cuda", cls_batch: int = 64,
                                   cls_size: int = 224, seg_batch: int = 2, seg_size: int = 1024, train_batch: int = 128,
                                   train_size: int = 224, seg_train_batch: int = 4, seg_train_size: int = 512,
-                                  steps: int = 3, seg_classes: int = 21, layout=None) -> None:
+                                  steps: int = 2, seg_classes: int = 21, layout=None, pipe_batch: int = 256,
+                                  pipe_hw: int = 16) -> None:
     """One of the two ranks of :func:`phase_model_spatial_parallel`. First, with no group,
     rank 0 runs the one-process references of tensor parallelism and rank 1 those of
     spatial partitioning (side by side on the card); then both join gloo on
-    ``tcp://127.0.0.1:port`` and run the parallel forms. Each writes its numbers to
-    ``outdir/rank<r>.json``."""
+    ``tcp://127.0.0.1:port`` and run the parallel forms, then the pipeline
+    (:func:`pipeline_checks`). Each writes its numbers to ``outdir/rank<r>.json``."""
     import copy
     import functools
     import json
@@ -3880,6 +3948,9 @@ def model_spatial_parallel_worker(rank: int, port: int, outdir: str, device_name
             train_steps(trainer, seg_train, "sp_train")
             del trainer
         out["staged_bytes_total"] = collectives.STAGED_BYTES[0] - staged
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+        out["pipeline"] = pipeline_checks(device, rank, pipe_batch, pipe_hw)
         dist.barrier()
     finally:
         dist.destroy_process_group()
@@ -3912,12 +3983,16 @@ def phase_model_spatial_parallel(device, timeout: float = 300.0, **sizes) -> dic
       (``sharded.FALLBACKS``, printed for every form).
     - the resnet50 trainer (batch 128, 224 px, LAMB, ``model_parallel=2``) and the
       segmentation trainer on unet3p (512 px, batch 4, LAMB, ``spatial_parallel=2``),
-      3 steps each under cuDNN's deterministic algorithms against the one-process run:
+      2 steps each under cuDNN's deterministic algorithms against the one-process run:
       every step's loss within 1e-3 relative; wall ms a step and each rank's peak
       memory. Both in float32 (TF32 off) at a learning rate of 1e-4: LAMB's first update
       follows the gradients' signs, and under bf16 compute the last bits of the split
       convs (other shapes, so other cuDNN algorithms) move the third loss past 1e-3, as
       cuDNN's nondeterministic algorithms moved ``remat``'s.
+    - GPipe (:func:`pipeline_checks`, :func:`check_pipeline`): darknet53's 512-channel
+      stage over both ranks, batch 256 at 16 x 16, float32: the output and the stacked
+      gradients against the sequential fold, and each rank's peak memory at M = 8 and
+      16 against the fold's and the theory's ``2/n + 1/M`` buffers.
 
     Returns the int8 kernels' launches, summed over the ranks, and the largest bf16
     error of the block checks."""
@@ -4023,8 +4098,55 @@ def phase_model_spatial_parallel(device, timeout: float = 300.0, **sizes) -> dic
             if len(losses) != len(rec["one_process_losses"]) or any(
                     not math.isfinite(a) or abs(a - b) > 1e-3 * abs(b) for a, b in zip(losses, rec["one_process_losses"])):
                 fail(f"model_spatial_parallel: {name} losses {losses} vs one process {rec['one_process_losses']}")
+    check_pipeline([r["pipeline"] for r in ranks], sizes.get("pipe_batch", 256), sizes.get("pipe_hw", 16))
     launches = {k: sum(r[k] for r in tp["int8_launches_a_rank"]) for k in INT8_COUNTERS}
     return launches, tp["int8_block_max_abs_err_bf16"]
+
+
+def check_pipeline(ranks: list, batch: int, hw: int) -> None:
+    """Prints the ``pipeline`` line of both ranks' :func:`pipeline_checks` and fails on
+    an output beyond :data:`PIPELINE_RTOL` of the fold, a gradient beyond its bound, or,
+    at any microbatch count, a rank that held more than 1.5 x the theory's ``2/n + 1/M``
+    buffers when a block began, or peaked above the fold's peak or above 1.5 x the
+    theory's buffers plus one block's temporaries at ``B/M``."""
+    r0 = ranks[0]
+    mib = 2.0**20
+    memory = []
+    for r in ranks:
+        mem = r["memory"]
+        fold = mem["fold"]
+        memory.append({"rank": r["rank"], "fold_peak_mib": fold["peak_bytes"] / mib, "fold_buffers": fold["buffers"],
+                       "fold_held_mib": fold["held_bytes"] / mib, "fold_workspace_mib": fold["workspace_bytes"] / mib,
+                       "fold_wall_ms": fold["wall_ms"],
+                       "pipelined": [{"microbatches": p["microbatches"], "peak_mib": p["peak_bytes"] / mib,
+                                      "buffers": p["buffers"], "held_mib": p["held_bytes"] / mib,
+                                      "held_buffers": p["held_buffers"], "theory_buffers": p["theory_buffers"],
+                                      "limit_mib": p["limit_bytes"] / mib,
+                                      "block_temporaries_mib": p["block_temporaries_bytes"] / mib,
+                                      "workspace_mib": p["workspace_bytes"] / mib,
+                                      "wall_ms": p["wall_ms"], "staged_bytes": p["staged_bytes"]}
+                                     for p in mem["pipelined"]]})
+    record = {"phase": "pipeline", "model": "darknet53 features.layers.3 (8 x ResBlock(512, 256))",
+              "batch": batch, "hw": hw, "dtype": "float32", "stages": 2, "microbatches": 8,
+              "buffer_mib": r0["memory"]["buffer_bytes"] / mib, "params_mib": r0["memory"]["params_bytes"] / mib,
+              "max_rel_err": r0["max_rel_err"], "grad_worst_ratio_a_rank": r0["grad_worst_ratio_a_rank"],
+              "pipelined_wall_ms": [r["pipelined_wall_ms"] for r in ranks], "fold_wall_ms": r0["fold_wall_ms"],
+              "pipelined_forward_backward_wall_ms": [r["pipelined_forward_backward_wall_ms"] for r in ranks],
+              "staged_bytes": [r["staged_bytes"] for r in ranks], "memory": memory}
+    emit(record)
+    if not r0["max_rel_err"] <= PIPELINE_RTOL:
+        fail(f"pipeline: output {r0['max_rel_err']} of the fold's largest |y| from it, beyond {PIPELINE_RTOL}")
+    if not max(r0["grad_worst_ratio_a_rank"]) <= 1.0:
+        fail(f"pipeline: stacked gradients beyond 1e-4 relative + 1e-5 of the largest: "
+             f"{r0['grad_worst_ratio_a_rank']} of the bound a rank")
+    for r in ranks:
+        for p in r["memory"]["pipelined"]:
+            if not p["held_within_theory"]:
+                fail(f"pipeline: rank {r['rank']} at M = {p['microbatches']} held {p['held_buffers']} buffers when a "
+                     f"block began, beyond 1.5 x the theory's {p['theory_buffers']}")
+            if not (p["below_fold"] and p["within_limit"]):
+                fail(f"pipeline: rank {r['rank']} at M = {p['microbatches']} peaked at {p['peak_bytes']} B against "
+                     f"the fold's {r['memory']['fold']['peak_bytes']} and the limit {p['limit_bytes']}")
 
 
 def _kernel_launches(fn) -> int:

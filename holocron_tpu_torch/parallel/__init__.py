@@ -2,8 +2,8 @@
 ``torch.distributed``, one process a device: the process group and meshes
 (``multihost.py``, ``mesh.py``), the named collectives, the cross-process batch norm,
 tensor parallelism (``inference.py``) and spatial partitioning (``spatial.py``), both
-run by the split-tensor mode of ``sharded.py``. The GPipe schedule (``pipeline.py``)
-is not ported yet."""
+run by the split-tensor mode of ``sharded.py``, and the GPipe schedule over a stack of
+identical blocks (``pipeline.py``), one stage a process."""
 
 from . import collectives
 from .batchnorm import CrossProcessBatchNorm2d, CrossProcessFlaxBatchNorm2d, convert_batchnorm
@@ -11,6 +11,7 @@ from .inference import shard_inference, tensor_parallel_specs
 from .mesh import batch_sharding, create_mesh, replicated, shard_batch
 from .multihost import host_local_put, hybrid_mesh, initialize, local_device, num_slices, rank, replicate_to_host, \
     world_size
+from .pipeline import pipeline_blocks, pipeline_module, stack_stage_variables, stage_variables
 from .spatial import shard_spatial_inference, spatial_sharding
 
 __all__ = [
@@ -25,6 +26,8 @@ __all__ = [
     "initialize",
     "local_device",
     "num_slices",
+    "pipeline_blocks",
+    "pipeline_module",
     "rank",
     "replicate_to_host",
     "replicated",
@@ -32,6 +35,8 @@ __all__ = [
     "shard_inference",
     "shard_spatial_inference",
     "spatial_sharding",
+    "stack_stage_variables",
+    "stage_variables",
     "tensor_parallel_specs",
     "world_size",
 ]

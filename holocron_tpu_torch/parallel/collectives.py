@@ -105,18 +105,19 @@ def _permute(x: torch.Tensor, perm: Sequence[Tuple[int, int]], group) -> torch.T
     no pair reaches gets zeros (``lax.ppermute``)."""
     me = dist.get_rank(group)
     x = x.contiguous()
-    out = torch.zeros_like(x)
-    sends, recvs = {}, {}
+    sends, recvs, own = {}, {}, False
     for src, dst in perm:
         if src == me and dst == me:
-            out.copy_(x)
+            own = True
         elif src == me:
             sends[dst] = x
         elif dst == me:
             recvs[src] = (x.shape, x.dtype)
-    for piece in _exchange(sends, recvs, group, x.device).values():
-        out.copy_(piece)
-    return out
+    got = _exchange(sends, recvs, group, x.device)
+    if own:
+        return x.clone()
+    # a permutation: at most one source reaches this rank, and its tensor is fresh
+    return next(iter(got.values())) if got else torch.zeros_like(x)
 
 
 def _exchange(sends, recvs, group, device: torch.device):

@@ -68,7 +68,8 @@ forward and loss, and under tensor parallelism its update, run under
   gradients. Batch norm takes its statistics over the data and spatial processes.
 
 The reported loss is the global one (averaged over the data group); ``save`` writes
-whole tensors, so a checkpoint restores into any layout's trainer.
+whole tensors to a file, or each process its own blocks to a directory, and either
+restores into any layout's trainer.
 """
 
 import contextlib
@@ -416,11 +417,22 @@ class Trainer:
                 if sharded.split_of(t) is not None}
 
     def save(self, output_file: str) -> None:
-        """Saves ``{epoch, step, min_loss, model}`` (the model's ``state_dict``) with
-        ``torch.save`` (``core.py:277-310``). Across processes every process calls it in
-        lockstep and rank 0 alone writes; tensors held as blocks (tensor parallelism)
-        are gathered whole first, so the file restores into any layout. It holds the
-        model, not the optimizer state, as in the JAX package."""
+        """Saves ``{epoch, step, min_loss, model}`` (the model's ``state_dict``)
+        (``core.py:277-310``). It holds the model, not the optimizer state, as in the JAX
+        package. Across processes every process calls it in lockstep.
+
+        A path with a suffix is one ``torch.save`` file, written by rank 0; tensors held
+        as blocks (tensor parallelism) are gathered whole first. A path with no suffix
+        is a ``torch.distributed.checkpoint`` directory (the JAX package's orbax path):
+        each process writes only its own blocks, at their global offsets, so a model too
+        large to gather still saves. Either restores into any layout."""
+        path = Path(output_file)
+        meta = {"epoch": self.epoch, "step": self.step, "min_loss": self.min_loss}
+        if not path.suffix:  # torch.distributed.checkpoint takes a second to import
+            from ._sharded_checkpoint import save_directory
+
+            save_directory(path, meta, self.model.state_dict(), self._named_splits())
+            return
         state = self.model.state_dict()
         splits = self._named_splits()
         if splits:
@@ -428,26 +440,33 @@ class Trainer:
                 whole = {n: dict([*self.model.named_parameters(), *self.model.named_buffers()])[n] for n in splits}
                 state = {k: sharded.gather(whole[k]).detach() if k in splits else v for k, v in state.items()}
         if self.rank == 0:
-            path = Path(output_file)
             path.parent.mkdir(parents=True, exist_ok=True)
-            torch.save({"epoch": self.epoch, "step": self.step, "min_loss": self.min_loss, "model": state}, path)
+            torch.save({**meta, "model": state}, path)
         if self.distributed:
             dist.barrier()
 
     def load(self, state: Union[str, Path, Dict[str, Any]]) -> None:
-        """Resumes from a state saved by :meth:`save` or its path (``core.py:312-327``);
-        under tensor parallelism each tensor held as blocks takes its block."""
-        if isinstance(state, (str, Path)):
-            state = torch.load(state, map_location=self.device, weights_only=True)
+        """Resumes from a state saved by :meth:`save`, or its file or directory
+        (``core.py:312-327``); under tensor parallelism each tensor held as blocks takes
+        its block (from a directory, each process reads only its block). A directory is
+        read by every process in lockstep."""
+        if isinstance(state, (str, Path)) and Path(state).is_dir():
+            from ._sharded_checkpoint import load_directory
+
+            state = load_directory(Path(state), self.model.state_dict(), self._named_splits())
+        else:
+            if isinstance(state, (str, Path)):
+                state = torch.load(state, map_location=self.device, weights_only=True)
+            model_state = dict(state["model"])
+            for name, split in self._named_splits().items():
+                lo, hi = split.bounds()
+                model_state[name] = model_state[name].narrow(split.dim, lo, hi - lo)
+            state = {**state, "model": model_state}
         self.start_epoch = int(state["epoch"])
         self.epoch = self.start_epoch
         self.step = int(state["step"])
         self.min_loss = float(state["min_loss"])
-        model_state = dict(state["model"])
-        for name, split in self._named_splits().items():
-            lo, hi = split.bounds()
-            model_state[name] = model_state[name].narrow(split.dim, lo, hi - lo)
-        self.model.load_state_dict(model_state)
+        self.model.load_state_dict(state["model"])
 
     # ------------------------------------------------------------------
     # optimizer / schedule setup

@@ -1369,3 +1369,71 @@ def test_int8_pointwise_refuses_and_does_not_fall_back(cuda):
             Q.KERNEL_POINTWISE(*args)
     torch.cuda.synchronize()
     assert _conv_launches() == before
+
+
+@pytest.fixture
+def one_process_group(cuda):
+    """A gloo group of this process alone, over CUDA tensors, for the pipeline at n = 1."""
+    import socket
+
+    from torch import distributed as dist
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", world_size=1, rank=0)
+    try:
+        yield cuda
+    finally:
+        dist.destroy_process_group()
+
+
+def test_pipeline_at_one_stage_equals_the_fold(one_process_group):
+    """GPipe over one process (n = 1, one microbatch) on the card: darknet53's
+    512-channel stage, bit for bit the sequential fold of its eight blocks, forward and
+    the stacked gradients of the sum of squares (under cuDNN's deterministic algorithms:
+    its default weight gradients differ between two runs of the same call)."""
+    from holocron_tpu_torch.bench_pipeline_memory import darknet53_stage, fold
+    from holocron_tpu_torch.models.core import cudnn_settings
+    from holocron_tpu_torch.parallel import create_mesh, pipeline_module
+
+    cuda = one_process_group
+    block, stacked = darknet53_stage(cuda)
+    x = torch.randn(8, 512, 8, 8, generator=torch.Generator(device=cuda).manual_seed(0), device=cuda)
+    mesh = create_mesh(axes=("pipe",), device_type="cuda")
+    trainable = {name for name, _ in block.named_parameters()}
+    grads = []
+    for run in (lambda p: pipeline_module(block, p, x, mesh), lambda p: fold(block, p, x)):
+        params = {k: v.clone().requires_grad_(k in trainable) for k, v in stacked.items()}
+        with cudnn_settings(deterministic=True, benchmark=False):
+            y = run(params)
+            (y ** 2).sum().backward()
+        grads.append((y.detach(), {k: p.grad for k, p in params.items() if p.grad is not None}))
+    (y_pipe, g_pipe), (y_fold, g_fold) = grads
+    torch.testing.assert_close(y_pipe, y_fold, rtol=0, atol=0)
+    assert set(g_pipe) == set(g_fold) == trainable
+    for k, g in g_fold.items():
+        torch.testing.assert_close(g_pipe[k], g, rtol=0, atol=0, msg=k)
+
+
+def test_checkpoint_directory_round_trip_on_the_card(cuda, tmp_path):
+    """A trainer on the card saves to a directory (a path with no suffix) and a fresh one
+    loads it: every tensor on the card, bit for bit, with the epoch and step."""
+    from holocron_tpu_torch.models import RepVGG
+    from holocron_tpu_torch.trainer import Trainer
+
+    def trainer(seed):
+        model = RepVGG([1, 1], [8, 16], 1.0, 1.0, num_classes=5, device=cuda,
+                       generator=torch.Generator().manual_seed(seed))
+        return Trainer(model, device=cuda)
+
+    saved = trainer(0)
+    saved.epoch, saved.step = 3, 11
+    saved.save(str(tmp_path / "ckpt"))
+    loaded = trainer(1)
+    loaded.load(str(tmp_path / "ckpt"))
+    assert (loaded.epoch, loaded.step) == (3, 11)
+    want = saved.model.state_dict()
+    for k, v in loaded.model.state_dict().items():
+        assert v.is_cuda
+        torch.testing.assert_close(v, want[k], rtol=0, atol=0, msg=k)

@@ -24,6 +24,17 @@ Modes:
   outputs and the one-process ones (``tests/test_torch_{tensor,spatial}_parallel.py``).
 - ``amp``: the first train step of the ``tp`` and ``spatial`` variants under ``amp``
   (bf16 compute); rank 0 writes the loss and the reduced gradients, whole.
+- ``pipeline``: GPipe (``parallel.pipeline_blocks`` / ``pipeline_module``) on the cases
+  a test saved in ``<outdir>/pipeline_inputs.pt`` over a ``("pipe",)`` mesh of every
+  process: each rank writes its output rows, the gathered output, its gradients and the
+  errors of bad arguments (``tests/test_torch_pipeline.py``).
+- ``elastic``: checkpoints across layouts (``tests/test_torch_elastic_restore.py``);
+  ``variant`` ``save`` (2 processes) trains ``tp`` and ``zero1`` trainers 4 steps and
+  saves them (a file, and for ``tp`` a directory too), restores the ZeRO-1 file into a
+  ``tp`` trainer and continues 4 steps; ``restore`` (4 processes) restores the ``tp``
+  file and directory into ``model_parallel=4`` trainers and continues. Both save or
+  load a model with a tensor split in blocks of unequal length. Rank 0 writes the
+  records.
 - ``collectives``: ``parallel.initialize()`` from the environment (twice), the mesh, the
   named collectives and their gradients, ``host_local_put`` / ``shard_batch`` /
   ``replicate_to_host``, the cross-process batch norm against ``nn.BatchNorm2d`` on
@@ -62,7 +73,7 @@ class IndexedDataset:
 
 
 VARIANTS = {"plain": {}, "zero1": {"shard_opt_state": True}, "tp": {"model_parallel": 2, "tp_min_channels": 4},
-            "spatial": {"spatial_parallel": 2}}
+            "tp4": {"model_parallel": 4, "tp_min_channels": 4}, "spatial": {"spatial_parallel": 2}}
 
 
 def make_trainer(world: int, variant: str = "plain", output_file: str = "ckpt.pt", amp: bool = False):
@@ -419,6 +430,153 @@ def spatial_parallel(outdir: Path, rank: int, world: int) -> None:
     dist.barrier()
 
 
+def conv_block(p: dict, h: torch.Tensor) -> torch.Tensor:
+    """``tests/test_parallel.py:298-302``'s residual conv block, NCHW."""
+    from torch.nn import functional as F
+
+    return F.relu(F.conv2d(h, p["w"], padding=1) + p["b"][:, None, None]) + h
+
+
+def pipeline(outdir: Path, rank: int, world: int) -> None:
+    """``pipeline``: for each microbatch count of ``inputs["microbatches"][world]``, the
+    conv stack's output rows and gathered output (no gradient), and the gradients of the
+    global sum of squares with respect to the stacked parameters and the input; the
+    ``ValueError`` s of bad arguments; darknet53's stage 3 (2 processes)."""
+    from holocron_tpu_torch import parallel
+    from holocron_tpu_torch.models.classification.darknetv3 import ResBlock
+
+    inputs = torch.load(outdir / "pipeline_inputs.pt", weights_only=False)
+    mesh = parallel.create_mesh(axes=("pipe",))
+    params, x = inputs["conv"]["params"], inputs["conv"]["x"]
+    res = {"conv": {}, "errors": {}}
+    for m in inputs["microbatches"][world]:
+        with torch.no_grad():
+            y = parallel.pipeline_blocks(conv_block, params, x, mesh, num_microbatches=m)
+            whole = parallel.pipeline_blocks(conv_block, params, x, mesh, num_microbatches=m, gather_output=True)
+        pr = {k: v.clone().requires_grad_() for k, v in params.items()}
+        xr = x.clone().requires_grad_()
+        (parallel.pipeline_blocks(conv_block, pr, xr, mesh, num_microbatches=m) ** 2).sum().backward()
+        res["conv"][m] = {"y": y, "whole": whole, "grads": {k: v.grad for k, v in pr.items()}, "dx": xr.grad}
+
+    def error(name, **kw):
+        args = {"stacked_params": params, "x": x, "mesh": mesh, **kw}
+        try:
+            parallel.pipeline_blocks(conv_block, **args)
+        except ValueError as err:
+            res["errors"][name] = str(err)
+
+    if world == 4:
+        error("spread", num_microbatches=2)  # 2 microbatches over 4 belt shards
+    else:
+        error("spread", num_microbatches=3)
+        error("batch", num_microbatches=6)  # 8 rows into 6 microbatches
+        error("stages", stacked_params={k: v[:7] for k, v in params.items()})
+        error("axis", mesh=parallel.create_mesh(axes=("data",)))
+        d = inputs["darknet"]
+        block = ResBlock(512, 256)  # in training mode, which the call must leave as it was
+        with torch.no_grad():
+            res["darknet"] = parallel.pipeline_module(block, d["stacked"], d["x"], mesh, num_microbatches=8)
+        res["darknet_block_training"] = block.training
+    torch.save(res, outdir / f"pipeline_{world}_{rank}.pt")
+
+
+ELASTIC_LR, ELASTIC_STEPS = 5e-3, 4  # check_setup's learning rate, steps before a save and after a restore
+
+
+def whole_state(trainer) -> dict:
+    """Parameters and BN statistics, each tensor held as blocks (of any lengths)
+    gathered whole (a collective), as numpy."""
+    from holocron_tpu_torch.parallel import collectives, sharded
+
+    def whole(t):
+        split = sharded.split_of(t)
+        if split is None:
+            return t
+        return collectives._gather_uneven(t, split.group, split.dim, [hi - lo for lo, hi in split.all_bounds()])
+
+    named = dict([*trainer.model.named_parameters(), *trainer.model.named_buffers()])
+    with torch.no_grad():
+        return {k: whole(named[k]).numpy().copy() for k, v in trainer.model.state_dict().items()
+                if v.is_floating_point()}
+
+
+def continued(trainer, ckpt) -> dict:
+    """``trainer`` restored from ``ckpt``, then 4 steps: the restored state, the losses
+    and the final state."""
+    trainer.load(str(ckpt))
+    restored = whole_state(trainer)
+    losses = trainer.check_setup(lr=ELASTIC_LR, num_it=ELASTIC_STEPS)
+    return {"restored": restored, "losses": losses, "final": whole_state(trainer)}
+
+
+def ragged_trainer(world: int):
+    """A trainer over two 1x1 convs (3 -> 5 -> 2 channels), the first one's weight and
+    bias held in blocks over every process (5 channels: 3 + 2 over 2 processes, 2 + 1 +
+    1 + 1 over 4), the second whole."""
+    from torch import nn
+    from torch.distributed.tensor import Replicate, Shard
+
+    from holocron_tpu_torch import parallel
+    from holocron_tpu_torch.parallel.inference import shard_module
+    from holocron_tpu_torch.parallel.mesh import Sharding
+    from holocron_tpu_torch.trainer import Trainer
+
+    model = nn.Sequential(nn.Conv2d(3, 5, 1), nn.Conv2d(5, 2, 1))
+    gen = torch.Generator().manual_seed(3)
+    with torch.no_grad():
+        for p in model.parameters():
+            p.copy_(torch.randn(p.shape, generator=gen))
+    trainer = Trainer(model, device="cpu")
+    if world > 1:
+        mesh = parallel.create_mesh(("data", "model"), model_parallel=world)
+        shard_module(trainer.model, {n: Sharding(mesh, (Replicate(), Shard(0))) for n in ("0.weight", "0.bias")})
+    return trainer
+
+
+def elastic(outdir: Path, rank: int, world: int, variant: str) -> None:
+    from torch import distributed as dist
+
+    from holocron_tpu_torch.parallel import collectives, sharded
+
+    res = {}
+    if variant == "save":
+        trainer = make_trainer(world, "tp")
+        trainer.check_setup(lr=ELASTIC_LR, num_it=ELASTIC_STEPS)
+        trainer.save(str(outdir / "tp2.pt"))
+        gathers = sharded.gather, collectives._all_gather_cat, collectives._gather_uneven
+
+        def refuse(*args, **kwargs):
+            raise AssertionError("the directory save gathered a tensor held as blocks")
+
+        sharded.gather = collectives._all_gather_cat = collectives._gather_uneven = refuse
+        try:
+            trainer.save(str(outdir / "tp2_dir"))
+        finally:
+            sharded.gather, collectives._all_gather_cat, collectives._gather_uneven = gathers
+        trainer = make_trainer(world, "zero1")
+        trainer.check_setup(lr=ELASTIC_LR, num_it=ELASTIC_STEPS)
+        trainer.save(str(outdir / "zero1.pt"))
+        res["zero1_into_tp2"] = continued(make_trainer(world, "tp"), outdir / "zero1.pt")
+        trainer = ragged_trainer(world)
+        trainer.epoch, trainer.step = 2, 7
+        trainer.save(str(outdir / "ragged_dir"))
+    else:
+        for name in ("tp2.pt", "tp2_dir"):
+            res[f"{name}_into_tp4"] = continued(make_trainer(world, "tp4"), outdir / name)
+        trainer = ragged_trainer(world)
+        with torch.no_grad():
+            for p in trainer.model.parameters():
+                p.zero_()
+        trainer.load(str(outdir / "ragged_dir"))
+        res["ragged"] = {"whole": whole_state(trainer), "step": trainer.step, "epoch": trainer.epoch,
+                         "rows": [trainer.model[0].weight.shape[0], trainer.model[0].bias.shape[0]]}
+        rows = [None] * world
+        dist.all_gather_object(rows, res["ragged"]["rows"])
+        res["ragged"]["rows"] = rows
+    if rank == 0:
+        torch.save(res, outdir / f"elastic_{variant}.pt")
+
+
 def run_workers(mode: str, nproc: int, outdir: Path, variant: str = "plain", timeout: float = 300) -> None:
     """Runs ``nproc`` workers of ``mode`` on a free port and waits for all; when one
     fails, the others (blocked on a collective) are killed and every output is shown."""
@@ -472,6 +630,10 @@ def main() -> None:
             spatial_parallel(outdir, rank, world)
         elif mode == "amp":
             amp_steps(outdir, rank, world)
+        elif mode == "pipeline":
+            pipeline(outdir, rank, world)
+        elif mode == "elastic":
+            elastic(outdir, rank, world, variant)
         else:
             raise SystemExit(f"unknown mode {mode}")
     dist.destroy_process_group()
