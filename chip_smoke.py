@@ -190,11 +190,24 @@ Phases, each printing one JSON line to stdout:
    each and the gradient all-reduce's device time a step; then the classification CLI
    joining NCCL from ``RANK``/``WORLD_SIZE``/``LOCAL_RANK``/``MASTER_*``.
 
+23. The script ports' phases (after ``latency_and_zoo``): ``quant_accuracy``, the port of
+   ``scripts/quant_accuracy.py`` on repvgg_a0 at its defaults (300 Adam steps on the
+   synthetic 10-class task, batch 64, 64 px; the bf16 deploy form and the selective-int8
+   form on 4 held-out batches; its row printed, the agreement not held: a non-finite
+   loss or bf16 accuracy below 0.9 fails); ``quant_policy``, ``bench_zoo`` on repvgg_a0
+   and resnet50 at batch 128 in bf16 and int8 into a temporary directory, then
+   ``gen_quant_policy`` and ``gen_bench_table`` on those rows (the policy's keys and its
+   1.05 rule held); ``input_pipeline``, ``bench_input_pipeline`` with PIL on 128
+   synthesized JPEGs and 2 spawned workers; ``demo``, ``demo.make_predict`` over the
+   service's batcher (rexnet1_0x, float32) on one synthesized 224 px image: three of the
+   model's labels, their probabilities summing to at most 1.
+
 Each kernel's launch counter is set to 0 just before the path that runs it and read
 just after; a kernel that its path never launched fails the run (a graph replay makes
 no call that a counter sees: the profiler counts the kernels of the replays). Then come
 the ``kernels`` line (the int8 entries over the serving, bench, deploy-graph, service,
-detection-serving, segmentation-serving, export and latency paths; their times summed over the
+detection-serving, segmentation-serving, export, latency, quant_accuracy and
+quant_policy paths; their times summed over the
 repvgg_a0, resnet50 and rexnet1_0x geometries), the card's name and power
 limit as ``nvidia-smi`` reports them, and last ``{"ok": true, "device": {...}}``. Each
 phase's wall time goes to stderr. Float32 checks run with TF32 off
@@ -1978,33 +1991,6 @@ def _yolov4_for_serving(device, num_classes: int, size: int, gen):
     return model.eval()
 
 
-def detection_ladder(raw_ref: list, raw_q: list, nms_thresh: float, score_thresh: float) -> tuple:
-    """``scripts/quant_accuracy.py:215-294``'s protocol on cached raw outputs of both
-    forms: walk the thresholds (objectness, score) (0.5, the model's score threshold) ->
-    (0.25, 0.01) -> (0.1, 1e-3) -> (0, the rank threshold that lets about 2 boxes an image
-    pass in the reference form) until the reference form gives at least 0.5 detections
-    an image, with the same thresholds for both forms; then returns both forms'
-    detection lists, batch by batch, and the rung taken."""
-    import numpy as np
-    import torch
-
-    from holocron_tpu_torch.models.detection import detections_to_list, post_process
-
-    scores = torch.cat([(s.float().amax(-1) * o.float()).flatten() for _, o, s in raw_ref])
-    per_image = raw_ref[0][1].shape[1]
-    rank_t = float(np.quantile(scores.cpu().numpy(), max(0.0, 1.0 - 2.0 / per_image)))
-
-    def dets(raw, obj_t, score_t):
-        return [detections_to_list(post_process(*(t.float() for t in r), nms_thresh, score_t, obj_thresh=obj_t))
-                for r in raw]
-
-    for obj_t, score_t in ((0.5, score_thresh), (0.25, 0.01), (0.1, 1e-3), (0.0, rank_t)):
-        ref = dets(raw_ref, obj_t, score_t)
-        if np.mean([len(d["boxes"]) for batch in ref for d in batch]) >= 0.5:
-            break
-    return ref, dets(raw_q, obj_t, score_t), {"obj_thresh": obj_t, "score_thresh": score_t}
-
-
 def phase_detection_serving(device, size: int = 608, num_classes: int = 80, batches=(8, 32), iters: int = 10) -> tuple:
     """yolov4 served at full width (608 px, 80 classes; its anchors are normalized to
     608): bf16 and selective int8 (calibrated on a batch of 8 in float32, float
@@ -2014,7 +2000,7 @@ def phase_detection_serving(device, size: int = 608, num_classes: int = 80, batc
     ms a synchronized call, img/s; at batch 8 the NMS pass (``greedy_keep``) alone and
     the idle share of the graph and eager forms (``torch.profiler``). Each replay's
     boxes, scores, labels and keep masks must equal the eager ones bit for bit. The
-    box-F1 gate (:func:`detection_ladder`, then ``measure_agreement_detection`` at
+    box-F1 gate (``quant_accuracy.detection_ladder``, then ``measure_agreement_detection`` at
     ``score_thresh=0.0``) on 2 held-out naturalistic batches of 8; a gate read on no
     detection fails. Then each int8 conv's input at batch 8, hooked in the eager int8
     forward, is held against the plain versions (``_int8_case_holds``), the 255-wide
@@ -2026,6 +2012,7 @@ def phase_detection_serving(device, size: int = 608, num_classes: int = 80, batc
 
     import torch
 
+    from holocron_tpu_torch import quant_accuracy
     from holocron_tpu_torch.bench import naturalistic_batch
     from holocron_tpu_torch.kernels import int8_conv as K
     from holocron_tpu_torch.models import detection
@@ -2112,7 +2099,7 @@ def phase_detection_serving(device, size: int = 608, num_classes: int = 80, batc
         held = [naturalistic_batch(gen, 8, size, device).to(torch.bfloat16) for _ in range(2)]
         raw_ref = [model_bf16.raw(x) for x in held]
         raw_q = [qm.raw(x) for x in held]
-        dets_ref, dets_q, rung = detection_ladder(raw_ref, raw_q, nms, score_t)
+        dets_ref, dets_q, rung = quant_accuracy.detection_ladder(raw_ref, raw_q, nms, score_t)
         ref_iter, q_iter = iter(dets_ref), iter(dets_q)
         gate = measure_agreement_detection(lambda _: next(ref_iter), lambda _: next(q_iter), held, score_thresh=0.0)
         if not gate["dets_per_image_ref"] > 0:
@@ -3254,6 +3241,104 @@ def phase_latency_and_zoo(device, zoo_batch: int = 32, it: int = 20) -> dict:
     return launches
 
 
+def phase_quant_accuracy(device) -> dict:
+    """``quant_accuracy``'s ``main()`` on repvgg_a0 at the script's defaults (300 steps
+    of Adam, batch 64, 64 px, 4 evaluation batches, the int8 form calibrated on 2): its
+    row printed. Fails on a non-finite final loss, bf16 accuracy below 0.9 or an int8
+    forward that launched no ``wgmma`` conv or quantization; the agreement is printed,
+    not held. Returns the int8 launches."""
+    from holocron_tpu_torch import quant_accuracy
+
+    reset_counts()
+    row = quant_accuracy.main(quant_accuracy.parse_args(["--archs", "repvgg_a0", "--device", str(device)]))[0]
+    launches = int8_launches()
+    loss = float(row["weights"].rsplit("loss ", 1)[1].rstrip(")"))
+    if not math.isfinite(loss) or row["acc_bf16"] < 0.9:
+        fail(f"quant_accuracy: final loss {loss}, bf16 accuracy {row['acc_bf16']}")
+    if not launches["int8_conv"] or not launches["int8_quantize"]:
+        fail(f"quant_accuracy: the int8 forwards launched {launches}")
+    emit({"phase": "quant_accuracy", "row": row, "launches": launches})
+    return launches
+
+
+def phase_quant_policy(device, batch: int = 128, it: int = 20) -> dict:
+    """``bench_zoo`` on repvgg_a0 and resnet50 at batch 128, 224 px, in bf16 and with
+    ``--quantize`` (``--it 20``), into a temporary directory; then ``gen_quant_policy``
+    and ``gen_bench_table`` on those rows. Fails on an error row, a policy without
+    both archs' ``int8_speedup`` and ``recommended`` (and repvgg_a0's
+    ``min_in_channels``), a verdict off the 1.05 rule, or a table without both rows.
+    Returns the int8 launches (the int8 sweep's quantizations, warm-ups and captures)."""
+    import tempfile
+
+    from holocron_tpu_torch import bench_zoo, gen_bench_table, gen_quant_policy
+
+    archs = ("repvgg_a0", "resnet50")
+    with tempfile.TemporaryDirectory() as tmp:
+        bench = Path(tmp)
+        reset_counts()
+        rows = []
+        for name, extra in ((gen_quant_policy.BF16[0], []), (gen_quant_policy.INT8[0], ["--quantize"])):
+            rows += bench_zoo.main(bench_zoo.parse_args(["--archs", *archs, "--batch", str(batch), "--it", str(it),
+                                                         "--warmup", "3", "--device", str(device),
+                                                         "--out", str(bench / name), *extra]))
+        launches = int8_launches()
+        if any("error" in r for r in rows) or len(rows) != 2 * len(archs):
+            fail(f"quant_policy: bench_zoo rows {rows}")
+        policy = gen_quant_policy.main(bench, bench / "quant_policy.json")
+        table = gen_bench_table.main(gen_bench_table.parse_args([str(bench / gen_quant_policy.BF16[0]), "--quant",
+                                                                 str(bench / gen_quant_policy.INT8[0])]))
+    keys_ok = set(policy) == set(archs) and all({"int8_speedup", "recommended"} <= set(v) for v in policy.values())
+    if not keys_ok or policy["repvgg_a0"].get("min_in_channels") != 48:
+        fail(f"quant_policy: the written policy {policy}")
+    if any(v["recommended"] != (v["int8_speedup"] >= 1.05) for v in policy.values()):
+        fail(f"quant_policy: a verdict off the 1.05 rule: {policy}")
+    if len(table) != 2 + len(archs) or not all(any(f"| {a} |" in line for line in table) for a in archs):
+        fail(f"quant_policy: the table {table}")
+    if not launches["int8_quantize"]:
+        fail(f"quant_policy: the int8 sweep launched {launches}")
+    emit({"phase": "quant_policy", "rows": rows, "policy": policy, "table": table, "launches": launches})
+    return launches
+
+
+def phase_input_pipeline(device, samples: int = 128, workers: int = 2) -> None:
+    """``bench_input_pipeline``'s ``main()`` on the host: PIL, ``samples`` JPEGs, 2
+    spawned loader workers (the native decoder's figures too where it builds; this
+    machine has no libjpeg). Fails on a missing or non-positive PIL figure."""
+    from holocron_tpu_torch import bench_input_pipeline
+
+    results = bench_input_pipeline.main(bench_input_pipeline.parse_args(["--samples", str(samples), "--workers",
+                                                                         str(workers)]))
+    if not all(results.get(k, 0) > 0 for k in ("pil_train_imgs_per_s", "pil_val_imgs_per_s")):
+        fail(f"input_pipeline: {results}")
+    emit({"phase": "input_pipeline", "samples": samples, "workers": workers, **results})
+
+
+def phase_demo(device) -> None:
+    """``demo.make_predict`` over the service's batcher (rexnet1_0x, float32, on the
+    card) on one synthesized 224 px image: three labels of the model's classes, in
+    descending probability, summing to at most 1 (within 1e-6, float32 softmax)."""
+    import numpy as np
+    from PIL import Image
+
+    from holocron_tpu_torch import demo
+    from holocron_tpu_torch.api import config, vision
+
+    config.ARCH, config.DEVICE, config.QUANTIZE = "rexnet1_0x", str(device), False
+    vision.reset()
+    img = Image.fromarray(np.random.default_rng(SEED).integers(0, 256, size=(224, 224, 3), dtype=np.uint8))
+    try:
+        t0 = time.perf_counter()
+        top3 = demo.make_predict(vision.get_batcher(), vision.CLASSES)(img)
+        seconds = time.perf_counter() - t0
+    finally:
+        vision.reset()
+    probs = list(top3.values())
+    if (len(top3) != 3 or not set(top3) <= set(vision.CLASSES) or probs != sorted(probs, reverse=True)
+            or not all(math.isfinite(p) and p >= 0 for p in probs) or sum(probs) > 1.0 + 1e-6):
+        fail(f"demo: {top3}")
+    emit({"phase": "demo", "top3": top3, "seconds": round(seconds, 3)})
+
+
 def phase_profiling(device, batch: int = 256, size: int = 224) -> None:
     """``utils.profiling.device_op_summary`` on rexnet1_0x's bf16 eval forward at batch
     256, against ``profile_forward``'s kernel ms of the same forward (within 5%) and
@@ -4183,7 +4268,10 @@ def int8_entries(launches: list, replays_seen: dict, records: list, pointwise_re
     unet3p's in ``segmentation_serving``, mobileone_s1's and convnext_tiny's eager
     forwards, warm-ups and captures in their serving phases, the exported int8
     repvgg_a0's eager and loaded runs in ``export``, ``eval_latency``'s int8
-    rexnet1_0x in ``latency_and_zoo``, repvgg_a0's two int8 forms in ``s2d_forms``, and
+    rexnet1_0x in ``latency_and_zoo``, repvgg_a0's two int8 forms in ``s2d_forms``,
+    ``quant_accuracy``'s int8 forwards of the trained repvgg_a0 (calibration, accuracy
+    and gate batches), ``quant_policy``'s int8 ``bench_zoo`` rows (repvgg_a0 and
+    resnet50: warm-ups and captures), and
     both ranks' tensor-parallel int8 resnet50 in ``model_spatial_parallel``, each on its
     block of the output channels; ``blocks_err`` is the largest bf16 error of that
     phase's checks of the blocks, beside the whole layers' of ``records``);
@@ -4306,6 +4394,10 @@ def main() -> int:
     parallel_launches, parallel_int8_err = timed(phase_model_spatial_parallel, device)
     export_launches = timed(phase_export, device)
     latency_launches = timed(phase_latency_and_zoo, device)
+    accuracy_launches = timed(phase_quant_accuracy, device)
+    policy_launches = timed(phase_quant_policy, device)
+    timed(phase_input_pipeline, device)
+    timed(phase_demo, device)
     inv = timed(check_involution, device)
     inv_bwd = timed(check_involution_bwd, device)
     add = timed(check_add2d, device)
@@ -4355,16 +4447,15 @@ def main() -> int:
         *int8_entries([serving_launches, resnet_launches, rexnet_launches, darknet_launches, bench_launches,
                        graph_launches, service_launches, detection_launches, segmentation_launches,
                        mobileone_launches, mobileone_graph_launches, convnext_launches, convnext_graph_launches,
-                       profile_launches, export_launches, latency_launches, s2d_launches, parallel_launches],
+                       profile_launches, export_launches, latency_launches, s2d_launches, parallel_launches,
+                       accuracy_launches, policy_launches],
                       replays_seen,
                       [i8, i8_resnet, i8_rexnet, i8_s2d], [i8_resnet, i8_rexnet, *i8_more], grouped,
                       parallel_int8_err),
     ]})
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
-    print(card, flush=True)
+    from holocron_tpu_torch.utils.misc import device_label
+
+    print(device_label(device), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0

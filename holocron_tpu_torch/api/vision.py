@@ -52,15 +52,18 @@ def load_model(arch: Optional[str] = None, num_classes: Optional[int] = None) ->
     if config.QUANTIZE:
         from ..quant import quantize_model, recommended_quantization
 
-        # the measured per-arch verdict: int8 where it was measured faster on the card;
-        # unmeasured archs fall back too. Only "force" quantizes regardless.
+        # the measured per-arch verdict: int8 where it was measured faster on the card and
+        # passed its gate on trained weights; unmeasured archs fall back too. Only "force"
+        # quantizes regardless.
         verdict = recommended_quantization(arch)
         if config.QUANTIZE != "force" and (verdict is None or not verdict["recommended"]):
-            reason = (
-                f"int8 measures {verdict['int8_speedup']:.2f}x bf16 on {arch} (holocron_tpu_torch.quant)"
-                if verdict is not None
-                else f"{arch} has no measured int8 verdict (holocron_tpu_torch.quant.INT8_VERDICTS)"
-            )
+            if verdict is None:
+                reason = f"{arch} has no measured int8 verdict (holocron_tpu_torch.quant.INT8_VERDICTS)"
+            elif verdict["int8_speedup"] >= 1.05:  # fast enough, vetoed by its gate on trained weights
+                reason = (f"int8 fails its agreement gate on trained weights on {arch} (the quality_veto of "
+                          "holocron_tpu_torch/models/_data/quant_policy.json)")
+            else:
+                reason = f"int8 measures {verdict['int8_speedup']:.2f}x bf16 on {arch} (holocron_tpu_torch.quant)"
             logging.getLogger(__name__).warning(
                 f"HOLOCRON_QUANTIZE requested but {reason}: serving float32; "
                 "set HOLOCRON_QUANTIZE=force to override"

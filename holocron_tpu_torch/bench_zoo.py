@@ -9,8 +9,10 @@ process (10 warm-up and 100 timed calls of the captured deploy forward, random w
 from a seed, ``reparametrize()`` first), one JSON line a model with the JAX script's
 keys: ``compile_s`` is the seconds the quantization and the graph's capture took, and
 ``form`` is ``"graph"`` (every model is captured on the card, ``"eager"`` on the CPU;
-the JAX script's ``const``/``args`` choice was a limit of a remote TPU compiler). A model that fails is written as an
-``error`` row and the sweep goes on. Runs on the card unless ``--device cpu``.
+the JAX script's ``const``/``args`` choice was a limit of a remote TPU compiler); a row
+made on the card also names it, ``device``: its name and power limit from
+``nvidia-smi``. A model that fails is written as an ``error`` row and the sweep goes on.
+Runs on the card unless ``--device cpu``.
 """
 
 import argparse
@@ -21,6 +23,7 @@ from typing import Dict, List, Optional
 import torch
 
 from .eval_latency import DTYPES, SEED, build_model, measure, timed_forward
+from .utils.misc import device_label
 
 __all__ = ["CLASSIFICATION", "DETECTION", "SEGMENTATION", "SIZES", "bench_one", "main"]
 
@@ -80,6 +83,7 @@ def main(args) -> List[Dict]:
     if args.archs:
         plan = [(a, t) for a, t in plan if a in args.archs]
 
+    label = device_label(device) if device.type == "cuda" else None
     rows = []
     for arch, task in plan:
         size = args.size or SIZES[task]
@@ -88,6 +92,8 @@ def main(args) -> List[Dict]:
                             quantize=args.quantize)
             if args.quantize:
                 row["quantized"] = True
+            if label is not None:
+                row["device"] = label
         except Exception as e:  # noqa: BLE001 — the sweep goes on past a model that fails
             row = {"arch": arch, "task": task, "error": f"{type(e).__name__}: {e}"}
             traceback.print_exc()

@@ -180,8 +180,8 @@ class YOLOv1(DetectionModel):
     predicting, a cell of the ``H x W`` grid, ``num_anchors`` boxes with their objectness
     and one class distribution shared by them.
 
-    The grid's size comes from ``input_shape`` (``(C, H, W)``: the input side over 64 on
-    the darknet24 layout),
+    The grid's size comes from ``input_shape`` (``(C, H, W)``: about the input side over 64
+    on the darknet24 layout, rounded as the convs and pools round it),
     which sizes the first linear layer (the JAX package infers it at init). The head
     flattens its input in NHWC order, as the JAX package does, so that its weights carry
     over unchanged. Weights are drawn from ``generator`` on the CPU, then moved to
@@ -228,8 +228,7 @@ class YOLOv1(DetectionModel):
             *conv_sequence(1024, 1024, act_layer, kernel_size=3, padding=1, **common),
             *conv_sequence(1024, 1024, act_layer, kernel_size=3, padding=1, **common),
         )
-        stride = 2 ** (len(layout) + 2)  # the stem, a max pool a group, block4's strided conv
-        self.grid = (input_shape[1] // stride, input_shape[2] // stride)
+        self.grid = tuple(self._grid_side(n, len(layout)) for n in input_shape[1:])
         cells = self.grid[0] * self.grid[1]
         self.classifier = nn.Sequential(
             nn.Flatten(),
@@ -240,6 +239,16 @@ class YOLOv1(DetectionModel):
         )
         init_darknet_weights(self, generator)
         self.to(device)
+
+    @staticmethod
+    def _grid_side(n: int, pools: int) -> int:
+        """The feature map's side for an input side ``n``: the stem's 7x7 stride-2 conv
+        (padding 3) rounds up, each group's 2x2 max pool down, block4's 3x3 stride-2 conv
+        (padding 1) up."""
+        n = -(-n // 2)
+        for _ in range(pools):
+            n //= 2
+        return -(-n // 2)
 
     def _outputs(self, x: torch.Tensor, target: Optional[Dict[str, torch.Tensor]]):
         out = self.block4(self.backbone(x))

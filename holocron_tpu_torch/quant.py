@@ -22,10 +22,14 @@
 are selected as in the JAX package: by the per-arch ``min_in_channels`` and
 ``quantize_strided`` fields of its ``models/_data/quant_policy.json``, of which
 :data:`QUANT_POLICY` is the port's own copy (with ``quality_veto``). The speed fields
-of that file were measured on a TPU and are not copied.
+of that file were measured on a TPU and are not copied: :data:`INT8_VERDICTS` reads the
+port's own ``models/_data/quant_policy.json``, generated from the card's rows
+(:mod:`.gen_quant_policy`).
 """
 
 import copy
+import json
+from pathlib import Path
 from typing import Callable, Dict, Iterable, List, Optional, Sequence
 
 import numpy as np
@@ -76,29 +80,15 @@ QUANT_POLICY: Dict[str, Dict] = {
 _SELECTION_FIELDS = ("min_in_channels", "quantize_strided")
 
 # The int8 form's speed against bf16 on the card, kept apart from QUANT_POLICY (whose
-# fields are the JAX file's, and the JAX file's speeds are TPU figures): int8 img/s over
-# bf16 img/s on an NVIDIA H100 80GB HBM3 at 700.00 W (PERF.md, section 6). repvgg_a0,
-# resnet50, rexnet1_0x: `HOLOCRON_INT8_AGREEMENT=0 python -m holocron_tpu_torch.bench
-# --arch <arch>` (batch 256, 224 px, both forms timed through the captured deploy
-# forward): 49,069 / 37,596, 10,571 / 13,054, 17,613 / 17,934 img/s. darknet53:
-# chip_smoke.py's darknet_serving (batch 256, 224 px, eager, CUDA events): 11,370 /
-# 12,772. yolov4: chip_smoke.py's detection_serving (batch 32, 608 px, the raw forward
-# through the captured deploy forward, CUDA events): 868 / 991. unet3p: chip_smoke.py's
-# segmentation_serving (batch 32, 256 px, 21 classes, through the captured deploy
-# forward, CUDA events): 85.49 / 85.78 ms a call. mobileone_s1 (reparametrized) and
-# convnext_tiny (LayerScale drawn at std 0.1): chip_smoke.py's *_serving_graphs lines
-# (batch 256, 224 px, through the captured deploy forward, CUDA events): 9.250 / 10.100
-# and 29.332 / 31.808 ms a call. `recommended` is int8_speedup >= 1.05, the JAX
-# policy's rule (scripts/gen_quant_policy.py:91).
+# fields are the JAX file's, and the JAX file's speeds are TPU figures): the port's own
+# models/_data/quant_policy.json, which gen_quant_policy.py writes from the card's
+# bench_zoo rows in models/_data/bench/ (each row names the card and its power limit),
+# `recommended` at int8_speedup >= 1.05 and vetoed where the card's trained-weight
+# quant_accuracy row fails its gate.
+_PORT_POLICY = Path(__file__).resolve().parent / "models" / "_data" / "quant_policy.json"
 INT8_VERDICTS: Dict[str, Dict] = {
-    "repvgg_a0": {"int8_speedup": 1.305, "recommended": True},
-    "resnet50": {"int8_speedup": 0.81, "recommended": False},
-    "rexnet1_0x": {"int8_speedup": 0.982, "recommended": False},
-    "darknet53": {"int8_speedup": 0.89, "recommended": False},
-    "yolov4": {"int8_speedup": 0.876, "recommended": False},
-    "unet3p": {"int8_speedup": 1.003, "recommended": False},
-    "mobileone_s1": {"int8_speedup": 1.092, "recommended": True},
-    "convnext_tiny": {"int8_speedup": 1.084, "recommended": True},
+    arch: {k: entry[k] for k in ("int8_speedup", "recommended")}
+    for arch, entry in json.loads(_PORT_POLICY.read_text()).items()
 }
 
 
@@ -112,8 +102,9 @@ def selection_policy(arch: str) -> Optional[Dict]:
 
 def recommended_quantization(arch: str) -> Optional[Dict]:
     """The measured int8-against-bf16 verdict for ``arch`` on the card,
-    ``{"int8_speedup": float, "recommended": bool}``, or None where it was not measured
-    (``holocron_tpu/quant.py:56-67``); the service then serves the float form."""
+    ``{"int8_speedup": float, "recommended": bool}`` from :data:`INT8_VERDICTS`, or None
+    where it was not measured (``holocron_tpu/quant.py:56-67``); the service then serves
+    the float form."""
     verdict = INT8_VERDICTS.get(arch)
     return None if verdict is None else dict(verdict)
 

@@ -1,5 +1,6 @@
 """Miscellaneous utilities, the port's copy of ``holocron_tpu/utils/misc.py``: a
-thread-pool map and the image-size finder of the classification CLI's ``--find-size``.
+thread-pool map and the image-size finder of the classification CLI's ``--find-size``;
+and the card's name and power limit that the benches write beside their numbers.
 """
 
 import multiprocessing as mp
@@ -13,7 +14,22 @@ import torch
 Inp = TypeVar("Inp")
 Out = TypeVar("Out")
 
-__all__ = ["find_image_size", "parallel"]
+__all__ = ["device_label", "find_image_size", "parallel"]
+
+
+def device_label(device: torch.device) -> str:
+    """The card's name and power limit as ``nvidia-smi --query-gpu=name,power.limit
+    --format=csv,noheader`` gives them (e.g. ``NVIDIA H100 80GB HBM3, 700.00 W``), or
+    ``cpu``."""
+    import subprocess
+
+    device = torch.device(device)
+    if device.type != "cuda":
+        return "cpu"
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    out = subprocess.run(["nvidia-smi", f"--id={index}", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
 
 
 def parallel(

@@ -327,10 +327,12 @@ def test_deploy_forward_matches_jax_softmax_fwd():
     np.testing.assert_array_equal(got.argmax(-1), want.argmax(-1))
 
 
-def test_load_model_quantized_follows_the_verdict(service_config, caplog):
+def test_load_model_quantized_follows_the_verdict(service_config, caplog, monkeypatch):
     """HOLOCRON_QUANTIZE=1 serves the int8 form where the card measured it faster
-    (repvgg_a0), the float form with a warning where it measured slower (rexnet1_0x)
-    or where nothing was measured; "force" quantizes regardless."""
+    (repvgg_a0), the float form with a warning where it measured slower (rexnet1_0x),
+    where a gate on trained weights vetoed it (a verdict made so: no fast arch is
+    vetoed) or where nothing was measured (an arch taken out of the verdicts); "force"
+    quantizes regardless."""
     import logging
 
     service_config.QUANTIZE = True
@@ -338,7 +340,13 @@ def test_load_model_quantized_follows_the_verdict(service_config, caplog):
     assert isinstance(model, quant.QuantizedModel)
     out = model(torch.randn(1, 3, 32, 32))
     assert out.shape == (1, 10) and torch.isfinite(out).all() and out.dtype == torch.float32
-    for arch, reason in (("rexnet1_0x", "measures 0.98x"), ("rexnet1_3x", "no measured int8 verdict")):
+    slow = quant.recommended_quantization("rexnet1_0x")
+    assert not slow["recommended"] and slow["int8_speedup"] < 1.05
+    monkeypatch.delitem(quant.INT8_VERDICTS, "rexnet1_3x")
+    monkeypatch.setitem(quant.INT8_VERDICTS, "mobileone_s1", {"int8_speedup": 1.2, "recommended": False})
+    for arch, reason in (("rexnet1_0x", f"measures {slow['int8_speedup']:.2f}x"),
+                         ("mobileone_s1", "fails its agreement gate on trained weights"),
+                         ("rexnet1_3x", "no measured int8 verdict")):
         with caplog.at_level(logging.WARNING):
             model = vision.load_model(arch, 10)
         assert not isinstance(model, quant.QuantizedModel)

@@ -4,6 +4,7 @@ its accuracy gate and cuDNN settings, and the card's int8 verdicts
 
 import functools
 import json
+from pathlib import Path
 
 import pytest
 import torch
@@ -13,6 +14,10 @@ from holocron_tpu_torch import bench, quant
 torch.set_num_threads(2)
 
 TINY = {"device": "cpu", "size": 32, "iters": 2, "warmup": 1}
+POLICY = Path(quant.__file__).resolve().parent / "models" / "_data" / "quant_policy.json"
+# the card's verdicts (quant_policy.json) for repvgg_a0, resnet50, rexnet1_0x, darknet53,
+# yolov4, unet3p, mobileone_s1 and convnext_tiny
+RECOMMENDED = [True, False, False, False, False, False, True, True]
 
 
 @pytest.fixture
@@ -94,16 +99,33 @@ def test_gate_and_timing_cudnn_settings(tiny, monkeypatch):
 
 
 def test_recommended_quantization_reads_the_card_verdicts():
-    """The archs the card measured have verdicts (recommended at >= 1.05x, the JAX
-    policy's rule); any other returns None. The verdicts are a table of their own, not
-    fields of QUANT_POLICY (the JAX file's copy)."""
+    """The archs the card measured have verdicts, read from the port's generated
+    ``models/_data/quant_policy.json`` (recommended at >= 1.05, the JAX policy's rule,
+    unless a quality veto pins it off); any other returns None. The verdicts are a table
+    of their own, not fields of QUANT_POLICY (the JAX file's copy)."""
+    policy = json.loads(POLICY.read_text())
     archs = ("repvgg_a0", "resnet50", "rexnet1_0x", "darknet53", "yolov4", "unet3p", "mobileone_s1", "convnext_tiny")
     verdicts = {arch: quant.recommended_quantization(arch) for arch in archs}
     assert all(set(v) == {"int8_speedup", "recommended"} for v in verdicts.values())
-    assert all(v["recommended"] == (v["int8_speedup"] >= 1.05) for v in verdicts.values())
-    assert [v["recommended"] for v in verdicts.values()] == [True, False, False, False, False, False, True, True]
-    for arch in ("rexnet1_3x", "resnet18", "mobileone_s0", "yolov2"):
+    assert all(v == {k: policy[arch][k] for k in v} for arch, v in verdicts.items())
+    assert all(v["recommended"] == (v["int8_speedup"] >= 1.05 and "quality_veto" not in policy[arch])
+               for arch, v in verdicts.items())
+    assert [v["recommended"] for v in verdicts.values()] == RECOMMENDED
+    for arch in ("not_an_arch", "repvgg_a0_s2d"):
         assert quant.recommended_quantization(arch) is None
     assert not any("int8_speedup" in e or "recommended" in e for e in quant.QUANT_POLICY.values())
     quant.recommended_quantization("repvgg_a0")["recommended"] = False  # a copy
     assert quant.recommended_quantization("repvgg_a0")["recommended"]
+
+
+def test_packaged_policy_loads_and_recommends_only_fast_unvetoed_archs():
+    """The packaged quant_policy.json loads: every arch has its speed fields, every
+    recommended one runs int8 at 1.05x bf16 or more with no quality veto, and every veto
+    quotes a row of the card's own quant_accuracy."""
+    policy = json.loads(POLICY.read_text())
+    assert len(policy) > 8 and all({"int8_speedup", "recommended"} <= set(e) for e in policy.values())
+    recommended = [e for e in policy.values() if e["recommended"]]
+    assert recommended and all(e["int8_speedup"] >= 1.05 and "quality_veto" not in e for e in recommended)
+    vetoes = [e["quality_veto"] for e in policy.values() if "quality_veto" in e]
+    assert vetoes and all("quant_accuracy" in v and "H100" in v for v in vetoes)
+    assert quant.INT8_VERDICTS.keys() == policy.keys()

@@ -241,6 +241,21 @@ def test_detection_model_contract(arch, offline):
     assert has_frozen == (arch != "yolov1")
 
 
+@pytest.mark.parametrize("side", [72, 100])
+def test_yolov1_grid_at_a_side_off_its_stride(side):
+    """At an input side that is not a multiple of the layout's stride (16 here; 64 for
+    darknet24, as yolov1 at 416 px), the head is sized for the feature map the convs and
+    pools give (the stem and block4 round up, the pools down), as the JAX package's
+    head, sized at init, has it: the same raw output shapes."""
+    module = jyolo["yolo"].YOLOv1(V1_LAYOUT, num_classes=NUM_CLASSES)
+    x = jnp.zeros((1, side, side, 3))
+    refs = module.apply(module.init(jax.random.key(0), x), x)
+    pm = detection.YOLOv1(V1_LAYOUT, num_classes=NUM_CLASSES, input_shape=(3, side, side), device="cpu").eval()
+    with torch.no_grad():
+        outs = pm.raw(torch.zeros(1, 3, side, side))
+    assert [tuple(o.shape) for o in outs] == [tuple(r.shape) for r in refs]
+
+
 def test_yolo_closed_form_losses():
     """``tests/test_models_detection.py``'s closed-form case on the port: crafted
     predictions, one box matched exactly."""

@@ -1437,3 +1437,30 @@ def test_checkpoint_directory_round_trip_on_the_card(cuda, tmp_path):
     for k, v in loaded.model.state_dict().items():
         assert v.is_cuda
         torch.testing.assert_close(v, want[k], rtol=0, atol=0, msg=k)
+
+
+def test_quant_accuracy_on_the_card_launches_the_int8_kernels(cuda, monkeypatch, tmp_path):
+    """``quant_accuracy`` on a tiny RepVGG (64 channels: its 3x3 int8 convs on the
+    ``wgmma`` route) for 5 steps on the card: the int8 forward launched the ``wgmma``
+    conv and the quantization, and the row has every key and names the card."""
+    import json
+
+    from holocron_tpu_torch import quant_accuracy as qa
+    from holocron_tpu_torch.kernels import KERNELS
+    from holocron_tpu_torch.models import RepVGG
+
+    def tiny(arch, device, size):
+        return RepVGG([1, 1], [64, 64], 1.0, 1.0, num_classes=10, device=device,
+                      generator=torch.Generator().manual_seed(0)).to(memory_format=torch.channels_last)
+
+    monkeypatch.setattr(qa, "build_model", tiny)
+    before = {k: KERNELS[k].launches for k in ("int8_conv", "int8_quantize")}
+    out = tmp_path / "rows.jsonl"
+    rows = qa.main(qa.parse_args(["--archs", "repvgg_a0", "--steps", "5", "--batch", "8", "--size", "32",
+                                  "--eval-batches", "1", "--out", str(out)]))
+    torch.cuda.synchronize()
+    assert all(KERNELS[k].launches > before[k] for k in before)
+    assert set(rows[0]) == {"arch", "task", "weights", "acc_bf16", "acc_int8", "top1_agreement", "max_prob_drift",
+                            "device", "steps", "seconds"}
+    assert rows[0]["device"].startswith(torch.cuda.get_device_name(0)) and rows[0]["device"].endswith(" W")
+    assert json.loads(out.read_text()) == rows[0] and 0.0 <= rows[0]["top1_agreement"] <= 1.0
