@@ -45,7 +45,10 @@ Phases, each printing one JSON line to stdout:
    fresh model (the loss must fall).
 7. ``resnet_training`` and ``rexnet_training``: resnet50 and rexnet1_0x in the same
    trainer and settings, one epoch of 4 batches (2 updates), ``evaluate()`` on one, and
-   a timed window of steps.
+   a timed window of steps. These two, ``training``, ``detection_training``,
+   ``classification_cli``, ``optim_zoo`` and ``detection_cli`` run with
+   ``cudnn.benchmark`` off (:func:`cudnn_heuristics`), as the trainers and the CLIs
+   leave it for a user; the rest of the script autotunes.
 8. ``involution_train``: ``Involution2d`` at the same shape, forward and backward
    through the module in bf16: the forward and both gradient kernels of the tiled route,
    which must launch, and none of the general route's. Its step time from CUDA events
@@ -157,7 +160,8 @@ Phases, each printing one JSON line to stdout:
    routes are checked (bit-exact quantization, also on inputs on its ties and beyond
    its clip; exact accumulator; outputs within one ulp) at each int8 layer geometry of
    repvgg_a0 (nine), resnet50 (22), rexnet1_0x (44), darknet53 (13), unet3p (30, at
-   its path's batch of 32), mobileone_s1 (7) and convnext_tiny (11) at batch 8 and 32
+   its path's batch of 32, where the float64 plain versions run on its first and last
+   image), mobileone_s1 (7) and convnext_tiny (11) at batch 8 and 32
    (an ``int8_sums_by_kernel`` line after each of the last two: the 1x1 and 2x2
    stride-2 layers' sums against cuDNN bf16 and ``torch._int_mm``; then the same
    for resnet50 and rexnet1_0x), checked again
@@ -192,15 +196,20 @@ Phases, each printing one JSON line to stdout:
 
 23. The script ports' phases (after ``latency_and_zoo``): ``quant_accuracy``, the port of
    ``scripts/quant_accuracy.py`` on repvgg_a0 at its defaults (300 Adam steps on the
-   synthetic 10-class task, batch 64, 64 px; the bf16 deploy form and the selective-int8
-   form on 4 held-out batches; its row printed, the agreement not held: a non-finite
-   loss or bf16 accuracy below 0.9 fails); ``quant_policy``, ``bench_zoo`` on repvgg_a0
-   and resnet50 at batch 128 in bf16 and int8 into a temporary directory, then
-   ``gen_quant_policy`` and ``gen_bench_table`` on those rows (the policy's keys and its
-   1.05 rule held); ``input_pipeline``, ``bench_input_pipeline`` with PIL on 128
+   synthetic 10-class task, batch 64, 64 px; the reference form and the selective-int8
+   form on 4 held-out batches, both float32 over bf16-rounded weights with TF32 off; its
+   row printed, the agreement not held: a non-finite loss, bf16 accuracy below 0.9, an
+   int8 conv that took or wrote anything but float32, TF32 on during calibration or the
+   forms (the flags set on just before them), or the flags not restored after fails);
+   ``quant_policy``, ``bench_zoo`` on repvgg_a0 and resnet50 at batch 128 in bf16 and
+   int8 into a temporary directory, then ``gen_quant_policy`` and ``gen_bench_table`` on
+   those rows (the policy's keys and its 1.05 rule held); ``input_pipeline``, ``bench_input_pipeline`` with PIL on 128
    synthesized JPEGs and 2 spawned workers; ``demo``, ``demo.make_predict`` over the
    service's batcher (rexnet1_0x, float32) on one synthesized 224 px image: three of the
    model's labels, their probabilities summing to at most 1.
+24. ``bench_b1`` (after ``demo``): the port of ``scripts/bench_b1.py`` on repvgg_a0 and
+   rexnet1_0x at ``--it 20`` (batch 1, 224 px, bf16, the captured forward): an error
+   row, a ``device_ms`` not above 0, or one more than 5% above ``queued_ms`` fails.
 
 Each kernel's launch counter is set to 0 just before the path that runs it and read
 just after; a kernel that its path never launched fails the run (a graph replay makes
@@ -217,6 +226,7 @@ directory that holds this script without the package.
 """
 
 import copy
+import functools
 import io
 import json
 import math
@@ -267,6 +277,22 @@ def timed(fn, *args, **kwargs):
     label = " ".join([fn.__name__, *(a for a in args if isinstance(a, str))])
     print(f"chip_smoke: {label} took {time.perf_counter() - t0:.1f} s", file=sys.stderr, flush=True)
     return out
+
+
+def cudnn_heuristics(phase):
+    """``phase`` with cuDNN's heuristics picking the convs' algorithms (``cudnn.benchmark``
+    off, PyTorch's default, which the trainers and the CLIs leave as it is: what a user's
+    run of them gets), where the rest of the script autotunes. Autotuning each new conv
+    shape, forward and backward, took most of these phases' time."""
+
+    @functools.wraps(phase)
+    def run(*args, **kwargs):
+        from holocron_tpu_torch.models.core import cudnn_settings
+
+        with cudnn_settings(benchmark=False):
+            return phase(*args, **kwargs)
+
+    return run
 
 
 def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
@@ -913,29 +939,33 @@ def within_ulp(got, ref, ulp: float, what: str) -> float:
 
 
 def _int8_case_holds(name, route, xn, s_x, w_q, w_packed, w_scale, bias, stride, padding, dilation, groups,
-                     max_err) -> None:
+                     max_err, images=None) -> None:
     """One int8 conv on the card against its plain versions: quantized activations
     equal, the int32 accumulator equal, float32 output within one float32 ulp and bf16
     output within one bf16 ulp of the plain epilogue (bit for bit on the pointwise
-    route), through ``int8_conv`` and ``quantized_conv``. Keeps the largest bf16 error
-    of each route in ``max_err``."""
+    route), through ``int8_conv`` and ``quantized_conv``. The kernels run on the whole
+    batch; where ``images`` (indices) is given, the float64 plain convs run on those
+    images alone and are held against the same images of the kernels' results. Keeps
+    the largest bf16 error of each route in ``max_err``."""
     import torch
 
     from holocron_tpu_torch.kernels import int8_conv as K
 
+    pick = (lambda t: t) if images is None else (lambda t: t[list(images)])
     x_q = K.quantize_activation(xn, s_x)
     if not torch.equal(x_q, K.quantize_activation_plain(xn, s_x)):
         fail(f"int8_quantize {name}: differs from quantize_activation_plain")
     acc = K.int8_conv_acc(x_q, w_q, stride, padding, dilation, w_packed=w_packed, groups=groups)
-    if not torch.equal(acc, K.int8_conv_acc_plain(x_q, w_q, stride, padding, dilation, groups)):
+    if not torch.equal(pick(acc), K.int8_conv_acc_plain(pick(x_q), w_q, stride, padding, dilation, groups)):
         fail(f"int8 conv {name} ({route}): int32 accumulator differs from the float64 plain conv")
+    del acc
     for dtype, ulp in ((torch.float32, 2.0**-23), (torch.bfloat16, 2.0**-7)):
-        ref = K.int8_conv_plain(x_q, w_q, s_x, w_scale, bias, stride, padding, dilation, dtype, groups).float()
+        ref = K.int8_conv_plain(pick(x_q), w_q, s_x, w_scale, bias, stride, padding, dilation, dtype, groups).float()
         outs = [K.int8_conv(x_q, w_q, s_x, w_scale, bias, stride, padding, dilation, groups, out_dtype=dtype,
                             w_packed=w_packed),
                 K.quantized_conv(xn, s_x, w_q, w_scale, bias, stride, padding, dilation, out_dtype=dtype,
                                  w_packed=w_packed, groups=groups)]
-        for got in outs:
+        for got in map(pick, outs):
             err = within_ulp(got, ref, ulp, f"int8 conv {name} ({route}) {dtype}")
             if route == "pointwise" and not torch.equal(got.float(), ref.to(dtype).float()):
                 fail(f"int8 conv {name} (pointwise) {dtype}: differs from the plain version's bits")
@@ -977,7 +1007,7 @@ def int_mm_ms(x_q, w_packed, o: int, acc, iters: int) -> tuple:
 
 
 def _time_int8_geometry(xin, w_q, w_packed, s_x, w_scale, bias, stride, padding, dilation, groups, cudnn,
-                        iters: int) -> dict:
+                        iters: int, images=None) -> dict:
     """At the path's batch: quantized activations and bf16 outputs (of the conv and of
     the route) held against the plain versions, then device time from CUDA graphs of
     the route (quantize + conv), each of its two kernels, ``cudnn`` (cuDNN's bf16 conv of
@@ -985,11 +1015,15 @@ def _time_int8_geometry(xin, w_q, w_packed, s_x, w_scale, bias, stride, padding,
     wgmma conv forced on the same operands (``conv_wgmma_ms``; its bf16 output and
     accumulator equal to the pointwise route's, bit for bit) and ``torch._int_mm`` (its
     int32 product checked against the accumulator first; the call alone, no epilogue),
-    and the plain version, beside the bounds."""
+    and the plain version, beside the bounds. Where ``images`` (indices) is given, the
+    plain version runs, is timed and is held against the kernels on those images alone
+    (``plain_images`` in the row; the exact accumulator of a pointwise conv is still the
+    whole batch's)."""
     import torch
 
     from holocron_tpu_torch.kernels import int8_conv as K
 
+    pick = (lambda t: t) if images is None else (lambda t: t[list(images)])
     xn = xin.permute(0, 2, 3, 1)
     kh, kw, c, o = w_q.shape
     route = K.conv_route(c, o, groups, kernel_size=(kh, kw), stride=stride, padding=padding)
@@ -1000,10 +1034,10 @@ def _time_int8_geometry(xin, w_q, w_packed, s_x, w_scale, bias, stride, padding,
     y = K.int8_conv(x_q, w_q, *args, out_dtype=torch.bfloat16, w_packed=w_packed)
     y_route = K.quantized_conv(xn, s_x, w_q, *args[1:-1], out_dtype=torch.bfloat16, w_packed=w_packed, groups=groups)
     n, oh, ow, _ = y.shape
-    plain = {}
+    plain, x_q_plain = {}, pick(x_q)
 
     def run_plain():
-        plain["y"] = K.int8_conv_plain(x_q, w_q, *args[:-1], torch.bfloat16, groups)
+        plain["y"] = K.int8_conv_plain(x_q_plain, w_q, *args[:-1], torch.bfloat16, groups)
 
     gemm = route == "pointwise"
     with torch.no_grad():
@@ -1018,6 +1052,7 @@ def _time_int8_geometry(xin, w_q, w_packed, s_x, w_scale, bias, stride, padding,
             "conv_wgmma_ms": None,
             "int_mm_ms": None,
             "plain_ms": cuda_ms(run_plain, 2, 1),
+            "plain_images": None if images is None else list(images),
             "quantize_plain_ms": cuda_ms(lambda: K.quantize_activation_plain(xn, s_x), 2, 1),
         }
         if gemm:
@@ -1035,7 +1070,7 @@ def _time_int8_geometry(xin, w_q, w_packed, s_x, w_scale, bias, stride, padding,
             row["int_mm_ms"], row["int_mm_mkn"] = int_mm_ms(x_q, w_packed, o, acc, iters)
     ref = plain["y"].float()
     for what, got in (("int8_conv", y), ("quantized_conv", y_route)):
-        within_ulp(got, ref, 2.0**-7, f"{what} {tuple(xin.shape)} {tuple(w_q.shape)} bf16")
+        within_ulp(pick(got), ref, 2.0**-7, f"{what} {tuple(xin.shape)} {tuple(w_q.shape)} bf16")
     # The conv (either route) reads int8 x once, the int8 weights once and writes bf16 y
     # once; 2 operations per multiply-accumulate. The route (quantize + conv) reads bf16
     # x instead; the prologue alone moves 3 bytes an element.
@@ -1082,14 +1117,16 @@ def rexnet_int8_by_kind(rows: list) -> dict:
     return out
 
 
-def check_int8(device, qm, model_bf16, x, model: str = "repvgg_a0", iters: int = 20) -> dict:
+def check_int8(device, qm, model_bf16, x, model: str = "repvgg_a0", iters: int = 20, plain_images=None) -> dict:
     """The int8 route against its plain versions at each distinct int8 layer geometry
     of the served ``model`` (inputs captured from it at batch 8 and 32), at a 256 -> 256,
     14x14 layer and at a 3x3 layer of odd widths, 12 -> 20 (``_int8_case_holds``;
     quantization also on inputs built on its ties and beyond its clip). Then each
     geometry at the path's batch of 256 (``_time_int8_geometry``). Per-forward sums
     are kept apart by route (``wgmma``, ``pointwise``, ``general``); the record
-    returned also holds the geometries' rows (``rows``)."""
+    returned also holds the geometries' rows (``rows``). Where ``plain_images``
+    (indices) is given, the float64 plain versions at the path's batch run on those
+    images alone, held against the same images of the kernels' whole-batch results."""
     import torch
     from torch.nn import functional as F
 
@@ -1129,21 +1166,23 @@ def check_int8(device, qm, model_bf16, x, model: str = "repvgg_a0", iters: int =
     gen = torch.Generator(device=device).manual_seed(SEED + 3)
     cases = [(f"{key} batch {b}", g["module"].kernel_q, g["module"].kernel_packed, g["module"].w_scale,
               g["module"].act_scale, g["module"].bias, g["module"].stride, g["module"].padding, g["module"].dilation,
-              g["module"].groups, g["x"][b]) for key, g in geometries.items() for b in (8, 32)]
+              g["module"].groups, g["x"][b], plain_images if b == x.shape[0] else None)
+             for key, g in geometries.items() for b in (8, 32)]
     for c, o, hw in ((256, 256, 14), (12, 20, 15)):
         w_q = torch.randint(-127, 128, (3, 3, c, o), generator=gen, device=device, dtype=torch.int8)
         xin = torch.randn(32, c, hw, hw, generator=gen, device=device).to(torch.bfloat16)
         cases.append((f"synthetic {c}->{o} {hw}x{hw}", w_q, None, torch.rand(o, generator=gen, device=device) / 127,
                       xin.abs().amax().float() / 127, torch.randn(o, generator=gen, device=device), (1, 1), (1, 1),
-                      (1, 1), 1, xin.contiguous(memory_format=torch.channels_last)))
+                      (1, 1), 1, xin.contiguous(memory_format=torch.channels_last), None))
     max_err = {"wgmma": 0.0, "pointwise": 0.0, "general": 0.0}
     checked = []
-    for name, w_q, w_packed, w_scale, s_x, bias, stride, padding, dilation, groups, xin in cases:
+    for name, w_q, w_packed, w_scale, s_x, bias, stride, padding, dilation, groups, xin, images in cases:
         route = K.conv_route(w_q.shape[2], w_q.shape[3], groups, kernel_size=w_q.shape[:2], stride=stride,
                              padding=padding)
         _int8_case_holds(name, route, xin.permute(0, 2, 3, 1), s_x, w_q, w_packed, w_scale, bias, stride, padding,
-                         dilation, groups, max_err)
-        checked.append({"layer": name, "route": route, "x": list(xin.shape), "w_hwio": list(w_q.shape)})
+                         dilation, groups, max_err, images)
+        checked.append({"layer": name, "route": route, "x": list(xin.shape), "w_hwio": list(w_q.shape),
+                        **({} if images is None else {"plain_images": list(images)})})
 
     # -- checks again and timing at the path's batch
     totals = {"wgmma": {}, "pointwise": {}, "general": {}}
@@ -1157,7 +1196,7 @@ def check_int8(device, qm, model_bf16, x, model: str = "repvgg_a0", iters: int =
         row = _time_int8_geometry(
             xin, m.kernel_q, m.kernel_packed, m.act_scale, m.w_scale, m.bias, m.stride, m.padding, m.dilation,
             m.groups, lambda: F.conv2d(xin, deploy.weight, deploy.bias, deploy.stride, deploy.padding, deploy.dilation,
-                                       deploy.groups), iters)
+                                       deploy.groups), iters, plain_images)
         row["count"] = g["count"]
         rows.append(row)
         route = row["route"]
@@ -1414,6 +1453,7 @@ def time_train_steps(trainer, batches, steps: int) -> float:
     return start.elapsed_time(end) / steps
 
 
+@cudnn_heuristics
 def phase_training(device, batch: int = 128, size: int = 224, num_classes: int = 10, timed_steps: int = 6):
     import torch
 
@@ -1464,6 +1504,7 @@ def phase_training(device, batch: int = 128, size: int = 224, num_classes: int =
     emit({"phase": "training_profile", **profile})
 
 
+@cudnn_heuristics
 def phase_arch_training(device, arch: str = "resnet50", phase: str = "resnet_training", batch: int = 128,
                         size: int = 224, num_classes: int = 10, timed_steps: int = 4):
     """``arch`` in the trainer of ``phase_training``, with the same settings: one epoch
@@ -1991,7 +2032,7 @@ def _yolov4_for_serving(device, num_classes: int, size: int, gen):
     return model.eval()
 
 
-def phase_detection_serving(device, size: int = 608, num_classes: int = 80, batches=(8, 32), iters: int = 10) -> tuple:
+def phase_detection_serving(device, size: int = 608, num_classes: int = 80, batches=(8, 32), iters: int = 5) -> tuple:
     """yolov4 served at full width (608 px, 80 classes; its anchors are normalized to
     608): bf16 and selective int8 (calibrated on a batch of 8 in float32, float
     remainder in bf16; post-processing in float32) at batch 8 and 32, eager and through
@@ -2208,6 +2249,7 @@ def _losses_and_grads(trainer, x, target) -> tuple:
     return {k: float(v.detach()) for k, v in losses.items()}, finite
 
 
+@cudnn_heuristics
 def phase_detection_training(device, batch: int = 8, steps: int = 4) -> None:
     """yolov2 at 416 px (20 classes) in the detection reference's trainer: an epoch of
     4 synthetic batches through ``fit_n_epochs`` (onecycle, lr 1e-4), which ends with
@@ -2743,6 +2785,7 @@ def _cli_run(argv: list, what: str, task: str = "classification") -> dict:
             "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30}
 
 
+@cudnn_heuristics
 def phase_classification_cli(device, workers: int = 2) -> None:
     """The classification CLI's ``main()`` run in this process on the card, twice.
 
@@ -2819,6 +2862,7 @@ def phase_classification_cli(device, workers: int = 2) -> None:
 OPTIM_ZOO = ("lars", "ralars", "adan", "ademamix", "lookahead_adamp", "scout_adamp")
 
 
+@cudnn_heuristics
 def phase_optim_zoo(device, batch: int = 64, size: int = 224, num_classes: int = 10, steps: int = 3) -> None:
     """3 train steps of mobileone_s1 (batch 64, 224 px, amp, label-smoothed
     cross-entropy) under each of LARS (momentum 0.9), RaLars, Adan, AdEMAMix, and
@@ -2908,6 +2952,24 @@ def _write_detection_folder(root, train: int = 16, val: int = 8) -> None:
                 json.dumps({"boxes": boxes.tolist(), "labels": rng.integers(0, 20, n).tolist()}))
 
 
+# the detection CLI's ``--check-setup`` in a process of its own (argv: the repository, then
+# the CLI's arguments): its ``main()``, then one line of the ten losses and whether the
+# model is on the card
+CHECK_SETUP_PROGRAM = """
+import json, sys
+sys.path.insert(0, sys.argv[1])
+from holocron_tpu_torch.references.detection import train
+from holocron_tpu_torch.trainer import DetectionTrainer
+losses = []
+check_setup = DetectionTrainer.check_setup
+DetectionTrainer.check_setup = lambda self, *a, **k: losses.extend(check_setup(self, *a, **k)) or losses
+trainer = train.main(train.parse_args(sys.argv[2:]))
+on_card = all(p.device.type == "cuda" for p in trainer.model.parameters())
+print("check_setup_record " + json.dumps({"losses": losses, "on_card": on_card}))
+"""
+
+
+@cudnn_heuristics
 def phase_detection_cli(device, workers: int = 2) -> None:
     """The detection CLI's ``main()`` in this process on the card at the JAX CLI's
     defaults (yolov2, darknet19, 20 classes, 416 px, batch 8, 50 boxes a target, TAdam at
@@ -2919,11 +2981,16 @@ def phase_detection_cli(device, workers: int = 2) -> None:
     varied sizes, a quarter PNG, with JSON labels): one epoch of 2 steps and the
     evaluation, then ``--test-only --resume`` on the checkpoint it wrote, whose printed
     error rates must be the run's. (c) ``--check-setup`` on ``fake`` (10 steps on one
-    batch, ``-j 0``): the loss must fall. Printed: ms of the steps after the first (CUDA
-    events) and the host's wait on the loader before each, ms a step of the CLI's
-    trainer on device batches (a steady window of 4), peak memory, the evaluations'
-    error rates. Every loss finite and on the card, the model on the card."""
-    import contextlib
+    batch, ``-j 0``) in a ``python`` process of its own (:data:`CHECK_SETUP_PROGRAM`), as a
+    user starts it: the loss must fall. The ten steps at random weights are fragile: a
+    run of this script that had done its earlier phases in this process read the CLI's
+    first loss 145.10-145.51 (every fresh process on the card: 144.937, whatever the
+    cuDNN flags), and one of those in-process runs rose to 342.0 by the tenth step; the
+    JAX CLI's own ten steps are not monotone either. Printed: ms of the steps after the
+    first (CUDA events) and the host's wait on the loader before each, ms a step of the
+    CLI's trainer on device batches (a steady window of 4), peak memory, the
+    evaluations' error rates, (c)'s ten losses and the card's free memory before it.
+    Every loss finite and on the card, the model on the card."""
     import tempfile
 
     import numpy as np
@@ -2976,21 +3043,24 @@ def phase_detection_cli(device, workers: int = 2) -> None:
         del run, resumed
         torch.cuda.empty_cache()
 
-        output = io.StringIO()
+        free_gib = torch.cuda.mem_get_info(device)[0] / 2**30 if device.type == "cuda" else None
         t0 = time.perf_counter()
-        with contextlib.redirect_stdout(output):
-            trainer = train.main(train.parse_args(["fake", "--amp", "-j", "0", "--device", str(device), "--check-setup",
-                                                   "--output-file", str(tmp / "setup.pt")]))
+        proc = subprocess.run([sys.executable, "-c", CHECK_SETUP_PROGRAM, str(ROOT), "fake", "--amp", "-j", "0",
+                               "--device", str(device), "--check-setup", "--output-file", str(tmp / "setup.pt")],
+                              capture_output=True, text=True, timeout=300)
         seconds = time.perf_counter() - t0
-        print(output.getvalue(), file=sys.stderr)
-        line = next((x for x in output.getvalue().splitlines() if x.startswith("overfit-one-batch losses")), None)
-        if line is None or any(p.device.type != "cuda" for p in trainer.model.parameters()):
-            fail(f"detection_cli (c): no check-setup line, or the model left the card: {output.getvalue()[-400:]}")
+        print(proc.stdout, file=sys.stderr)
+        lines = proc.stdout.splitlines()
+        line = next((x for x in lines if x.startswith("overfit-one-batch losses")), None)
+        run = next((json.loads(x.split(" ", 1)[1]) for x in lines if x.startswith("check_setup_record ")), None)
+        if proc.returncode != 0 or line is None or run is None or not run["on_card"]:
+            fail(f"detection_cli (c): rc {proc.returncode}, no check-setup line, or the model left the card: "
+                 f"{proc.stdout[-400:]}{proc.stderr[-2000:]}")
         first, last = (float(v) for v in line.split(":")[1].split("->"))
         if not (math.isfinite(first) and math.isfinite(last) and last < first):
-            fail(f"detection_cli (c): check-setup losses {first} -> {last}, expected a fall")
-        records["c_check_setup"] = {"steps": 10, "first_loss": first, "last_loss": last, "seconds": seconds}
-        del trainer
+            fail(f"detection_cli (c): check-setup losses {first} -> {last}, expected a fall ({run['losses']})")
+        records["c_check_setup"] = {"steps": 10, "first_loss": first, "last_loss": last, "losses": run["losses"],
+                                    "process": "own", "free_memory_gib_before": free_gib, "seconds": seconds}
     torch.cuda.empty_cache()
     emit({"phase": "detection_cli", "workers": workers, **records})
 
@@ -3246,18 +3316,59 @@ def phase_quant_accuracy(device) -> dict:
     of Adam, batch 64, 64 px, 4 evaluation batches, the int8 form calibrated on 2): its
     row printed. Fails on a non-finite final loss, bf16 accuracy below 0.9 or an int8
     forward that launched no ``wgmma`` conv or quantization; the agreement is printed,
-    not held. Returns the int8 launches."""
+    not held. The gate's forms are held to the JAX script's arithmetic: the TF32 flags are
+    set on just before ``measure_trained`` (after training), a global forward hook sees
+    every conv called without autograd (calibration and both forms), and the phase fails
+    where a ``QuantizedConv2d`` took or wrote anything but float32, where TF32 was on in
+    such a call, or where ``measure_trained`` did not leave both flags on again. Returns
+    the int8 launches."""
+    import torch
+
     from holocron_tpu_torch import quant_accuracy
+    from holocron_tpu_torch.quant import QuantizedConv2d
+
+    cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
+    saved = cudnn.allow_tf32, matmul.allow_tf32
+    seen = {"convs": 0, "int8_convs": 0, "tf32_on": 0, "int8_dtypes": set(), "tf32_restored": []}
+    measure_trained = quant_accuracy.measure_trained
+
+    def hook(module, args, out):
+        if torch.is_grad_enabled() or not isinstance(module, (QuantizedConv2d, torch.nn.Conv2d)):
+            return
+        seen["convs"] += 1
+        seen["tf32_on"] += int(cudnn.allow_tf32 or matmul.allow_tf32)
+        if isinstance(module, QuantizedConv2d):
+            seen["int8_convs"] += 1
+            seen["int8_dtypes"].add(f"{args[0].dtype} -> {out.dtype}")
+
+    def measured(*args, **kwargs):  # "off" in the forms must be the gate's own doing
+        cudnn.allow_tf32 = matmul.allow_tf32 = True
+        try:
+            row = measure_trained(*args, **kwargs)
+            seen["tf32_restored"].append(cudnn.allow_tf32 and matmul.allow_tf32)
+            return row
+        finally:
+            cudnn.allow_tf32, matmul.allow_tf32 = saved
 
     reset_counts()
-    row = quant_accuracy.main(quant_accuracy.parse_args(["--archs", "repvgg_a0", "--device", str(device)]))[0]
+    handle = torch.nn.modules.module.register_module_forward_hook(hook)
+    quant_accuracy.measure_trained = measured
+    try:
+        row = quant_accuracy.main(quant_accuracy.parse_args(["--archs", "repvgg_a0", "--device", str(device)]))[0]
+    finally:
+        quant_accuracy.measure_trained = measure_trained
+        handle.remove()
     launches = int8_launches()
+    forms = {**seen, "int8_dtypes": sorted(seen["int8_dtypes"])}
     loss = float(row["weights"].rsplit("loss ", 1)[1].rstrip(")"))
     if not math.isfinite(loss) or row["acc_bf16"] < 0.9:
         fail(f"quant_accuracy: final loss {loss}, bf16 accuracy {row['acc_bf16']}")
     if not launches["int8_conv"] or not launches["int8_quantize"]:
         fail(f"quant_accuracy: the int8 forwards launched {launches}")
-    emit({"phase": "quant_accuracy", "row": row, "launches": launches})
+    if (not seen["int8_convs"] or forms["int8_dtypes"] != ["torch.float32 -> torch.float32"] or seen["tf32_on"]
+            or seen["tf32_restored"] != [True]):
+        fail(f"quant_accuracy: the gate's forms {forms}")
+    emit({"phase": "quant_accuracy", "row": row, "forms": forms, "launches": launches})
     return launches
 
 
@@ -3337,6 +3448,21 @@ def phase_demo(device) -> None:
             or not all(math.isfinite(p) and p >= 0 for p in probs) or sum(probs) > 1.0 + 1e-6):
         fail(f"demo: {top3}")
     emit({"phase": "demo", "top3": top3, "seconds": round(seconds, 3)})
+
+
+def phase_bench_b1(device, it: int = 20) -> None:
+    """``bench_b1``'s ``main()`` on repvgg_a0 and rexnet1_0x at ``--it 20``: batch 1,
+    224 px, bf16, the captured forward. Fails on an error row, a ``device_ms`` not above
+    0, or a ``device_ms`` more than 5% above ``queued_ms`` (the kernels of a forward
+    cannot take longer than the forwards queued back to back)."""
+    from holocron_tpu_torch import bench_b1
+
+    rows = bench_b1.main(bench_b1.parse_args(["--archs", "repvgg_a0", "rexnet1_0x", "--it", str(it), "--device",
+                                              str(device)]))
+    bad = [r for r in rows if "error" in r or not r["device_ms"] > 0 or r["device_ms"] > 1.05 * r["queued_ms"]]
+    if bad or len(rows) != 2:
+        fail(f"bench_b1: rows {rows}")
+    emit({"phase": "bench_b1", "rows": rows})
 
 
 def phase_profiling(device, batch: int = 256, size: int = 224) -> None:
@@ -4398,6 +4524,7 @@ def main() -> int:
     policy_launches = timed(phase_quant_policy, device)
     timed(phase_input_pipeline, device)
     timed(phase_demo, device)
+    timed(phase_bench_b1, device)
     inv = timed(check_involution, device)
     inv_bwd = timed(check_involution_bwd, device)
     add = timed(check_add2d, device)
@@ -4407,7 +4534,10 @@ def main() -> int:
     i8_resnet = timed(check_int8, device, rqm, rmodel_bf16, rx, "resnet50")
     i8_rexnet = timed(check_int8, device, xqm, xmodel_bf16, xx, "rexnet1_0x")
     timed(check_int8, device, dqm, dmodel_bf16, dx, "darknet53")
-    timed(check_int8, device, sqm, smodel_bf16, sx, "unet3p")
+    # at batch 32 unet3p's activations reach 2^31 elements (the wgmma conv then runs in
+    # launches of whole images) and its float64 plain convs would take most of the
+    # check's time: they run on the first and the last image there
+    timed(check_int8, device, sqm, smodel_bf16, sx, "unet3p", plain_images=(0, -1))
     del sqm, smodel_bf16, sx
     i8_more = []
     for qmodel, bf16, xb, arch in ((mqm, mmodel_bf16, mx, "mobileone_s1"), (cqm, cmodel_bf16, cx, "convnext_tiny")):

@@ -15,22 +15,14 @@ import argparse
 import json
 from typing import Dict, List, Optional
 
+from .bench_b1 import REFERENCE_B1_MS
+
 __all__ = ["REF_GPU_MS", "load", "main", "main_b1"]
 
 # The reference's own GPU, from original Holocron's README: batch-1 mean latency in ms
 # on an RTX 2070 Max-Q (with an i7-10750H), 224 px, reparametrized where the model can
 # be (scripts/gen_bench_table.py:15-27).
-REF_GPU_MS = {
-    "repvgg_a0": 3.14, "repvgg_a1": 4.13, "repvgg_a2": 7.35, "repvgg_b0": 4.23,
-    "repvgg_b1": 12.48, "repvgg_b2": 20.12, "repvgg_b3": 24.94,
-    "rexnet1_0x": 6.01, "rexnet1_3x": 6.43, "rexnet1_5x": 6.46,
-    "rexnet2_0x": 6.75, "rexnet2_2x": 6.92,
-    "sknet50": 11.40, "sknet101": 23.55, "sknet152": 69.81,
-    "tridentnet50": 16.62, "res2net50_26w_4s": 9.25, "resnet50d": 36.97,
-    "pyconv_resnet50": 20.03, "pyconvhg_resnet50": 38.41,
-    "darknet24": 3.94, "darknet19": 3.17, "darknet53": 7.12,
-    "cspdarknet53": 6.41, "cspdarknet53_mish": 6.88,
-}
+REF_GPU_MS = {arch: gpu for arch, (gpu, _) in REFERENCE_B1_MS.items()}
 
 
 def load(path: str) -> Dict[str, Dict]:
@@ -51,7 +43,8 @@ def _card(rows: Dict[str, Dict]) -> str:
 
 def main_b1(args) -> List[str]:
     """A batch-1 table (rows with ``device_ms``) head to head with the reference's own
-    batch-1 figures; returns the printed lines."""
+    batch-1 figures; returns the printed lines. A row whose kernel sum is above its
+    queued time (``device_ms_exceeds_queued``) gets no speedup."""
     rows = load(args.jsonl)
     ordered = sorted(rows.values(), key=lambda r: r["device_ms"])
     lines = [f"| Arch | {_card(rows)} device ms (b=1) | reference GPU ms | reference CPU ms | vs GPU |",
@@ -60,6 +53,8 @@ def main_b1(args) -> List[str]:
         gpu = f"{r['ref_gpu_ms']:.2f}" if r.get("ref_gpu_ms") else "—"
         cpu = f"{r['ref_cpu_ms']:.2f}" if r.get("ref_cpu_ms") else "—"
         speed = f"**{r['speedup_vs_ref_gpu']:.1f}x**" if r.get("speedup_vs_ref_gpu") else "—"
+        if r.get("device_ms_exceeds_queued"):
+            speed = f"— (device ms above queued {r['queued_ms']:.3f})"
         lines.append(f"| {r['arch']} | {r['device_ms']:.3f} | {gpu} | {cpu} | {speed} |")
     print("\n".join(lines))  # noqa: T201
     return lines

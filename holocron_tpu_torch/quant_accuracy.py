@@ -7,11 +7,15 @@
 The offline protocol (``quant_accuracy.py:1-19``): each arch is trained on a learnable
 synthetic task drawn from seeds (10 classes of correlated noise and class templates; for
 segmenters ellipse blobs of a class colour; for detectors class-coloured rectangles and
-their boxes) until it separates them, then measured in its bf16 deploy form and its
+their boxes) until it separates them, then measured in the two forms the JAX script
+builds (:func:`gate_forms`): the reference form, which the rows call "bf16", and the
 selective-int8 form (:func:`~holocron_tpu_torch.quant.quantize_model`, calibrated on two
-batches, its float remainder in bf16): each form's accuracy against the task's truth and
-the int8 gate against bf16 (top-1 agreement and the largest softmax drift; pixel
-agreement and mean mask IoU; box-F1 over the threshold ladder of
+batches). Both compute what the script computes: float32 activations over weights
+rounded through bf16 (the script casts the variables and not the images, and flax
+promotes a float32 input over bf16 parameters to float32), the int8 convs writing
+float32, with TF32 off (:func:`exact_float32`). Each form's accuracy against the task's
+truth and the int8 gate against the reference (top-1 agreement and the largest softmax
+drift; pixel agreement and mean mask IoU; box-F1 over the threshold ladder of
 :func:`detection_ladder`). ``--checkpoint arch=path`` measures the ``torch.save`` state
 dict at ``path`` instead of training.
 
@@ -27,11 +31,12 @@ draws give the JAX script's images. Runs on the card unless ``--device cpu``.
 """
 
 import argparse
+import contextlib
 import copy
 import json
 import math
 import time
-from typing import Callable, Dict, List, Optional, Sequence
+from typing import Callable, Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -46,12 +51,15 @@ __all__ = [
     "detection_ladder",
     "evaluate",
     "evaluate_dense",
+    "exact_float32",
+    "gate_forms",
     "infer_task",
     "main",
     "make_det_task",
     "make_seg_task",
     "make_task",
     "measure_detection",
+    "measure_trained",
     "segmentation_draws",
     "segmentation_images",
     "train",
@@ -356,10 +364,10 @@ def detection_ladder(raw_ref: Sequence, raw_q: Sequence, nms_thresh: float, scor
 
 
 @torch.no_grad()
-def measure_detection(model, bf16_fwd: Callable, int8_fwd: Callable, batch_fn: Callable, gen: torch.Generator,
+def measure_detection(model, ref_fwd: Callable, int8_fwd: Callable, batch_fn: Callable, gen: torch.Generator,
                       batches: int, batch: int) -> Dict:
     """The detection row (``_measure_detection``): each form's box-F1 against the task's
-    boxes (the accuracy) and the int8 form's against bf16's (the gate,
+    boxes (the accuracy) and the int8 form's against the reference form's (the gate,
     :func:`~holocron_tpu_torch.quant.measure_agreement_detection`), each form's raw
     forward run once a batch and the ladder walked over the cached outputs; the rung is
     recorded in the row."""
@@ -372,11 +380,11 @@ def measure_detection(model, bf16_fwd: Callable, int8_fwd: Callable, batch_fn: C
         t = {k: v.cpu().numpy() for k, v in tgt.items()}
         gts.append([{"boxes": t["boxes"][j][t["mask"][j]], "scores": np.ones(int(t["mask"][j].sum())),
                      "labels": t["labels"][j][t["mask"][j]]} for j in range(batch)])
-    raw_bf16 = [tuple(bf16_fwd(x)) for x in eval_x]
+    raw_ref = [tuple(ref_fwd(x)) for x in eval_x]
     raw_int8 = [tuple(int8_fwd(x)) for x in eval_x]
     nms_thresh = getattr(model, "rpn_nms_thresh", 0.7)
     score_thresh = getattr(model, "box_score_thresh", 0.05)
-    dets_bf16, dets_int8, rung = detection_ladder(raw_bf16, raw_int8, nms_thresh, score_thresh)
+    dets_ref, dets_int8, rung = detection_ladder(raw_ref, raw_int8, nms_thresh, score_thresh)
 
     def served(lists):
         it = iter(lists)
@@ -387,10 +395,10 @@ def measure_detection(model, bf16_fwd: Callable, int8_fwd: Callable, batch_fn: C
     def vs_truth(dets):
         return measure_agreement_detection(served(gts), served(dets), eval_x, score_thresh=0.0)
 
-    gate = measure_agreement_detection(served(dets_bf16), served(dets_int8), eval_x, score_thresh=0.0)
+    gate = measure_agreement_detection(served(dets_ref), served(dets_int8), eval_x, score_thresh=0.0)
     return {
         **rung,
-        "acc_bf16": round(vs_truth(dets_bf16)["det_f1"], 4),
+        "acc_bf16": round(vs_truth(dets_ref)["det_f1"], 4),
         "acc_int8": round(vs_truth(dets_int8)["det_f1"], 4),
         "det_f1": round(gate["det_f1"], 4),
         "det_precision": round(gate["det_precision"], 4),
@@ -420,23 +428,101 @@ def build_model(arch: str, device: torch.device, size: int) -> torch.nn.Module:
     return model.to(memory_format=torch.channels_last) if device.type == "cuda" else model
 
 
-def _forms(model: torch.nn.Module, calib: List[torch.Tensor], arch: str, task: str) -> tuple:
-    """The bf16 deploy form's forward and the selective-int8 form's (calibrated in
-    float32 on ``calib``, its float remainder in bf16): detectors' raw forwards."""
-    from .quant import quantize_model
+@contextlib.contextmanager
+def exact_float32() -> Iterator[None]:
+    """TF32 off for cuDNN's convs and for matmuls in the block, both flags restored after
+    it: the JAX script computes true float32 on the CPU, where cuDNN's default would
+    round every float conv's input to 10 mantissa bits."""
+    from .models.core import cudnn_settings
 
-    bf16 = copy.deepcopy(model).to(torch.bfloat16)
+    matmul = torch.backends.cuda.matmul
+    saved = matmul.allow_tf32
+    try:
+        matmul.allow_tf32 = False
+        with cudnn_settings(allow_tf32=False):
+            yield
+    finally:
+        matmul.allow_tf32 = saved
+
+
+@torch.no_grad()
+def _round_through_bf16_(module: torch.nn.Module, keep: frozenset = frozenset()) -> None:
+    """Rounds every floating entry of ``module``'s state dict but those named in ``keep``
+    to bf16 and back, in place; then each BatchNorm's ``running_var`` to the float32
+    value whose sum with ``eps`` is the bf16 sum the JAX package computes over bf16
+    statistics (``rsqrt(var + epsilon)``, ``holocron_tpu/models/layers.py:103`` and
+    ``:123``, a sum that XLA keeps rounded to bf16)."""
+    for name, t in module.state_dict(keep_vars=True).items():
+        if t.is_floating_point() and name not in keep:
+            t.copy_(t.to(torch.bfloat16))
+    for m in module.modules():
+        var = getattr(m, "running_var", None)
+        if isinstance(var, torch.Tensor) and var.is_floating_point():
+            var.copy_((var.to(torch.bfloat16) + m.eps).float() - m.eps)
+
+
+def gate_forms(model: torch.nn.Module, calib: List[torch.Tensor], arch: str) -> Tuple[torch.nn.Module, torch.nn.Module]:
+    """The gate's two forms of ``model`` (float32, eval, reparametrized where it can be),
+    as ``scripts/quant_accuracy.py:340-349`` builds them; both run in float32 on float32
+    images.
+
+    - The reference form (the rows' "bf16"): a copy whose state dict, the JAX
+      variables (parameters and BN statistics), is rounded through bf16
+      (``jax.tree.map(... astype(bfloat16), model.variables)``), BN's ``var + eps``
+      summed in bf16 as JAX sums it.
+    - The int8 form: quantized from the float32 model, calibrated on ``calib``, so
+      that ``kernel_q``, ``w_scale`` and the activation scales (JAX's ``qparams``) are
+      the float32 model's; then the rest, which JAX's int8 apply reads from the bf16
+      variables (the int8 convs' biases, the float convs, BN, the head), rounded as
+      the reference form's is.
+
+    Run with TF32 off (:func:`exact_float32`), calibration included."""
+    from .quant import QuantizedConv2d, quantize_model
+
+    ref = copy.deepcopy(model).eval()
+    _round_through_bf16_(ref)
     with torch.no_grad():
-        qm = quantize_model(model, calibration_batches=calib, arch=arch).to(torch.bfloat16)
-    if task == "detection":
-        return (lambda x: bf16.raw(x.to(torch.bfloat16))), (lambda x: qm.raw(x.to(torch.bfloat16)))
-    return (lambda x: bf16(x.to(torch.bfloat16))), (lambda x: qm(x.to(torch.bfloat16)))
+        qm = quantize_model(model, calibration_batches=calib, arch=arch)
+    qparams = frozenset(f"{path}.{name}" for path, m in qm.named_modules() if isinstance(m, QuantizedConv2d)
+                        for name in ("w_scale", "act_scale"))
+    _round_through_bf16_(qm, keep=qparams)
+    return ref, qm
+
+
+def measure_trained(model: torch.nn.Module, arch: str, task: str, batch_fn: Callable, seeded: Callable,
+                    eval_batches: int, batch: int) -> Dict:
+    """The measured part of ``arch``'s row, ``model`` trained and in its eval form:
+    calibration on the batches of ``seeded(1000)`` and ``seeded(1001)``, both
+    :func:`gate_forms` under :func:`exact_float32`, each form's accuracy on the batches
+    drawn from ``seeded(2000)`` and the gate on those of ``seeded(3000 + i)`` (a
+    detector's on the accuracy batches), ``seeded(seed)`` giving what ``batch_fn`` draws
+    from."""
+    from .quant import measure_agreement, measure_agreement_segmentation
+
+    calib = [batch_fn(seeded(1000 + i), batch)[0] for i in range(2)]
+    with exact_float32():
+        ref, qm = gate_forms(model, calib, arch)
+        if task == "detection":
+            return measure_detection(model, ref.raw, qm.raw, batch_fn, seeded(2000), eval_batches, batch)
+        eval_x = [batch_fn(seeded(3000 + i), batch)[0] for i in range(eval_batches)]
+        score = evaluate_dense if task == "segmentation" else evaluate
+        acc_ref = score(ref, batch_fn, seeded(2000), eval_batches, batch)
+        acc_int8 = score(qm, batch_fn, seeded(2000), eval_batches, batch)
+        row = {"acc_bf16": round(acc_ref, 4), "acc_int8": round(acc_int8, 4)}
+        if task == "segmentation":
+            gate = measure_agreement_segmentation(ref, qm, eval_x)
+            row.update(pixel_agreement=round(gate["pixel_agreement"], 4),
+                       mean_mask_iou=round(gate["mean_mask_iou"], 4))
+        else:
+            gate = measure_agreement(ref, qm, eval_x)
+            row.update(top1_agreement=round(gate["top1_agreement"], 4),
+                       max_prob_drift=round(gate["max_prob_drift"], 5))
+    return row
 
 
 def measure_arch(arch: str, args, device: torch.device, checkpoint: Optional[str] = None) -> Dict:
     """One arch's row: trained (or loaded), reparametrized where it can be, both forms
-    measured."""
-    from .quant import measure_agreement, measure_agreement_segmentation
+    measured (:func:`measure_trained`)."""
     from .utils.misc import device_label
 
     t0 = time.perf_counter()
@@ -456,27 +542,8 @@ def measure_arch(arch: str, args, device: torch.device, checkpoint: Optional[str
     if hasattr(model, "reparametrize"):
         model.reparametrize()
 
-    def seeded(seed):
-        return torch.Generator(device).manual_seed(seed)
-
-    calib = [batch_fn(seeded(1000 + i), batch)[0] for i in range(2)]
-    bf16_fwd, int8_fwd = _forms(model, calib, arch, task)
-    if task == "detection":
-        row = measure_detection(model, bf16_fwd, int8_fwd, batch_fn, seeded(2000), args.eval_batches, batch)
-    else:
-        eval_x = [batch_fn(seeded(3000 + i), batch)[0] for i in range(args.eval_batches)]
-        score = evaluate_dense if task == "segmentation" else evaluate
-        acc_bf16 = score(bf16_fwd, batch_fn, seeded(2000), args.eval_batches, batch)
-        acc_int8 = score(int8_fwd, batch_fn, seeded(2000), args.eval_batches, batch)
-        row = {"acc_bf16": round(acc_bf16, 4), "acc_int8": round(acc_int8, 4)}
-        if task == "segmentation":
-            gate = measure_agreement_segmentation(bf16_fwd, int8_fwd, eval_x)
-            row.update(pixel_agreement=round(gate["pixel_agreement"], 4),
-                       mean_mask_iou=round(gate["mean_mask_iou"], 4))
-        else:
-            gate = measure_agreement(bf16_fwd, int8_fwd, eval_x)
-            row.update(top1_agreement=round(gate["top1_agreement"], 4),
-                       max_prob_drift=round(gate["max_prob_drift"], 5))
+    row = measure_trained(model, arch, task, batch_fn, lambda seed: torch.Generator(device).manual_seed(seed),
+                          args.eval_batches, batch)
     weights = "checkpoint" if checkpoint is not None else f"trained {args.steps} steps (loss {final_loss:.3f})"
     if device.type == "cuda":
         torch.cuda.synchronize(device)

@@ -8,8 +8,14 @@ boxes exactly. ``train`` runs both sides on one tiny RepVGG (``RepVGG([1], [8], 
 same fixed batches: parameters within rtol 1e-4 (atol 1e-6 for the few that Adam's first
 steps leave near zero). The detection row is computed by both on the same cached raw
 outputs: the rung and the row within 1e-6.
+
+The gate's forms (``scripts/quant_accuracy.py:340-349``) on the same weights, a small
+RepVGG and a narrow yolov4: the reference form's raw outputs within FORMS_RTOL of JAX's,
+the int8 form float32 at every conv over JAX's ``qparams``, and one detector's whole gate
+(forms, ladder, box-F1) at the same rung and within GATE_F1_TOL.
 """
 
+import copy
 import importlib.util
 import math
 from pathlib import Path
@@ -21,9 +27,13 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_resnet import randomize_bn
+
+from holocron_tpu import quant as jquant
 from holocron_tpu.models.classification.repvgg import RepVGG as JaxRepVGG
 from holocron_tpu.models.core import Model
-from holocron_tpu_torch import convert, quant_accuracy as qa
+from holocron_tpu.models.detection.yolo import DetectionModel as JaxDetectionModel
+from holocron_tpu_torch import convert, quant, quant_accuracy as qa
 from holocron_tpu_torch.models import RepVGG
 
 torch.set_num_threads(2)
@@ -327,3 +337,255 @@ def test_main_on_the_cpu_writes_every_key(tmp_path):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             qa.main(qa.parse_args(["--archs", "repvgg_a0"]))
+
+
+# --- the gate's forms on the same weights (scripts/quant_accuracy.py:340-349) ---
+
+# Tolerance of a reference form's raw outputs against JAX's, as a fraction of their
+# largest magnitude: both compute float32 over the same bf16-rounded weights (and sum
+# BN's variance and epsilon in bf16), in another order.
+FORMS_RTOL = 1e-4
+GATE_CFG = ([1, 2], [16, 64], 1.0, 1.0)  # two 64-channel convs: int8 under repvgg_a0's min_in_channels 48
+
+
+def _jax_forms(jm, calib, arch):
+    """The script's two forms: the bf16 variables applied to float32 images, and the
+    int8 form quantized from the float32 model, then given the bf16 variables."""
+    bf16_vars = jax.tree.map(lambda t: t.astype(jnp.bfloat16), jm.variables)
+    module = jm.module
+    ref = jax.jit(lambda v, a: module.apply(v, a, train=False))
+    qm = jquant.quantize_model(jm, calibration_batches=calib, arch=arch)
+    qm.variables = bf16_vars
+    qfwd, qparams = jax.jit(qm.apply_fn()), qm.qparams
+    return (lambda a: ref(bf16_vars, a)), (lambda a: qfwd(qm.variables, qparams, a)), qm
+
+
+def _max_rel_err(got, ref) -> float:
+    got, ref = np.asarray(got, np.float32), np.asarray(ref, np.float32)
+    return float(np.abs(got - ref).max() / max(float(np.abs(ref).max()), 1e-12))
+
+
+def _jax_conv_dtypes(fn, x) -> list:
+    """The (input, kernel, output) dtypes of every conv in ``fn``'s jaxpr at ``x``,
+    nested jaxprs included."""
+    from jax.extend import core as jcore
+
+    seen = []
+
+    def walk(jaxpr):
+        for eqn in jaxpr.eqns:
+            if eqn.primitive.name == "conv_general_dilated":
+                seen.append(tuple(str(v.aval.dtype) for v in (*eqn.invars, *eqn.outvars)))
+            for value in eqn.params.values():
+                for sub in value if isinstance(value, (tuple, list)) else (value,):
+                    if isinstance(sub, jcore.ClosedJaxpr):
+                        walk(sub.jaxpr)
+                    elif isinstance(sub, jcore.Jaxpr):
+                        walk(sub)
+
+    walk(jax.make_jaxpr(fn)(x).jaxpr)
+    return seen
+
+
+def _conv_dtypes(model, fwd, x) -> set:
+    """The (input, output) dtypes of every conv call of ``fwd(x)`` in ``model``."""
+    seen = set()
+    hooks = [m.register_forward_hook(lambda mod, args, out: seen.add((args[0].dtype, out.dtype)))
+             for m in model.modules() if isinstance(m, (quant.QuantizedConv2d, torch.nn.Conv2d))]
+    try:
+        with torch.no_grad():
+            fwd(x)
+    finally:
+        for h in hooks:
+            h.remove()
+    return seen
+
+
+@pytest.fixture(scope="module")
+def classifier_forms():
+    """A small RepVGG, BN drawn away from the identity, reparametrized by JAX; the port
+    gets its deploy weights. Both packages' forms, calibrated on the same 2 batches."""
+    rng = np.random.default_rng(5)
+    calib = [rng.normal(size=(BATCH, SIZE, SIZE, 3)).astype(np.float32) for _ in range(2)]
+    x = rng.normal(size=(BATCH, SIZE, SIZE, 3)).astype(np.float32)
+    jm = Model(JaxRepVGG(*GATE_CFG, num_classes=NUM_CLASSES)).init(x.shape, key=jax.random.key(0))
+    jm.load_variables(jax.tree.map(jnp.asarray, randomize_bn(jm.variables, rng)))
+    jm.reparametrize()
+    pm = RepVGG(*GATE_CFG, num_classes=NUM_CLASSES, device="cpu").reparametrize()
+    pm.load_state_dict(convert.repvgg_state_dict(jax.tree.map(np.asarray, jm.variables)))
+    pm.eval()
+    jref, jint8, jq = _jax_forms(jm, [jnp.asarray(c) for c in calib], "repvgg_a0")
+    ref, qm = qa.gate_forms(pm, [_nchw(c) for c in calib], "repvgg_a0")
+    return {"x": x, "pm": pm, "jref": jref, "jint8": jint8, "jq": jq, "ref": ref, "qm": qm, "fwd": lambda m: m}
+
+
+@pytest.fixture(scope="module")
+def detector_forms():
+    """YOLOv4 at the detector parity tests' size (64 px, narrow): its convs drawn
+    He-normal, BN and its prediction convs drawn as there (``jax.jit(module.init)`` would
+    take 20 s to compile); the port's detection task, whose images and boxes are the JAX
+    script's arithmetic, served by seed to both packages. Both packages' forms,
+    calibrated on the batches of seeds 1000 and 1001."""
+    from test_torch_detection import ARCHS
+
+    make_jax, make_port = ARCHS["yolov4"]
+    module, size, batch = make_jax(), 64, 4
+    task = qa.make_det_task(torch.Generator().manual_seed(7), NUM_CLASSES, size)
+    served = {seed: [task(torch.Generator().manual_seed(seed), batch) for _ in range(n)]
+              for seed, n in ((1000, 1), (1001, 1), (2000, 2))}
+    calib = [served[seed][0][0] for seed in (1000, 1001)]
+    rng = np.random.default_rng(0)
+
+    def drawn(path, leaf):
+        if path[-1].key != "kernel":
+            return np.zeros(leaf.shape, np.float32)  # BN's, drawn below
+        return rng.normal(0, np.sqrt(2.0 / np.prod(leaf.shape[:-1])), leaf.shape).astype(np.float32)
+
+    shapes = jax.eval_shape(module.init, jax.random.key(0), _nhwc(calib[0]))
+    variables = randomize_bn(jax.tree_util.tree_map_with_path(drawn, shapes), rng)
+    for name in ("head1_1", "head2_2_1", "head3_6"):
+        node = variables["params"]["head"][name]
+        node["kernel"] = rng.normal(0, 0.1, node["kernel"].shape).astype(np.float32)
+        node["bias"] = rng.normal(0, 0.1, node["bias"].shape).astype(np.float32)
+    jm = JaxDetectionModel(module, jax.tree.map(jnp.asarray, variables))
+    pm = make_port().eval()
+    pm.load_state_dict(convert.detection_state_dict(variables, pm))
+    jref, jint8, jq = _jax_forms(jm, [jnp.asarray(_nhwc(c)) for c in calib], "yolov4")
+    ref, qm = qa.gate_forms(pm, calib, "yolov4")
+    return {"x": _nhwc(calib[1]), "pm": pm, "jm": jm, "jref": jref, "jint8": jint8, "jq": jq, "ref": ref, "qm": qm,
+            "fwd": lambda m: m.raw, "served": served, "batch": batch}
+
+
+def _nhwc(x: torch.Tensor) -> np.ndarray:
+    return x.permute(0, 2, 3, 1).numpy()
+
+
+def _nchw(x):
+    return torch.from_numpy(np.ascontiguousarray(np.asarray(x).transpose(0, 3, 1, 2)))
+
+
+def _outputs(out):
+    return [o.float().numpy() for o in out] if isinstance(out, (tuple, list)) else [out.float().numpy()]
+
+
+def _jax_outputs(out):
+    return [np.asarray(o) for o in out] if isinstance(out, (tuple, list)) else [np.asarray(out)]
+
+
+@pytest.mark.parametrize("forms", ["classifier_forms", "detector_forms"])
+def test_reference_form_matches_the_jax_script(request, forms):
+    """The reference ("bf16") form against JAX's ``module.apply(bf16_vars, x)`` on float32
+    images, whose every conv runs in float32: every raw output within FORMS_RTOL of its
+    largest magnitude. The parent's form (model and images cast to bf16) misses that
+    tolerance on the same check."""
+    f = request.getfixturevalue(forms)
+    x = _nchw(f["x"])
+    convs = _jax_conv_dtypes(f["jref"], jnp.asarray(f["x"]))
+    assert convs and set(convs) == {("float32",) * 3}
+    theirs = _jax_outputs(f["jref"](jnp.asarray(f["x"])))
+    with torch.no_grad():
+        out = f["fwd"](f["ref"])(x)
+        assert all(o.dtype == torch.float32 for o in (out if isinstance(out, tuple) else [out]))
+        ours = _outputs(out)
+        bf16 = copy.deepcopy(f["pm"]).to(torch.bfloat16)
+        parent = _outputs(f["fwd"](bf16)(x.to(torch.bfloat16)))
+    errors = [_max_rel_err(o, t) for o, t in zip(ours, theirs)]
+    parent_errors = [_max_rel_err(o, t) for o, t in zip(parent, theirs)]
+    assert max(errors) <= FORMS_RTOL, errors
+    assert max(parent_errors) > FORMS_RTOL, parent_errors
+
+
+@pytest.mark.parametrize("forms", ["classifier_forms", "detector_forms"])
+def test_int8_form_is_float32_over_the_jax_qparams(request, forms):
+    """Every conv of the int8 form takes and returns float32, as in JAX's int8 form (its
+    int8 convs accumulate in int32, the others run in float32); its int8 layers are
+    JAX's ``qparams`` (the same kernels and weight scales, the activation scales within
+    1e-5) and their biases JAX's bf16 variables; the float remainder is rounded through
+    bf16, the scales are not."""
+    f = request.getfixturevalue(forms)
+    qm, jq = f["qm"], f["jq"]
+    convs = _jax_conv_dtypes(f["jint8"], jnp.asarray(f["x"]))
+    assert convs.count(("int8", "int8", "int32")) == len(jq.qparams)
+    assert set(convs) == {("int8", "int8", "int32"), ("float32",) * 3}
+    assert _conv_dtypes(qm, f["fwd"](qm), _nchw(f["x"])) == {(torch.float32, torch.float32)}
+    layers = [m for m in qm.modules() if isinstance(m, quant.QuantizedConv2d)]
+    assert layers and len(layers) == len(jq.qparams)
+    ours = sorted((m.kernel_q.numpy().tobytes(), m.w_scale.numpy().tobytes(), float(m.act_scale),
+                   b"" if m.bias is None else m.bias.detach().numpy().tobytes()) for m in layers)
+    bias = {}
+
+    def visit(node, path):
+        for k, v in node.items():
+            if isinstance(v, dict):
+                visit(v, f"{path}/{k}" if path else k)
+            elif k == "bias":
+                bias[path] = np.asarray(v, np.float32)
+
+    visit(jq.variables["params"], "")
+    theirs = sorted((np.asarray(q["kernel_q"]).tobytes(), np.asarray(q["w_scale"]).tobytes(),
+                     max(jq.act_scales[k], 1e-12) / quant.QINT_MAX, bias[k].tobytes() if k in bias else b"")
+                    for k, q in jq.qparams.items())
+    assert [(k, w, b) for k, w, _, b in ours] == [(k, w, b) for k, w, _, b in theirs]
+    np.testing.assert_allclose([s for _, _, s, _ in ours], [s for _, _, s, _ in theirs], rtol=1e-5)
+    for name, t in qm.state_dict().items():
+        if name.endswith("running_var"):  # var + eps is the bf16 sum, to float32 rounding
+            torch.testing.assert_close(t + 1e-5, (t + 1e-5).to(torch.bfloat16).float(), rtol=1e-6, atol=0)
+        elif t.is_floating_point() and not name.endswith(("w_scale", "act_scale")):
+            assert torch.equal(t, t.to(torch.bfloat16).float()), name
+    assert any(not torch.equal(m.w_scale, m.w_scale.to(torch.bfloat16).float()) for m in layers)
+
+
+def test_int8_classifier_logits_match_jax(classifier_forms):
+    """The int8 forms' logits on the same images: within 1e-3, the same top-1."""
+    f = classifier_forms
+    expected = np.asarray(f["jint8"](jnp.asarray(f["x"])))
+    with torch.no_grad():
+        out = f["qm"](_nchw(f["x"])).numpy()
+    np.testing.assert_allclose(out, expected, atol=1e-3)
+    np.testing.assert_array_equal(out.argmax(-1), expected.argmax(-1))
+
+
+def test_exact_float32_turns_tf32_off_and_restores_it():
+    cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
+    saved = cudnn.allow_tf32, matmul.allow_tf32
+    try:
+        cudnn.allow_tf32, matmul.allow_tf32 = True, True
+        with qa.exact_float32():
+            assert not cudnn.allow_tf32 and not matmul.allow_tf32
+        assert cudnn.allow_tf32 and matmul.allow_tf32
+        with pytest.raises(RuntimeError), qa.exact_float32():
+            raise RuntimeError("restored on an error too")
+        assert cudnn.allow_tf32 and matmul.allow_tf32
+    finally:
+        cudnn.allow_tf32, matmul.allow_tf32 = saved
+
+
+# det_f1 of the two packages' gates on the same weights and images: the forms agree to
+# float32 rounding, and the int8 forms to an activation's rounding step now and then
+GATE_F1_TOL = 0.02
+
+
+def test_detector_gate_matches_jax(detector_forms):
+    """One detector's whole gate on the same weights and the same images: the JAX
+    script's ``_measure_detection`` over its forms, and the port's ``measure_trained``
+    (its forms, ladder and box-F1), the batches served by seed (calibration 1000-1001,
+    evaluation 2000): the same rung and detections an image within 5%, ``det_f1``
+    within GATE_F1_TOL."""
+    f = detector_forms
+    served, batch = f["served"], f["batch"]
+    evaluation = iter(served[2000])
+
+    def jax_batch(key, n):
+        x, tgt = next(evaluation)
+        return jnp.asarray(_nhwc(x)), {k: v.numpy() for k, v in tgt.items()}
+
+    jrow = JAX_QA._measure_detection(f["jm"], f["jref"], f["jint8"], jax_batch, jax.random.key(2000), len(served[2000]),
+                                     batch)
+    prow = qa.measure_trained(f["pm"], "yolov4", "detection", lambda it, n: next(it), lambda seed: iter(served[seed]),
+                              len(served[2000]), batch)
+    assert prow.keys() == jrow.keys()
+    assert (prow["obj_thresh"], prow["score_thresh"] == pytest.approx(jrow["score_thresh"], rel=1e-4)) == (
+        jrow["obj_thresh"], True), (prow, jrow)
+    assert prow["dets_per_image_bf16"] == pytest.approx(jrow["dets_per_image_bf16"], rel=0.05)
+    assert prow["dets_per_image_bf16"] >= 0.5
+    assert abs(prow["det_f1"] - jrow["det_f1"]) <= GATE_F1_TOL, (prow, jrow)

@@ -106,6 +106,27 @@ def test_packaged_policy_is_the_generated_one(monkeypatch, tmp_path, capsys):
                                    for a, e in policy.items()}
 
 
+_GATES = ("top1_agreement", "mean_mask_iou", "det_f1")  # each task's agreement, held at 0.99
+
+
+def test_vetoes_follow_the_longest_trained_rows():
+    """An arch is vetoed exactly where its longest-trained row of the card's own
+    quant_accuracy fails its gate, and its veto quotes that row's agreement, steps and
+    card."""
+    longest = {}
+    for path in sorted(gen_quant_policy.BENCH.glob("quant_accuracy*.jsonl")):
+        for line in path.read_text().splitlines():
+            row = json.loads(line)
+            if row["steps"] >= longest.get(row["arch"], {"steps": -1})["steps"]:
+                longest[row["arch"]] = row
+    assert len(longest) == 13
+    gate = {arch: next(row[k] for k in _GATES if k in row) for arch, row in longest.items()}
+    assert set(gen_quant_policy.QUALITY_GATE_VETOES) == {arch for arch, value in gate.items() if value < 0.99}
+    for arch, reason in gen_quant_policy.QUALITY_GATE_VETOES.items():
+        row = longest[arch]
+        assert f"= {gate[arch]}" in reason and f"{row['steps']} steps" in reason and row["device"] in reason, arch
+
+
 # --- gen_bench_table ---
 
 
