@@ -225,6 +225,7 @@ Any mismatch or error exits non-zero; so does a machine with no CUDA device, or 
 directory that holds this script without the package.
 """
 
+import contextlib
 import copy
 import functools
 import io
@@ -338,16 +339,17 @@ def phase_build() -> None:
 
 def phase_serving(device, arch: str = "repvgg_a0", int8_layers: int = 26, pointwise_layers: int = 0,
                   phase: str = "serving", batch: int = 256, size: int = 224, num_classes: int = 10, iters: int = 30,
-                  prepare=None):
+                  prepare=None, halo_layers: int = 0):
     """The serving path of ``arch``; a model with ``reparametrize`` (RepVGG, MobileOne)
     is folded into its deploy form, one without (ResNet, ReXNet, ConvNeXt) is served
     with BN after each conv, as the JAX package serves it. ``prepare(model, generator)``,
     where given, sets weights the seed's initialization leaves degenerate, before
     anything else; its docstring goes into the line as ``prepared``. Fails unless
     ``int8_layers`` convs are int8, ``pointwise_layers`` of them on the pointwise route
-    (the 1x1 stride-1 convs), the rest on the ``wgmma`` route and none on the general
-    route, and unless each int8 conv launched the route ``conv_route`` picks for it once
-    a forward. The int8 requests run whether or not the gate passes."""
+    (the 1x1 stride-1 convs), ``halo_layers`` on the halo route (the stride-1 3x3 ones
+    of C <= 48), the rest on the ``wgmma`` route and none on the general route, and
+    unless each int8 conv launched the route ``conv_route`` picks for it once a
+    forward. The int8 requests run whether or not the gate passes."""
     import torch
 
     from holocron_tpu_torch import models
@@ -387,17 +389,19 @@ def phase_serving(device, arch: str = "repvgg_a0", int8_layers: int = 26, pointw
     qm = quantize_model(model, calibration_batches=[x.float()], arch=arch).to(torch.bfloat16)
     routes = [m.route for m in qm.modules() if isinstance(m, QuantizedConv2d)]
     n_int8, n_wgmma, n_pointwise = len(routes), routes.count("wgmma"), routes.count("pointwise")
+    n_halo = routes.count("halo")
     n_convs = sum(isinstance(m, torch.nn.Conv2d) for m in model.modules())
-    if (n_int8, n_pointwise, n_wgmma) != (int8_layers, pointwise_layers, int8_layers - pointwise_layers):
-        fail(f"{arch}: {n_int8} int8 convs, {n_pointwise} on the pointwise route and {n_wgmma} on wgmma; expected "
-             f"{int8_layers}, {pointwise_layers} and the rest")
+    if (n_int8, n_pointwise, n_halo, n_wgmma) != (int8_layers, pointwise_layers, halo_layers,
+                                                  int8_layers - pointwise_layers - halo_layers):
+        fail(f"{arch}: {n_int8} int8 convs, {n_pointwise} on the pointwise route, {n_halo} on the halo route and "
+             f"{n_wgmma} on wgmma; expected {int8_layers}, {pointwise_layers}, {halo_layers} and the rest")
     gate_batches = [naturalistic_batch(gen, batch, size, device).to(torch.bfloat16) for _ in range(2)]
     requests = [naturalistic_batch(gen, 8, size, device).to(torch.bfloat16) for _ in range(8)] + [x]
     torch.cuda.synchronize()
 
     # --- the serving path, counted ---
     reset_counts()
-    with torch.no_grad():
+    with torch.no_grad(), int8_tally(qm) as expected:
         for r in requests:
             check_logits(model_bf16(r), r.shape[0], num_classes, "bf16 deploy")
         agreement = measure_agreement(model_bf16, qm, gate_batches)
@@ -406,10 +410,10 @@ def phase_serving(device, arch: str = "repvgg_a0", int8_layers: int = 26, pointw
             check_logits(qm(r), r.shape[0], num_classes, "int8 deploy")
     torch.cuda.synchronize()
     launches = {name: k.launches for name, k in KERNELS.items()}
-    # two launches a layer a forward: the quantization and the conv of its route
+    # two launches a layer a forward: the quantization and the conv of the route its input takes
     forwards = len(gate_batches) + len(requests)
-    expected = int8_expected(qm, forwards)
-    if any(launches[k] != v for k, v in expected.items()):
+    if (expected["int8_quantize"] != n_int8 * forwards
+            or any(launches[k] != v for k, v in expected.items())):
         fail(f"{arch}: the int8 path launched {[launches[k] for k in expected]} of {list(expected)}, "
              f"expected {expected}")
 
@@ -438,8 +442,9 @@ def phase_serving(device, arch: str = "repvgg_a0", int8_layers: int = 26, pointw
         "logit_absmax_f32": float(ref32.abs().max()),
         "int8_convs": n_int8,
         "int8_convs_wgmma": n_wgmma,
+        "int8_convs_halo": n_halo,
         "int8_convs_pointwise": n_pointwise,
-        "int8_convs_general": n_int8 - n_wgmma - n_pointwise,
+        "int8_convs_general": n_int8 - n_wgmma - n_pointwise - n_halo,
         "int8_geometries": int8_geometries(qm),
         "convs": n_convs,
         "top1_agreement": agreement["top1_agreement"],
@@ -529,12 +534,28 @@ def profile_forward(fn, x, steps: int = 5, top: int = 10, count: tuple = (), pad
 
 
 # the int8 kernels' counters, and their names in a profile
-INT8_KERNEL_NAMES = {"int8_conv": "int8_conv_wgmma_kernel", "int8_pointwise": "int8_pointwise_wgmma_kernel",
+INT8_KERNEL_NAMES = {"int8_conv": "int8_conv_wgmma_kernel", "int8_conv_halo": "int8_conv_halo_kernel",
+                     "int8_pointwise": "int8_pointwise_wgmma_kernel",
                      "int8_quantize": "int8_quantize"}
-INT8_COUNTERS = ("int8_conv", "int8_pointwise", "int8_quantize", "int8_conv_general")
+INT8_COUNTERS = ("int8_conv", "int8_conv_halo", "int8_pointwise", "int8_quantize", "int8_conv_general")
+# cudaErrorLaunchOutOfResources: the halo kernel's refusal of a halo that does not fit shared memory
+HALO_NO_ROOM = 701
 # the counter of the conv kernel each route (conv_route) launches
-ROUTE_COUNTER = {"wgmma": "int8_conv", "pointwise": "int8_pointwise", "general": "int8_conv_general"}
+ROUTE_COUNTER = {"wgmma": "int8_conv", "halo": "int8_conv_halo", "pointwise": "int8_pointwise",
+                 "general": "int8_conv_general"}
+ROUTES = tuple(ROUTE_COUNTER)
 PROFILED_STEPS = 5  # the forwards phase_deploy_graph_profile profiles a form
+
+
+def served_route(c: int, o: int, kernel: int, stride: int) -> str:
+    """The route the served models' ungrouped int8 convs take (square kernels, padding
+    kernel // 2): the pointwise GEMM at 1x1 stride 1, the halo conv at a stride-1 KxK
+    of C <= ``HALO_MAX_C`` and O % 8 == 0, the wgmma conv at every other."""
+    from holocron_tpu_torch.kernels.int8_conv import HALO_MAX_C
+
+    if kernel == 1 and stride == 1:
+        return "pointwise"
+    return "halo" if stride == 1 and c <= HALO_MAX_C and o % 8 == 0 else "wgmma"
 
 
 def int8_launches() -> dict:
@@ -546,7 +567,9 @@ def int8_launches() -> dict:
 
 def int8_expected(model, forwards: int = 1) -> dict:
     """The int8 launches ``forwards`` forwards of ``model`` make: the quantization once
-    an int8 conv, and each conv's route's kernel (``QuantizedConv2d.route``) once."""
+    an int8 conv, and each conv's route's kernel (``QuantizedConv2d.route``) once. The
+    layer's route is the launch's where no layer takes the halo route or every launch
+    has at least ``HALO_MIN_ROWS`` output pixels; else count with :func:`int8_tally`."""
     from holocron_tpu_torch.quant import QuantizedConv2d
 
     counts = dict.fromkeys(INT8_COUNTERS, 0)
@@ -555,6 +578,29 @@ def int8_expected(model, forwards: int = 1) -> dict:
             counts[ROUTE_COUNTER[m.route]] += forwards
             counts["int8_quantize"] += forwards
     return counts
+
+
+@contextlib.contextmanager
+def int8_tally(*models):
+    """Within the block, tallies the int8 launches the forwards of ``models`` make: the
+    quantization once an int8 conv call, and the kernel of the route that conv's input
+    takes (``QuantizedConv2d.route_for``: a halo layer on a small launch takes the
+    wgmma route). Yields the tally, a dict by counter, filled as the block runs."""
+    from holocron_tpu_torch.quant import QuantizedConv2d
+
+    tally = dict.fromkeys(INT8_COUNTERS, 0)
+
+    def hook(module, args):
+        tally[ROUTE_COUNTER[module.route_for(args[0])]] += 1
+        tally["int8_quantize"] += 1
+
+    handles = [m.register_forward_pre_hook(hook) for model in models for m in model.modules()
+               if isinstance(m, QuantizedConv2d)]
+    try:
+        yield tally
+    finally:
+        for hd in handles:
+            hd.remove()
 
 
 def int8_routes_launched(launches: dict, model) -> bool:
@@ -584,9 +630,9 @@ def phase_bench(device) -> dict:
     if runs[0]["top1_agreement"] != runs[1]["top1_agreement"] or runs[0]["max_prob_drift"] != runs[1]["max_prob_drift"]:
         fail(f"bench: the two repvgg_a0 gates differ: {runs[0]} against {runs[1]}")
     launches = int8_launches()
-    if not launches["int8_conv"] or not launches["int8_pointwise"] or not launches["int8_quantize"]:
-        fail(f"bench: the int8 forms launched {launches}, expected the wgmma conv (repvgg_a0), the pointwise one "
-             "(rexnet1_0x) and the quantization")
+    if not all(launches[k] for k in ("int8_conv", "int8_conv_halo", "int8_pointwise", "int8_quantize")):
+        fail(f"bench: the int8 forms launched {launches}, expected the wgmma and halo convs (repvgg_a0), the "
+             "pointwise one (rexnet1_0x) and the quantization")
     emit({"phase": "bench", "runs": runs, "launches": launches})
     return launches
 
@@ -635,10 +681,10 @@ def phase_deploy_graph(device, qm, model_bf16, buckets=(1, 2, 4, 8), size: int =
         n_int8 = sum(isinstance(m, QuantizedConv2d) for m in model.modules())
         eager = functools.partial(softmax_forward, model, mean=mean, std=std) if u8 else model
         before = int8_launches()
-        graph = deploy_forward(model, buckets, size, mean_std if u8 else None)
+        with int8_tally(model) as expected:
+            graph = deploy_forward(model, buckets, size, mean_std if u8 else None)
         captured = {k: v - before[k] for k, v in int8_launches().items()}
-        expected = int8_expected(model, (WARMUP + 1) * len(buckets))
-        if captured != expected:
+        if captured != expected or expected["int8_quantize"] != n_int8 * (WARMUP + 1) * len(buckets):
             fail(f"deploy_graph {arch} {form}: building the graphs launched {captured}, expected {expected}")
         replay = graph
 
@@ -660,6 +706,8 @@ def phase_deploy_graph(device, qm, model_bf16, buckets=(1, 2, 4, 8), size: int =
                     fail(f"deploy_graph {arch} {form}: the replay at batch {n} differs from the eager forward "
                          f"(max {float((got.float() - want.float()).abs().max())})")
             x8 = batch_of(8)
+            with int8_tally(model) as per_forward:  # a batch-8 forward's, for the profile
+                eager(x8)
             for name, fn in (("graph", replay), ("eager", eager)):
                 device_ms = cuda_ms(lambda: fn(x8), iters)
                 t0 = time.perf_counter()
@@ -669,7 +717,8 @@ def phase_deploy_graph(device, qm, model_bf16, buckets=(1, 2, 4, 8), size: int =
                 record[name] = {"device_ms": device_ms, "wall_ms": (time.perf_counter() - t0) * 1e3 / iters}
         record["eager_over_graph_wall"] = record["eager"]["wall_ms"] / record["graph"]["wall_ms"]
         emit({"phase": "deploy_graph", **record})
-        out.append({"record": record, "fns": {"graph": replay, "eager": eager}, "model": model, "u8": u8, "x8": x8})
+        out.append({"record": record, "fns": {"graph": replay, "eager": eager}, "model": model, "u8": u8, "x8": x8,
+                    "per_forward": per_forward})
     torch.cuda.synchronize()
     return out, int8_launches()
 
@@ -689,7 +738,7 @@ def phase_deploy_graph_profile(forms: list) -> dict:
     reset_counts()
     seen = dict.fromkeys(INT8_COUNTERS, 0)
     for form in forms:
-        record, expected = form["record"], int8_expected(form["model"])
+        record, expected = form["record"], form["per_forward"]
         line = {"phase": "deploy_graph_profile", "model": record["model"], "form": record["form"], "batch": 8}
         for name, fn in form["fns"].items():
             prof = profile_forward(fn, form["x8"], steps=PROFILED_STEPS, count=tuple(INT8_KERNEL_NAMES.values()))
@@ -942,11 +991,14 @@ def _int8_case_holds(name, route, xn, s_x, w_q, w_packed, w_scale, bias, stride,
                      max_err, images=None) -> None:
     """One int8 conv on the card against its plain versions: quantized activations
     equal, the int32 accumulator equal, float32 output within one float32 ulp and bf16
-    output within one bf16 ulp of the plain epilogue (bit for bit on the pointwise
-    route), through ``int8_conv`` and ``quantized_conv``. The kernels run on the whole
-    batch; where ``images`` (indices) is given, the float64 plain convs run on those
-    images alone and are held against the same images of the kernels' results. Keeps
-    the largest bf16 error of each route in ``max_err``."""
+    output within one bf16 ulp of the plain epilogue (bit for bit on the pointwise and
+    halo routes), through ``int8_conv`` and ``quantized_conv``; where ``route`` (the
+    layer's) is the halo route, the halo and wgmma kernels forced on the same operands
+    also give that accumulator and those outputs, bit for bit, whichever the launch's
+    size picks. The kernels run on the whole batch; where ``images`` (indices) is
+    given, the float64 plain convs run on those images alone and are held against the
+    same images of the kernels' results. Keeps the largest bf16 error of each route in
+    ``max_err``."""
     import torch
 
     from holocron_tpu_torch.kernels import int8_conv as K
@@ -958,6 +1010,15 @@ def _int8_case_holds(name, route, xn, s_x, w_q, w_packed, w_scale, bias, stride,
     acc = K.int8_conv_acc(x_q, w_q, stride, padding, dilation, w_packed=w_packed, groups=groups)
     if not torch.equal(pick(acc), K.int8_conv_acc_plain(pick(x_q), w_q, stride, padding, dilation, groups)):
         fail(f"int8 conv {name} ({route}): int32 accumulator differs from the float64 plain conv")
+
+    def forced(other, out_dtype):
+        return K._launch(x_q, w_q, w_packed, s_x, w_scale, bias, stride, padding, dilation, out_dtype, groups,
+                         route=other)
+
+    others = ("halo", "wgmma") if route == "halo" else ()
+    for other in others:
+        if not torch.equal(acc, forced(other, torch.int32)):
+            fail(f"int8 conv {name} (halo): int32 accumulator differs from the {other} kernel's")
     del acc
     for dtype, ulp in ((torch.float32, 2.0**-23), (torch.bfloat16, 2.0**-7)):
         ref = K.int8_conv_plain(pick(x_q), w_q, s_x, w_scale, bias, stride, padding, dilation, dtype, groups).float()
@@ -967,10 +1028,13 @@ def _int8_case_holds(name, route, xn, s_x, w_q, w_packed, w_scale, bias, stride,
                                  w_packed=w_packed, groups=groups)]
         for got in map(pick, outs):
             err = within_ulp(got, ref, ulp, f"int8 conv {name} ({route}) {dtype}")
-            if route == "pointwise" and not torch.equal(got.float(), ref.to(dtype).float()):
-                fail(f"int8 conv {name} (pointwise) {dtype}: differs from the plain version's bits")
+            if route in ("pointwise", "halo") and not torch.equal(got.float(), ref.to(dtype).float()):
+                fail(f"int8 conv {name} ({route}) {dtype}: differs from the plain version's bits")
             if dtype == torch.bfloat16:
                 max_err[route] = max(max_err[route], err)
+        for other in others:
+            if not torch.equal(outs[0], forced(other, dtype)):
+                fail(f"int8 conv {name} (halo) {dtype}: differs from the {other} kernel's bits")
 
 
 def int_mm_ms(x_q, w_packed, o: int, acc, iters: int) -> tuple:
@@ -1011,11 +1075,14 @@ def _time_int8_geometry(xin, w_q, w_packed, s_x, w_scale, bias, stride, padding,
     """At the path's batch: quantized activations and bf16 outputs (of the conv and of
     the route) held against the plain versions, then device time from CUDA graphs of
     the route (quantize + conv), each of its two kernels, ``cudnn`` (cuDNN's bf16 conv of
-    the layer), and where the conv is a 1x1 stride-1 GEMM (the pointwise route) the
-    wgmma conv forced on the same operands (``conv_wgmma_ms``; its bf16 output and
-    accumulator equal to the pointwise route's, bit for bit) and ``torch._int_mm`` (its
-    int32 product checked against the accumulator first; the call alone, no epilogue),
-    and the plain version, beside the bounds. Where ``images`` (indices) is given, the
+    the layer), where the conv takes the pointwise or the halo route the wgmma conv
+    forced on the same operands (``conv_wgmma_ms``; its bf16 output and accumulator
+    equal to the route's, bit for bit), where it is a 1x1 stride-1 GEMM
+    ``torch._int_mm`` (its int32 product checked against the accumulator first; the
+    call alone, no epilogue), where the halo kernel takes the conv but ``conv_route``
+    gives it the wgmma route the halo kernel forced on the same operands
+    (``conv_halo_ms``, bits equal; None where its halo does not fit shared memory,
+    ``halo_refused``), and the plain version, beside the bounds. Where ``images`` (indices) is given, the
     plain version runs, is timed and is held against the kernels on those images alone
     (``plain_images`` in the row; the exact accumulator of a pointwise conv is still the
     whole batch's)."""
@@ -1026,7 +1093,6 @@ def _time_int8_geometry(xin, w_q, w_packed, s_x, w_scale, bias, stride, padding,
     pick = (lambda t: t) if images is None else (lambda t: t[list(images)])
     xn = xin.permute(0, 2, 3, 1)
     kh, kw, c, o = w_q.shape
-    route = K.conv_route(c, o, groups, kernel_size=(kh, kw), stride=stride, padding=padding)
     args = (s_x, w_scale, bias, stride, padding, dilation, groups)
     x_q = K.quantize_activation(xn, s_x)
     if not torch.equal(x_q, K.quantize_activation_plain(xn, s_x)):
@@ -1034,12 +1100,15 @@ def _time_int8_geometry(xin, w_q, w_packed, s_x, w_scale, bias, stride, padding,
     y = K.int8_conv(x_q, w_q, *args, out_dtype=torch.bfloat16, w_packed=w_packed)
     y_route = K.quantized_conv(xn, s_x, w_q, *args[1:-1], out_dtype=torch.bfloat16, w_packed=w_packed, groups=groups)
     n, oh, ow, _ = y.shape
+    route = K.conv_route(c, o, groups, kernel_size=(kh, kw), stride=stride, padding=padding, dilation=dilation,
+                         rows=n * oh * ow)
     plain, x_q_plain = {}, pick(x_q)
 
     def run_plain():
         plain["y"] = K.int8_conv_plain(x_q_plain, w_q, *args[:-1], torch.bfloat16, groups)
 
     gemm = route == "pointwise"
+    halo_alt = route == "wgmma" and K.halo_takes(c, o, groups, kernel_size=(kh, kw), stride=stride, dilation=dilation)
     with torch.no_grad():
         row = {
             "x": list(xin.shape), "w_hwio": list(w_q.shape), "stride": list(stride), "groups": groups, "route": route,
@@ -1050,24 +1119,33 @@ def _time_int8_geometry(xin, w_q, w_packed, s_x, w_scale, bias, stride, padding,
             "quantize_ms": graph_ms(lambda: K.quantize_activation(xn, s_x), iters),
             "cudnn_bf16_ms": graph_ms(cudnn, iters),
             "conv_wgmma_ms": None,
+            "conv_halo_ms": None,
             "int_mm_ms": None,
             "plain_ms": cuda_ms(run_plain, 2, 1),
             "plain_images": None if images is None else list(images),
             "quantize_plain_ms": cuda_ms(lambda: K.quantize_activation_plain(xn, s_x), 2, 1),
         }
-        if gemm:
-            acc = K.int8_conv_acc_plain(x_q, w_q, stride, padding, dilation, groups)
-            if not torch.equal(K.int8_conv_acc(x_q, w_q, stride, padding, dilation, w_packed), acc):
+        def forced(other, out_dtype=torch.bfloat16):
+            return K._launch(x_q, w_q, w_packed, s_x, w_scale, bias, stride, padding, dilation, out_dtype, groups,
+                             route=other)
+
+        if gemm or route == "halo" or halo_alt:
+            other = "halo" if halo_alt else "wgmma"
+            acc = K.int8_conv_acc(x_q, w_q, stride, padding, dilation, w_packed)
+            if gemm and not torch.equal(acc, K.int8_conv_acc_plain(x_q, w_q, stride, padding, dilation, groups)):
                 fail(f"int8 conv {tuple(xin.shape)} {tuple(w_q.shape)} (pointwise): accumulator differs")
-
-            def wgmma(out_dtype=torch.bfloat16):
-                return K._launch(x_q, w_q, w_packed, s_x, w_scale, bias, stride, padding, dilation, out_dtype, groups,
-                                 route="wgmma")
-
-            if not torch.equal(wgmma(torch.int32), acc) or not torch.equal(wgmma(), y):
-                fail(f"int8 conv {tuple(xin.shape)} {tuple(w_q.shape)}: the wgmma route differs from the pointwise")
-            row["conv_wgmma_ms"] = graph_ms(wgmma, iters)
-            row["int_mm_ms"], row["int_mm_mkn"] = int_mm_ms(x_q, w_packed, o, acc, iters)
+            try:
+                same = torch.equal(forced(other, torch.int32), acc) and torch.equal(forced(other), y)
+            except RuntimeError as err:  # the halo kernel refuses a halo that does not fit shared memory
+                if not (halo_alt and f"CUDA error {HALO_NO_ROOM} " in str(err)):
+                    raise
+                row["halo_refused"] = True
+            else:
+                if not same:
+                    fail(f"int8 conv {tuple(xin.shape)} {tuple(w_q.shape)}: the {other} route differs from the {route}")
+                row[f"conv_{other}_ms"] = graph_ms(lambda: forced(other), iters)
+            if gemm:
+                row["int_mm_ms"], row["int_mm_mkn"] = int_mm_ms(x_q, w_packed, o, acc, iters)
     ref = plain["y"].float()
     for what, got in (("int8_conv", y), ("quantized_conv", y_route)):
         within_ulp(pick(got), ref, 2.0**-7, f"{what} {tuple(xin.shape)} {tuple(w_q.shape)} bf16")
@@ -1117,12 +1195,41 @@ def rexnet_int8_by_kind(rows: list) -> dict:
     return out
 
 
+def _halo_small_batch(key, g, batch: int, iters: int) -> dict:
+    """A halo-route layer of a served model at ``batch`` (1 or 8: the first images of
+    its captured batch-8 input): the route its launch takes there (``route``), the halo
+    and the wgmma kernels forced on the same operands, their int32 and bf16 outputs
+    equal bit for bit, and the device time of each from CUDA graphs (``halo_ms``,
+    ``wgmma_ms``): the figures behind ``conv_route``'s launch rule."""
+    import torch
+
+    from holocron_tpu_torch.kernels import int8_conv as K
+
+    m = g["module"]
+    xin = g["x"][8][:batch]
+    s_x = m.activation_scale(xin)
+    x_q = K.quantize_activation(xin.permute(0, 2, 3, 1), s_x)
+    args = (s_x, m.w_scale, m.bias, m.stride, m.padding, m.dilation)
+
+    def run(route, out_dtype=torch.bfloat16):
+        return K._launch(x_q, m.kernel_q, m.kernel_packed, *args, out_dtype, 1, route=route)
+
+    with torch.no_grad():
+        for out_dtype in (torch.int32, torch.bfloat16):
+            if not torch.equal(run("halo", out_dtype), run("wgmma", out_dtype)):
+                fail(f"int8 conv {key} batch {batch}: the halo route differs from the wgmma route ({out_dtype})")
+        return {"layer": g["layer"], "x": [batch, *key[0]], "w_hwio": list(key[1]), "route": m.route_for(xin),
+                "halo_ms": graph_ms(lambda: run("halo"), iters), "wgmma_ms": graph_ms(lambda: run("wgmma"), iters)}
+
+
 def check_int8(device, qm, model_bf16, x, model: str = "repvgg_a0", iters: int = 20, plain_images=None) -> dict:
     """The int8 route against its plain versions at each distinct int8 layer geometry
     of the served ``model`` (inputs captured from it at batch 8 and 32), at a 256 -> 256,
-    14x14 layer and at a 3x3 layer of odd widths, 12 -> 20 (``_int8_case_holds``;
+    14x14 layer, at a 3x3 layer of odd widths, 12 -> 20, and at a halo-route one of
+    three planes, 40 -> 24 (``_int8_case_holds``;
     quantization also on inputs built on its ties and beyond its clip). Then each
-    geometry at the path's batch of 256 (``_time_int8_geometry``). Per-forward sums
+    geometry at the path's batch of 256 (``_time_int8_geometry``), and each halo-route one
+    at batch 1 and 8 beside the wgmma route (``_halo_small_batch``). Per-forward sums
     are kept apart by route (``wgmma``, ``pointwise``, ``general``); the record
     returned also holds the geometries' rows (``rows``). Where ``plain_images``
     (indices) is given, the float64 plain versions at the path's batch run on those
@@ -1168,13 +1275,13 @@ def check_int8(device, qm, model_bf16, x, model: str = "repvgg_a0", iters: int =
               g["module"].act_scale, g["module"].bias, g["module"].stride, g["module"].padding, g["module"].dilation,
               g["module"].groups, g["x"][b], plain_images if b == x.shape[0] else None)
              for key, g in geometries.items() for b in (8, 32)]
-    for c, o, hw in ((256, 256, 14), (12, 20, 15)):
+    for c, o, hw in ((256, 256, 14), (12, 20, 15), (40, 24, 15)):
         w_q = torch.randint(-127, 128, (3, 3, c, o), generator=gen, device=device, dtype=torch.int8)
         xin = torch.randn(32, c, hw, hw, generator=gen, device=device).to(torch.bfloat16)
         cases.append((f"synthetic {c}->{o} {hw}x{hw}", w_q, None, torch.rand(o, generator=gen, device=device) / 127,
                       xin.abs().amax().float() / 127, torch.randn(o, generator=gen, device=device), (1, 1), (1, 1),
                       (1, 1), 1, xin.contiguous(memory_format=torch.channels_last), None))
-    max_err = {"wgmma": 0.0, "pointwise": 0.0, "general": 0.0}
+    max_err = dict.fromkeys(ROUTES, 0.0)
     checked = []
     for name, w_q, w_packed, w_scale, s_x, bias, stride, padding, dilation, groups, xin, images in cases:
         route = K.conv_route(w_q.shape[2], w_q.shape[3], groups, kernel_size=w_q.shape[:2], stride=stride,
@@ -1185,8 +1292,8 @@ def check_int8(device, qm, model_bf16, x, model: str = "repvgg_a0", iters: int =
                         **({} if images is None else {"plain_images": list(images)})})
 
     # -- checks again and timing at the path's batch
-    totals = {"wgmma": {}, "pointwise": {}, "general": {}}
-    bound_by = {"wgmma": {}, "pointwise": {}, "general": {}}
+    totals = {r: {} for r in ROUTES}
+    bound_by = {r: {} for r in ROUTES}
     rows = []
     deploy_layers = dict(model_bf16.named_modules())
     for key, g in geometries.items():
@@ -1205,9 +1312,14 @@ def check_int8(device, qm, model_bf16, x, model: str = "repvgg_a0", iters: int =
                 totals[route][k_] = totals[route].get(k_, 0.0) + g["count"] * v
         bound_by[route][row["bound_by"]] = bound_by[route].get(row["bound_by"], 0.0) + g["count"] * row["bound_ms"]
         emit({"phase": "check_int8_geometry", "model": model, **row})
+    small = [_halo_small_batch(key, g, b, iters) for key, g in geometries.items() for b in (1, 8)
+             if g["module"].route == "halo"]
+    for row in small:
+        emit({"phase": "check_int8_small_batch", "model": model, **row})
     torch.cuda.synchronize()
     record = {"kernel": "int8_conv", "model": model, "checked": checked, "max_abs_err_bf16": max_err,
-              "per_forward": totals, "geometries": len(geometries), "bound_ms_by": bound_by}
+              "per_forward": totals, "geometries": len(geometries), "bound_ms_by": bound_by,
+              "halo_small_batches": small}
     emit({"phase": "check", **record})
     return {**record, "rows": rows}
 
@@ -1245,7 +1357,7 @@ def check_int8_service(device, forms: list, batches=(8, 1)) -> dict:
             hd.remove()
     if len(cases) != len(layers) * len(batches) or any(x.dtype != torch.float32 for _, _, x, _ in cases):
         fail(f"int8 service check: hooked {len(cases)} float32 inputs, expected {len(layers) * len(batches)}")
-    max_err = {"wgmma": 0.0, "pointwise": 0.0, "general": 0.0}
+    max_err = dict.fromkeys(ROUTES, 0.0)
     for name, m, xin, s_x in cases:
         route = m.route
         _int8_case_holds(f"{form['record']['model']} {form['record']['form']} {name} batch {xin.shape[0]}", route,
@@ -1337,7 +1449,7 @@ def check_int8_grouped(device, batch: int = 256, iters: int = 20) -> list:
     w_scale = torch.rand(o, generator=gen, device=device) / 127 / 64
     bias = torch.randn(o, generator=gen, device=device).to(torch.bfloat16)
     weight = (w_q.float() * w_scale).permute(3, 2, 0, 1).to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
-    max_err = {"wgmma": 0.0, "pointwise": 0.0, "general": 0.0}
+    max_err = dict.fromkeys(ROUTES, 0.0)
     rows = []
     before = KERNEL_GENERAL.launches
     odd = torch.Generator(device=device).manual_seed(SEED + 12)
@@ -2070,10 +2182,9 @@ def phase_detection_serving(device, size: int = 608, num_classes: int = 80, batc
     qm = quantize_model(model, calibration_batches=[calib], arch="yolov4").to(torch.bfloat16)
     n_int8 = sum(isinstance(m, QuantizedConv2d) for m in qm.modules())
     geoms = int8_geometries(qm)
-    if (n_int8 != 102 or any(g[4] != ("pointwise" if g[2] == g[3] == 1 else "wgmma") for g in geoms)
-            or not any(g[1] == 255 for g in geoms)):
-        fail(f"yolov4: {n_int8} int8 convs at {geoms}; expected 102, the 1x1 stride-1 ones on the pointwise route "
-             "and the rest on wgmma, the prediction convs 255 wide")
+    if (n_int8 != 102 or any(g[4] != served_route(*g[:4]) for g in geoms) or not any(g[1] == 255 for g in geoms)):
+        fail(f"yolov4: {n_int8} int8 convs at {geoms}; expected 102, the 1x1 stride-1 ones on the pointwise route, "
+             "the stride-1 3x3 ones of C <= 48 on the halo route and the rest on wgmma, the prediction convs 255 wide")
     xs = {b: naturalistic_batch(gen, b, size, device).to(torch.bfloat16) for b in batches}
     candidates = 3 * sum((size // s) ** 2 for s in (8, 16, 32))  # 22,743 at 608 px
     torch.cuda.synchronize()
@@ -2160,7 +2271,7 @@ def phase_detection_serving(device, size: int = 608, num_classes: int = 80, batc
         if not int8_routes_launched(launches, qm):
             fail(f"yolov4 int8: the path launched {launches}, expected the quantization and its layers' routes "
                  f"({int8_expected(qm)} a forward)")
-        max_err = {"wgmma": 0.0, "pointwise": 0.0, "general": 0.0}
+        max_err = dict.fromkeys(ROUTES, 0.0)
         for n, m, xin in cases:
             _int8_case_holds(f"yolov4 {n}", m.route,
                              xin.permute(0, 2, 3, 1), m.activation_scale(xin), m.kernel_q, m.kernel_packed,
@@ -2394,11 +2505,11 @@ def phase_segmentation_serving(device, size: int = 256, num_classes: int = 21, b
     layers = [m for m in qm.modules() if isinstance(m, QuantizedConv2d)]
     geoms = int8_geometries(qm)
     routes = [m.route for m in layers]
-    if (len(layers) != UNET3P_INT8 or routes.count("pointwise") != 1 or routes.count("general")
+    if (len(layers) != UNET3P_INT8 or routes.count("pointwise") != 1 or any(g[4] != served_route(*g[:4]) for g in geoms)
             or not any(g[1] == num_classes for g in geoms) or not any(m.bias is not None for m in layers)):
         fail(f"unet3p: {len(layers)} int8 convs at {geoms}, routes {set(routes)}; expected {UNET3P_INT8}, the 1x1 "
-             f"head on the pointwise route and the rest on wgmma, a {num_classes}-wide head and biased convs among "
-             "them")
+             f"head on the pointwise route, the 3x3 ones of C <= 48 on the halo route and the rest on wgmma, a "
+             f"{num_classes}-wide head and biased convs among them")
     xs = {b: naturalistic_batch(gen, b, size, device).to(torch.bfloat16) for b in batches}
     held = [naturalistic_batch(gen, batches[-1], size, device).to(torch.bfloat16) for _ in range(2)]
     del calib
@@ -2668,15 +2779,19 @@ def phase_serving_graphs(device, arch: str, qm, model_bf16, x, r8, phase: str, i
 
 def int8_sums_by_kernel(rows: list, model: str) -> dict:
     """A served model's ``check_int8_geometry`` rows summed over its layers (each
-    geometry times its count of layers) by kernel shape: ``1x1`` and, where there are
-    any, ``2x2_s2``; ``conv_ms`` is each layer's route's (the pointwise GEMM at 1x1),
-    ``conv_wgmma_ms`` the wgmma conv's on the 1x1 layers' operands; a key is None where
-    a row has no such time."""
-    keys = ("route_ms", "conv_ms", "conv_wgmma_ms", "quantize_ms", "cudnn_bf16_ms", "int_mm_ms", "bound_ms")
+    geometry times its count of layers) by kernel shape and stride, the halo route's
+    layers apart (``3x3_halo``): ``1x1``, ``3x3``, ``3x3_s2``, ...; ``conv_ms`` is each
+    layer's route's (the pointwise GEMM at 1x1, the halo conv at ``*_halo``),
+    ``conv_wgmma_ms`` the wgmma conv's on the pointwise and halo layers' operands,
+    ``conv_halo_ms`` the halo conv's on the operands of the stride-1 KxK layers that
+    take the wgmma route; a key is None where a row has no such time."""
+    keys = ("route_ms", "conv_ms", "conv_wgmma_ms", "conv_halo_ms", "quantize_ms", "cudnn_bf16_ms", "int_mm_ms",
+            "bound_ms")
     out = {}
     for row in rows:
         kh, _, _, _ = row["w_hwio"]
-        kind = f"{kh}x{kh}" + (f"_s{row['stride'][0]}" if row["stride"][0] != 1 else "")
+        kind = (f"{kh}x{kh}" + (f"_s{row['stride'][0]}" if row["stride"][0] != 1 else "")
+                + ("_halo" if row["route"] == "halo" else ""))
         rec = out.setdefault(kind, {"layers": 0, **dict.fromkeys(keys, 0.0)})
         rec["layers"] += row["count"]
         for k in keys:
@@ -3271,8 +3386,11 @@ def phase_export(device) -> dict:
                                                "outputs")}
     ops = rows["repvgg_a0_int8"]["custom_ops"]
     launches = int8_launches()
-    if set(ops.values()) != {26} or not launches["int8_conv"] or not launches["int8_quantize"]:
-        fail(f"export: the int8 graph holds {ops}, expected 26 of each op; launches {launches}")
+    # at batch 1 every layer takes the wgmma route (conv_route's launch rule)
+    if (set(ops.values()) != {26} or not launches["int8_conv"] or launches["int8_conv_halo"]
+            or not launches["int8_quantize"]):
+        fail(f"export: the int8 graph holds {ops}, expected 26 of each op; launches {launches}, expected the "
+             f"quantization and the wgmma conv")
     if not rows["repvgg_a0_int8"]["equal"]:
         fail(f"export: the loaded int8 program differs from eager by {rows['repvgg_a0_int8']['max_abs_err']}")
     emit({"phase": "export", "forms": rows, "launches": launches})
@@ -3582,8 +3700,9 @@ def phase_s2d_forms(device, batch: int = 256, size: int = 224, num_classes: int 
     torch.cuda.synchronize()
     launches = {name: k.launches for name, k in KERNELS.items()}
     forwards = 2 * (1 + WARMUP + 1)  # each int8 form: eager, warm-ups, capture
-    if launches["int8_conv"] != 26 * forwards or launches["int8_quantize"] != 26 * forwards:
-        fail(f"s2d_forms: int8 launches {launches}, expected {26 * forwards} of the conv and the quantization")
+    expected = {k: int8_expected(qm, forwards // 2)[k] + int8_expected(qs, forwards // 2)[k] for k in INT8_COUNTERS}
+    if {k: launches[k] for k in INT8_COUNTERS} != expected or expected["int8_quantize"] != 26 * forwards:
+        fail(f"s2d_forms: int8 launches {launches}, expected {expected} (26 convs a forward)")
     for name in ("int8", "int8_s2d_strided"):
         if not torch.equal(outs[name], eager[name]):
             fail(f"s2d_forms: the {name} graph's logits differ from its eager forward")
@@ -3600,7 +3719,7 @@ def phase_s2d_forms(device, batch: int = 256, size: int = 224, num_classes: int 
     with torch.no_grad():
         record["ms"] = {name: cuda_ms(lambda n=name: graphs[n](inputs[n]), iters) for name in bf16}
     record["img_per_s"] = {name: batch / (ms / 1e3) for name, ms in record["ms"].items()}
-    record["int8_launches"] = {k: launches[k] for k in ("int8_conv", "int8_quantize", "int8_conv_general")}
+    record["int8_launches"] = {k: launches[k] for k in INT8_COUNTERS}
     record["folded"] = folded
     emit(record)
     del graphs, outs, eager
@@ -3722,8 +3841,9 @@ def check_int8_s2d(device, qs, model_bf16, x, iters: int = 20) -> dict:
             emit({"phase": "check_int8_s2d_geometry", "model": "repvgg_a0", **row})
     torch.cuda.synchronize()
     record = {"kernel": "int8_conv", "model": "repvgg_a0 s2d_strided", "geometries": len(rows),
-              "max_abs_err_bf16": {"wgmma": max_err, "general": 0.0}, "per_forward": {"wgmma": totals, "general": {}},
-              "bound_ms_by": {"wgmma": bound_by, "general": {}}}
+              "max_abs_err_bf16": {**dict.fromkeys(ROUTES, 0.0), "wgmma": max_err},
+              "per_forward": {**{r: {} for r in ROUTES}, "wgmma": totals},
+              "bound_ms_by": {**{r: {} for r in ROUTES}, "wgmma": bound_by}}
     emit({"phase": "check", **record})
     return {**record, "rows": rows}
 
@@ -3907,7 +4027,7 @@ def _check_int8_blocks(fwd, x) -> tuple:
             hd.remove()
     if len(taken) != len(layers):
         fail(f"model_spatial_parallel: {len(taken)} of the {len(layers)} split int8 convs ran")
-    max_err, checked = {"wgmma": 0.0, "pointwise": 0.0}, []
+    max_err, checked = dict.fromkeys(ROUTES, 0.0), []
     for m, xin in taken:
         xin = sharded.gather(xin).contiguous(memory_format=torch.channels_last)
         key = [list(xin.shape), list(m.kernel_q.shape), list(m.stride)]
@@ -4404,9 +4524,10 @@ def int8_entries(launches: list, replays_seen: dict, records: list, pointwise_re
     apart from them, ``replay_launches_seen``: the launches ``torch.profiler`` saw in
     the counted graph replays of ``deploy_graph_profile`` (a replay makes no call a
     counter sees);
-    the wgmma conv's and the quantization's times and bounds summed over one batch-256
-    forward of each serving model in ``records`` (repvgg_a0, resnet50, rexnet1_0x: each
-    geometry times its count of layers; each conv's bound counts the int8 x it reads),
+    the wgmma conv's, the halo conv's and the quantization's times and bounds summed
+    over one batch-256 forward of each serving model in ``records`` (repvgg_a0,
+    resnet50, rexnet1_0x: each geometry times its count of layers; each conv's bound
+    counts the int8 x it reads),
     and over the four ``s2d_strided`` geometries of repvgg_a0 (``check_int8_s2d``: the
     folded 2x2 stride-1 convs); the pointwise conv's over one batch-256 forward of each
     model in ``pointwise_records`` (resnet50, rexnet1_0x, mobileone_s1, convnext_tiny:
@@ -4447,6 +4568,9 @@ def int8_entries(launches: list, replays_seen: dict, records: list, pointwise_re
         entry("int8_conv", "int8_conv.cu", total("conv_ms", "wgmma"), total("plain_ms", "wgmma"),
               total("bound_ms", "wgmma"), bound_by("wgmma", records),
               max(blocks_err, *(r["max_abs_err_bf16"]["wgmma"] for r in records))),
+        entry("int8_conv_halo", "int8_conv.cu", total("conv_ms", "halo"), total("plain_ms", "halo"),
+              total("bound_ms", "halo"), bound_by("halo", records),
+              max(blocks_err, *(r["max_abs_err_bf16"]["halo"] for r in records))),
         pointwise,
         quantize,
         entry("int8_conv_general", "int8_conv_general.cu", sum(g["conv_ms"] for g in grouped),
@@ -4479,7 +4603,7 @@ def main() -> int:
     torch.cuda.set_device(device)
 
     timed(phase_build)
-    qm, model_bf16, x, r8, serving_launches = timed(phase_serving, device)
+    qm, model_bf16, x, r8, serving_launches = timed(phase_serving, device, halo_layers=3)
     rqm, rmodel_bf16, rx, rr8, resnet_launches = timed(phase_serving, device, "resnet50", 52, 33, "resnet_serving")
     xqm, xmodel_bf16, xx, xr8, rexnet_launches = timed(phase_serving, device, "rexnet1_0x", 44, 44, "rexnet_serving")
     dqm, dmodel_bf16, dx, _, darknet_launches = timed(phase_serving, device, "darknet53", 49, 23, "darknet_serving")
@@ -4533,17 +4657,17 @@ def main() -> int:
     del s2d_qm, s2d_bf16, s2d_x
     i8_resnet = timed(check_int8, device, rqm, rmodel_bf16, rx, "resnet50")
     i8_rexnet = timed(check_int8, device, xqm, xmodel_bf16, xx, "rexnet1_0x")
-    timed(check_int8, device, dqm, dmodel_bf16, dx, "darknet53")
+    i8_darknet = timed(check_int8, device, dqm, dmodel_bf16, dx, "darknet53")
     # at batch 32 unet3p's activations reach 2^31 elements (the wgmma conv then runs in
     # launches of whole images) and its float64 plain convs would take most of the
     # check's time: they run on the first and the last image there
-    timed(check_int8, device, sqm, smodel_bf16, sx, "unet3p", plain_images=(0, -1))
+    i8_unet3p = timed(check_int8, device, sqm, smodel_bf16, sx, "unet3p", plain_images=(0, -1))
     del sqm, smodel_bf16, sx
     i8_more = []
     for qmodel, bf16, xb, arch in ((mqm, mmodel_bf16, mx, "mobileone_s1"), (cqm, cmodel_bf16, cx, "convnext_tiny")):
         i8_more.append(timed(check_int8, device, qmodel, bf16, xb, arch))
         emit({"phase": "int8_sums_by_kernel", **int8_sums_by_kernel(i8_more[-1]["rows"], arch)})
-    for rec in (i8_resnet, i8_rexnet):
+    for rec in (i8, i8_resnet, i8_rexnet, i8_darknet, i8_unet3p):
         emit({"phase": "int8_sums_by_kernel", **int8_sums_by_kernel(rec["rows"], rec["model"])})
     timed(check_int8_service, device, graph_forms)
     emit({"phase": "rexnet_int8_by_kind", **rexnet_int8_by_kind(i8_rexnet["rows"])})

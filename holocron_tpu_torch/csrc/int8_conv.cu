@@ -15,10 +15,13 @@
 // (kernels/int8_conv.py:pack_weights) from HWIO into an (O_pad, K_pad) K-major int8
 // matrix over the same pitch, zero beyond C, O and K, so the reduction runs over
 // K = KH*KW*P and the zeros add nothing. y is float32 or bfloat16; out_dtype 2 stores
-// the raw int32 accumulator. Every ungrouped conv that is not pointwise takes this route
-// (int8_conv_wgmma_kernel); a 1x1, stride-1, unpadded conv whose O is a multiple of 8
-// or fits one column tile takes the pointwise GEMM (int8_pointwise_wgmma_kernel, at the
-// end of this file); grouped convs go to int8_conv_general.cu.
+// the raw int32 accumulator. Three ungrouped routes read that packing, chosen by shape
+// in kernels/int8_conv.py:conv_route: a 1x1, stride-1, unpadded conv takes the
+// pointwise GEMM (int8_pointwise_wgmma_kernel); a KxK, stride-1, undilated one with
+// O % 8 == 0 and C <= 48, launched on at least 401,408 output pixels, takes the halo conv
+// (int8_conv_halo_kernel, at the end of this file); every other takes this one
+// (int8_conv_wgmma_kernel). Grouped convs go to
+// int8_conv_general.cu.
 //
 // What bounds it on an H100: at repvgg_a0's 192- and 1280-channel layers the int8
 // tensor-core rate (1,979 TOP/s, reachable only through wgmma); at the 48- and
@@ -1452,6 +1455,455 @@ int dispatch_pointwise(int bn, const CUtensorMap& tm_x, const CUtensorMap& tm_w,
   }
 }
 
+// ---- The halo route: int8_conv_halo_kernel ----------------------------------------
+//
+// Replaces holocron_tpu/quant.py:_quantized_conv's int8 convolution (quant.py:259-274,
+// left to XLA by the JAX package) for the KxK, stride-1, undilated convs whose output
+// rows are whole 16-byte pieces (O % 8 == 0): the same function and epilogue as the
+// routes above, bit for bit. The wgmma route gathers the activation once per filter tap
+// from L2; this one copies each tile's input halo into shared memory once and feeds
+// every tap from it. What bounds it on an H100 at the layers conv_route gives it (C <=
+// 48: repvgg_a0's 48 -> 48 at 112 and 56 px) is the bytes: x read once and y written
+// once (48 -> 48 at 112 px, batch 256: 0.138 ms at 3.35 TB/s).
+//
+// - The q space: an image's output pixel (y, x) is row q = y * WQ + x of the GEMM,
+//   where WQ = W + 2 PW is the row pitch of the padded input as the halo holds it. Tap
+//   (r, s) of row q then reads halo pixel q + r * WQ + s: every tap is the same linear
+//   run of halo pixels, shifted. The columns x >= OW of each row are computed and never
+//   stored (2 of 114 at 112 x 112, 2 of 16 at 14 x 14), and so are the rows past the
+//   image's last q in its last 64-row chunk: up to a third more products on the small
+//   maps, which is why conv_route keeps C > 48 on the wgmma route (PERF.md). A tile's
+//   halo and weights arrive whole before its first product, a latency the wgmma
+//   route's per-step ring hides, so conv_route also keeps small launches on wgmma.
+// - The halo layout: 16-byte channel planes, each a dense run of pixels at 16 bytes,
+//   the canonical no-swizzle K-major layout of wgmma (core matrices of 8 rows of 16
+//   bytes): a chunk's A operand for tap t and plane c is a descriptor whose start
+//   address is the plane's pixel q0 + shift(t), its 8-row stride 128 bytes (SBO) and its
+//   K stride (LBO) the distance to the k32 step's second 16-byte chunk of K, the next
+//   plane. K runs in the packed weights' (tap, channel) order; where the pixel pitch is
+//   an odd number of planes above one (C = 48), a k32 step's second chunk is the next
+//   tap's plane 0, which the halo holds again one plane past the last, so that LBO stays
+//   positive. No tap is ever copied.
+// - Loads: three producer warps copy a tile's halo with 16-byte cp.async copies, a row
+//   a warp at a time, a warp's copies reading contiguous bytes of an input row
+//   (zero-filled outside the image: the padding), each pixel of the halo once a tile.
+//   (TMA boxes of 16-byte rows were slower in trials whose figures were not kept.) One
+//   thread of the fourth warp loads the weights by TMA, 128 reduction bytes x BN rows a
+//   box in the 128-byte swizzle: once per block where BN x K_pad fits beside two A
+//   stages ("resident"), else a ring of steps ("streamed").
+// - A tile: up to 2 * CPW 64-row chunks of q space, CPW a consumer warpgroup (CPW * BN /
+//   2 <= 128 accumulator registers), either a band of one image's chunks or, where an
+//   image has no more chunks than that, whole images; fewer where its halo does not
+//   fit two A stages. Both warpgroups multiply side by side on a weight step; a step's
+//   4 x CPW k32 products a warpgroup are issued as one straight run (a branch between
+//   two wgmmas made ptxas wait for each one alone). Each block keeps one column tile.
+// - The epilogue stages 128 bytes of each row at a time in shared memory and stores
+//   whole 16-byte pieces, as the wgmma route's; it does not overlap the products (the
+//   warpgroups taking turns on the tensor cores were no faster in trials whose figures
+//   were not kept; PERF.md).
+template <int BN>
+struct Halo {
+  static constexpr int CPW = BN <= 64 ? 4 : 2;  // chunks a warpgroup holds: CPW * BN / 2 <= 128 registers
+};
+
+constexpr int HALO_CHUNK = 64;       // q rows of a chunk: one warpgroup's wgmma M
+constexpr int HALO_MAX_A = 4;        // A stages
+constexpr int HALO_MAX_B = 8;        // streamed weight stages
+constexpr int HALO_MAX_TAPS = 64;
+constexpr int HALO_EPI_BYTES = 2 * EPI_WG_BYTES;
+constexpr int HALO_COPIERS = 96;     // producer warps 0-2 copy the halo; warp 3 loads the weights
+
+struct HaloShape {
+  int n, h, w, p;         // x_q: images, rows, columns, pixel pitch in bytes
+  int oh, ow, o;
+  int kw, taps, ph, pw;
+  int wq;                 // the q space's row pitch: the padded input's columns
+  int chunks;             // 64-row chunks of an image's q space
+  int tile_chunks;        // chunks a tile: at most 2 CPW
+  int images;             // images a tile (1: a band of tile_chunks of one image's chunks)
+  int tiles_img;          // tiles an image (band tiles), or 1
+  int row_tiles, col_tiles, blocks_per_col;
+  int planes, slots;      // 16-byte planes of x_q; the halo's plane slots (plus a copy of plane 0 where planes is odd and above 1)
+  int nr;                 // halo rows of an image a stage holds
+  int img_bytes;          // nr * wq * 16 rounded up to 128: an image's part of a plane slot
+  int plane_bytes;        // images * img_bytes + 16 (a pixel's slots in different banks)
+  int a_stage_bytes, a_stages, b_stages, resident;
+  int ksteps, subs;       // 128-byte steps of the packed K; k32 steps (ceil(planes * taps / 2))
+  int out_dtype, bias_bf16;
+  int off_b, off_epi, off_table, off_shift, off_bar;  // from the aligned base; A stages at 0
+};
+
+// Descriptor of a K-major operand in the no-swizzle layout: core matrices of 8 rows x 16
+// bytes (rows 16 bytes apart), `lbo` bytes between the two core matrices of a k32 step
+// along K, `sbo` bytes between 8-row groups.
+__device__ __forceinline__ uint64_t smem_desc_plain(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
+         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32);
+}
+
+// The epilogue of a tile's chunks held by one warpgroup (its 128 threads t): chunk by
+// chunk, 128 bytes of each row at a time (CW = 64 bf16 or 32 four-byte columns)
+// through the warpgroup's staging area, acc[k][4jj + 2h + e] being row 16 * warp +
+// lane / 4 + 8h of chunk k, column 8jj + 2 * (lane % 4) + e. Column pairs go in (the
+// requantize epilogue, or the raw accumulator: RAW); rows leave as 16-byte stores,
+// except a row whose q is a computed-only column or past the image. B: the output's
+// bytes an element. (Storing each thread's column pairs straight to y, 4 or 8 bytes a
+// store, took about twice as long at 48 channels in a trial whose figures were not kept.)
+template <int BN, int CPW, int B, bool RAW>
+__device__ __forceinline__ void halo_epilogue(const int (&acc)[CPW][BN / 2], const bool (&valid)[CPW],
+                                              const int (&cq)[CPW], const int (&cimg)[CPW], const HaloShape& s,
+                                              char* __restrict__ out, uint32_t staging, const float* col_scale,
+                                              const float* col_bias, bool has_bias, int n0, int cols, int t, int wg) {
+  constexpr int CW = 128 / B;  // columns a round
+  constexpr int ROWS = 4;      // rows a thread stores a round: 64 rows x 8 pieces of 16 bytes / 128 threads
+  const int warp = t / 32, lane = t % 32, part = t % 8;
+#pragma unroll
+  for (int k = 0; k < CPW; ++k) {
+    if (!valid[k]) continue;
+    long long row_off[ROWS];  // the output element offsets of this thread's rows t / 8 + 16 i
+#pragma unroll
+    for (int i = 0; i < ROWS; ++i) {
+      const int q = cq[k] + t / 8 + 16 * i;
+      const int y = q / s.wq, x = q - y * s.wq;
+      row_off[i] = x < s.ow && y < s.oh ? ((static_cast<long long>(cimg[k]) * s.oh + y) * s.ow + x) * s.o : -1;
+    }
+#pragma unroll
+    for (int round = 0; round < (BN + CW - 1) / CW; ++round) {
+      named_barrier(1 + wg, 128);  // the previous round's rows have left
+#pragma unroll
+      for (int qq = 0; qq < CW / 8; ++qq) {
+        const int jj = round * (CW / 8) + qq;
+        if (jj >= BN / 8) break;
+        const int c = 8 * jj + 2 * (lane % 4);
+        float2 scale = make_float2(0.f, 0.f), add = make_float2(0.f, 0.f);
+        if constexpr (!RAW) {
+          scale = *reinterpret_cast<const float2*>(col_scale + c);
+          add = *reinterpret_cast<const float2*>(col_bias + c);
+        }
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int a0 = acc[k][4 * jj + 2 * h], a1 = acc[k][4 * jj + 2 * h + 1];
+          const uint32_t dst = staging + (warp * 16 + lane / 4 + 8 * h) * EPI_PITCH + (8 * qq + 2 * (lane % 4)) * B;
+          if constexpr (RAW) {
+            st_shared8(dst, static_cast<uint32_t>(a0), static_cast<uint32_t>(a1));
+          } else {
+            const float y0 = requantize(a0, scale.x, add.x, has_bias), y1 = requantize(a1, scale.y, add.y, has_bias);
+            if constexpr (B == 4) {
+              st_shared8(dst, __float_as_uint(y0), __float_as_uint(y1));
+            } else {
+              __nv_bfloat162 pair = __floats2bfloat162_rn(y0, y1);
+              st_shared4(dst, *reinterpret_cast<uint32_t*>(&pair));
+            }
+          }
+        }
+      }
+      named_barrier(1 + wg, 128);
+      const int col = round * CW + part * (16 / B);
+#pragma unroll
+      for (int i = 0; i < ROWS; ++i) {
+        if (row_off[i] >= 0 && col < cols) {
+          const uint4 v = ld_shared16(staging + (t / 8 + 16 * i) * EPI_PITCH + 16 * part);
+          *reinterpret_cast<uint4*>(out + (row_off[i] + n0 + col) * B) = v;
+        }
+      }
+    }
+  }
+}
+
+// One block keeps column tile blockIdx.x % col_tiles and walks row tiles first_row,
+// first_row + blocks_per_col, ... Warpgroups 0 and 1 multiply side by side, warpgroup w
+// on the tile's chunks w * CPW .. w * CPW + CPW - 1, each weight step read by both.
+template <int BN>
+__global__ void __launch_bounds__(THREADS, 1) int8_conv_halo_kernel(
+    const int8_t* __restrict__ x, const __grid_constant__ CUtensorMap tm_w, const float* __restrict__ s_x,
+    const float* __restrict__ w_scale, const void* __restrict__ bias, void* __restrict__ out, HaloShape s) {
+  constexpr int CPW = Halo<BN>::CPW;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t smem = (raw + 1023u) & ~1023u;
+  uint8_t* const smem_ptr = smem_raw + (smem - raw);
+  const uint32_t a_full = smem + s.off_bar, a_empty = a_full + 8 * HALO_MAX_A;
+  const uint32_t b_full = a_empty + 8 * HALO_MAX_A, b_empty = b_full + 8 * HALO_MAX_B;
+  const uint32_t w_bar = b_empty + 8 * HALO_MAX_B;
+  float* const col_scale = reinterpret_cast<float*>(smem_ptr + s.off_table);
+  float* const col_bias = col_scale + BN;
+  int* const shift = reinterpret_cast<int*>(smem_ptr + s.off_shift);
+
+  const int tid = threadIdx.x;
+  const int n0 = static_cast<int>(blockIdx.x % s.col_tiles) * BN;
+  const int first_row = static_cast<int>(blockIdx.x / s.col_tiles);
+  const int tiles =
+      first_row < s.row_tiles ? (s.row_tiles - first_row + s.blocks_per_col - 1) / s.blocks_per_col : 0;
+  const int steps = (s.subs + 3) / 4;  // 128-byte weight steps a tile
+  if (tid == 0) {
+    for (int i = 0; i < HALO_MAX_A; ++i) {
+      mbar_init(a_full + 8 * i, HALO_COPIERS);
+      mbar_init(a_empty + 8 * i, CONSUMERS);
+    }
+    for (int i = 0; i < HALO_MAX_B; ++i) {
+      mbar_init(b_full + 8 * i, 1);
+      mbar_init(b_empty + 8 * i, CONSUMERS);
+    }
+    mbar_init(w_bar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // the tile's first image, its images, its first chunk and its chunks, and the first
+  // padded input row its halo holds
+  auto place = [&](int rt, int& img0, int& imgs, int& c0, int& nch, int& r0) {
+    if (s.images > 1) {
+      img0 = rt * s.images;
+      imgs = min(s.images, s.n - img0);
+      c0 = 0;
+      nch = imgs * s.chunks;
+      r0 = 0;
+    } else {
+      img0 = rt / s.tiles_img;
+      imgs = 1;
+      c0 = (rt - img0 * s.tiles_img) * s.tile_chunks;
+      nch = min(s.tile_chunks, s.chunks - c0);
+      r0 = c0 * HALO_CHUNK / s.wq;
+    }
+  };
+
+  if (tid >= CONSUMERS) {
+    // ---- producers: warpgroup 2 ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 56;\n");
+    const int ptid = tid - CONSUMERS;
+    if (ptid >= HALO_COPIERS) {
+      // the weights, by one thread of warp 3, through TMA
+      if (ptid != HALO_COPIERS) return;
+      if (s.resident) {
+        mbar_expect_tx(w_bar, BN * BK * s.ksteps);
+        for (int kt = 0; kt < s.ksteps; ++kt) tma_load_2d(smem + s.off_b + kt * BN * BK, &tm_w, w_bar, kt * BK, n0);
+        return;
+      }
+      int bslot = 0, bphase = 0;
+      for (int j = 0; j < tiles; ++j) {
+        for (int kt = 0; kt < steps; ++kt) {
+          mbar_wait(b_empty + 8 * bslot, bphase ^ 1);
+          mbar_expect_tx(b_full + 8 * bslot, BN * BK);
+          tma_load_2d(smem + s.off_b + bslot * BN * BK, &tm_w, b_full + 8 * bslot, kt * BK, n0);
+          if (++bslot == s.b_stages) {
+            bslot = 0;
+            bphase ^= 1;
+          }
+        }
+      }
+      return;
+    }
+    // the halo, by warps 0-2, a halo row a warp at a time: the row's 16-byte chunks in
+    // (pixel, slot) order, a lane every 32nd, so that a warp's copies read contiguous
+    // bytes of an input row and write each plane's 16-byte slots (slot C / 16, where
+    // there is one, is plane 0 again); outside the image a slot is zero-filled (the
+    // padding). A lane's place in the row is carried without division.
+    const int cw = ptid / 32, lane = ptid % 32;
+    const int ns = s.slots, row_chunks = s.wq * ns;
+    const int lane_x = lane / ns, lane_sl = lane % ns, step_x = 32 / ns, step_sl = 32 % ns;
+    int aslot = 0, aphase = 0;
+    for (int j = 0; j < tiles; ++j) {
+      int img0, imgs, c0, nch, r0;
+      place(first_row + j * s.blocks_per_col, img0, imgs, c0, nch, r0);
+      mbar_wait(a_empty + 8 * aslot, aphase ^ 1);
+      const uint32_t stage = smem + aslot * s.a_stage_bytes;
+      for (int r = cw; r < imgs * s.nr; r += HALO_COPIERS / 32) {
+        const int gi = r / s.nr, hr = r - gi * s.nr, iy = r0 + hr - s.ph;
+        const bool row_in = static_cast<unsigned>(iy) < static_cast<unsigned>(s.h);
+        const int8_t* const src = x + ((static_cast<long long>(img0 + gi) * s.h + iy) * s.w - s.pw) * s.p;
+        const uint32_t dst = stage + gi * s.img_bytes + hr * s.wq * 16;
+        int hx = lane_x, sl = lane_sl;
+#pragma unroll 4
+        for (int c = lane; c < row_chunks; c += 32) {
+          const bool in = row_in && static_cast<unsigned>(hx - s.pw) < static_cast<unsigned>(s.w);
+          const int plane = sl < s.planes ? sl : 0;
+          cp_async16(dst + sl * s.plane_bytes + hx * 16, in ? src + static_cast<long long>(hx) * s.p + 16 * plane : x,
+                     in ? 16 : 0);
+          sl += step_sl;
+          hx += step_x;
+          if (sl >= ns) {
+            sl -= ns;
+            ++hx;
+          }
+        }
+      }
+      mbar_arrive_on_copies(a_full + 8 * aslot);
+      if (++aslot == s.a_stages) {
+        aslot = 0;
+        aphase ^= 1;
+      }
+    }
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    return;
+  }
+
+  // ---- consumers: warpgroups 0 and 1 ----
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 224;\n");
+  const int wg = __shfl_sync(0xFFFFFFFFu, tid / 128, 0);
+  const int t = tid % 128;
+  const int cols = min(BN, s.o - n0);
+  const bool has_bias = bias != nullptr;
+  if (s.out_dtype != 2) {  // the column tile's s_x * w_scale and bias, for the block's life
+    const float sx = *s_x;
+    for (int c = tid; c < BN; c += CONSUMERS) {
+      const bool in = c < cols;
+      col_scale[c] = in ? __fmul_rn(sx, w_scale[n0 + c]) : 0.f;
+      col_bias[c] = !in || !has_bias ? 0.f
+                    : s.bias_bf16    ? __bfloat162float(static_cast<const __nv_bfloat16*>(bias)[n0 + c])
+                                     : static_cast<const float*>(bias)[n0 + c];
+    }
+  }
+  for (int i = tid; i < s.taps; i += CONSUMERS) shift[i] = ((i / s.kw) * s.wq + i % s.kw) * 16;
+  named_barrier(3, CONSUMERS);
+  if (s.resident) mbar_wait(w_bar, 0);
+  const int total_chunks = s.planes * s.taps;
+  const uint32_t staging = smem + s.off_epi + wg * EPI_WG_BYTES;
+  int acc[CPW][BN / 2];
+  int aslot = 0, aphase = 0, bslot = 0, bphase = 0;
+  for (int j = 0; j < tiles; ++j) {
+    int img0, imgs, c0, nch, r0;
+    place(first_row + j * s.blocks_per_col, img0, imgs, c0, nch, r0);
+    // this warpgroup's chunks: valid, byte offset in a plane, image and first q
+    bool valid[CPW];
+    uint32_t qoff[CPW];
+    int cimg[CPW], cq[CPW];
+#pragma unroll
+    for (int k = 0; k < CPW; ++k) {
+      const int i = wg * CPW + k;  // the chunk in the tile
+      valid[k] = i < nch;
+      const int gi = s.images > 1 ? i / s.chunks : 0;
+      const int q = s.images > 1 ? (i - gi * s.chunks) * HALO_CHUNK : (c0 + i) * HALO_CHUNK;
+      cimg[k] = img0 + gi;
+      cq[k] = q;
+      qoff[k] = static_cast<uint32_t>(gi * s.img_bytes + (q - r0 * s.wq) * 16);
+    }
+#pragma unroll
+    for (int k = 0; k < CPW; ++k) {
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) acc[k][i] = 0;
+    }
+    mbar_wait(a_full + 8 * aslot, aphase);
+    // the copies (cp.async: the generic proxy), visible to the tensor cores
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    const uint32_t a_stage = smem + aslot * s.a_stage_bytes;
+    const int a_cur = aslot;
+    if (++aslot == s.a_stages) {
+      aslot = 0;
+      aphase ^= 1;
+    }
+    // One 128-byte weight step a pass: its four k32 steps' products are one commit group,
+    // issued as straight-line code after their descriptors (a branch between two wgmmas
+    // makes ptxas fence and wait for each one alone). Every chunk's products are issued,
+    // valid or not (a chunk past the tile reads the stage and is never stored), and the
+    // k32 steps past K read zero weights.
+    int tp = 0, pl = 0;  // tap and plane of the next k32 step's first 16-byte chunk of K
+    int b_prev = -1;
+    for (int kt = 0; kt < steps; ++kt) {
+      uint32_t b_stage;
+      int b_cur = -1;
+      if (s.resident) {
+        b_stage = smem + s.off_b + kt * BN * BK;
+      } else {
+        mbar_wait(b_full + 8 * bslot, bphase);
+        b_cur = bslot;
+        b_stage = smem + s.off_b + bslot * BN * BK;
+        if (++bslot == s.b_stages) {
+          bslot = 0;
+          bphase ^= 1;
+        }
+      }
+      // each k32 step's two 16-byte chunks of K: (tp, pl) and the next, the next plane
+      // of the tap, or the next tap's plane 0 (slot C / 16, a copy of plane 0 one plane
+      // past the last, where there are several planes: LBO stays positive); past K the
+      // weights are zero and the next pixel will do (the halo holds one pixel more than
+      // the tile reads)
+      uint32_t addr[4], lbo[4];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const int sh0 = shift[tp];
+        const bool same_tap = pl + 1 < s.planes;
+        const int tp1 = same_tap ? tp : tp + 1;
+        const int slot1 = same_tap ? pl + 1 : s.planes > 1 ? s.planes : 0;
+        const int sh1 = shift[tp1 < s.taps ? tp1 : tp];
+        addr[kk] = a_stage + pl * s.plane_bytes + sh0;
+        lbo[kk] = 2 * (4 * kt + kk) + 1 >= total_chunks
+                      ? 16u
+                      : static_cast<uint32_t>((slot1 - pl) * s.plane_bytes + sh1 - sh0);
+        pl += 2;
+        while (pl >= s.planes) {
+          pl -= s.planes;
+          ++tp;
+        }
+        tp = min(tp, s.taps - 1);  // past K: any tap will do
+      }
+      asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const uint64_t db = smem_desc(b_stage + 32 * kk);
+#pragma unroll
+        for (int k = 0; k < CPW; ++k) Wgmma<BN>::mma(acc[k], smem_desc_plain(addr[kk] + qoff[k], lbo[kk], 128), db);
+      }
+      asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+      asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+      if (b_prev >= 0) mbar_arrive(b_empty + 8 * b_prev);
+      b_prev = b_cur;
+    }
+    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+    mbar_arrive(a_empty + 8 * a_cur);
+    if (b_prev >= 0) mbar_arrive(b_empty + 8 * b_prev);
+#pragma unroll
+    for (int k = 0; k < CPW; ++k) {
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) asm volatile("" : "+r"(acc[k][i])::"memory");
+    }
+
+    // the epilogue, by output type (each a loop with no branch on it)
+    char* const y = static_cast<char*>(out);
+    if (s.out_dtype == 1) {
+      halo_epilogue<BN, CPW, 2, false>(acc, valid, cq, cimg, s, y, staging, col_scale, col_bias, has_bias, n0, cols,
+                                        t, wg);
+    } else if (s.out_dtype == 0) {
+      halo_epilogue<BN, CPW, 4, false>(acc, valid, cq, cimg, s, y, staging, col_scale, col_bias, has_bias, n0, cols,
+                                        t, wg);
+    } else {
+      halo_epilogue<BN, CPW, 4, true>(acc, valid, cq, cimg, s, y, staging, col_scale, col_bias, has_bias, n0, cols,
+                                       t, wg);
+    }
+  }
+}
+
+template <int BN>
+int launch_halo(const void* x, const CUtensorMap& tm_w, const void* s_x, const void* w_scale, const void* bias,
+                void* out, const HaloShape& s, int grid, int smem_bytes, cudaStream_t stream) {
+  auto* kernel = int8_conv_halo_kernel<BN>;
+  static bool ready[MAX_DEVICES];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (dev >= MAX_DEVICES) return static_cast<int>(cudaErrorInvalidDevice);
+  if (!ready[dev]) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, PW_SMEM + 1024);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    ready[dev] = true;
+  }
+  kernel<<<grid, THREADS, smem_bytes, stream>>>(static_cast<const int8_t*>(x), tm_w, static_cast<const float*>(s_x),
+                                                static_cast<const float*>(w_scale), bias, out, s);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int halo_cpw(int bn) { return bn <= 64 ? Halo<64>::CPW : Halo<128>::CPW; }
+
+int dispatch_halo(int bn, const void* x, const CUtensorMap& tm_w, const void* s_x, const void* w_scale,
+                  const void* bias, void* out, const HaloShape& s, int grid, int smem_bytes, cudaStream_t stream) {
+  switch (bn) {
+    case 48: return launch_halo<48>(x, tm_w, s_x, w_scale, bias, out, s, grid, smem_bytes, stream);
+    case 64: return launch_halo<64>(x, tm_w, s_x, w_scale, bias, out, s, grid, smem_bytes, stream);
+    case 96: return launch_halo<96>(x, tm_w, s_x, w_scale, bias, out, s, grid, smem_bytes, stream);
+    case 128: return launch_halo<128>(x, tm_w, s_x, w_scale, bias, out, s, grid, smem_bytes, stream);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 }  // namespace
 
 extern "C" const char* holocron_cuda_error_string(int err) {
@@ -1617,4 +2069,122 @@ extern "C" int int8_pointwise_forward(const void* x, const void* wp, const void*
                               s.off_bar + bar_bytes + 1024, static_cast<cudaStream_t>(stream));
   }
   return code;
+}
+
+// The halo route (int8_conv_halo_kernel): a KxK (KH * KW >= 2, at most 64 taps),
+// stride-1, undilated conv of x_q (NHWC at pixel pitch p, a multiple of 16, zero beyond
+// the channels) into out (N, OH, OW, o), o % 8 == 0. wp: the packed weights, as
+// int8_conv_wgmma_forward reads them (o_rows >= o rows of k_pad = KH * KW * p rounded up
+// to a multiple of 128 bytes); bn the column tile (48, 64, 96 or 128). out_dtype as
+// int8_conv_wgmma_forward's. x, wp and out 16-byte aligned.
+// Refuses what it does not take (cudaErrorInvalidValue) and a conv where two A stages
+// of a one-chunk tile's halo do not fit shared memory (cudaErrorLaunchOutOfResources);
+// returns cudaErrorNotSupported where cuTensorMapEncodeTiled is not available, else
+// cudaGetLastError(). Pixel
+// offsets are 64-bit and tile indices 32-bit: any batch is one launch.
+extern "C" int int8_conv_halo_forward(const void* x, const void* wp, const void* s_x, const void* w_scale,
+                                      const void* bias, int bias_bf16, void* out, int out_dtype, int n, int h, int w,
+                                      int p, int o, int kh, int kw, int ph, int pw, int bn, int o_rows, int k_pad,
+                                      void* stream) {
+  const int oh = h + 2 * ph - kh + 1, ow = w + 2 * pw - kw + 1, taps = kh * kw;
+  const bool width = bn == 48 || bn == 64 || bn == 96 || bn == 128;
+  if (out_dtype < 0 || out_dtype > 2 || n < 0 || h < 1 || w < 1 || p < 16 || p % 16 != 0 || o < 1 || o % 8 != 0 ||
+      kh < 1 || kw < 1 || taps < 2 || taps > HALO_MAX_TAPS || ph < 0 || pw < 0 || oh < 1 || ow < 1 || !width ||
+      o_rows < o || static_cast<long long>(k_pad) != (static_cast<long long>(taps) * p + BK - 1) / BK * BK ||
+      reinterpret_cast<uintptr_t>(x) % 16 != 0 || reinterpret_cast<uintptr_t>(wp) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(out) % 16 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (n == 0) return 0;
+  static int sms[MAX_DEVICES];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (dev >= MAX_DEVICES) return static_cast<int>(cudaErrorInvalidDevice);
+  if (sms[dev] == 0) {
+    err = cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  HaloShape s{};
+  s.n = n;
+  s.h = h;
+  s.w = w;
+  s.p = p;
+  s.oh = oh;
+  s.ow = ow;
+  s.o = o;
+  s.kw = kw;
+  s.taps = taps;
+  s.ph = ph;
+  s.pw = pw;
+  s.out_dtype = out_dtype;
+  s.bias_bf16 = bias_bf16;
+  s.wq = w + 2 * pw;
+  const long long mq = static_cast<long long>(oh - 1) * s.wq + ow;
+  if (mq + HALO_CHUNK > 0x7FFFFFFFLL) return static_cast<int>(cudaErrorInvalidValue);
+  s.chunks = static_cast<int>((mq + HALO_CHUNK - 1) / HALO_CHUNK);
+  s.planes = p / 16;
+  s.slots = s.planes + (s.planes % 2 == 1 && s.planes > 1 ? 1 : 0);
+  s.ksteps = k_pad / BK;
+  s.subs = (s.planes * taps + 1) / 2;
+  s.col_tiles = (o + bn - 1) / bn;
+  // shared memory: the A stages, the weights (resident, or a ring of steps), the
+  // epilogue's staging, the column table, the tap shifts and the barriers
+  const int fixed = HALO_EPI_BYTES + 2 * bn * 4 + HALO_MAX_TAPS * 4 + 8 * (2 * HALO_MAX_A + 2 * HALO_MAX_B + 1) + 1024;
+  const long long budget = PW_SMEM - fixed;  // 1024: the weights' 1024-byte alignment after the A stages
+  const long long w_bytes = static_cast<long long>(bn) * k_pad, b_step = bn * BK;
+  // the tile: the most chunks (at most 2 CPW) whose halo fits two A stages beside the
+  // weights, resident where they fit, else a ring of at least two steps; whole images
+  // where an image has no more chunks than that, else a band of one image's chunks.
+  // The halo rows an image needs (the last chunk's rows past the image read the rows
+  // below it, which are computed and not stored; one pixel more for the k32 steps past K)
+  bool fits = false;
+  for (int tc = 2 * halo_cpw(bn); tc >= 1 && !fits; --tc) {
+    long long last;
+    s.tile_chunks = tc;
+    if (s.chunks <= tc) {
+      s.images = tc / s.chunks;
+      s.tiles_img = 1;
+      last = static_cast<long long>(s.chunks) * HALO_CHUNK + static_cast<long long>(kh - 1) * s.wq + kw - 1;
+    } else {
+      s.images = 1;
+      s.tiles_img = (s.chunks + tc - 1) / tc;
+      last = (s.wq - 1) + static_cast<long long>(tc) * HALO_CHUNK + static_cast<long long>(kh - 1) * s.wq + kw - 1;
+    }
+    s.nr = static_cast<int>(last / s.wq) + 1;
+    const long long img_bytes = (static_cast<long long>(s.nr) * s.wq * 16 + 127) / 128 * 128;
+    const long long plane_bytes = s.images * img_bytes + 16;
+    const long long stage = s.slots * plane_bytes;
+    if (plane_bytes >= (1 << 18) / 2) continue;  // the descriptors' 18-bit offsets (LBO is up to two planes)
+    s.img_bytes = static_cast<int>(img_bytes);
+    s.plane_bytes = static_cast<int>(plane_bytes);
+    s.a_stage_bytes = static_cast<int>(stage);
+    if (w_bytes + 2 * stage <= budget) {
+      s.resident = 1;
+      s.a_stages = static_cast<int>(std::min<long long>(HALO_MAX_A, (budget - w_bytes) / stage));
+      s.b_stages = 0;
+      fits = true;
+    } else if (2 * stage + 2 * b_step <= budget) {
+      s.resident = 0;
+      s.a_stages = 2;
+      s.b_stages = static_cast<int>(std::min<long long>(HALO_MAX_B, (budget - 2 * stage) / b_step));
+      fits = true;
+    }
+  }
+  if (!fits) return static_cast<int>(cudaErrorLaunchOutOfResources);
+  const long long row_tiles = s.images > 1 ? (n + s.images - 1) / s.images : static_cast<long long>(n) * s.tiles_img;
+  if (row_tiles > 0x7FFFFFFFLL) return static_cast<int>(cudaErrorInvalidValue);
+  s.row_tiles = static_cast<int>(row_tiles);
+  s.blocks_per_col = std::max(1, std::min(sms[dev] / s.col_tiles, s.row_tiles));
+  s.off_b = (s.a_stages * s.a_stage_bytes + 1023) / 1024 * 1024;
+  s.off_epi = s.off_b + static_cast<int>(s.resident ? w_bytes : s.b_stages * b_step);
+  s.off_table = s.off_epi + HALO_EPI_BYTES;
+  s.off_shift = s.off_table + 2 * bn * 4;
+  s.off_bar = s.off_shift + HALO_MAX_TAPS * 4;
+  const int smem_bytes = s.off_bar + 8 * (2 * HALO_MAX_A + 2 * HALO_MAX_B + 1) + 1024;
+  if (smem_bytes > PW_SMEM + 1024) return static_cast<int>(cudaErrorLaunchOutOfResources);
+  CUtensorMap tm_w;
+  err = make_map(&tm_w, CU_TENSOR_MAP_DATA_TYPE_UINT8, wp, k_pad, o_rows, k_pad, BK, bn);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return dispatch_halo(bn, x, tm_w, s_x, w_scale, bias, out, s, s.blocks_per_col * s.col_tiles, smem_bytes,
+                       static_cast<cudaStream_t>(stream));
 }

@@ -17,6 +17,7 @@ KERNELS = {
     "add2d_bwd_dp": add2d.KERNEL_BWD_DP,
     "add2d_bwd_dw": add2d.KERNEL_BWD_DW,
     "int8_conv": int8_conv.KERNEL,
+    "int8_conv_halo": int8_conv.KERNEL_HALO,
     "int8_pointwise": int8_conv.KERNEL_POINTWISE,
     "int8_conv_general": int8_conv.KERNEL_GENERAL,
     "int8_quantize": int8_conv.KERNEL_QUANTIZE,

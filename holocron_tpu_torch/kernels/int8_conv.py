@@ -6,19 +6,33 @@ Layouts are the JAX package's: NHWC activations and int8 HWIO weights; the resul
 NHWC. A quantized activation ``x_q`` keeps its logical shape ``(..., C)`` but lies at a
 pixel pitch of :func:`channel_pitch` ``(C)``, C rounded up to whole 16-byte copies, with
 channels C .. pitch - 1 zero: the view ``x_q[..., :C]`` of a ``(..., pitch)`` buffer,
-the buffer itself where C % 16 == 0. On CUDA tensors the wrappers launch one of three
-routes, chosen by shape in :func:`conv_route`:
+the buffer itself where C % 16 == 0. On CUDA tensors the wrappers launch one of four
+routes, chosen by shape and launch size in :func:`conv_route`:
 
 - ``"pointwise"`` (``csrc/int8_conv.cu``'s ``int8_pointwise_wgmma_kernel``, counter
   ``int8_pointwise``): every 1x1, stride-1, unpadded, ungrouped conv, a GEMM over the
   pixels fed by TMA, in column tiles of :func:`pointwise_launch_tile_n`. Its rows run
   in launches of 2^30 within the one call, which counts once.
+- ``"halo"`` (``csrc/int8_conv.cu``'s ``int8_conv_halo_kernel``, counter
+  ``int8_conv_halo``): the ungrouped KxK convs (2 to 64 taps, any padding) of stride
+  1 and dilation 1 whose O is a multiple of 8 (a row of y whole 16-byte pieces in every
+  output dtype) and whose C is at most 48, launched on at least :data:`HALO_MIN_ROWS`
+  output pixels (:func:`conv_route` says why). Each tile's
+  input halo is copied once into shared memory (zero-filled outside the image: the
+  padding) and every filter tap reads it there, shifted, so an activation byte crosses
+  L2 about 1.3 to 2 times instead of once per tap (``holocron_tpu/quant.py:259-274``,
+  which the JAX package leaves to XLA). It reads the same packed weights as the wgmma
+  route, in column tiles of :func:`halo_tile_n`, through a tensor map; its offsets are
+  64-bit, so any batch is one launch. Its bound on an H100 at the layers it takes is
+  the bytes (x read and y written once).
 - ``"wgmma"`` (``csrc/int8_conv.cu``, counter ``int8_conv``): every other ungrouped
-  conv. It reads x_q at its pitch and the weights packed once per layer over the same
-  pitch by :func:`pack_weights`, so the reduction runs over KH * KW * pitch and the
-  zeros add nothing; its quantization prologue has the counter ``int8_quantize``. Its
-  indices are 32-bit: a batch whose x reaches 2^31 elements (with an image of margin)
-  runs as several launches of whole images within the one call, which counts once.
+  conv (strided, dilated, O % 8 != 0, C > 48, or a smaller launch). It reads x_q at its
+  pitch and the weights
+  packed once per layer over the same pitch by :func:`pack_weights`, so the reduction
+  runs over KH * KW * pitch and the zeros add nothing; its quantization prologue has the
+  counter ``int8_quantize``. Its indices are 32-bit: a batch whose x reaches 2^31
+  elements (with an image of margin) runs as several launches of whole images within
+  the one call, which counts once.
 - ``"general"`` (``csrc/int8_conv_general.cu``, counter ``int8_conv_general``): every
   grouped conv, one GEMM a group.
 
@@ -49,6 +63,7 @@ from ._build import Kernel
 __all__ = [
     "KERNEL",
     "KERNEL_GENERAL",
+    "KERNEL_HALO",
     "KERNEL_POINTWISE",
     "KERNEL_QUANTIZE",
     "STEP_K",
@@ -56,6 +71,8 @@ __all__ = [
     "TILE_N",
     "channel_pitch",
     "conv_route",
+    "halo_takes",
+    "halo_tile_n",
     "int8_conv",
     "int8_conv_acc",
     "int8_conv_acc_plain",
@@ -77,6 +94,7 @@ KERNEL_GENERAL = Kernel("int8_conv_general", "int8_conv_forward", _CONV_ARGS + [
 KERNEL_QUANTIZE = Kernel("int8_conv", "int8_quantize_forward", [_P, _P, _P, _I, ctypes.c_longlong, _I, _P])
 KERNEL_POINTWISE = Kernel("int8_conv", "int8_pointwise_forward",
                           [_P, _P, _P, _P, _P, _I, _P, _I, ctypes.c_longlong] + [_I] * 5 + [_P])
+KERNEL_HALO = Kernel("int8_conv", "int8_conv_halo_forward", [_P, _P, _P, _P, _P, _I, _P, _I] + [_I] * 12 + [_P])
 _OUT_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int32: 2}
 QINT_MAX = 127.0
 
@@ -86,6 +104,13 @@ TILE_M = 128
 STEP_K = 128
 # the pointwise route's column tiles where O spans several: multiples of 64 columns
 POINTWISE_WIDE = (64, 128, 192, 256)
+# the halo route's column tiles (a warpgroup holds 4 chunks of 64 rows at 48 and 64
+# columns, 2 at 96 and 128: at most 128 accumulator registers), its most taps, and the
+# most input channels and fewest output pixels a launch of conv_route's gives it
+HALO_TILE_N = (48, 64, 96, 128)
+HALO_MAX_TAPS = 64
+HALO_MAX_C = 48
+HALO_MIN_ROWS = 401408
 
 IntPair = Union[int, Tuple[int, int]]
 
@@ -100,20 +125,68 @@ def channel_pitch(c: int) -> int:
     return -(-c // 16) * 16
 
 
+def halo_takes(c: int, o: int, groups: int = 1, *, kernel_size: IntPair, stride: IntPair = 1,
+               dilation: IntPair = 1) -> bool:
+    """Whether the halo kernel takes the conv: ungrouped, KxK (2 to 64 taps, any
+    padding), stride 1, dilation 1, ``o`` a multiple of 8 (a row of y whole 16-byte
+    pieces in every output dtype), any C."""
+    kh, kw = _pair(kernel_size)
+    return (groups == 1 and _pair(stride) == (1, 1) and _pair(dilation) == (1, 1)
+            and 2 <= kh * kw <= HALO_MAX_TAPS and o % 8 == 0)
+
+
 def conv_route(c: int, o: int, groups: int = 1, *, kernel_size: IntPair, stride: IntPair = 1,
-               padding: IntPair = 0) -> str:
+               padding: IntPair = 0, dilation: IntPair = 1, rows: Optional[int] = None) -> str:
     """The route a CUDA int8 conv with ``c`` input channels a group, ``o`` output
-    channels, ``groups`` groups and the given geometry takes, by shape alone:
+    channels, ``groups`` groups and the given geometry takes, launched on ``rows``
+    output pixels (N * OH * OW; None: a launch of at least :data:`HALO_MIN_ROWS`, the
+    layer's route as ``QuantizedConv2d.route`` gives it):
     ``"general"`` for a grouped conv; ``"pointwise"`` for a 1x1, stride-1, unpadded one
     (any C, read at its 16-byte pitch; any O: its epilogue stores rows of y that are
     whole 16-byte pieces by the tensor map, the rows of an O of at most 192 as
-    contiguous runs, and other widths copied out by the threads); ``"wgmma"`` for every
-    other (any C and O, under a masked epilogue). A 1x1 kernel's dilation changes
-    nothing. ``c`` and ``o`` do not choose the route."""
+    contiguous runs, and other widths copied out by the threads; a 1x1 kernel's
+    dilation changes nothing); ``"halo"`` for a conv :func:`halo_takes` with at most
+    :data:`HALO_MAX_C` (48) input channels on at least :data:`HALO_MIN_ROWS` (401,408)
+    output pixels; ``"wgmma"`` for every other (strided, dilated, O % 8 != 0, C > 48,
+    or a smaller launch: any C and O, under a masked epilogue).
+
+    The channel rule (``chip_smoke.py``'s ``check_int8_geometry`` rows, NVIDIA H100,
+    PERF.md): the halo kernel computes the padded image's columns (W + 2 of every W) and
+    whole 64-row chunks. That costs little on large maps, where it beats the wgmma route
+    (48 -> 48 at 112 px, batch 256: 0.38 ms against 0.52), and up to a third more
+    products on small ones, where it loses (192 -> 192 at 14 px: 0.053 against 0.049;
+    512 -> 512 at 7: 0.19 against 0.075). The rule sees no map size: the served 64 ->
+    64 convs run faster on it at 56 px and more (resnet50 at 56, batch 256: 0.12 against
+    0.16) and slower on unet3p's 32 and 64 px maps at batch 32 (0.015 against 0.010, 0.031
+    against 0.030), so C = 64 stays on wgmma.
+
+    The launch rule (``bench_int8_routes.py``, NVIDIA H100, PERF.md): a halo tile waits
+    for its whole halo and weights before its first product, a latency the wgmma
+    route's per-step ring hides, and likely most of a small launch's time. At 48 -> 48
+    the halo conv loses at 56 px, batch 1 and 8 (25,088 pixels: 0.0119-0.0121 ms against
+    0.0080-0.0081), and at 112 px, batch 1 (0.0119 against 0.0063). At 100,352 pixels it
+    wins alone by 0.4-1.1 us (112 px at batch 8, 56 px at batch 32), but inside a
+    forward a halo launch costs some 3-4 us more than alone: repvgg_a0's batch-8 forward
+    ran 4-8 us slower with its one. From 401,408 pixels (112 px at batch 32: 0.0578
+    against 0.0710) the gain exceeds that. Tiles of 2 chunks at small launches narrowed
+    the loss to 11-26% and did not close it."""
     if groups != 1:
         return "general"
-    pointwise = _pair(kernel_size) == (1, 1) and _pair(stride) == (1, 1) and _pair(padding) == (0, 0)
-    return "pointwise" if pointwise else "wgmma"
+    kh, kw = _pair(kernel_size)
+    unit = _pair(stride) == (1, 1)
+    if (kh, kw) == (1, 1) and unit and _pair(padding) == (0, 0):
+        return "pointwise"
+    if (c <= HALO_MAX_C and (rows is None or rows >= HALO_MIN_ROWS)
+            and halo_takes(c, o, kernel_size=(kh, kw), stride=stride, dilation=dilation)):
+        return "halo"
+    return "wgmma"
+
+
+def halo_tile_n(o: int) -> int:
+    """The halo route's column tile: the width of :data:`HALO_TILE_N` that pads O least,
+    the widest of those that tie (48 -> 48, 192 -> 96, 256 -> 128, 320 -> 64,
+    1280 -> 128)."""
+    return min(HALO_TILE_N, key=lambda n: (-(-o // n) * n, -n))
 
 
 def tile_n(o: int) -> int:
@@ -305,12 +378,18 @@ def int8_conv_plain(
 
 def _launch(x, w_q, w_packed, s_x, w_scale, bias, stride, padding, dilation, out_dtype, groups, route=None):
     """Launches the route :func:`conv_route` picks on the int8 NHWC ``x``, or ``route``
-    where given (``"wgmma"`` takes any ungrouped conv: the checks time it beside the
-    pointwise route on the same operands)."""
+    where given: ``"wgmma"`` takes any ungrouped conv and ``"halo"`` any that
+    :func:`halo_takes` (the checks time each beside the route picked, on the same
+    operands). Every route but the general one reads ``w_packed``, :func:`pack_weights`
+    of ``w_q`` (None packs it here)."""
     (sh, sw), (ph, pw), (dh, dw), oh, ow = _geometry(x, w_q, stride, padding, dilation, groups)
-    picked = conv_route(w_q.shape[2], w_q.shape[3], groups, kernel_size=w_q.shape[:2], stride=(sh, sw),
-                        padding=(ph, pw))
-    if route not in (None, picked) and not (route == "wgmma" and picked == "pointwise"):
+    c, o = w_q.shape[2], w_q.shape[3]
+    picked = conv_route(c, o, groups, kernel_size=w_q.shape[:2], stride=(sh, sw), padding=(ph, pw),
+                        dilation=(dh, dw), rows=x.shape[0] * oh * ow)
+    forced_ok = ((route == "wgmma" and picked in ("pointwise", "halo"))
+                 or (route == "halo" and halo_takes(c, o, groups, kernel_size=w_q.shape[:2], stride=(sh, sw),
+                                                    dilation=(dh, dw))))
+    if route not in (None, picked) and not forced_ok:
         raise ValueError(f"the {route} route does not take this conv (conv_route picks {picked})")
     route = route or picked
     dev = x.device
@@ -357,6 +436,11 @@ def _launch(x, w_q, w_packed, s_x, w_scale, bias, stride, padding, dilation, out
                              _OUT_CODES[out_dtype], n * h * w, pitch, o,
                              pointwise_launch_tile_n(o, n * h * w, _sm_count(torch.cuda.current_device())),
                              w_packed.shape[0], w_packed.shape[1], stream)
+        elif route == "halo":
+            # the kernel copies x's halo rows at its pitch with cp.async, the packed weights by TMA
+            KERNEL_HALO(x.data_ptr(), w_packed.data_ptr(), s_ptr, ws_ptr, b_ptr, bias_bf16, out.data_ptr(),
+                        _OUT_CODES[out_dtype], n, h, w, pitch, o, kh, kw, ph, pw, halo_tile_n(o), w_packed.shape[0],
+                        w_packed.shape[1], stream)
         elif route == "wgmma":
             # the kernel reads x at its pitch: the reduction runs over the pitch's channels
             bn = launch_tile_n(o, n * oh * ow, _sm_count(torch.cuda.current_device()))
@@ -385,7 +469,7 @@ def int8_conv_acc(
 ) -> torch.Tensor:
     """The int32 accumulator of the int8 conv, NHWC (no epilogue). ``x_q`` as
     :func:`int8_conv` takes it; ``w_packed``: :func:`pack_weights` of ``w_q``, made here
-    when the wgmma route needs it and it is not given."""
+    when the wgmma, halo or pointwise route needs it and it is not given."""
     if x_q.device.type == "cpu" and w_q.device.type == "cpu":
         return int8_conv_acc_plain(x_q, w_q, stride, padding, dilation, groups)
     return _launch(x_q, w_q, w_packed, None, None, None, stride, padding, dilation, torch.int32, groups)
@@ -441,8 +525,8 @@ def int8_conv(
         bias: optional ``(O,)``, float32 or bfloat16
         groups: ``feature_group_count``; a grouped conv takes the general route
         out_dtype: float32 or bfloat16
-        w_packed: :func:`pack_weights` of ``w_q``, made here when the wgmma route needs
-            it and it is not given
+        w_packed: :func:`pack_weights` of ``w_q``, made here when the wgmma, halo or
+            pointwise route needs it and it is not given
     """
     _check_call(out_dtype)
     return torch.ops.holocron_tpu_torch.int8_conv(x_q, w_q, s_x, w_scale, bias, list(_pair(stride)),

@@ -194,9 +194,9 @@ class QuantizedConv2d(nn.Module):
     ``w_scale`` and ``act_scale`` belong to the int8 arithmetic and stay float32 when
     the module's float remainder (the bias) is cast, e.g. by ``.to(torch.bfloat16)``.
     ``act_scale`` is None for a per-call (dynamic) activation scale. ``kernel_packed``
-    is ``kernel_q`` as the wgmma and pointwise routes read it (``pack_weights``, over
-    the activation's 16-byte channel pitch) for every ungrouped conv, None for a grouped one (the general
-    route reads ``kernel_q``); a non-persistent buffer, remade when the module moves,
+    is ``kernel_q`` as the wgmma, halo and pointwise routes read it (``pack_weights``,
+    over the activation's 16-byte channel pitch) for every ungrouped conv, None for a
+    grouped one (the general route reads ``kernel_q``); a non-persistent buffer, remade when the module moves,
     so the ``state_dict`` holds ``kernel_q`` (HWIO, ``(KH, KW, C / groups, O)``) alone.
     """
 
@@ -226,11 +226,28 @@ class QuantizedConv2d(nn.Module):
 
     @property
     def route(self) -> str:
-        """The CUDA route of its conv (:func:`.kernels.int8_conv.conv_route`): the
-        ``s2d_strided`` fold of a 3x3 stride-2 conv is a 2x2 one, which takes the same
-        route."""
+        """The CUDA route its forward launches (:func:`.kernels.int8_conv.conv_route`) on
+        an input of at least ``HALO_MIN_ROWS`` output pixels: the conv's, or where the
+        conv is ``s2d_strided`` the route of its fold, a 2x2 stride-1 unpadded conv over
+        4C channels, which an input of even H and W takes. :meth:`route_for` gives any
+        input's."""
+        return self.route_for(None)
+
+    def route_for(self, x: Optional[torch.Tensor]) -> str:
+        """The CUDA route its forward launches on the NCHW ``x`` (None: :attr:`route`):
+        a halo-route conv launched on fewer than ``HALO_MIN_ROWS`` output pixels takes
+        the wgmma route."""
         kh, kw, c, o = self.kernel_q.shape
-        return conv_route(c, o, self.groups, kernel_size=(kh, kw), stride=self.stride, padding=self.padding)
+        if x is not None:
+            n, _, h, w = x.shape
+        if self.s2d and (x is None or (h % 2 == 0 and w % 2 == 0)):
+            return conv_route(4 * c, o, kernel_size=(2, 2), rows=None if x is None else n * (h // 2) * (w // 2))
+        rows = None
+        if x is not None:
+            (sh, sw), (ph, pw), (dh, dw) = self.stride, self.padding, self.dilation
+            rows = n * ((h + 2 * ph - dh * (kh - 1) - 1) // sh + 1) * ((w + 2 * pw - dw * (kw - 1) - 1) // sw + 1)
+        return conv_route(c, o, self.groups, kernel_size=(kh, kw), stride=self.stride, padding=self.padding,
+                          dilation=self.dilation, rows=rows)
 
     def _fold(self) -> None:
         if self.s2d:

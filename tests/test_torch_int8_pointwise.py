@@ -20,16 +20,16 @@ from holocron_tpu_torch.models import detection, segmentation
 
 torch.set_num_threads(2)
 
-# (pointwise, wgmma) int8 convs of each served model as quantize_model selects them
+# (pointwise, wgmma, halo) int8 convs of each served model as quantize_model selects them
 SERVED_ROUTES = {
-    "repvgg_a0": (0, 26),
-    "resnet50": (33, 19),
-    "rexnet1_0x": (44, 0),
-    "darknet53": (23, 26),
-    "mobileone_s1": (21, 0),
-    "convnext_tiny": (36, 3),
-    "yolov4": (61, 41),
-    "unet3p": (1, 32),
+    "repvgg_a0": (0, 23, 3),
+    "resnet50": (33, 19, 0),
+    "rexnet1_0x": (44, 0, 0),
+    "darknet53": (23, 26, 0),
+    "mobileone_s1": (21, 0, 0),
+    "convnext_tiny": (36, 3, 0),
+    "yolov4": (61, 41, 0),
+    "unet3p": (1, 32, 0),
 }
 
 
@@ -47,17 +47,20 @@ def _served(arch: str):
 def test_pointwise_route_at_every_served_int8_layer(arch):
     """Every int8 layer of the served models takes the route its shape gives it: the
     pointwise GEMM exactly where the conv is 1x1, stride 1, unpadded and ungrouped (at
-    any C and O: rexnet1_0x's odd widths too), the wgmma conv at every other ungrouped
-    one (3x3, 2x2 downsamples, 1x1 stride-2 projections), the general route at none;
-    every ungrouped layer holds its packed weights."""
+    any C and O: rexnet1_0x's odd widths too), the halo conv where it is KxK, stride 1,
+    undilated, ungrouped, O % 8 == 0 and C <= 48, the wgmma conv at every other
+    ungrouped one (3x3 of more channels, 2x2 downsamples, 1x1 stride-2 projections), the
+    general route at none; every ungrouped layer holds its packed weights."""
     layers = [m for m in quant.quantize_model(_served(arch).eval(), arch=arch).modules()
               if isinstance(m, quant.QuantizedConv2d)]
     routes = [m.route for m in layers]
-    assert (routes.count("pointwise"), routes.count("wgmma")) == SERVED_ROUTES[arch]
+    assert (routes.count("pointwise"), routes.count("wgmma"), routes.count("halo")) == SERVED_ROUTES[arch]
     for m, route in zip(layers, routes):
         kh, kw, c, o = m.kernel_q.shape
         gemm = (kh, kw) == (1, 1) and tuple(m.stride) == (1, 1) and tuple(m.padding) == (0, 0) and m.groups == 1
-        assert route == ("pointwise" if gemm else "wgmma"), (tuple(m.kernel_q.shape), m.stride, m.padding)
+        halo = (kh * kw > 1 and tuple(m.stride) == (1, 1) and tuple(m.dilation) == (1, 1) and m.groups == 1
+                and o % 8 == 0 and c <= 48)
+        assert route == ("pointwise" if gemm else "halo" if halo else "wgmma"), (tuple(m.kernel_q.shape), m.stride)
         assert route == K.conv_route(c, o, m.groups, kernel_size=(kh, kw), stride=m.stride, padding=m.padding)
         assert torch.equal(m.kernel_packed, K.pack_weights(m.kernel_q))
 

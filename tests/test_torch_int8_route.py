@@ -46,27 +46,33 @@ def test_packed_weights_unpack_to_kernel_q(kh, kw, c, o):
 
 
 def test_route_by_shape():
-    """repvgg_a0's int8 convs (3x3) all take the wgmma route with the layer's whole O
-    as its tile (256-wide tiles for 1280); so does every other ungrouped conv but the
-    1x1, stride-1, unpadded ones (C read at its 16-byte pitch, O under a masked
-    epilogue), which take the pointwise GEMM at any C and O; only grouped convs take the
-    general route."""
+    """repvgg_a0's int8 convs (3x3): the stride-1 ones of C <= 48 (the three 48 -> 48)
+    take the halo route, the others the wgmma route with the layer's whole O as its tile
+    (256-wide tiles for 1280), both reading the same packed weights; every other ungrouped conv
+    but the 1x1, stride-1, unpadded ones (the pointwise GEMM at any C and O) takes the
+    halo route where it is stride-1, undilated, C <= 48 and O % 8 == 0, else the wgmma
+    route (C read at its 16-byte pitch, O under a masked epilogue); only grouped convs
+    take the general route."""
     model = repvgg_a0(num_classes=10, generator=torch.Generator().manual_seed(0), device="cpu").reparametrize()
     qm = quant.quantize_model(model, arch="repvgg_a0")
-    seen = {}
+    seen, routes = {}, {}
     for m in qm.modules():
         if isinstance(m, quant.QuantizedConv2d):
             _, _, c, o = m.kernel_q.shape
             seen[(c, o, m.stride[0])] = seen.get((c, o, m.stride[0]), 0) + 1
-            assert K.conv_route(c, o, kernel_size=m.kernel_q.shape[:2], stride=m.stride, padding=m.padding) == "wgmma"
-            assert m.route == "wgmma"
+            route = "halo" if m.stride == (1, 1) and c <= 48 else "wgmma"
+            assert K.conv_route(c, o, kernel_size=m.kernel_q.shape[:2], stride=m.stride, padding=m.padding) == route
+            assert m.route == route
+            routes[route] = routes.get(route, 0) + 1
             assert m.kernel_packed is not None and torch.equal(m.kernel_packed, K.pack_weights(m.kernel_q))
     assert seen == REPVGG_A0_INT8
+    assert routes == {"halo": 3, "wgmma": 23}
     assert {o: K.tile_n(o) for o in (48, 96, 192, 1280)} == {48: 48, 96: 96, 192: 192, 1280: 256}
     # shapes that took byte-wise staging on the general route before the padded pitch
     # (tests/test_torch_kernels_cuda.py) and the stem's C = 3
     for c, o in ((12, 8), (3, 5), (16, 70), (3, 48), (8, 16), (24, 32)):
-        assert K.conv_route(c, o, kernel_size=3, padding=1) == "wgmma", (c, o)
+        route = "halo" if o % 8 == 0 else "wgmma"
+        assert K.conv_route(c, o, kernel_size=3, padding=1) == route, (c, o)
         assert K.conv_route(c, o, kernel_size=1) == "pointwise", (c, o)
     for c, o in ((16, 24), (48, 72), (32, 8), (16, 16), (256, 256)):
         assert K.conv_route(c, o, kernel_size=3, stride=2, padding=1) == "wgmma", (c, o)
@@ -137,8 +143,9 @@ def test_quantized_conv_cpu_is_the_plain_route():
 
 @pytest.fixture(scope="module")
 def deployed_wide():
-    """A JAX deploy RepVGG whose int8 convs take the wgmma route on the card (C = 16, 32),
-    the port's copy of it, a calibration batch and a held-out batch."""
+    """A JAX deploy RepVGG whose int8 convs take the halo route (stride 1) and the wgmma
+    route (stride 2) on the card (C = 16, 32), the port's copy of it, a calibration batch
+    and a held-out batch."""
     cfg = ([1, 1], [16, 32], 1.0, 1.0)
     rng = np.random.default_rng(0)
     calib = rng.normal(size=(4, 32, 32, 3)).astype(np.float32)

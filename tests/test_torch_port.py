@@ -90,7 +90,7 @@ def test_cpu_tensors_never_launch_a_kernel():
                                   min_in_channels=8)
         assert sum(isinstance(m, quant.QuantizedConv2d) for m in qr.modules()) == 8  # every conv but the stem
         qr(torch.randn(2, 3, 32, 32, generator=g))
-        # every route: the wgmma and pointwise convs above and here, a grouped conv below
+        # every route: the wgmma, halo and pointwise convs above and here, a grouped conv below
         rexnet = ReXNet(0.5, 0.5, num_classes=10, generator=g, device="cpu").eval()
         quant.quantize_model(rexnet, min_in_channels=16)(torch.randn(2, 3, 32, 32, generator=g))
         resnext = ResNet(Bottleneck, [1], [16], block_args={"groups": 2}, width_per_group=128, generator=g,
@@ -100,7 +100,7 @@ def test_cpu_tensors_never_launch_a_kernel():
         qx(torch.randn(2, 3, 32, 32, generator=g))
     assert set(kernels.KERNELS) == {"involution", "involution_general", "involution_bwd_dxp", "involution_bwd_dkern",
                                     "involution_bwd_dxp_general", "involution_bwd_dkern_general", "add2d_fwd",
-                                    "add2d_bwd_dp", "add2d_bwd_dw", "int8_conv", "int8_pointwise",
+                                    "add2d_bwd_dp", "add2d_bwd_dw", "int8_conv", "int8_conv_halo", "int8_pointwise",
                                     "int8_conv_general", "int8_quantize"}
     assert all(k.launches == 0 for k in kernels.KERNELS.values())
     assert all(k._fn is None for k in kernels.KERNELS.values())
